@@ -5,44 +5,75 @@
 Runs from the root of a checkout and needs one CUDA card; without one it
 exits non-zero and prints no result. Phases, any failure exits non-zero:
 
-1. Build: kernel K1 (mjrl_tpu_torch/csrc/mj_kernel.cu) with nvcc for
-   sm_90a from the checkout's sources.
-2. Kernel against plain: K1 against its plain PyTorch version
-   (physics/soa.py) on the card, ant at B=1024 and a ragged B=1000, one
-   control step (5 frames x 4 substeps) and 10 chained control steps from
-   warmed states, each step held against the plain version from the same
-   state; prints max |err| of q and qd against the tolerance below and
-   both times (CUDA events).
-3. The slice: 3 full Ant NPG iterations at the bench's width (1024 envs x
-   100 steps, policy (64, 64), MLPBaseline(epochs=2, batch_size=1024),
-   normalized_step_size=0.05); every metric finite, all state on the card,
-   exactly 100 K1 launches per iteration; prints iteration times and the
-   valid and computed env-steps/s.
-4. The card's name and power limit from nvidia-smi.
+1. Build: kernels K1 (mjrl_tpu_torch/csrc/mj_kernel.cu, penalty solver)
+   and K2 (csrc/mj_newton_kernel.cu, Newton solver) with nvcc for sm_90a
+   from the checkout's sources, the two builds side by side.
+2. K1 against plain: K1 against its plain PyTorch version (physics/soa.py)
+   on the card, ant (penalty, 4 substeps per frame) at B=1024 and a ragged
+   B=1000, one control step (5 frames x 4 substeps) and 6 chained control
+   steps from warmed states, each step held against the plain version from
+   the same state; prints max |err| of q and qd against the tolerances
+   below and both times (CUDA events).
+3. K2 against plain: the same for K2 and the plain Newton version
+   (physics/soa.py + physics/soa_newton.py) on ant with the Newton solver,
+   n_substeps=1, 10 iterations (5 substeps per control step), from states
+   settled on the floor, one control step and 3 chained ones at B=1024 and
+   B=1000; also counts the envs whose line search picked another fraction
+   than the plain version's in any iteration, and in the first (full-size)
+   iteration of a substep.
+4. The penalty slice: 3 full Ant NPG iterations at the bench's width (1024
+   envs x 100 steps, episodes mode, policy (64, 64),
+   MLPBaseline(epochs=2, batch_size=1024), normalized_step_size=0.05);
+   every metric finite, all state on the card, exactly 100 K1 launches per
+   iteration.
+5. The Newton slice: 3 iterations of the bench's Newton row (newton,
+   n_substeps=1, samples mode with the persistent sampler carry, 1024 envs
+   x 100-step windows, the same policy, baseline and step size); every
+   metric finite, all state and the carry on the card, exactly 100 K2 and
+   0 K1 launches per iteration, and rows mid-episode carried into the next
+   window.
+6. The card's name and power limit from nvidia-smi.
 
-The line before those two holds one JSON object describing each kernel;
-the last line is ``{"ok": true, "device": {...}}``.
+Each kernel's launch count in the JSON line is its count over the slice
+that runs it (phase 4 for K1, phase 5 for K2), reset to 0 just before.
+``bound_ms`` is the least time the card could take for one control step
+at B=1024: the larger of the bytes the kernel must move (state in and
+out, its tables) over 3.35 TB/s and its f32 operations over 67 TFLOP/s,
+with the operations counted per env-substep on the plain version (which
+does the kernel's arithmetic) and, for K2, for the rows this run's states
+hold. No single PyTorch call computes either function, so ``library_ms``
+is null. The line before the last two holds one JSON object describing
+each kernel; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
-# Kernel vs plain on the card, max |err| of one control step (20 substeps)
-# from the same state. Both are f32 with the same formulas in another order
-# (nvcc contracts to FMA); the stiff penalty contacts grow that round-off
-# within a control step: the plain version on the card and on the CPU
-# already differ by up to 6.4e-3 in qd on these warmed states (PERF.md).
-# The chain check steps the kernel 10 times and holds every step against
-# the plain version started from the kernel's own state; free-running
-# trajectories diverge chaotically from round-off alone, so they are not
-# compared.
-TOL = {"q": 1e-3, "qd": 5e-2}
+# Kernel vs plain on the card, max |err| of one control step from the same
+# state. Both are f32 with the same formulas in another order (nvcc
+# contracts to FMA). K1: the stiff penalty contacts grow that round-off
+# within a control step (the plain version on the card and on the CPU
+# already differ by up to 6.4e-3 in qd on warmed states; PERF.md). K2: the
+# soft constraints are implicit and do not grow it, but a converged Newton
+# iteration's five line-search costs can tie to round-off, and the two
+# then pick other fractions of a step of round-off size; the tolerances
+# are those of tests/test_torch_newton_kernel.py's card test. The chained
+# checks step the kernel and hold every step against the plain version
+# started from the kernel's own state; free-running trajectories diverge
+# from round-off alone, so they are not compared.
+TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2}}
 NUM_ENVS, HORIZON, ITERS = 1024, 100, 3
+HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
+
+_ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "sin", "cos",
+          "pow", "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "reciprocal"}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -57,12 +88,89 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel_vs_plain(env, K1, soa):
+def _f32_ops_per_env_substep(model, q, qd, ctrl) -> float:
+    """f32 arithmetic operations of one plain substep per env (elements
+    produced by add/mul/div/sqrt/sin/... and reduced by sum), counted by
+    running the plain version on the CPU under a dispatch counter."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from mjrl_tpu_torch.physics import soa
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__.rstrip("_")
+            if name in _ARITH and isinstance(out, torch.Tensor) and out.is_floating_point():
+                Count.n += out.numel()
+            elif name == "sum":
+                Count.n += args[0].numel() - out.numel()
+            return out
+
+    q, qd, ctrl = (x.cpu() for x in (q, qd, ctrl))
+    with Count():
+        soa.substep(model, q, qd, ctrl, model.dt / model.n_substeps)
+    return Count.n / q.shape[1]
+
+
+def _bound_ms(model, n_sub: int, ops_per_env_substep: float, tables) -> tuple:
+    io = (2 * model.nq + 2 * model.nv + model.nu) * 4 * NUM_ENVS
+    t_bytes = (io + sum(t.numel() * 4 for t in tables)) / HBM_BYTES_PER_S
+    t_ops = ops_per_env_substep * n_sub * NUM_ENVS / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def _k2_op_count(model, q, qd, ctrl, held_cand: float, held_lim: float) -> float:
+    """K2's operations per env-substep for the rows this run holds: the
+    plain version's count with no rows, plus the count of one held
+    contact and of one held limit row, from the plain version with all
+    rows (the kernel holds only the rows inside their margin)."""
+    from mjrl_tpu_torch.physics.tables import num_contact_candidates
+
+    B = 1
+    q, qd, ctrl = q[:, :B], qd[:, :B], ctrl[:, :B]
+    full = _f32_ops_per_env_substep(model, q, qd, ctrl)
+    no_pairs = copy.copy(model)
+    no_pairs.contact_pairs = ()
+    no_pairs._pair_groups = None
+    no_lim = copy.copy(no_pairs)
+    no_lim.jnt_limited = tuple(0 for _ in model.jnt_limited)
+    with_lim = _f32_ops_per_env_substep(no_pairs, q, qd, ctrl)
+    base = _f32_ops_per_env_substep(no_lim, q, qd, ctrl)
+    n_lim = sum(1 for v in model.jnt_limited if v > 0)
+    per_lim = (with_lim - base) / n_lim
+    per_cand = (full - with_lim) / num_contact_candidates(model)
+    return base + held_cand * per_cand + held_lim * per_lim
+
+
+def _held_rows(model, q):
+    """Mean rows inside their margin per env at the states ``q`` (nq, B):
+    contact candidates with depth > -margin, limit rows out of range."""
+    from mjrl_tpu_torch.physics import soa, soa_newton
+
+    pos, quat = soa._fk(model, q)
+    cands = soa._contact_candidates(model, pos, quat)
+    margins = [soa_newton.contact_params(model, c.gi, c.gj, c.mu)[2] for c in cands]
+    cand = sum(float((-c.depth - m < 0).float().mean()) for c, m in zip(cands, margins))
+    lim = 0.0
+    for i in range(model.nlink):
+        if model.link_jnt_type[i] == 2 and model.jnt_limited[i] > 0:
+            lo, hi = model.jnt_range[i]
+            qi = q[model.link_qadr[i]]
+            lim += float(((qi < lo) | (qi > hi)).float().mean())
+    return cand, lim
+
+
+def phase_kernel_vs_plain(tag, env, kernel, soa, n_chain):
     import numpy as np
     import torch
 
     model, dev, frames = env.model, env.device, env.frame_skip
+    newton = model.constraint_solver == "newton"
     rng = np.random.default_rng(0)
+    n_sub = frames * model.n_substeps
 
     def rand_ctrl():
         return torch.as_tensor(rng.uniform(-1, 1, (model.nu, NUM_ENVS)), dtype=torch.float32, device=dev)
@@ -72,51 +180,85 @@ def phase_kernel_vs_plain(env, K1, soa):
         depth = torch.cat([c.depth for c in soa._contact_candidates(model, pos, quat)])
         return int((depth > 0).any(dim=0).sum())
 
-    # warm: 10 control steps of random actions, so the ants have fallen onto
-    # their legs and feet touch the floor
+    # warm, so the ants have fallen onto their legs and feet touch the
+    # floor: 10 control steps of random actions; the Newton ants, which a
+    # random policy throws into the air, settle for 15 steps of zero ctrl
     state, _ = env.reset(NUM_ENVS, torch.Generator(device=dev).manual_seed(0))
-    for _ in range(10):
-        state, *_ = env.step(state, rand_ctrl().T)
-    ctrls = [rand_ctrl() for _ in range(10)]
-    max_err = 0.0
-    for B in (NUM_ENVS, 1000):
+    for _ in range(15 if newton else 10):
+        state, *_ = env.step(state, rand_ctrl().T * (0.0 if newton else 1.0))
+    ctrls = [rand_ctrl() for _ in range(n_chain)]
+    max_err, flips, held = 0.0, 0, []
+    for B in (NUM_ENVS, NUM_ENVS - 24):  # the second not a multiple of the block
         q, qd = state.q[:B].T.contiguous(), state.qd[:B].T.contiguous()
         worst = {"q": 0.0, "qd": 0.0}
         contact = 0
+        flipped = torch.zeros(B, dtype=torch.bool, device=dev)
+        flipped_first = torch.zeros(B, dtype=torch.bool, device=dev)
         for step, ctrl in enumerate(ctrls):
             ctrl = ctrl[:, :B].contiguous()
-            contact += in_contact(q)
-            kq, kqd = K1(model, q, qd, ctrl, frames)
-            pq, pqd = soa.multistep(model, q, qd, ctrl, frames)
+            kw, plain_picks = {}, None
+            if newton:
+                held.append(_held_rows(model, q))
+                kw["picks"] = torch.full((n_sub * model.solver_iters, B), -1, dtype=torch.int32,
+                                         device=dev)
+                plain_picks = []
+            else:
+                contact += in_contact(q)
+            kq, kqd = kernel(model, q, qd, ctrl, frames, **kw)
+            pq, pqd = soa.multistep(model, q, qd, ctrl, frames, picks=plain_picks)
             torch.cuda.synchronize()
+            if newton:
+                differ = kw["picks"] != torch.cat(plain_picks)
+                flipped |= differ.any(dim=0)
+                flipped_first |= differ[::model.solver_iters].any(dim=0)
             for name, got, want in (("q", kq, pq), ("qd", kqd, pqd)):
                 if not bool(torch.isfinite(want).all()):
                     raise RuntimeError(f"plain {name} not finite at B={B}")
                 err = float((got - want).abs().max())
                 worst[name] = max(worst[name], err)
                 if step == 0:
-                    print(f"[2] B={B} one control step {name}: max|err|={err:.3e} tol={TOL[name]:.0e}")
+                    print(f"[{tag}] B={B} one control step {name}: max|err|={err:.3e} "
+                          f"tol={TOL[tag][name]:.0e}")
             q, qd = kq, kqd
         for name in ("q", "qd"):
-            ok = worst[name] <= TOL[name]
+            ok = worst[name] <= TOL[tag][name]
             max_err = max(max_err, worst[name])
-            print(f"[2] B={B} 10 chained control steps {name}: max per-step |err|={worst[name]:.3e} "
-                  f"tol={TOL[name]:.0e} {'ok' if ok else 'FAIL'}")
+            print(f"[{tag}] B={B} {n_chain} chained control steps {name}: max per-step "
+                  f"|err|={worst[name]:.3e} tol={TOL[tag][name]:.0e} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise RuntimeError(f"K1 disagrees with the plain version: {name} at B={B}")
-        print(f"[2] B={B} feet on the floor in {contact} of {10 * B} env-steps")
+                raise RuntimeError(f"{tag} disagrees with the plain version: {name} at B={B}")
+        if not newton:  # Newton feet rest inside the margin: see the rows below
+            print(f"[{tag}] B={B} feet on the floor in {contact} of {n_chain * B} env-steps")
+        if newton:
+            cand = sum(h[0] for h in held[-n_chain:]) / n_chain
+            lim = sum(h[1] for h in held[-n_chain:]) / n_chain
+            print(f"[{tag}] B={B} rows inside their margin per env-step: {cand:.3f} contact "
+                  f"points, {lim:.3f} limits")
+            flips += int(flipped.sum())
+            print(f"[{tag}] B={B} envs with another line-search fraction in some iteration: "
+                  f"{int(flipped.sum())} of {B}; in a substep's first iteration: "
+                  f"{int(flipped_first.sum())}")
     q0, qd0, ctrl = state.q.T.contiguous(), state.qd.T.contiguous(), ctrls[0]
     for _ in range(3):
-        K1(model, q0, qd0, ctrl, frames)
-    ms = _cuda_ms(lambda: K1(model, q0, qd0, ctrl, frames), 20)
+        kernel(model, q0, qd0, ctrl, frames)
+    ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames), 20)
     soa.multistep(model, q0, qd0, ctrl, frames)
     plain_ms = _cuda_ms(lambda: soa.multistep(model, q0, qd0, ctrl, frames), 2)
-    print(f"[2] B={NUM_ENVS} one control step ({frames * model.n_substeps} substeps): "
-          f"K1 {ms:.4f} ms, plain {plain_ms:.2f} ms")
-    return max_err, ms, plain_ms
+    if newton:
+        cand = sum(h[0] for h in held) / len(held)
+        lim = sum(h[1] for h in held) / len(held)
+        ops = _k2_op_count(model, q0, qd0, ctrl, cand, lim)
+    else:
+        ops = _f32_ops_per_env_substep(model, q0[:, :1], qd0[:, :1], ctrl[:, :1])
+    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev))
+    print(f"[{tag}] B={NUM_ENVS} one control step ({n_sub} substeps): {tag} {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"({ops:.0f} f32 operations per env-substep)")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, line_search_flips=flips)
 
 
-def phase_slice(env, K1):
+def _agent(env, **kw):
     import torch
 
     from mjrl_tpu_torch.algos import NPG
@@ -126,36 +268,54 @@ def phase_slice(env, K1):
     init = torch.Generator().manual_seed(0)
     policy = GaussianMLP(env.spec, hidden_sizes=(64, 64), generator=init).to(dev)
     baseline = MLPBaseline(env.spec, epochs=2, batch_size=1024, generator=init).to(dev)
-    agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=NUM_ENVS, horizon=HORIZON)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    K1.launches = 0
-    launches = []
+    return NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=NUM_ENVS, **kw)
+
+
+def phase_slice(tag, env, agent, kernel, other):
+    """ITERS train steps; returns the kernel's launches over them."""
+    import torch
+
+    gen = torch.Generator(device=env.device).manual_seed(1)
+    kernel.launches = other.launches = 0
+    t_in_ep = None
     for it in range(ITERS):
-        before = K1.launches
+        before = kernel.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = agent.train_step(gen)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches.append(K1.launches - before)
+        launches = kernel.launches - before
         values = {k: float(v) for k, v in metrics.items()}
         bad = [k for k, v in values.items() if not math.isfinite(v)]
         if bad:
             raise RuntimeError(f"non-finite metrics {bad}")
-        if launches[-1] != HORIZON:
-            raise RuntimeError(f"iteration {it}: {launches[-1]} K1 launches, expected {HORIZON}")
-        valid = values["num_samples"]
-        print(f"[3] iter {it}: {dt * 1e3:.1f} ms, valid {valid / dt:.1f} env-steps/s, "
-              f"computed {NUM_ENVS * HORIZON / dt:.1f} env-steps/s, launches {launches[-1]}, "
-              f"score {values['stoc_pol_mean']:.3f}, kl {values['kl_dist']:.5f}, "
+        if launches != HORIZON or other.launches:
+            raise RuntimeError(f"iteration {it}: {launches} {kernel.name} and {other.launches} "
+                               f"{other.name} launches, expected {HORIZON} and 0")
+        print(f"[{tag}] iter {it}: {dt * 1e3:.1f} ms, valid {values['num_samples'] / dt:.1f} "
+              f"env-steps/s, computed {NUM_ENVS * HORIZON / dt:.1f} env-steps/s, launches "
+              f"{launches}, score {values['stoc_pol_mean']:.3f}, kl {values['kl_dist']:.5f}, "
               f"alpha {values['alpha']:.4f}, VF {values['VF_error_before']:.3f}->"
               f"{values['VF_error_after']:.3f}")
-    tensors = [*policy.parameters(), *baseline.parameters(), env.qpos0]
+        carry = agent.sampler_carry
+        if carry is not None:
+            # rows whose episode began inside the window are mid-episode
+            # at its end and go on into the next one
+            t_in_ep = carry.t_in_ep.clone()
+            print(f"[{tag}] iter {it}: {int((t_in_ep > 0).sum())} of {NUM_ENVS} rows carry "
+                  f"t_in_ep > 0 (max {int(t_in_ep.max())}) into the next window")
+    tensors = [*agent.policy.parameters(), *agent.baseline.parameters(), env.qpos0]
     state, obs = env.reset(2, gen)
     tensors += [state.q, state.qd, obs]
+    if agent.sample_mode == "samples":
+        if t_in_ep is None or not bool((t_in_ep > 0).any()):
+            raise RuntimeError("no row carried an episode into the next window")
+        c = agent.sampler_carry
+        tensors += [c.state.q, c.state.qd, c.obs, c.t_in_ep, c.ep_return]
     if not all(t.is_cuda for t in tensors):
-        raise RuntimeError("state or parameters off the card")
-    return sum(launches)
+        raise RuntimeError("state, carry or parameters off the card")
+    return kernel.launches
 
 
 def main() -> int:
@@ -166,22 +326,35 @@ def main() -> int:
         return 2
     from mjrl_tpu_torch.envs import make
     from mjrl_tpu_torch.physics import soa
-    from mjrl_tpu_torch.physics.pkernel import K1
+    from mjrl_tpu_torch.physics.pkernel import K1, K2
 
     t0 = time.perf_counter()
-    K1.build()
-    print(f"[1] built {K1.source} in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda k: k.build(), (K1, K2)))
+    print(f"[1] built {K1.source} and {K2.source} in {time.perf_counter() - t0:.1f} s")
 
-    env = make("ant", horizon=HORIZON, device="cuda")
-    max_err, ms, plain_ms = phase_kernel_vs_plain(env, K1, soa)
-    launches = phase_slice(env, K1)
+    env = make("ant", horizon=HORIZON)  # on the card by default
+    newton_env = make("ant", horizon=HORIZON, constraint_solver="newton", n_substeps=1)
+    if env.device.type != "cuda" or newton_env.device.type != "cuda":
+        raise RuntimeError("envs must default to the card")
+    k1 = phase_kernel_vs_plain("K1", env, K1, soa, n_chain=6)
+    k2 = phase_kernel_vs_plain("K2", newton_env, K2, soa, n_chain=3)
+    k1["launches"] = phase_slice("penalty", env, _agent(env, horizon=HORIZON), K1, K2)
+    newton_agent = _agent(newton_env, num_samples=NUM_ENVS * HORIZON, sample_mode="samples")
+    k2["launches"] = phase_slice("newton", newton_env, newton_agent, K2, K1)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"kernels": [{
-        "name": K1.name, "route": "cuda", "source": K1.source, "replaces": K1.replaces,
-        "launches": launches, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-    }]}))
+    kernels = []
+    for kernel, r in ((K1, k1), (K2, k2)):
+        kernels.append({
+            "name": kernel.name, "route": "cuda", "source": kernel.source,
+            "replaces": kernel.replaces, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+        })
+    kernels[1]["line_search_flips"] = k2["line_search_flips"]
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))

@@ -1,11 +1,16 @@
 """Agent base: likelihood-ratio policy gradient and the train step.
 
-Twin of ``mjrl_tpu/algos/base.py`` (``BatchREINFORCE``, trajectories mode):
-the CPI surrogate ``mean(LR * adv)``, its gradient, the masked mean KL
-between old and new policies, ``process_batch`` (returns, GAE, advantage
-normalization) and the running-score EMA. The agent owns the policy and
-baseline modules; the functional parameter dicts that the updates build go
-through ``torch.func.functional_call``.
+Twin of ``mjrl_tpu/algos/base.py`` (``BatchREINFORCE``): the CPI surrogate
+``mean(LR * adv)``, its gradient, the masked mean KL between old and new
+policies, ``process_batch`` (returns, GAE, advantage normalization) and the
+running-score EMA. The agent owns the policy and baseline modules; the
+functional parameter dicts that the updates build go through
+``torch.func.functional_call``.
+
+``sample_mode="trajectories"`` samples one fresh episode per env row;
+``"samples"`` runs the auto-reset sampler over windows of
+``num_samples / num_traj`` steps, with the rows persisting across train
+steps in a carry held on the agent.
 """
 
 from __future__ import annotations
@@ -20,7 +25,13 @@ from mjrl_tpu_torch.models.baselines import Baseline
 from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
 from mjrl_tpu_torch.ops.gae import compute_advantages, compute_returns, masked_mean_std
-from mjrl_tpu_torch.samplers.rollout import rollout_statistics, sample_episodes
+from mjrl_tpu_torch.samplers.rollout import (
+    SamplerCarry,
+    init_autoreset_carry,
+    rollout_statistics,
+    sample_autoreset,
+    sample_episodes,
+)
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 Params = Dict[str, torch.Tensor]
@@ -32,13 +43,18 @@ class BatchREINFORCE:
     reference."""
 
     def __init__(self, env: LocomotionEnv, policy: GaussianMLP, baseline: Baseline,
-                 num_traj: int = 64, horizon: Optional[int] = None,
-                 gamma: float = 0.995, gae_lambda: Optional[float] = 0.97,
+                 num_traj: int = 64, num_samples: Optional[int] = None,
+                 horizon: Optional[int] = None, gamma: float = 0.995,
+                 gae_lambda: Optional[float] = 0.97, sample_mode: str = "trajectories",
                  normalize_advantages: bool = True, adv_norm_eps: float = 1e-6):
+        if sample_mode not in ("trajectories", "samples"):
+            raise ValueError(f"sample_mode {sample_mode!r}")
         self.env = env
         self.policy = policy
         self.baseline = baseline
         self.num_traj = num_traj
+        self.num_samples = num_samples
+        self.sample_mode = sample_mode
         self.horizon = horizon or env.spec.horizon
         self.gamma = gamma
         self.gae_lambda = gae_lambda
@@ -46,6 +62,14 @@ class BatchREINFORCE:
         self.adv_norm_eps = adv_norm_eps
         self.iteration = 0
         self.running_score = torch.zeros((), device=env.device)
+        # samples mode: the rows persist across train steps, so short windows
+        # still visit the whole episode's states (created at first use)
+        self.sampler_carry: Optional[SamplerCarry] = None
+
+    def reset_sampler_carry(self) -> None:
+        """Drop the persistent sampler carry; the next step starts the rows
+        from reset."""
+        self.sampler_carry = None
 
     # -- parameters as dicts ---------------------------------------------
     def params(self) -> Params:
@@ -86,7 +110,10 @@ class BatchREINFORCE:
     def process_batch(self, batch: TrajectoryBatch) -> TrajectoryBatch:
         """compute_returns + compute_advantages + normalization."""
         values = self.baseline.predict(batch.observations, batch.time)
-        batch = batch.replace(returns=compute_returns(batch.rewards, batch.done, batch.valid, self.gamma))
+        # samples mode: a window's tail bootstraps the return with V(s_last)
+        bootstrap = values[:, -1] if self.sample_mode == "samples" else None
+        batch = batch.replace(returns=compute_returns(batch.rewards, batch.done, batch.valid,
+                                                      self.gamma, bootstrap_value=bootstrap))
         batch = compute_advantages(batch, values, self.gamma, self.gae_lambda, normalize=False)
         if self.normalize_advantages:
             mean, std = masked_mean_std(batch.advantages, batch.valid, eps=0.0)
@@ -101,8 +128,16 @@ class BatchREINFORCE:
     # -- the train step ------------------------------------------------------
     def train_step(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One on-policy iteration: sample -> returns/GAE -> update ->
-        baseline fit -> statistics. Metrics stay on the device."""
-        batch = sample_episodes(self.env, self.policy, self.num_traj, self.horizon, generator)
+        baseline fit -> statistics. Metrics stay on the device. In samples
+        mode the rows continue from the agent's carry."""
+        if self.sample_mode == "trajectories":
+            batch = sample_episodes(self.env, self.policy, self.num_traj, self.horizon, generator)
+        else:
+            if self.sampler_carry is None:
+                self.sampler_carry = init_autoreset_carry(self.env, self.num_traj, generator)
+            window = -(-int(self.num_samples) // self.num_traj)
+            batch, self.sampler_carry = sample_autoreset(
+                self.env, self.policy, self.sampler_carry, window, self.horizon, generator)
         return self.finish_train_step(batch, generator=generator)
 
     def finish_train_step(self, batch: TrajectoryBatch,

@@ -7,6 +7,10 @@
 // sparse mass matrix -> RNE bias -> applied forces -> sparse L^T D L solve
 // -> semi-implicit Euler, n_sub times with ctrl held.
 //
+// The stages are separate functions so that kernel K2 (mj_newton.h) runs
+// the same pipeline around its constraint solve; K1's substep calls them
+// in the order above and holds none of K2's state.
+//
 // Every function is MJ_HD: __host__ __device__ under nvcc, plain inline
 // under a host compiler, so the same source builds into the CUDA library
 // and into a host library that the CPU tests check against the plain
@@ -231,23 +235,28 @@ MJ_HD void mj_contact_point(const float* mf, int li, int lj, float mu,
     for (int k = 0; k < 6; ++k) f_ext[lj][k] -= f[k];
 }
 
-// ---- the substep --------------------------------------------------------
+// ---- pipeline stages shared with kernel K2 -------------------------------
 
-// Advances one env's q (nq), qd (nv) by one substep of length dt.
-MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
-                      const float* ctrl, float dt) {
+// Kinematic state of one env in one substep: world link poses, the origin
+// (link 0's position), motion subspaces and velocities about it, and the
+// world inertias (h = m com, I as 00 01 02 11 12 22).
+struct MjKin {
+  float pos[MJ_MAX_LINK][3], quat[MJ_MAX_LINK][4], origin[3];
+  float cdof[MJ_MAX_NV][6], cvel[MJ_MAX_LINK][6];
+  float ih[MJ_MAX_LINK][3], iI[MJ_MAX_LINK][6];
+};
+
+MJ_HD void mj_kinematics(const float* mf, const int* mi, const float* q,
+                         const float* qd, MjKin& k) {
   const int nlink = mi[MJ_I_NLINK];
-  const int nv = mi[MJ_I_NV];
-  const int nu = mi[MJ_I_NU];
   const int* parent = mi + MJ_I_PARENT;
   const int* type = mi + MJ_I_TYPE;
   const int* qadr = mi + MJ_I_QADR;
   const int* vadr = mi + MJ_I_VADR;
-  const int* dof_link = mi + MJ_I_DOFLINK;
-  const int* lam = mi + MJ_I_LAM;
+  float(*pos)[3] = k.pos;
+  float(*quat)[4] = k.quat;
 
-  // kinematics: world link poses
-  float pos[MJ_MAX_LINK][3], quat[MJ_MAX_LINK][4];
+  // world link poses
   for (int i = 0; i < nlink; ++i) {
     const float* lp = mf + MJ_F_LPOS + 3 * i;
     const float* lq = mf + MJ_F_LQUAT + 4 * i;
@@ -267,99 +276,100 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
         jq[3] = ax[2] * s;
         float r[3];
         mj_qrot(jq, an, r);
-        for (int k = 0; k < 3; ++k) jp[k] = an[k] - r[k];
+        for (int c = 0; c < 3; ++c) jp[c] = an[c] - r[c];
       } else {
-        for (int k = 0; k < 3; ++k) jp[k] = q[adr + k];
-        for (int k = 0; k < 4; ++k) jq[k] = q[adr + 3 + k];
+        for (int c = 0; c < 3; ++c) jp[c] = q[adr + c];
+        for (int c = 0; c < 4; ++c) jq[c] = q[adr + 3 + c];
         mj_qnorm(jq);
       }
       float r[3];
       mj_qrot(lq, jp, r);
-      for (int k = 0; k < 3; ++k) rel_p[k] = lp[k] + r[k];
+      for (int c = 0; c < 3; ++c) rel_p[c] = lp[c] + r[c];
       mj_qmul(lq, jq, rel_q);
     } else {
-      for (int k = 0; k < 3; ++k) rel_p[k] = lp[k];
-      for (int k = 0; k < 4; ++k) rel_q[k] = lq[k];
+      for (int c = 0; c < 3; ++c) rel_p[c] = lp[c];
+      for (int c = 0; c < 4; ++c) rel_q[c] = lq[c];
     }
     const int p = parent[i];
     if (p < 0) {
-      for (int k = 0; k < 3; ++k) pos[i][k] = rel_p[k];
-      for (int k = 0; k < 4; ++k) quat[i][k] = rel_q[k];
+      for (int c = 0; c < 3; ++c) pos[i][c] = rel_p[c];
+      for (int c = 0; c < 4; ++c) quat[i][c] = rel_q[c];
     } else {
       float r[3];
       mj_qrot(quat[p], rel_p, r);
-      for (int k = 0; k < 3; ++k) pos[i][k] = pos[p][k] + r[k];
+      for (int c = 0; c < 3; ++c) pos[i][c] = pos[p][c] + r[c];
       mj_qmul(quat[p], rel_q, quat[i]);
     }
   }
-  float origin[3] = {pos[0][0], pos[0][1], pos[0][2]};
+  for (int c = 0; c < 3; ++c) k.origin[c] = pos[0][c];
+  const float* origin = k.origin;
 
   // motion subspaces about the origin, and link velocities
-  float cdof[MJ_MAX_NV][6];
+  float(*cdof)[6] = k.cdof;
   for (int i = 0; i < nlink; ++i) {
     const int v = vadr[i];
     if (type[i] == MJ_HINGE) {
       float axis_w[3], r[3], anchor_w[3];
       mj_qrot(quat[i], mf + MJ_F_AXIS + 3 * i, axis_w);
       mj_qrot(quat[i], mf + MJ_F_ANCHOR + 3 * i, r);
-      for (int k = 0; k < 3; ++k) anchor_w[k] = pos[i][k] - origin[k] + r[k];
-      for (int k = 0; k < 3; ++k) cdof[v][k] = axis_w[k];
+      for (int c = 0; c < 3; ++c) anchor_w[c] = pos[i][c] - origin[c] + r[c];
+      for (int c = 0; c < 3; ++c) cdof[v][c] = axis_w[c];
       mj_cross(anchor_w, axis_w, cdof[v] + 3);
     } else if (type[i] == MJ_FREE) {
       float p_rel[3];
-      for (int k = 0; k < 3; ++k) p_rel[k] = pos[i][k] - origin[k];
+      for (int c = 0; c < 3; ++c) p_rel[c] = pos[i][c] - origin[c];
       for (int a = 0; a < 3; ++a) {
         float e[3] = {0.0f, 0.0f, 0.0f}, ew[3];
         e[a] = 1.0f;
         mj_qrot(quat[i], e, ew);
-        for (int k = 0; k < 3; ++k) {
-          cdof[v + a][k] = ew[k];
-          cdof[v + 3 + a][k] = 0.0f;
-          cdof[v + 3 + a][3 + k] = ew[k];
+        for (int c = 0; c < 3; ++c) {
+          cdof[v + a][c] = ew[c];
+          cdof[v + 3 + a][c] = 0.0f;
+          cdof[v + 3 + a][3 + c] = ew[c];
         }
         mj_cross(p_rel, ew, cdof[v + a] + 3);
       }
     }
   }
-  float cvel[MJ_MAX_LINK][6];
+  float(*cvel)[6] = k.cvel;
   for (int i = 0; i < nlink; ++i) {
     const int p = parent[i];
-    for (int k = 0; k < 6; ++k) cvel[i][k] = p < 0 ? 0.0f : cvel[p][k];
+    for (int c = 0; c < 6; ++c) cvel[i][c] = p < 0 ? 0.0f : cvel[p][c];
     const int nd = type[i] == MJ_FREE ? 6 : (type[i] == MJ_HINGE ? 1 : 0);
     for (int d = 0; d < nd; ++d)
-      for (int k = 0; k < 6; ++k) cvel[i][k] += cdof[vadr[i] + d][k] * qd[vadr[i] + d];
+      for (int c = 0; c < 6; ++c) cvel[i][c] += cdof[vadr[i] + d][c] * qd[vadr[i] + d];
   }
 
   // world inertias about the origin
-  float ih[MJ_MAX_LINK][3], iI[MJ_MAX_LINK][6];
   for (int i = 0; i < nlink; ++i) {
     const float m = mf[MJ_F_MASS + i];
     float com_w[3], r[3];
     mj_qrot(quat[i], mf + MJ_F_COM + 3 * i, r);
-    for (int k = 0; k < 3; ++k) com_w[k] = pos[i][k] - origin[k] + r[k];
+    for (int c = 0; c < 3; ++c) com_w[c] = pos[i][c] - origin[c] + r[c];
     float cols[3][3];
     const float* d = mf + MJ_F_EIGD + 3 * i;
-    for (int k = 0; k < 3; ++k)
-      if (d[k] != 0.0f) mj_qrot(quat[i], mf + MJ_F_EIGQ + 9 * i + 3 * k, cols[k]);
+    for (int c = 0; c < 3; ++c)
+      if (d[c] != 0.0f) mj_qrot(quat[i], mf + MJ_F_EIGQ + 9 * i + 3 * c, cols[c]);
     const float cc = mj_dot3(com_w, com_w);
     int s = 0;
     for (int a = 0; a < 3; ++a)
       for (int b = a; b < 3; ++b, ++s) {
         float val = 0.0f;
-        for (int k = 0; k < 3; ++k)
-          if (d[k] != 0.0f) val += d[k] * cols[k][a] * cols[k][b];
+        for (int c = 0; c < 3; ++c)
+          if (d[c] != 0.0f) val += d[c] * cols[c][a] * cols[c][b];
         if (m != 0.0f) val += m * ((a == b ? cc : 0.0f) - com_w[a] * com_w[b]);
-        iI[i][s] = val;
+        k.iI[i][s] = val;
       }
-    for (int k = 0; k < 3; ++k) ih[i][k] = m * com_w[k];
+    for (int c = 0; c < 3; ++c) k.ih[i][c] = m * com_w[c];
   }
+}
 
-  // penalty contacts, streamed: each point's wrench goes straight to f_ext
-  float f_ext[MJ_MAX_LINK][6];
-  for (int i = 0; i < nlink; ++i)
-    for (int k = 0; k < 6; ++k) f_ext[i][k] = 0.0f;
+// Narrow phase: every contact point of every pair, in the reference's
+// pair / sub-point order, handed to sink(pair, li, lj, mu, depth, n, pt).
+template <class Sink>
+MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
+                           Sink& sink) {
   const int npair = mi[MJ_I_NPAIR];
-  const int has_fcap = mi[MJ_I_HAS_FCAP];
   for (int pi = 0; pi < npair; ++pi) {
     const int* pt_i = mi + MJ_I_PAIR + MJ_PAIR_I * pi;
     const float* pt_f = mf + MJ_F_PAIR + MJ_PAIR_F * pi;
@@ -369,20 +379,20 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
     const float* pp = pt_f + 13;
     float gp[3], gq[4];
     if (li < 0) {
-      for (int k = 0; k < 3; ++k) gp[k] = pt_f[3 + k];
-      for (int k = 0; k < 4; ++k) gq[k] = pt_f[6 + k];
+      for (int c = 0; c < 3; ++c) gp[c] = pt_f[3 + c];
+      for (int c = 0; c < 4; ++c) gq[c] = pt_f[6 + c];
     } else {
       float rr[3];
-      mj_qrot(quat[li], pt_f + 3, rr);
-      for (int k = 0; k < 3; ++k) gp[k] = pos[li][k] + rr[k];
-      mj_qmul(quat[li], pt_f + 6, gq);
+      mj_qrot(k.quat[li], pt_f + 3, rr);
+      for (int c = 0; c < 3; ++c) gp[c] = k.pos[li][c] + rr[c];
+      mj_qmul(k.quat[li], pt_f + 6, gq);
     }
     if (kind == MJ_KIND_SPHERE_PLANE) {
       float d[3], pt[3];
-      for (int k = 0; k < 3; ++k) d[k] = gp[k] - pp[k];
+      for (int c = 0; c < 3; ++c) d[c] = gp[c] - pp[c];
       const float depth = -(mj_dot3(d, n) - r);
-      for (int k = 0; k < 3; ++k) pt[k] = gp[k] - n[k] * r;
-      mj_contact_point(mf, li, lj, mu, depth, n, pt, origin, cvel, f_ext, has_fcap);
+      for (int c = 0; c < 3; ++c) pt[c] = gp[c] - n[c] * r;
+      sink(pi, li, lj, mu, depth, n, pt);
     } else {  // MJ_KIND_CAPSULE_PLANE: both segment ends
       const float z[3] = {0.0f, 0.0f, 1.0f};
       float axis[3];
@@ -390,80 +400,104 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
       for (int e = 0; e < 2; ++e) {
         const float off = e == 0 ? -hl : hl;
         float end[3], d[3], pt[3];
-        for (int k = 0; k < 3; ++k) end[k] = gp[k] + off * axis[k];
-        for (int k = 0; k < 3; ++k) d[k] = end[k] - pp[k];
+        for (int c = 0; c < 3; ++c) end[c] = gp[c] + off * axis[c];
+        for (int c = 0; c < 3; ++c) d[c] = end[c] - pp[c];
         const float depth = -(mj_dot3(d, n) - r);
-        for (int k = 0; k < 3; ++k) pt[k] = end[k] - n[k] * r;
-        mj_contact_point(mf, li, lj, mu, depth, n, pt, origin, cvel, f_ext, has_fcap);
+        for (int c = 0; c < 3; ++c) pt[c] = end[c] - n[c] * r;
+        sink(pi, li, lj, mu, depth, n, pt);
       }
     }
   }
+}
 
-  // composite rigid-body inertias (reverse tree walk)
+// Tree-sparse mass matrix: H[i][j] for j on the ancestor chain of i, from
+// the composite rigid-body inertias (reverse tree walk).
+MJ_HD void mj_mass_matrix(const float* mf, const int* mi, const MjKin& k,
+                          float (*H)[MJ_MAX_NV]) {
+  const int nlink = mi[MJ_I_NLINK];
+  const int nv = mi[MJ_I_NV];
+  const int* parent = mi + MJ_I_PARENT;
+  const int* dof_link = mi + MJ_I_DOFLINK;
+  const int* lam = mi + MJ_I_LAM;
   float ch[MJ_MAX_LINK][3], cI[MJ_MAX_LINK][6];
   for (int i = 0; i < nlink; ++i) {
-    for (int k = 0; k < 3; ++k) ch[i][k] = ih[i][k];
-    for (int k = 0; k < 6; ++k) cI[i][k] = iI[i][k];
+    for (int c = 0; c < 3; ++c) ch[i][c] = k.ih[i][c];
+    for (int c = 0; c < 6; ++c) cI[i][c] = k.iI[i][c];
   }
   for (int i = nlink - 1; i >= 0; --i) {
     const int p = parent[i];
     if (p < 0) continue;
-    for (int k = 0; k < 3; ++k) ch[p][k] += ch[i][k];
-    for (int k = 0; k < 6; ++k) cI[p][k] += cI[i][k];
+    for (int c = 0; c < 3; ++c) ch[p][c] += ch[i][c];
+    for (int c = 0; c < 6; ++c) cI[p][c] += cI[i][c];
   }
-
-  // tree-sparse mass matrix: H[i][j] for j on the ancestor chain of i
-  float H[MJ_MAX_NV][MJ_MAX_NV];
-  {
-    float F[MJ_MAX_NV][6];
-    for (int j = 0; j < nv; ++j) {
-      const int l = dof_link[j];
-      mj_inertia_mul(mf[MJ_F_CMASS + l], ch[l], cI[l], cdof[j], F[j]);
-    }
-    for (int i = 0; i < nv; ++i)
-      for (int j = i; j >= 0; j = lam[j]) H[i][j] = mj_dot6(F[i], cdof[j]);
+  float F[MJ_MAX_NV][6];
+  for (int j = 0; j < nv; ++j) {
+    const int l = dof_link[j];
+    mj_inertia_mul(mf[MJ_F_CMASS + l], ch[l], cI[l], k.cdof[j], F[j]);
   }
+  for (int i = 0; i < nv; ++i)
+    for (int j = i; j >= 0; j = lam[j]) H[i][j] = mj_dot6(F[i], k.cdof[j]);
+}
 
-  // RNE bias forces with gravity and contact wrenches
-  float bias[MJ_MAX_NV];
+// RNE bias forces with gravity and, when f_ext is given, the external
+// link wrenches.
+MJ_HD void mj_bias(const float* mf, const int* mi, const MjKin& k,
+                   const float* qd, const float (*f_ext)[6], float* bias) {
+  const int nlink = mi[MJ_I_NLINK];
+  const int nv = mi[MJ_I_NV];
+  const int* parent = mi + MJ_I_PARENT;
+  const int* type = mi + MJ_I_TYPE;
+  const int* vadr = mi + MJ_I_VADR;
+  const int* dof_link = mi + MJ_I_DOFLINK;
+  float facc[MJ_MAX_LINK][6];
   {
-    float facc[MJ_MAX_LINK][6];
-    {
-      float cacc[MJ_MAX_LINK][6];
-      for (int i = 0; i < nlink; ++i) {
-        const int p = parent[i];
-        for (int k = 0; k < 6; ++k)
-          cacc[i][k] = p >= 0 ? cacc[p][k] : (k < 3 ? 0.0f : -mf[MJ_F_GRAV + k - 3]);
-        const int nd = type[i] == MJ_FREE ? 6 : (type[i] == MJ_HINGE ? 1 : 0);
-        for (int d = 0; d < nd; ++d) {
-          float c[6];
-          mj_crm(cvel[i], cdof[vadr[i] + d], c);
-          for (int k = 0; k < 6; ++k) cacc[i][k] += c[k] * qd[vadr[i] + d];
-        }
-      }
-      for (int i = 0; i < nlink; ++i) {
-        const float m = mf[MJ_F_MASS + i];
-        float Iv[6], Ia[6], c[6];
-        mj_inertia_mul(m, ih[i], iI[i], cvel[i], Iv);
-        mj_inertia_mul(m, ih[i], iI[i], cacc[i], Ia);
-        mj_crf(cvel[i], Iv, c);
-        for (int k = 0; k < 6; ++k) facc[i][k] = Ia[k] + c[k] - f_ext[i][k];
-      }
-    }
-    for (int i = nlink - 1; i >= 0; --i) {
+    float cacc[MJ_MAX_LINK][6];
+    for (int i = 0; i < nlink; ++i) {
       const int p = parent[i];
-      if (p >= 0)
-        for (int k = 0; k < 6; ++k) facc[p][k] += facc[i][k];
+      for (int c = 0; c < 6; ++c)
+        cacc[i][c] = p >= 0 ? cacc[p][c] : (c < 3 ? 0.0f : -mf[MJ_F_GRAV + c - 3]);
+      const int nd = type[i] == MJ_FREE ? 6 : (type[i] == MJ_HINGE ? 1 : 0);
+      for (int d = 0; d < nd; ++d) {
+        float cr[6];
+        mj_crm(k.cvel[i], k.cdof[vadr[i] + d], cr);
+        for (int c = 0; c < 6; ++c) cacc[i][c] += cr[c] * qd[vadr[i] + d];
+      }
     }
-    for (int j = 0; j < nv; ++j) bias[j] = mj_dot6(facc[dof_link[j]], cdof[j]);
+    for (int i = 0; i < nlink; ++i) {
+      const float m = mf[MJ_F_MASS + i];
+      float Iv[6], Ia[6], cr[6];
+      mj_inertia_mul(m, k.ih[i], k.iI[i], k.cvel[i], Iv);
+      mj_inertia_mul(m, k.ih[i], k.iI[i], cacc[i], Ia);
+      mj_crf(k.cvel[i], Iv, cr);
+      if (f_ext)
+        for (int c = 0; c < 6; ++c) facc[i][c] = Ia[c] + cr[c] - f_ext[i][c];
+      else
+        for (int c = 0; c < 6; ++c) facc[i][c] = Ia[c] + cr[c];
+    }
   }
+  for (int i = nlink - 1; i >= 0; --i) {
+    const int p = parent[i];
+    if (p >= 0)
+      for (int c = 0; c < 6; ++c) facc[p][c] += facc[i][c];
+  }
+  for (int j = 0; j < nv; ++j) bias[j] = mj_dot6(facc[dof_link[j]], k.cdof[j]);
+}
 
-  // applied forces: motors, joint springs, limit penalties; lim_diag holds
-  // the implicit half of the active limit dampers
-  float rhs[MJ_MAX_NV], lim_diag[MJ_MAX_NV];
+// Applied forces: motors, joint springs and, with LIMITS, the limit
+// penalties, whose implicit damper half goes to lim_diag.
+template <bool LIMITS>
+MJ_HD void mj_applied(const float* mf, const int* mi, const float* q,
+                      const float* qd, const float* ctrl, float* rhs,
+                      float* lim_diag) {
+  const int nlink = mi[MJ_I_NLINK];
+  const int nv = mi[MJ_I_NV];
+  const int nu = mi[MJ_I_NU];
+  const int* type = mi + MJ_I_TYPE;
+  const int* qadr = mi + MJ_I_QADR;
+  const int* vadr = mi + MJ_I_VADR;
   for (int j = 0; j < nv; ++j) {
     rhs[j] = 0.0f;
-    lim_diag[j] = 0.0f;
+    if (LIMITS) lim_diag[j] = 0.0f;
   }
   for (int u = 0; u < nu; ++u) {
     float cu = ctrl[u];
@@ -477,19 +511,27 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
     const float qi = q[qadr[i]];
     const float stiff = mf[MJ_F_STIFF + i];
     if (stiff != 0.0f) rhs[v] += -stiff * (qi - mf[MJ_F_SPRINGREF + i]);
-    if (mi[MJ_I_LIMITED + i]) {
+    if (LIMITS && mi[MJ_I_LIMITED + i]) {
       const float viol = mj_limit_viol(mf, i, qi);
       const bool active = fabsf(viol) > 0.0f;
       rhs[v] += -mf[MJ_F_LIMK + v] * viol - (active ? mf[MJ_F_LIMC + v] * qd[v] : 0.0f);
       if (active) lim_diag[v] = mf[MJ_F_LIMDTC + v];
     }
   }
-  for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] - bias[j] - mf[MJ_F_DAMP + j] * qd[j];
+}
 
-  // sparse L^T D L factorization (Featherstone RBDA 6.5) of
-  // M + diag(armature + dt*damping + limit dampers) and solve; L overwrites
-  // the strict lower part of H, D stays on its diagonal
-  for (int k = 0; k < nv; ++k) H[k][k] = H[k][k] + mf[MJ_F_EXTRA + k] + lim_diag[k];
+// Sparse L^T D L factorization (Featherstone RBDA 6.5) of
+// M + diag(armature + dt*damping [+ lim_diag]) and solve, x in place (rhs
+// in, solution out); L overwrites the strict lower part of H, D stays on
+// its diagonal.
+MJ_HD void mj_ltdl_solve(const float* mf, const int* mi, float (*H)[MJ_MAX_NV],
+                         const float* lim_diag, float* x) {
+  const int nv = mi[MJ_I_NV];
+  const int* lam = mi + MJ_I_LAM;
+  if (lim_diag)
+    for (int k = 0; k < nv; ++k) H[k][k] = H[k][k] + mf[MJ_F_EXTRA + k] + lim_diag[k];
+  else
+    for (int k = 0; k < nv; ++k) H[k][k] = H[k][k] + mf[MJ_F_EXTRA + k];
   for (int k = nv - 1; k >= 0; --k) {
     const float inv_d = 1.0f / H[k][k];
     for (int i = lam[k]; i >= 0; i = lam[i]) {
@@ -498,15 +540,22 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
       H[k][i] = a;
     }
   }
-  float* x = rhs;
   for (int i = nv - 1; i >= 0; --i)
     for (int j = lam[i]; j >= 0; j = lam[j]) x[j] -= H[i][j] * x[i];
   for (int i = 0; i < nv; ++i) x[i] = x[i] / H[i][i];
   for (int i = 0; i < nv; ++i)
     for (int j = lam[i]; j >= 0; j = lam[j]) x[i] -= H[i][j] * x[j];
+}
 
-  // semi-implicit Euler; the free joint's quaternion by the exponential map
-  for (int j = 0; j < nv; ++j) qd[j] = qd[j] + dt * x[j];
+// Semi-implicit Euler; the free joint's quaternion by the exponential map.
+MJ_HD void mj_integrate(const int* mi, float* q, float* qd, const float* qdd,
+                        float dt) {
+  const int nlink = mi[MJ_I_NLINK];
+  const int nv = mi[MJ_I_NV];
+  const int* type = mi + MJ_I_TYPE;
+  const int* qadr = mi + MJ_I_QADR;
+  const int* vadr = mi + MJ_I_VADR;
+  for (int j = 0; j < nv; ++j) qd[j] = qd[j] + dt * qdd[j];
   for (int i = 0; i < nlink; ++i) {
     const int adr = qadr[i], v = vadr[i];
     if (type[i] == MJ_HINGE) {
@@ -517,21 +566,61 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
       const float* omega = qd + v;
       float r[3];
       mj_qrot(qu, qd + v + 3, r);
-      for (int k = 0; k < 3; ++k) p[k] = p[k] + dt * r[k];
+      for (int c = 0; c < 3; ++c) p[c] = p[c] + dt * r[c];
       const float angle = sqrtf(mj_dot3(omega, omega));
       float dq[4] = {1.0f, 0.0f, 0.0f, 0.0f};
       if (!(angle < 1e-9f)) {
         const float half = 0.5f * angle * dt;
         const float s = sinf(half);
         dq[0] = cosf(half);
-        for (int k = 0; k < 3; ++k) dq[1 + k] = omega[k] / angle * s;
+        for (int c = 0; c < 3; ++c) dq[1 + c] = omega[c] / angle * s;
       }
       float nq[4];
       mj_qmul(qu, dq, nq);
       mj_qnorm(nq);
-      for (int k = 0; k < 4; ++k) qu[k] = nq[k];
+      for (int c = 0; c < 4; ++c) qu[c] = nq[c];
     }
   }
+}
+
+// ---- the penalty substep (kernel K1) -----------------------------------
+
+// Penalty contacts, streamed: each point's wrench goes straight to f_ext.
+struct MjPenaltySink {
+  const float* mf;
+  const MjKin* k;
+  float (*f_ext)[6];
+  int has_fcap;
+  MJ_HD void operator()(int, int li, int lj, float mu, float depth,
+                        const float* n, const float* pt) {
+    mj_contact_point(mf, li, lj, mu, depth, n, pt, k->origin, k->cvel, f_ext,
+                     has_fcap);
+  }
+};
+
+// Advances one env's q (nq), qd (nv) by one substep of length dt.
+MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
+                      const float* ctrl, float dt) {
+  const int nlink = mi[MJ_I_NLINK];
+  const int nv = mi[MJ_I_NV];
+  MjKin k;
+  mj_kinematics(mf, mi, q, qd, k);
+
+  float f_ext[MJ_MAX_LINK][6];
+  for (int i = 0; i < nlink; ++i)
+    for (int c = 0; c < 6; ++c) f_ext[i][c] = 0.0f;
+  MjPenaltySink sink{mf, &k, f_ext, mi[MJ_I_HAS_FCAP]};
+  mj_narrow_phase(mf, mi, k, sink);
+
+  float H[MJ_MAX_NV][MJ_MAX_NV];
+  mj_mass_matrix(mf, mi, k, H);
+  float bias[MJ_MAX_NV];
+  mj_bias(mf, mi, k, qd, f_ext, bias);
+  float rhs[MJ_MAX_NV], lim_diag[MJ_MAX_NV];
+  mj_applied<true>(mf, mi, q, qd, ctrl, rhs, lim_diag);
+  for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] - bias[j] - mf[MJ_F_DAMP + j] * qd[j];
+  mj_ltdl_solve(mf, mi, H, lim_diag, rhs);
+  mj_integrate(mi, q, qd, rhs, dt);
 }
 
 // One env of a batch-last (rows, B) launch: loads its columns, runs n_sub

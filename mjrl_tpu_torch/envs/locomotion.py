@@ -3,10 +3,12 @@
 Twin of ``mjrl_tpu/envs/locomotion.py`` (``LocomotionEnv``, ``AntEnv``). The
 model is compiled from the ant asset shipped in ``envs/assets/`` (Gymnasium
 1.2.2's ``ant.xml``), the contact and limit gains are tuned as the
-reference tunes them, and ``step`` advances all envs through one K1 call
-per control step. Task conventions follow gymnasium's Ant-v4: 27-dim
-observation ``[q[2:], qd]``, forward reward from the torso's x velocity,
-ctrl cost 0.5, healthy reward 1 while 0.2 < z < 1.
+reference tunes them, and ``step`` advances all envs through one kernel
+call per control step: K1 with the penalty solver, K2 with the Newton
+solver. Envs live on the card unless ``device="cpu"`` is asked for.
+Task conventions follow gymnasium's Ant-v4: 27-dim observation
+``[q[2:], qd]``, forward reward from the torso's x velocity, ctrl cost
+0.5, healthy reward 1 while 0.2 < z < 1.
 """
 
 from __future__ import annotations
@@ -40,12 +42,21 @@ class LocomotionEnv(Env):
     exclude_positions: int = 1  # leading qpos entries dropped from obs
     n_substeps: int = 1  # physics substeps per model dt (penalty stability)
 
-    def __init__(self, horizon: int = 1000, device="cpu", asset_path: Optional[str] = None):
+    def __init__(self, horizon: int = 1000, device="cuda", asset_path: Optional[str] = None,
+                 constraint_solver: str = "penalty", n_substeps: Optional[int] = None):
         self.device = torch.device(device)
         model = load_mjcf(asset_path or os.path.join(ASSETS, self.asset))
+        # the class default n_substeps is tuned for penalty stability; the
+        # Newton solve is implicit in its constraints like MuJoCo's and is
+        # stable at the model dt (n_substeps=1)
+        if n_substeps is not None:
+            self.n_substeps = int(n_substeps)
         model.n_substeps = self.n_substeps
-        model.constraint_solver = "penalty"
-        # penalty contact gains scaled to the body, as the reference does:
+        # 'penalty' (kernel K1) or 'newton', MuJoCo-parity soft constraints
+        # (kernel K2)
+        model.constraint_solver = constraint_solver
+        # penalty contact gains scaled to the body, as the reference does
+        # (set in both modes):
         # full weight on one contact compresses ~2 mm; near-critical damping
         # against a quarter of the body mass
         total_mass = float(model.link_mass.sum())

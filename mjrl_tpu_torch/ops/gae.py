@@ -3,7 +3,8 @@
 
 The reference's reverse ``lax.scan`` over time becomes a reverse loop over
 the ``T`` columns, each step a vector op over all envs. Returns are
-in-episode Monte-Carlo sums; GAE bootstraps a terminated episode with 0 and
+in-episode Monte-Carlo sums (in samples mode a window's tail bootstraps
+with the value of its last state); GAE bootstraps a terminated episode with 0 and
 a truncated one with the value of its own last state; ``done`` resets the
 carry at episode boundaries.
 """
@@ -27,11 +28,16 @@ def _reverse_scan(xs: torch.Tensor, done: torch.Tensor, decay: float,
     return out
 
 
-def compute_returns(rewards, done, valid, gamma: float) -> torch.Tensor:
-    """Masked in-episode discounted returns (episodes mode: no bootstrap)."""
+def compute_returns(rewards, done, valid, gamma: float,
+                    bootstrap_value: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked in-episode discounted returns. ``bootstrap_value`` ``(N,)``
+    seeds the scan's carry: the value of a row whose window ends
+    mid-episode (samples mode); a row ending in ``done`` ignores it."""
     validf = valid.to(rewards.dtype)
     rewards = rewards * validf
-    return _reverse_scan(rewards, done, gamma, rewards.new_zeros(rewards.shape[0])) * validf
+    carry = (rewards.new_zeros(rewards.shape[0]) if bootstrap_value is None
+             else bootstrap_value.to(rewards.dtype))
+    return _reverse_scan(rewards, done, gamma, carry) * validf
 
 
 def compute_gae(rewards, values, done, terminated, valid, gamma: float,

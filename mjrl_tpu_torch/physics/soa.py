@@ -1,21 +1,24 @@
-"""Plain PyTorch batch-last physics substep: the reference for kernel K1.
+"""Plain PyTorch batch-last physics substep: the reference for kernels K1
+and K2.
 
 Twin of ``mjrl_tpu/physics/soa.py`` on ant's feature set: every per-env
 scalar is a ``(1, B)`` row and every 3-vector a ``(3, B)`` tensor, and all
 loops (tree walks, dof chains, contact pairs) unroll in Python over the
 static tables of physics/tables.py, in the reference's order. The pipeline
-per substep is kinematics -> cdof/cvel -> penalty contacts -> composite
-inertias -> sparse mass matrix -> RNE bias -> applied forces -> sparse
-L^T D L solve -> semi-implicit Euler.
+per substep is kinematics -> cdof/cvel -> contacts -> composite inertias ->
+sparse mass matrix -> RNE bias -> applied forces -> sparse L^T D L solve ->
+semi-implicit Euler. With the penalty solver the contacts are spring-damper
+wrenches and the limits penalty springs; with the Newton solver both become
+soft-constraint rows solved after the L^T D L step (physics/soa_newton.py).
 
-This is the kernel's plain version: physics/pkernel.py runs it for tensors
-on the CPU, and the tests and ``chip_smoke.py`` hold the CUDA kernel
+This is the kernels' plain version: physics/pkernel.py runs it for tensors
+on the CPU, and the tests and ``chip_smoke.py`` hold the CUDA kernels
 against it. It issues thousands of tiny ops per substep, so on a card it is
 launch-bound and only fit for comparisons.
 
 Feature set (``check_supported``): free, hinge and fixed links; sphere- and
 capsule-plane contacts against world planes; ctrl-limited gear motors;
-joint springs; per-dof limit penalties; the penalty contact solver.
+joint springs; per-dof limit penalties; the penalty and Newton solvers.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ def check_supported(model: Model) -> None:
             raise NotImplementedError(
                 f"link {i}: joint type {model.link_jnt_type[i]} is not ported"
             )
-    if model.constraint_solver != "penalty":
+    if model.constraint_solver not in ("penalty", "newton"):
         raise NotImplementedError(f"solver {model.constraint_solver!r} is not ported")
     for kind, tab in pair_groups(model).kinds:
         if kind not in SUPPORTED_KINDS:
@@ -365,10 +368,10 @@ def _ltdl_solve(model: Model, tab: SoATables, M, rhs, dt: float, extra_diag=None
 
 
 class _Cand:
-    __slots__ = ("li", "lj", "mu", "depth", "n", "pt")
+    __slots__ = ("gi", "gj", "li", "lj", "mu", "depth", "n", "pt")
 
-    def __init__(self, li, lj, mu, depth, n, pt):
-        self.li, self.lj, self.mu = li, lj, mu
+    def __init__(self, gi, gj, li, lj, mu, depth, n, pt):
+        self.gi, self.gj, self.li, self.lj, self.mu = gi, gj, li, lj, mu
         self.depth, self.n, self.pt = depth, n, pt
 
 
@@ -402,13 +405,13 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
             pi_, qi_ = geom_pose(gi)
             if kind == "sphere_plane":
                 dist = _dot(pi_ - pp, nrm) - r
-                out.append(_Cand(li, lj, mu, -dist, nrm, pi_ - nrm * r))
+                out.append(_Cand(gi, gj, li, lj, mu, -dist, nrm, pi_ - nrm * r))
             elif kind == "capsule_plane":
                 axis = _qrot(qi_, Z)
                 for sgn in (-1.0, 1.0):
                     end = pi_ + float(np.float32(sgn * si[1])) * axis
                     dist = _dot(end - pp, nrm) - r
-                    out.append(_Cand(li, lj, mu, -dist, nrm, end - nrm * r))
+                    out.append(_Cand(gi, gj, li, lj, mu, -dist, nrm, end - nrm * r))
             else:  # gated by check_supported
                 raise NotImplementedError(kind)
     return out
@@ -463,8 +466,10 @@ def _limit_viol(model: Model, i: int, qi):
     return torch.clamp(qi - float(lo), max=0.0) + torch.clamp(qi - float(hi), min=0.0)
 
 
-def _applied_forces(model: Model, q, qd, ctrl):
-    """Motors + joint springs + limit penalties: (nv, B) generalized force."""
+def _applied_forces(model: Model, q, qd, ctrl, include_limits: bool = True):
+    """Motors + joint springs + limit penalties: (nv, B) generalized force.
+    ``include_limits=False`` leaves out the limit penalties: the Newton
+    solver makes limits constraint rows instead."""
     rows: List[Optional[torch.Tensor]] = [None] * model.nv
 
     def add(v, val):
@@ -487,7 +492,7 @@ def _applied_forces(model: Model, q, qd, ctrl):
         stiff = float(model.jnt_stiffness[i])
         if stiff != 0.0:
             add(v, -stiff * (qi - float(model.jnt_springref[i])))
-        if model.jnt_limited[i] > 0:
+        if include_limits and model.jnt_limited[i] > 0:
             k = float(model.dof_limit_stiffness[v])
             c = float(model.dof_limit_damping[v])
             viol = _limit_viol(model, i, qi)
@@ -550,8 +555,12 @@ def _integrate(model: Model, q, qd, qdd, dt: float):
 # ---------------------------------------------------------------------------
 
 
-def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, dt: float):
-    """One physics substep, batch-last: q (nq, B), qd (nv, B), ctrl (nu, B)."""
+def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, dt: float,
+            picks: Optional[list] = None):
+    """One physics substep, batch-last: q (nq, B), qd (nv, B), ctrl (nu, B).
+    With the Newton solver, ``picks`` (a list) collects each iteration's
+    line-search fraction index (see ``soa_newton.constrained_qdd``)."""
+    newton = model.constraint_solver == "newton"
     tab = soa_tables(model)
     pos, quat = _fk(model, q)
     origin = pos[0]
@@ -559,34 +568,53 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
     cvel = _cvels(model, cdof, qd)
     inert = _world_inertias(model, tab, pos, quat, origin)
     candidates = _contact_candidates(model, pos, quat) if model.contact_pairs else []
-    f_ext = _contact_forces(model, cvel, origin, candidates)
+    f_ext = None if newton else _contact_forces(model, cvel, origin, candidates)
     crb = _composite_inertias(model, tab, inert)
     M = _mass_matrix_sparse(model, tab, cdof, crb)
     C = _bias_forces(model, tab, cdof, cvel, inert, qd, f_ext)
-    tau = _applied_forces(model, q, qd, ctrl)
+    tau = _applied_forces(model, q, qd, ctrl, include_limits=not newton)
     damping = _c(model, model.dof_damping, q.device)
     rhs = tau - C - damping * qd
-    qdd = _ltdl_solve(model, tab, M, rhs, dt, _limit_damping_rows(model, q, dt))
+    if newton:
+        from mjrl_tpu_torch.physics import soa_newton
+
+        qdd0 = _ltdl_solve(model, tab, M, rhs, dt)
+        qdd = soa_newton.constrained_qdd(model, pos, cdof, M, q, qd, qdd0, candidates, dt,
+                                         picks=picks)
+    else:
+        qdd = _ltdl_solve(model, tab, M, rhs, dt, _limit_damping_rows(model, q, dt))
     return _integrate(model, q, qd, qdd, dt)
 
 
 def multistep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
-              n_frames: int = 1):
+              n_frames: int = 1, picks: Optional[list] = None):
     """``n_frames`` control frames = ``n_frames * model.n_substeps`` substeps
     with ``ctrl`` held."""
     dt = model.dt / model.n_substeps
     for _ in range(n_frames * model.n_substeps):
-        q, qd = substep(model, q, qd, ctrl, dt)
+        q, qd = substep(model, q, qd, ctrl, dt, picks)
     return q, qd
 
 
-def mass_matrix_diag(model: Model, qpos: np.ndarray) -> np.ndarray:
-    """Diagonal of the joint-space mass matrix at one configuration (f32,
-    without armature): the load-time input of the limit gains."""
+def static_kinematics(model: Model, qpos: np.ndarray):
+    """One configuration's dense mass matrix (f32, without armature) and
+    its link poses and motion subspaces, as numpy: ``(M (nv, nv),
+    pos (nlink, 3), quat (nlink, 4), cdof (nv, 6))``, subspaces about
+    ``pos[0]``. Load-time input of the limit gains and the invweights."""
     tab = soa_tables(model)
     q = torch.as_tensor(np.asarray(qpos, np.float32)).reshape(-1, 1)
     pos, quat = _fk(model, q)
     cdof = _cdofs(model, pos, quat, pos[0])
     crb = _composite_inertias(model, tab, _world_inertias(model, tab, pos, quat, pos[0]))
-    M = _mass_matrix_sparse(model, tab, cdof, crb)
-    return np.asarray([float(M[(i, i)]) for i in range(model.nv)], np.float32)
+    Ms = _mass_matrix_sparse(model, tab, cdof, crb)
+    M = np.zeros((model.nv, model.nv), np.float32)
+    for (i, j), v in Ms.items():
+        M[i, j] = M[j, i] = float(v)
+    col = lambda xs: np.stack([x[:, 0].numpy() for x in xs])
+    return M, col(pos), col(quat), col(cdof)
+
+
+def mass_matrix_diag(model: Model, qpos: np.ndarray) -> np.ndarray:
+    """Diagonal of the joint-space mass matrix at one configuration (f32,
+    without armature): the load-time input of the limit gains."""
+    return np.diag(static_kinematics(model, qpos)[0]).copy()

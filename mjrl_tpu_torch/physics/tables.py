@@ -18,8 +18,10 @@ from mjrl_tpu_torch.physics.model import (
     BOX,
     CAPSULE,
     CYLINDER,
+    HINGE,
     JOINT_NV,
     PLANE,
+    SLIDE,
     SPHERE,
     Model,
 )
@@ -29,6 +31,11 @@ class TreeTables(NamedTuple):
     dof_link: np.ndarray  # (nv,) link index of each dof
     L_mask: np.ndarray  # (nlink, nv) dof j is ancestor-or-self of link l
     dof_mask: np.ndarray  # (nv, nv) [i, j]: dof j is ancestor-or-self of dof i
+    # the 1-dof (hinge and slide) joints in link order: qpos / dof address
+    # and link of each
+    hinge_slide_q: np.ndarray
+    hinge_slide_v: np.ndarray
+    hinge_slide_link: np.ndarray
 
 
 def tree_tables(model: Model) -> TreeTables:
@@ -49,7 +56,13 @@ def tree_tables(model: Model) -> TreeTables:
             if t != -1:
                 L[l, model.link_vadr[j] : model.link_vadr[j] + JOINT_NV[t]] = 1.0
             j = model.link_parent[j]
-    tables = TreeTables(dof_link=dof_link, L_mask=L, dof_mask=L[dof_link])
+    hs = [i for i in range(nlink) if model.link_jnt_type[i] in (HINGE, SLIDE)]
+    tables = TreeTables(
+        dof_link=dof_link, L_mask=L, dof_mask=L[dof_link],
+        hinge_slide_q=np.asarray([model.link_qadr[i] for i in hs], np.int32),
+        hinge_slide_v=np.asarray([model.link_vadr[i] for i in hs], np.int32),
+        hinge_slide_link=np.asarray(hs, np.int32),
+    )
     model._tables = tables
     return tables
 

@@ -23,7 +23,7 @@ B = 4
 @pytest.fixture(scope="module")
 def ants():
     jenv = jenvs.make("ant", horizon=8)
-    return make("ant", horizon=8), jenv, jax.jit(jax.vmap(jenv.step))
+    return make("ant", horizon=8, device="cpu"), jenv, jax.jit(jax.vmap(jenv.step))
 
 
 @pytest.fixture(scope="module")

@@ -1,6 +1,6 @@
 """The port stands without JAX: with jax, jaxlib, gymnasium and mjrl_tpu
 blocked, every mjrl_tpu_torch module imports and the ant env steps on the
-CPU. (The card's machine has none of those packages.)"""
+CPU with either solver. (The card's machine has none of those packages.)"""
 
 import os
 import subprocess
@@ -28,10 +28,15 @@ for name in names:
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules if sys.modules[m] is not None)
 
 from mjrl_tpu_torch.envs import make
-env = make("ant", horizon=4)
+env = make("ant", horizon=4, device="cpu")
 state, obs = env.reset(2, torch.Generator().manual_seed(0))
 state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
 assert obs.shape == (2, 27) and torch.isfinite(reward).all()
+env = make("ant", horizon=4, device="cpu", constraint_solver="newton", n_substeps=1)
+state, obs = env.reset(2, torch.Generator().manual_seed(0))
+state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
+assert torch.isfinite(reward).all() and env.model.dof_invweight0 is not None
+assert "mjrl_tpu_torch.physics.soa_newton" in names and "mjrl_tpu_torch.physics.csolve" in names
 print("imported", len(names), "modules")
 """
 

@@ -85,7 +85,7 @@ def ref():
 
 
 def _port_agent(ref):
-    env = make("ant", horizon=T)
+    env = make("ant", horizon=T, device="cpu")
     env.healthy_z_range = Z_RANGE
     state0 = ref["state0"]
     policy = policy_from_jax(state0.params, env.spec)

@@ -83,6 +83,25 @@ def test_returns_and_gae_match_reference(seed):
     np.testing.assert_allclose([float(got_m), float(got_s)], [float(want_m), float(want_s)], **F32)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_returns_with_bootstrap_match_reference(seed):
+    """Samples mode: every step valid, episodes end anywhere in the row,
+    and a row cut mid-episode bootstraps with a value."""
+    rng = np.random.default_rng(seed)
+    N, T = 6, 9
+    r = rng.normal(size=(N, T)).astype(np.float32)
+    done = rng.random((N, T)) < 0.2
+    done[0, -1] = True  # a row whose window ends with its episode
+    valid = np.ones((N, T), bool)
+    boot = rng.normal(size=N).astype(np.float32)
+    got = gae.compute_returns(T_(r), T_(done), T_(valid), 0.99, bootstrap_value=T_(boot))
+    want = jgae.compute_returns(r, done, valid, 0.99, bootstrap_value=jnp.asarray(boot))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    # the bootstrap reaches exactly the rows that end mid-episode
+    plain = gae.compute_returns(T_(r), T_(done), T_(valid), 0.99).numpy()
+    np.testing.assert_array_equal(got.numpy()[:, -1] != plain[:, -1], ~done[:, -1])
+
+
 @pytest.mark.parametrize("gae_lambda,normalize", [(0.97, True), (None, False)])
 def test_compute_advantages_matches_reference(gae_lambda, normalize):
     r, v, done, term, valid = _masked_rollout(3)

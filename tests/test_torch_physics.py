@@ -27,7 +27,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def ants():
-    return make("ant", horizon=8), jenvs.make("ant", horizon=8)
+    return make("ant", horizon=8, device="cpu"), jenvs.make("ant", horizon=8)
 
 
 @pytest.fixture(scope="module")
@@ -67,7 +67,8 @@ def test_static_tables_match_reference(ants):
     env, jenv = ants
     m, jm = env.model, jenv.model
     got, want = tables.tree_tables(m), j_tree_tables(jm)
-    for name in ("dof_link", "L_mask", "dof_mask"):
+    for name in ("dof_link", "L_mask", "dof_mask", "hinge_slide_q", "hinge_slide_v",
+                 "hinge_slide_link"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name))
     groups, jgroups = tables.pair_groups(m).kinds, j_pair_groups(jm).kinds
     assert [k for k, _ in groups] == [k for k, _ in jgroups] == ["sphere_plane", "capsule_plane"]
@@ -114,12 +115,12 @@ def test_mass_matrix_diag_matches_reference_crba(ants):
 @pytest.mark.parametrize(
     "edit",
     [
-        dict(constraint_solver="newton"),
+        dict(link_jnt_type=(0, -1, 3) + (2,) * 10),
         dict(density=1.2),
         dict(dof_frictionloss=np.ones(14, np.float32)),
         dict(tendon_Jq=np.zeros((1, 15), np.float32)),
     ],
-    ids=["newton", "fluid", "frictionloss", "tendon"],
+    ids=["slide", "fluid", "frictionloss", "tendon"],
 )
 def test_unsupported_features_raise(ants, edit):
     model = copy.copy(ants[0].model)

@@ -1,19 +1,22 @@
 """Where one Ant NPG iteration of the PyTorch port spends its time, on a GPU.
 
-    python3 tools/torch_npg_breakdown.py
+    python3 tools/torch_npg_breakdown.py [--row penalty|newton]
 
 Builds the bench-width agent (1024 envs x 100 steps, policy (64, 64),
-MLPBaseline(epochs=2, batch_size=1024), normalized_step_size=0.05), warms
-it for 2 iterations, then times one iteration phase by phase on
-the host clock (each phase ends in ``torch.cuda.synchronize()``), and
-traces a second one with ``torch.profiler`` for the device's busy share
-(device time over the profiled wall time, which the profiler inflates) and
-K1's share.
+MLPBaseline(epochs=2, batch_size=1024), normalized_step_size=0.05) for one
+of the bench's rows: ``penalty`` (episodes mode, kernel K1) or ``newton``
+(Newton solver, n_substeps=1, samples mode with the persistent sampler
+carry, kernel K2). Warms it for 2 iterations, then times one iteration
+phase by phase on the host clock (each phase ends in
+``torch.cuda.synchronize()``), and traces a second one with
+``torch.profiler`` for the device's busy share (device time over the
+profiled wall time, which the profiler inflates) and the kernel's share.
 Prints one JSON line.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -31,18 +34,34 @@ def main() -> int:
     from mjrl_tpu_torch.algos import NPG
     from mjrl_tpu_torch.envs import make
     from mjrl_tpu_torch.models import GaussianMLP, MLPBaseline
-    from mjrl_tpu_torch.physics.pkernel import K1
-    from mjrl_tpu_torch.samplers import draw_episode_noise, rollout_statistics, run_episodes
+    from mjrl_tpu_torch.physics.pkernel import K1, K2
+    from mjrl_tpu_torch.samplers import (
+        draw_autoreset_noise,
+        draw_episode_noise,
+        rollout_statistics,
+        run_autoreset,
+        run_episodes,
+    )
 
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--row", choices=("penalty", "newton"), default="penalty")
+    row = p.parse_args().row
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    env = make("ant", horizon=100, device=dev)
+    newton = row == "newton"
+    if newton:
+        env = make("ant", horizon=100, device=dev, constraint_solver="newton", n_substeps=1)
+        kw = dict(num_samples=1024 * 100, sample_mode="samples")
+    else:
+        env = make("ant", horizon=100, device=dev)
+        kw = dict(horizon=100)
+    kernel = K2 if newton else K1
     init = torch.Generator().manual_seed(0)
     policy = GaussianMLP(env.spec, hidden_sizes=(64, 64), generator=init).to(dev)
     baseline = MLPBaseline(env.spec, epochs=2, batch_size=1024, generator=init).to(dev)
-    agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=1024, horizon=100)
+    agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=1024, **kw)
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
         agent.train_step(gen)
@@ -57,10 +76,18 @@ def main() -> int:
         phases[name] = (time.perf_counter() - t0) * 1e3
         return out
 
+    def rollout():
+        if not newton:
+            noise = timed("noise", lambda: draw_episode_noise(env, 1024, 100, gen))
+            return timed("rollout", lambda: run_episodes(env, policy, noise))
+        noise = timed("noise", lambda: draw_autoreset_noise(env, 1024, 100, gen))
+        batch, agent.sampler_carry = timed(
+            "rollout", lambda: run_autoreset(env, policy, noise, agent.sampler_carry, 100))
+        return batch
+
     def iteration():
         t0 = time.perf_counter()
-        noise = timed("noise", lambda: draw_episode_noise(env, 1024, 100, gen))
-        batch = timed("rollout", lambda: run_episodes(env, policy, noise))
+        batch = rollout()
         batch = timed("returns_gae", lambda: agent.process_batch(batch))
         timed("npg_update", lambda: agent.update(batch))
         timed("baseline_fit", lambda: baseline.fit(batch, generator=gen))
@@ -81,15 +108,15 @@ def main() -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy = sum(device_us(e) for e in events) / 1e3
-    k1 = sum(device_us(e) for e in events if "mj_multistep" in e.key) / 1e3
+    kernel_ms = sum(device_us(e) for e in events if kernel.name in e.key) / 1e3
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     top = sorted(events, key=device_us, reverse=True)[:8]
     print(json.dumps({
-        "card": smi, "wall_ms": plain_wall, "phases_ms": plain_phases,
+        "card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,
         "profiled_wall_ms": wall, "profiled_phases_ms": phases, "device_busy_ms": busy,
-        "device_busy_share": busy / wall, "k1_device_ms": k1,
-        "k1_launches": K1.launches,
+        "device_busy_share": busy / wall, "kernel": kernel.name, "kernel_device_ms": kernel_ms,
+        "kernel_launches": kernel.launches,
         "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top},
     }))
     return 0
