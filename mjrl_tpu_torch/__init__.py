@@ -4,7 +4,8 @@ It mirrors the JAX package's module names (``physics``, ``envs``, ``ops``,
 ``models``, ``samplers``, ``algos``) and never imports JAX or mjrl_tpu.
 The main path is one Ant NPG iteration: rollout through the hand-written
 CUDA physics kernel (physics/pkernel.py), GAE, a CG natural gradient and the
-MLP baseline fit.
+MLP baseline fit. ``python -m mjrl_tpu_torch.train`` trains from the same
+``examples/*.json`` configs as the JAX package's CLI (Hopper NPG so far).
 """
 
 __version__ = "0.1.0"

@@ -15,11 +15,12 @@ steps in a carry held on the agent.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 from torch.func import functional_call
 
+from mjrl_tpu_torch.envs.base import EnvState
 from mjrl_tpu_torch.envs.locomotion import LocomotionEnv
 from mjrl_tpu_torch.models.baselines import Baseline
 from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
@@ -70,6 +71,33 @@ class BatchREINFORCE:
         """Drop the persistent sampler carry; the next step starts the rows
         from reset."""
         self.sampler_carry = None
+
+    # -- the train state -----------------------------------------------------
+    def state_dict(self) -> Dict[str, Any]:
+        """The full train state: policy, baseline and its optimizer,
+        iteration, running score and the sampler carry (None until samples
+        mode makes one). Its tensors are the live ones, not copies."""
+        carry = self.sampler_carry
+        return {
+            "policy": self.policy.state_dict(),
+            "baseline": self.baseline.state_dict(),
+            "baseline_optimizer": self.baseline.optimizer.state_dict(),
+            "iteration": self.iteration,
+            "running_score": self.running_score,
+            "sampler_carry": None if carry is None else dict(
+                q=carry.state.q, qd=carry.state.qd, obs=carry.obs, t_in_ep=carry.t_in_ep,
+                ep_return=carry.ep_return),
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.policy.load_state_dict(state["policy"])
+        self.baseline.load_state_dict(state["baseline"])
+        self.baseline.optimizer.load_state_dict(state["baseline_optimizer"])
+        self.iteration = int(state["iteration"])
+        self.running_score = state["running_score"].to(self.env.device)
+        c = state["sampler_carry"]
+        self.sampler_carry = None if c is None else SamplerCarry(
+            EnvState(q=c["q"], qd=c["qd"]), c["obs"], c["t_in_ep"], c["ep_return"])
 
     # -- parameters as dicts ---------------------------------------------
     def params(self) -> Params:

@@ -38,8 +38,10 @@
 
 #define MJ_FREE 0
 #define MJ_HINGE 2
+#define MJ_SLIDE 3
 #define MJ_KIND_SPHERE_PLANE 0
 #define MJ_KIND_CAPSULE_PLANE 1
+#define MJ_KIND_CAPSULE_CAPSULE 2
 
 // ---- int table --------------------------------------------------------
 #define MJ_I_NLINK 0
@@ -89,12 +91,17 @@
 #define MJ_F_CLO (MJ_F_GEAR + MJ_MAX_NU)
 #define MJ_F_CHI (MJ_F_CLO + MJ_MAX_NU)
 #define MJ_F_PAIR (MJ_F_CHI + MJ_MAX_NU)
-#define MJ_PAIR_F 16  // mu, radius, half length, gpos[3], gquat[4], n[3], p[3]
+// A pair row: mu, then geom i's radius, half length, local pos[3] and
+// quat[4] (slots 1-9), then geom j from slot 10: a plane's world normal[3]
+// and point[3], or a capsule's radius, half length, local pos[3], quat[4].
+#define MJ_PAIR_F 19
+#define MJ_PAIR_GJ 10
 
 // The layout as the packer reads it, in this order.
-#define MJ_LAYOUT_LEN 50
+#define MJ_LAYOUT_LEN 51
 #define MJ_LAYOUT_VALUES                                                     \
   MJ_MAX_LINK, MJ_MAX_NV, MJ_MAX_NQ, MJ_MAX_NU, MJ_PAIR_I, MJ_PAIR_F,        \
+      MJ_PAIR_GJ,                                                            \
       MJ_I_NLINK, MJ_I_NQ, MJ_I_NV, MJ_I_NU, MJ_I_NPAIR, MJ_I_HAS_FCAP,      \
       MJ_I_PARENT, MJ_I_TYPE, MJ_I_QADR, MJ_I_VADR, MJ_I_LIMITED,            \
       MJ_I_DOFLINK, MJ_I_LAM, MJ_I_ACTV, MJ_I_ACTLIM, MJ_I_PAIR, MJ_F_GRAV,  \
@@ -105,6 +112,11 @@
       MJ_F_CLO, MJ_F_CHI, MJ_F_PAIR
 
 // ---- scalar helpers ---------------------------------------------------
+
+// dofs of a joint type (fixed links: none)
+MJ_HD int mj_jnt_nv(int type) {
+  return type == MJ_FREE ? 6 : ((type == MJ_HINGE || type == MJ_SLIDE) ? 1 : 0);
+}
 
 // min/max that pass NaN through, like torch.clamp and jnp.minimum: the
 // env's blow-up guard has to see non-finite states.
@@ -262,7 +274,15 @@ MJ_HD void mj_kinematics(const float* mf, const int* mi, const float* q,
     const float* lq = mf + MJ_F_LQUAT + 4 * i;
     float rel_p[3], rel_q[4];
     const int t = type[i];
-    if (t == MJ_HINGE || t == MJ_FREE) {
+    if (t == MJ_SLIDE) {  // a translation along the axis, no rotation
+      const float* ax = mf + MJ_F_AXIS + 3 * i;
+      const float x = q[qadr[i]] - mf[MJ_F_REF + i];
+      float jp[3], r[3];
+      for (int c = 0; c < 3; ++c) jp[c] = ax[c] * x;
+      mj_qrot(lq, jp, r);
+      for (int c = 0; c < 3; ++c) rel_p[c] = lp[c] + r[c];
+      for (int c = 0; c < 4; ++c) rel_q[c] = lq[c];
+    } else if (t == MJ_HINGE || t == MJ_FREE) {
       float jp[3], jq[4];
       const int adr = qadr[i];
       if (t == MJ_HINGE) {
@@ -315,6 +335,9 @@ MJ_HD void mj_kinematics(const float* mf, const int* mi, const float* q,
       for (int c = 0; c < 3; ++c) anchor_w[c] = pos[i][c] - origin[c] + r[c];
       for (int c = 0; c < 3; ++c) cdof[v][c] = axis_w[c];
       mj_cross(anchor_w, axis_w, cdof[v] + 3);
+    } else if (type[i] == MJ_SLIDE) {
+      mj_qrot(quat[i], mf + MJ_F_AXIS + 3 * i, cdof[v] + 3);
+      for (int c = 0; c < 3; ++c) cdof[v][c] = 0.0f;
     } else if (type[i] == MJ_FREE) {
       float p_rel[3];
       for (int c = 0; c < 3; ++c) p_rel[c] = pos[i][c] - origin[c];
@@ -335,7 +358,7 @@ MJ_HD void mj_kinematics(const float* mf, const int* mi, const float* q,
   for (int i = 0; i < nlink; ++i) {
     const int p = parent[i];
     for (int c = 0; c < 6; ++c) cvel[i][c] = p < 0 ? 0.0f : cvel[p][c];
-    const int nd = type[i] == MJ_FREE ? 6 : (type[i] == MJ_HINGE ? 1 : 0);
+    const int nd = mj_jnt_nv(type[i]);
     for (int d = 0; d < nd; ++d)
       for (int c = 0; c < 6; ++c) cvel[i][c] += cdof[vadr[i] + d][c] * qd[vadr[i] + d];
   }
@@ -364,6 +387,73 @@ MJ_HD void mj_kinematics(const float* mf, const int* mi, const float* q,
   }
 }
 
+// World pose of a geom on link l (world geom for l < 0) from its local
+// pos (3) and quat (4).
+MJ_HD void mj_geom_pose(const MjKin& k, int l, const float* lp, const float* lq,
+                        float* gp, float* gq) {
+  if (l < 0) {
+    for (int c = 0; c < 3; ++c) gp[c] = lp[c];
+    for (int c = 0; c < 4; ++c) gq[c] = lq[c];
+  } else {
+    float rr[3];
+    mj_qrot(k.quat[l], lp, rr);
+    for (int c = 0; c < 3; ++c) gp[c] = k.pos[l][c] + rr[c];
+    mj_qmul(k.quat[l], lq, gq);
+  }
+}
+
+MJ_HD float mj_clamp01(float x) { return mj_min(mj_max(x, 0.0f), 1.0f); }
+
+// Capsule axis segment: start p = c - hl * axis and direction d = 2 hl axis.
+MJ_HD void mj_capsule_segment(const float* gp, const float* gq, float hl,
+                              float* p, float* d) {
+  const float z[3] = {0.0f, 0.0f, 1.0f};
+  float axis[3];
+  mj_qrot(gq, z, axis);
+  const float two_hl = 2.0f * hl;
+  for (int c = 0; c < 3; ++c) {
+    p[c] = gp[c] - hl * axis[c];
+    d[c] = two_hl * axis[c];
+  }
+}
+
+// Capsule-capsule: the closest points of the two axis segments (the
+// reference's clamps, soa.py capsule_capsule), then a sphere-sphere contact
+// between them with the normal from j to i.
+template <class Sink>
+MJ_HD void mj_capsule_capsule(int pi, int li, int lj, float mu, const float* gp1,
+                              const float* gq1, float r1, float hl1,
+                              const float* gp2, const float* gq2, float r2,
+                              float hl2, Sink& sink) {
+  float p1[3], d1[3], p2[3], d2[3], rr[3];
+  mj_capsule_segment(gp1, gq1, hl1, p1, d1);
+  mj_capsule_segment(gp2, gq2, hl2, p2, d2);
+  for (int c = 0; c < 3; ++c) rr[c] = p1[c] - p2[c];
+  const float a = mj_dot3(d1, d1) + 1e-12f;
+  const float e = mj_dot3(d2, d2) + 1e-12f;
+  const float b = mj_dot3(d1, d2);
+  const float cc = mj_dot3(d1, rr);
+  const float f = mj_dot3(d2, rr);
+  const float denom = a * e - b * b;
+  float s = fabsf(denom) > 1e-9f ? (b * f - cc * e) / (denom + 1e-12f) : 0.0f;
+  s = mj_clamp01(s);
+  const float t = mj_clamp01((b * s + f) / e);
+  s = mj_clamp01((b * t - cc) / a);
+  float c1[3], c2[3], d[3];
+  for (int c = 0; c < 3; ++c) {
+    c1[c] = p1[c] + s * d1[c];
+    c2[c] = p2[c] + t * d2[c];
+    d[c] = c1[c] - c2[c];
+  }
+  const float dist = sqrtf(mj_dot3(d, d)) + 1e-12f;
+  float n[3], pt[3];
+  for (int c = 0; c < 3; ++c) n[c] = d[c] / dist;
+  const float depth = (r1 + r2) - dist;
+  const float back = r2 - 0.5f * mj_max(depth, 0.0f);
+  for (int c = 0; c < 3; ++c) pt[c] = c2[c] + n[c] * back;
+  sink(pi, li, lj, mu, depth, n, pt);
+}
+
 // Narrow phase: every contact point of every pair, in the reference's
 // pair / sub-point order, handed to sink(pair, li, lj, mu, depth, n, pt).
 template <class Sink>
@@ -375,19 +465,17 @@ MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
     const float* pt_f = mf + MJ_F_PAIR + MJ_PAIR_F * pi;
     const int kind = pt_i[0], li = pt_i[1], lj = pt_i[2];
     const float mu = pt_f[0], r = pt_f[1], hl = pt_f[2];
-    const float* n = pt_f + 10;
-    const float* pp = pt_f + 13;
+    const float* gj = pt_f + MJ_PAIR_GJ;
+    const float* n = gj;
+    const float* pp = gj + 3;
     float gp[3], gq[4];
-    if (li < 0) {
-      for (int c = 0; c < 3; ++c) gp[c] = pt_f[3 + c];
-      for (int c = 0; c < 4; ++c) gq[c] = pt_f[6 + c];
-    } else {
-      float rr[3];
-      mj_qrot(k.quat[li], pt_f + 3, rr);
-      for (int c = 0; c < 3; ++c) gp[c] = k.pos[li][c] + rr[c];
-      mj_qmul(k.quat[li], pt_f + 6, gq);
-    }
-    if (kind == MJ_KIND_SPHERE_PLANE) {
+    mj_geom_pose(k, li, pt_f + 3, pt_f + 6, gp, gq);
+    if (kind == MJ_KIND_CAPSULE_CAPSULE) {
+      float gp2[3], gq2[4];
+      mj_geom_pose(k, lj, gj + 2, gj + 5, gp2, gq2);
+      mj_capsule_capsule(pi, li, lj, mu, gp, gq, r, hl, gp2, gq2, gj[0], gj[1],
+                         sink);
+    } else if (kind == MJ_KIND_SPHERE_PLANE) {
       float d[3], pt[3];
       for (int c = 0; c < 3; ++c) d[c] = gp[c] - pp[c];
       const float depth = -(mj_dot3(d, n) - r);
@@ -456,7 +544,7 @@ MJ_HD void mj_bias(const float* mf, const int* mi, const MjKin& k,
       const int p = parent[i];
       for (int c = 0; c < 6; ++c)
         cacc[i][c] = p >= 0 ? cacc[p][c] : (c < 3 ? 0.0f : -mf[MJ_F_GRAV + c - 3]);
-      const int nd = type[i] == MJ_FREE ? 6 : (type[i] == MJ_HINGE ? 1 : 0);
+      const int nd = mj_jnt_nv(type[i]);
       for (int d = 0; d < nd; ++d) {
         float cr[6];
         mj_crm(k.cvel[i], k.cdof[vadr[i] + d], cr);
@@ -506,7 +594,7 @@ MJ_HD void mj_applied(const float* mf, const int* mi, const float* q,
     rhs[mi[MJ_I_ACTV + u]] += mf[MJ_F_GEAR + u] * cu;
   }
   for (int i = 0; i < nlink; ++i) {
-    if (type[i] != MJ_HINGE) continue;
+    if (type[i] != MJ_HINGE && type[i] != MJ_SLIDE) continue;
     const int v = vadr[i];
     const float qi = q[qadr[i]];
     const float stiff = mf[MJ_F_STIFF + i];
@@ -558,7 +646,7 @@ MJ_HD void mj_integrate(const int* mi, float* q, float* qd, const float* qdd,
   for (int j = 0; j < nv; ++j) qd[j] = qd[j] + dt * qdd[j];
   for (int i = 0; i < nlink; ++i) {
     const int adr = qadr[i], v = vadr[i];
-    if (type[i] == MJ_HINGE) {
+    if (type[i] == MJ_HINGE || type[i] == MJ_SLIDE) {
       q[adr] = q[adr] + dt * qd[v];
     } else if (type[i] == MJ_FREE) {
       float* p = q + adr;

@@ -1,14 +1,16 @@
-"""Gym-style locomotion envs on the first-party physics: Ant.
+"""Gym-style locomotion envs on the first-party physics: Ant and the planar
+walkers (Hopper, Walker2d, HalfCheetah).
 
-Twin of ``mjrl_tpu/envs/locomotion.py`` (``LocomotionEnv``, ``AntEnv``). The
-model is compiled from the ant asset shipped in ``envs/assets/`` (Gymnasium
-1.2.2's ``ant.xml``), the contact and limit gains are tuned as the
-reference tunes them, and ``step`` advances all envs through one kernel
+Twin of ``mjrl_tpu/envs/locomotion.py`` (``LocomotionEnv``, ``HopperEnv``,
+``Walker2dEnv``, ``HalfCheetahEnv``, ``AntEnv``). Each model is compiled
+from the asset shipped in ``envs/assets/`` (Gymnasium 1.2.2's XML; the
+card's machine has no gymnasium), the contact and limit gains are tuned as
+the reference tunes them, and ``step`` advances all envs through one kernel
 call per control step: K1 with the penalty solver, K2 with the Newton
-solver. Envs live on the card unless ``device="cpu"`` is asked for.
-Task conventions follow gymnasium's Ant-v4: 27-dim observation
-``[q[2:], qd]``, forward reward from the torso's x velocity, ctrl cost
-0.5, healthy reward 1 while 0.2 < z < 1.
+solver. Envs live on the card unless ``device="cpu"`` is asked for. Task
+conventions follow gymnasium's v4 tasks: observation ``[q[k:], clip(qd)]``,
+forward reward from the root's x velocity, the task's ctrl cost, healthy
+reward and termination.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
 class LocomotionEnv(Env):
     """Shared machinery of the locomotion tasks. Reset noise is uniform on
-    q and normal on qd (ant's convention; the other tasks are not ported)."""
+    q, and uniform or normal on qd (``reset_vel_noise``); the obs clips qd
+    to +-``clip_qvel_obs`` unless it is None."""
 
     asset: str
     frame_skip: int
@@ -39,7 +42,9 @@ class LocomotionEnv(Env):
     ctrl_cost_weight: float = 1e-3
     healthy_reward: float = 0.0
     reset_noise_scale: float = 5e-3
+    reset_vel_noise: str = "uniform"  # 'uniform' | 'normal'
     exclude_positions: int = 1  # leading qpos entries dropped from obs
+    clip_qvel_obs: Optional[float] = 10.0
     n_substeps: int = 1  # physics substeps per model dt (penalty stability)
 
     def __init__(self, horizon: int = 1000, device="cuda", asset_path: Optional[str] = None,
@@ -76,17 +81,26 @@ class LocomotionEnv(Env):
         )
 
     def _obs(self, state: EnvState) -> torch.Tensor:
-        return torch.cat([state.q[:, self.exclude_positions :], state.qd], dim=-1)
+        qvel = state.qd
+        if self.clip_qvel_obs is not None:
+            qvel = torch.clamp(qvel, -self.clip_qvel_obs, self.clip_qvel_obs)
+        return torch.cat([state.q[:, self.exclude_positions :], qvel], dim=-1)
 
     def _healthy(self, state: EnvState) -> torch.Tensor:
         return torch.ones(state.q.shape[0], dtype=torch.bool, device=state.q.device)
 
+    def _x_pos(self, state: EnvState) -> torch.Tensor:
+        return state.q[:, 0]
+
     def reset_noise(self, num_envs: int, generator: Optional[torch.Generator] = None):
-        """``(q_noise, qd_noise)``: uniform in +-scale on q, scale * normal on qd."""
+        """``(q_noise, qd_noise)``: uniform in +-scale on q; on qd uniform
+        in +-scale, or scale * normal where ``reset_vel_noise == 'normal'``."""
         s = self.reset_noise_scale
         kw = dict(device=self.device, generator=generator)
         q_noise = (2.0 * torch.rand(num_envs, self.model.nq, **kw) - 1.0) * s
-        return q_noise, s * torch.randn(num_envs, self.model.nv, **kw)
+        if self.reset_vel_noise == "normal":
+            return q_noise, s * torch.randn(num_envs, self.model.nv, **kw)
+        return q_noise, (2.0 * torch.rand(num_envs, self.model.nv, **kw) - 1.0) * s
 
     def reset(self, num_envs: int, generator: Optional[torch.Generator] = None):
         return self.reset_from_noise(*self.reset_noise(num_envs, generator))
@@ -97,10 +111,10 @@ class LocomotionEnv(Env):
         return state, self._obs(state)
 
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
-        x_before = state.q[:, 0]
+        x_before = self._x_pos(state)
         q2, qd2 = self._frame_step(state.q, state.qd, action)
         state = EnvState(q=q2, qd=qd2)
-        x_velocity = (q2[:, 0] - x_before) / (self.model.dt * self.frame_skip)
+        x_velocity = (self._x_pos(state) - x_before) / (self.model.dt * self.frame_skip)
         ctrl_cost = self.ctrl_cost_weight * torch.sum(torch.square(action), dim=-1)
         # Blow-up guard: a diverged penalty state terminates with reward 0,
         # or its NaN/1e6-scale values poison the returns of the whole batch.
@@ -122,6 +136,48 @@ class LocomotionEnv(Env):
         return state, obs, reward, ~healthy, {"x_velocity": x_velocity}
 
 
+class HopperEnv(LocomotionEnv):
+    """Hopper-v4 conventions."""
+
+    asset = "hopper.xml"
+    frame_skip = 4
+    ctrl_cost_weight = 1e-3
+    healthy_reward = 1.0
+    reset_noise_scale = 5e-3
+
+    def _healthy(self, state: EnvState) -> torch.Tensor:
+        rest = torch.cat([state.q[:, 2:], state.qd], dim=-1)
+        healthy_state = (rest.abs() < 100.0).all(dim=-1)
+        return healthy_state & (state.q[:, 1] > 0.7) & (state.q[:, 2].abs() < 0.2)
+
+
+class Walker2dEnv(LocomotionEnv):
+    """Walker2d-v4 conventions."""
+
+    asset = "walker2d.xml"
+    frame_skip = 4
+    ctrl_cost_weight = 1e-3
+    healthy_reward = 1.0
+    reset_noise_scale = 5e-3
+
+    def _healthy(self, state: EnvState) -> torch.Tensor:
+        z, angle = state.q[:, 1], state.q[:, 2]
+        return (z > 0.8) & (z < 2.0) & (angle.abs() < 1.0)
+
+
+class HalfCheetahEnv(LocomotionEnv):
+    """HalfCheetah-v4 conventions (no termination, ctrl cost 0.1)."""
+
+    asset = "half_cheetah.xml"
+    frame_skip = 5
+    ctrl_cost_weight = 0.1
+    healthy_reward = 0.0
+    reset_noise_scale = 0.1
+    reset_vel_noise = "normal"
+    clip_qvel_obs = None
+    n_substeps = 2  # dt=0.01 with ~1 kg limbs needs a finer contact substep
+
+
 class AntEnv(LocomotionEnv):
     """Ant-v4 conventions (27-dim obs, no contact-force obs or cost)."""
 
@@ -130,7 +186,9 @@ class AntEnv(LocomotionEnv):
     ctrl_cost_weight = 0.5
     healthy_reward = 1.0
     reset_noise_scale = 0.1
+    reset_vel_noise = "normal"
     exclude_positions = 2
+    clip_qvel_obs = None
     n_substeps = 4  # dt=0.01 with 0.04 kg limbs: penalty contacts need ~2.5 ms
     healthy_z_range = (0.2, 1.0)
 
@@ -141,4 +199,7 @@ class AntEnv(LocomotionEnv):
         return finite & (z > lo) & (z < hi)
 
 
+register("hopper", HopperEnv)
+register("walker2d", Walker2dEnv)
+register("half_cheetah", HalfCheetahEnv)
 register("ant", AntEnv)

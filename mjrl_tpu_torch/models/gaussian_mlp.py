@@ -19,17 +19,18 @@ from mjrl_tpu_torch.types import EnvSpec
 
 class GaussianMLP(nn.Module):
     """Diagonal-Gaussian MLP policy (reference defaults: hidden (64, 64),
-    ``min_log_std=-3``, log_std initialized to 0)."""
+    ``min_log_std=-3``, ``init_log_std=0``)."""
 
     def __init__(self, spec: EnvSpec, hidden_sizes: Sequence[int] = (64, 64),
-                 min_log_std: float = -3.0, generator: Optional[torch.Generator] = None):
+                 min_log_std: float = -3.0, init_log_std: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.spec = spec
         self.hidden_sizes = tuple(hidden_sizes)
         self.min_log_std = float(min_log_std)
         self.mlp = MLP((spec.observation_dim, *self.hidden_sizes, spec.action_dim),
                        generator=generator)
-        self.log_std = nn.Parameter(torch.zeros(spec.action_dim))
+        self.log_std = nn.Parameter(torch.full((spec.action_dim,), float(init_log_std)))
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(mean, log_std)`` for obs with any leading batch dims."""

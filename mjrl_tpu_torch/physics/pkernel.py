@@ -60,7 +60,7 @@ GXX_FLAGS = ("-O2", "-shared", "-fPIC")
 
 # Names of the values mj_layout() writes, in its order (mj_substep.h).
 LAYOUT_NAMES = (
-    "MAX_LINK", "MAX_NV", "MAX_NQ", "MAX_NU", "PAIR_I", "PAIR_F",
+    "MAX_LINK", "MAX_NV", "MAX_NQ", "MAX_NU", "PAIR_I", "PAIR_F", "PAIR_GJ",
     "I_NLINK", "I_NQ", "I_NV", "I_NU", "I_NPAIR", "I_HAS_FCAP",
     "I_PARENT", "I_TYPE", "I_QADR", "I_VADR", "I_LIMITED", "I_DOFLINK",
     "I_LAM", "I_ACTV", "I_ACTLIM", "I_PAIR",
@@ -76,7 +76,7 @@ NEWTON_LAYOUT_NAMES = (
     "NPAIR_I", "NPAIR_F", "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM",
     "N_F_PAIR",
 )
-_KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1}
+_KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2}
 
 
 def build_library(source: str, compiler_cmd, build_dir: Path) -> Path:
@@ -203,13 +203,20 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
         gi, gj = int(tab_k["gi"][p]), int(tab_k["gj"][p])
         o = L["I_PAIR"] + L["PAIR_I"] * k
         mi[o : o + 3] = [_KIND_CODE[kind], tab_k["li"][p], tab_k["lj"][p]]
-        n, pp = plane_normal_point(model, gj)
-        size = np.asarray(model.geom_size[gi], np.float32)
-        row = np.concatenate([[tab_k["mu"][p], size[0], size[1]], model.geom_pos[gi],
-                              model.geom_quat[gi], n, pp]).astype(np.float32)
         o = L["F_PAIR"] + L["PAIR_F"] * k
-        mf[o : o + L["PAIR_F"]] = row
+        mf[o : o + L["PAIR_GJ"]] = np.concatenate(
+            [[tab_k["mu"][p]], _geom_row(model, gi)])
+        # geom j: a plane's world normal and point, or a capsule's row
+        gj_row = (_geom_row(model, gj) if kind == "capsule_capsule"
+                  else np.concatenate(plane_normal_point(model, gj)))
+        mf[o + L["PAIR_GJ"] : o + L["PAIR_GJ"] + gj_row.size] = gj_row
     return mf, mi
+
+
+def _geom_row(model: Model, g: int) -> np.ndarray:
+    """Radius, half length, local pos (3) and quat (4) of geom ``g``."""
+    size = np.asarray(model.geom_size[g], np.float32)
+    return np.concatenate([size[:2], model.geom_pos[g], model.geom_quat[g]]).astype(np.float32)
 
 
 def _impedance_block(solref, solimp) -> list:

@@ -16,9 +16,10 @@ on the CPU, and the tests and ``chip_smoke.py`` hold the CUDA kernels
 against it. It issues thousands of tiny ops per substep, so on a card it is
 launch-bound and only fit for comparisons.
 
-Feature set (``check_supported``): free, hinge and fixed links; sphere- and
-capsule-plane contacts against world planes; ctrl-limited gear motors;
-joint springs; per-dof limit penalties; the penalty and Newton solvers.
+Feature set (``check_supported``): free, hinge, slide and fixed links;
+sphere- and capsule-plane contacts against world planes and capsule-capsule
+contacts between links; ctrl-limited gear motors; joint springs; per-dof
+limit penalties; the penalty and Newton solvers.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mjrl_tpu_torch.physics.model import FREE, HINGE, JOINT_NV, Model
+from mjrl_tpu_torch.physics.model import FREE, HINGE, JOINT_NV, SLIDE, Model
 from mjrl_tpu_torch.physics.tables import (
     SoATables,
     pair_groups,
@@ -36,13 +37,14 @@ from mjrl_tpu_torch.physics.tables import (
     soa_tables,
 )
 
-SUPPORTED_KINDS = ("sphere_plane", "capsule_plane")
+SUPPORTED_KINDS = ("sphere_plane", "capsule_plane", "capsule_capsule")
+_PLANE_KINDS = ("sphere_plane", "capsule_plane")
 
 
 def check_supported(model: Model) -> None:
     """Raise ``NotImplementedError`` for a model outside the ported set."""
     for i in range(model.nlink):
-        if model.link_jnt_type[i] not in (-1, FREE, HINGE):
+        if model.link_jnt_type[i] not in (-1, FREE, HINGE, SLIDE):
             raise NotImplementedError(
                 f"link {i}: joint type {model.link_jnt_type[i]} is not ported"
             )
@@ -51,7 +53,7 @@ def check_supported(model: Model) -> None:
     for kind, tab in pair_groups(model).kinds:
         if kind not in SUPPORTED_KINDS:
             raise NotImplementedError(f"contact kind {kind!r} is not ported")
-        if any(model.geom_link[int(g)] >= 0 for g in tab["gj"]):
+        if kind in _PLANE_KINDS and any(model.geom_link[int(g)] >= 0 for g in tab["gj"]):
             raise NotImplementedError("planes must be world geoms")
     if model.tendon_Jq is not None:
         raise NotImplementedError("tendons are not ported")
@@ -161,6 +163,8 @@ def _fk(model: Model, q: torch.Tensor):
             s = torch.sin(half)
             jq = torch.cat([torch.cos(half), ax[0:1] * s, ax[1:2] * s, ax[2:3] * s], dim=0)
             jp = an - _qrot(jq, an)
+        elif t == SLIDE:
+            jp = _c(model, model.jnt_axis[i], dev) * (q[adr : adr + 1] - float(model.jnt_ref[i]))
         elif t == FREE:
             jp = q[adr : adr + 3]
             jq = _qnorm(q[adr + 3 : adr + 7])
@@ -189,6 +193,9 @@ def _cdofs(model: Model, pos, quat, origin):
             axis_w = _qrot(quat[i], _c(model, model.jnt_axis[i], dev))
             anchor_w = pos[i] - origin + _qrot(quat[i], _c(model, model.jnt_anchor[i], dev))
             cdof[v] = torch.cat([axis_w, _cross(anchor_w, axis_w)], dim=0)
+        elif t == SLIDE:
+            axis_w = _qrot(quat[i], _c(model, model.jnt_axis[i], dev))
+            cdof[v] = torch.cat([torch.zeros_like(axis_w), axis_w], dim=0)
         elif t == FREE:
             p_rel = pos[i] - origin
             for k in range(3):
@@ -392,6 +399,14 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
                 pose_cache[g] = (pos[l] + _qrot(quat[l], gp), _qmul(quat[l], gq))
         return pose_cache[g]
 
+    def sphere_sphere(c1, r1, c2, r2):
+        d = c1 - c2
+        dist = torch.sqrt(_dot(d, d)) + 1e-12
+        n = d / dist
+        depth = float(np.float32(r1) + np.float32(r2)) - dist
+        pt = c2 + n * (float(r2) - 0.5 * torch.clamp(depth, min=0.0))
+        return depth, n, pt
+
     Z = _c(model, [0.0, 0.0, 1.0], dev)
     for kind, tab in pair_groups(model).kinds:
         for p_i in range(len(tab["gi"])):
@@ -399,10 +414,12 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
             li, lj = int(tab["li"][p_i]), int(tab["lj"][p_i])
             mu = float(tab["mu"][p_i])
             si = np.asarray(model.geom_size[gi], np.float32)
-            nrm_np, pp_np = plane_normal_point(model, gj)
-            nrm, pp = _c(model, nrm_np, dev), _c(model, pp_np, dev)
+            sj = np.asarray(model.geom_size[gj], np.float32)
             r = float(si[0])
             pi_, qi_ = geom_pose(gi)
+            if kind in _PLANE_KINDS:
+                nrm_np, pp_np = plane_normal_point(model, gj)
+                nrm, pp = _c(model, nrm_np, dev), _c(model, pp_np, dev)
             if kind == "sphere_plane":
                 dist = _dot(pi_ - pp, nrm) - r
                 out.append(_Cand(gi, gj, li, lj, mu, -dist, nrm, pi_ - nrm * r))
@@ -412,6 +429,26 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
                     end = pi_ + float(np.float32(sgn * si[1])) * axis
                     dist = _dot(end - pp, nrm) - r
                     out.append(_Cand(gi, gj, li, lj, mu, -dist, nrm, end - nrm * r))
+            elif kind == "capsule_capsule":
+                # closest points of the two segments, then a sphere pair
+                pj_, qj_ = geom_pose(gj)
+                ax_i, ax_j = _qrot(qi_, Z), _qrot(qj_, Z)
+                p1 = pi_ - float(si[1]) * ax_i
+                d1 = float(2.0 * si[1]) * ax_i
+                p2 = pj_ - float(sj[1]) * ax_j
+                d2 = float(2.0 * sj[1]) * ax_j
+                rr = p1 - p2
+                a = _dot(d1, d1) + 1e-12
+                e = _dot(d2, d2) + 1e-12
+                b, c, f = _dot(d1, d2), _dot(d1, rr), _dot(d2, rr)
+                denom = a * e - b * b
+                s = torch.where(denom.abs() > 1e-9, (b * f - c * e) / (denom + 1e-12),
+                                torch.zeros_like(denom))
+                s = torch.clamp(s, 0.0, 1.0)
+                t = torch.clamp((b * s + f) / e, 0.0, 1.0)
+                s = torch.clamp((b * t - c) / a, 0.0, 1.0)
+                dep, n, pt = sphere_sphere(p1 + s * d1, si[0], p2 + t * d2, sj[0])
+                out.append(_Cand(gi, gj, li, lj, mu, dep, n, pt))
             else:  # gated by check_supported
                 raise NotImplementedError(kind)
     return out
@@ -484,7 +521,7 @@ def _applied_forces(model: Model, q, qd, ctrl, include_limits: bool = True):
         add(v, float(model.act_gear[u]) * cu)
 
     for i in range(model.nlink):
-        if model.link_jnt_type[i] != HINGE:
+        if model.link_jnt_type[i] not in (HINGE, SLIDE):
             continue
         adr, v = model.link_qadr[i], model.link_vadr[i]
         qi = q[adr : adr + 1]
@@ -507,7 +544,7 @@ def _limit_damping_rows(model: Model, q, dt: float):
     half of the limit damper."""
     rows: List = [None] * model.nv
     for i in range(model.nlink):
-        if model.link_jnt_type[i] != HINGE or model.jnt_limited[i] <= 0:
+        if model.link_jnt_type[i] not in (HINGE, SLIDE) or model.jnt_limited[i] <= 0:
             continue
         adr, v = model.link_qadr[i], model.link_vadr[i]
         qi = q[adr : adr + 1]
@@ -525,7 +562,7 @@ def _integrate(model: Model, q, qd, qdd, dt: float):
     for i in range(model.nlink):
         t = model.link_jnt_type[i]
         adr, v = model.link_qadr[i], model.link_vadr[i]
-        if t == HINGE:
+        if t in (HINGE, SLIDE):
             q_rows[adr] = q_rows[adr] + dt * qd2[v : v + 1]
         elif t == FREE:
             pos = q[adr : adr + 3]

@@ -117,11 +117,11 @@ def init_autoreset_carry(env: LocomotionEnv, num_envs: int,
 
 def draw_autoreset_noise(env: LocomotionEnv, num_envs: int, num_steps: int,
                          generator: Optional[torch.Generator] = None) -> AutoresetNoise:
-    s, kw = env.reset_noise_scale, dict(device=env.device, generator=generator)
-    reset_q = (2.0 * torch.rand(num_steps, num_envs, env.model.nq, **kw) - 1.0) * s
-    reset_qd = s * torch.randn(num_steps, num_envs, env.model.nv, **kw)
-    action = torch.randn(num_steps, num_envs, env.spec.action_dim, **kw)
-    return AutoresetNoise(reset_q=reset_q, reset_qd=reset_qd, action=action)
+    reset_q, reset_qd = env.reset_noise(num_steps * num_envs, generator)
+    action = torch.randn(num_steps, num_envs, env.spec.action_dim, device=env.device,
+                         generator=generator)
+    return AutoresetNoise(reset_q=reset_q.reshape(num_steps, num_envs, -1),
+                          reset_qd=reset_qd.reshape(num_steps, num_envs, -1), action=action)
 
 
 @torch.no_grad()

@@ -1,6 +1,8 @@
 """The port stands without JAX: with jax, jaxlib, gymnasium and mjrl_tpu
-blocked, every mjrl_tpu_torch module imports and the ant env steps on the
-CPU with either solver. (The card's machine has none of those packages.)"""
+blocked, every mjrl_tpu_torch module imports (the harness in ``utils`` and
+the ``train`` entry point among them), the ant env steps on the CPU with
+either solver and the hopper env with its shipped asset. (The card's
+machine has none of those packages.)"""
 
 import os
 import subprocess
@@ -37,6 +39,12 @@ state, obs = env.reset(2, torch.Generator().manual_seed(0))
 state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
 assert torch.isfinite(reward).all() and env.model.dof_invweight0 is not None
 assert "mjrl_tpu_torch.physics.soa_newton" in names and "mjrl_tpu_torch.physics.csolve" in names
+for name in ("train", "utils.configs", "utils.train_agent", "utils.logger", "utils.checkpoint"):
+    assert "mjrl_tpu_torch." + name in names, name
+env = make("hopper", horizon=4, device="cpu")
+state, obs = env.reset(2, torch.Generator().manual_seed(0))
+state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
+assert obs.shape == (2, 11) and torch.isfinite(reward).all()
 print("imported", len(names), "modules")
 """
 

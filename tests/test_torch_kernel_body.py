@@ -2,7 +2,9 @@
 
 ``mjrl_tpu_torch/csrc/mj_substep.h`` is compiled with g++ (no CUDA, no
 torch headers) into a ctypes library, and its control steps are held
-against the plain PyTorch version (physics/soa.py) on the same inputs.
+against the plain PyTorch version (physics/soa.py) on the same inputs:
+ant, and the planar walkers (slide joints; hopper's capsule-capsule
+contacts between links), plus one Newton case (K2's body) on walker2d.
 This catches math and table-layout faults before the kernel ever runs on
 a card. The tests marked ``cuda`` launch the real kernel and run only
 where a card is present.
@@ -17,7 +19,7 @@ import pytest
 import torch
 
 from mjrl_tpu_torch.envs import make
-from mjrl_tpu_torch.physics import pkernel, soa
+from mjrl_tpu_torch.physics import pkernel, probe, soa
 
 torch.set_num_threads(1)
 
@@ -30,9 +32,7 @@ def env():
 
 
 @pytest.fixture(scope="module")
-def host(env, tmp_path_factory):
-    """The host build of the kernel body: ``run(q, qd, ctrl, n_frames)``
-    on batch-last numpy arrays."""
+def lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     path = pkernel.build_library("mj_host.cpp", ("g++", *pkernel.GXX_FLAGS),
@@ -40,7 +40,17 @@ def host(env, tmp_path_factory):
     lib = ctypes.CDLL(str(path))
     lib.mj_multistep_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
     lib.mj_multistep_host.restype = ctypes.c_int
-    model = env.model
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host(env, lib):
+    return _host_runner(lib, env.model)
+
+
+def _host_runner(lib, model):
+    """The host build of the kernel body for ``model``: ``run(q, qd, ctrl,
+    n_frames)`` on batch-last numpy arrays."""
     mf, mi = pkernel.pack_tables(model, pkernel.read_layout(lib))
 
     def run(q, qd, ctrl, n_frames):
@@ -162,3 +172,138 @@ def test_cuda_kernel_matches_plain(env):
     # chip_smoke.py's tolerance: FMA contraction, grown through contacts
     torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-3)
     torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=5e-2)
+
+
+# ---- the planar walkers: slide joints, capsule-capsule contacts ----------
+
+WALKERS = ("hopper", "walker2d", "half_cheetah")
+
+
+def cc_in_contact(model, q):
+    """Envs with a capsule-capsule candidate at depth > 0."""
+    return int((probe.link_pair_depth(model, torch.as_tensor(q)) > 0).sum())
+
+
+@pytest.fixture(scope="module", params=WALKERS)
+def walker(request, lib):
+    """``(env, run, q, qd)``: B envs after 6 control steps of random actions
+    from reset (through the host build); for hopper the second half of the
+    batch starts folded, with capsule-capsule overlaps."""
+    env = make(request.param, horizon=8, device="cpu")
+    run = _host_runner(lib, env.model)
+    rng = np.random.default_rng(0)
+    state, _ = env.reset(B, torch.Generator().manual_seed(0))
+    q, qd = state.q.T.numpy().copy(), state.qd.T.numpy().copy()
+    for _ in range(6):
+        q, qd = run(q, qd, rng.uniform(-1, 1, (env.model.nu, B)), env.frame_skip)
+    if request.param == "hopper":
+        q[:, B // 2 :], qd[:, B // 2 :] = probe.overlapping_states(env.model, B - B // 2, rng)
+        assert cc_in_contact(env.model, q) > 0
+    return env, run, q, qd
+
+
+def test_walker_layout_packs_slides_and_capsule_pairs(walker, lib):
+    env, *_ = walker
+    L, m = pkernel.read_layout(lib), env.model
+    mf, mi = pkernel.pack_tables(m, L)
+    assert list(mi[L["I_TYPE"] : L["I_TYPE"] + 3]) == [3, 3, 2]  # rootx, rootz slides, rooty
+    pairs = mi[L["I_PAIR"] :].reshape(-1, L["PAIR_I"])
+    cc = np.flatnonzero(pairs[:, 0] == 2)
+    assert cc.size == (3 if env.asset == "hopper.xml" else 0)
+    assert (pairs[cc, 1] >= 0).all() and (pairs[cc, 2] >= 0).all()  # both on links
+    rows = mf[L["F_PAIR"] :].reshape(-1, L["PAIR_F"])
+    assert (rows[cc, L["PAIR_GJ"]] > 0).all() and (rows[cc, L["PAIR_GJ"] + 1] > 0).all()
+
+
+def test_walker_kernel_body_matches_plain_along_a_chain(walker):
+    """Four chained control steps of the host build, each held against the
+    plain version from the same state."""
+    env, run, q, qd = walker
+    rng = np.random.default_rng(1)
+    contact = 0
+    for _ in range(4):
+        contact += cc_in_contact(env.model, q)
+        ctrl = rng.uniform(-1, 1, (env.model.nu, B)).astype(np.float32)
+        got_q, got_qd = run(q, qd, ctrl, env.frame_skip)
+        want_q, want_qd = _plain(env, q, qd, ctrl, env.frame_skip)
+        np.testing.assert_allclose(got_q, want_q, **TOL_Q)
+        np.testing.assert_allclose(got_qd, want_qd, **TOL_QD)
+        q, qd = got_q, got_qd
+    if env.asset == "hopper.xml":
+        assert contact > 0, "no capsule-capsule contact along the chain"
+
+
+def test_capsule_pair_wrenches_are_equal_and_opposite(lib):
+    """One capsule-capsule contact, alone: the kernel body's step matches the
+    plain version, and the pair's wrenches on the two links cancel, so the
+    whole body's momentum changes only by gravity."""
+    env = make("hopper", horizon=8, device="cpu")
+    model = copy.copy(env.model)
+    model.contact_pairs = tuple(p for p in model.contact_pairs
+                                if min(model.geom_link[g] for g in p) >= 0)
+    model._pair_groups = None
+    model.gravity = np.zeros(3, np.float32)
+    model.__dict__.pop("_torch_consts", None)
+    rng = np.random.default_rng(2)
+    q, qd = probe.overlapping_states(model, 4, rng)
+    qd[:] = 0.0
+    ctrl = np.zeros((model.nu, 4), np.float32)
+    run = _host_runner(lib, model)
+    got_q, got_qd = run(q, qd, ctrl, 1)
+    want_q, want_qd = (x.numpy() for x in soa.multistep(
+        model, torch.as_tensor(q), torch.as_tensor(qd), torch.as_tensor(ctrl), 1))
+    np.testing.assert_allclose(got_q, want_q, **TOL_Q)
+    np.testing.assert_allclose(got_qd, want_qd, **TOL_QD)
+    assert np.abs(got_qd).max() > 1e-2  # the contact pushed the links apart
+    # linear momentum along x and z: sum over links of m * v_com, from the
+    # plain kinematics; internal forces leave it at 0
+    pos, quat = soa._fk(model, torch.as_tensor(got_q))
+    cdof = soa._cdofs(model, pos, quat, pos[0])
+    cvel = soa._cvels(model, cdof, torch.as_tensor(got_qd))
+    mom = 0.0
+    for i in range(model.nlink):
+        com = pos[i] - pos[0] + soa._qrot(quat[i], torch.as_tensor(model.link_com[i]).reshape(3, 1))
+        v = cvel[i][3:6] + soa._cross(cvel[i][0:3], com)
+        mom = mom + float(model.link_mass[i]) * v
+    total = float(np.sum(model.link_mass))
+    assert float(mom.abs().max()) < 1e-3 * total
+
+
+def test_walker_newton_kernel_body_matches_plain(lib):
+    """K2's body on walker2d (slide joints through the shared stages; its
+    contacts are all against the floor), one control step from warmed
+    states."""
+    env = make("walker2d", horizon=8, device="cpu", constraint_solver="newton", n_substeps=1)
+    model = env.model
+    model.solver_iters = 4
+    lib.mj_newton_host.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_float]
+    lib.mj_newton_host.restype = ctypes.c_int
+    L = pkernel.read_layout(lib)
+    mf, mi = pkernel.pack_tables(model, L)
+    nf, ni = pkernel.pack_newton_tables(model, L, pkernel.read_newton_layout(lib))
+    rng = np.random.default_rng(3)
+    state, _ = env.reset(4, torch.Generator().manual_seed(3))
+    for _ in range(6):
+        state, *_ = env.step(state, torch.as_tensor(rng.uniform(-1, 1, (4, 6)), dtype=torch.float32))
+    q, qd = state.q.T.numpy().copy(), state.qd.T.numpy().copy()
+    ctrl = rng.uniform(-1, 1, (6, 4)).astype(np.float32)
+    n_sub = env.frame_skip * model.n_substeps
+    q_out, qd_out = np.empty_like(q), np.empty_like(qd)
+    picks = np.full((n_sub * model.solver_iters, 4), -1, np.int32)
+    ptr = [a.ctypes.data for a in (mf, mi, nf, ni, q, qd, ctrl, q_out, qd_out, picks)]
+    dt = float(np.float32(model.dt / model.n_substeps))
+    assert lib.mj_newton_host(*ptr, 4, n_sub, model.solver_iters, dt) == 0
+    want_q, want_qd = (x.numpy() for x in soa.multistep(
+        model, torch.as_tensor(q), torch.as_tensor(qd), torch.as_tensor(ctrl), env.frame_skip))
+    # test_torch_newton_kernel.py's tolerances for K2's body
+    np.testing.assert_allclose(q_out, want_q, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(qd_out, want_qd, rtol=1e-4, atol=1e-4)
+
+
+def test_pack_newton_tables_refuses_pairs_between_links(lib):
+    """Hopper's capsule-capsule pairs join two moving links: K2 does not
+    hold such rows yet."""
+    env = make("hopper", horizon=8, device="cpu", constraint_solver="newton", n_substeps=1)
+    L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
+    with pytest.raises(NotImplementedError, match="world plane"):
+        pkernel.pack_newton_tables(env.model, L, NL)

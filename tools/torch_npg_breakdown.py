@@ -1,12 +1,14 @@
-"""Where one Ant NPG iteration of the PyTorch port spends its time, on a GPU.
+"""Where one NPG iteration of the PyTorch port spends its time, on a GPU.
 
-    python3 tools/torch_npg_breakdown.py [--row penalty|newton]
+    python3 tools/torch_npg_breakdown.py [--row penalty|newton|hopper]
 
-Builds the bench-width agent (1024 envs x 100 steps, policy (64, 64),
-MLPBaseline(epochs=2, batch_size=1024), normalized_step_size=0.05) for one
-of the bench's rows: ``penalty`` (episodes mode, kernel K1) or ``newton``
-(Newton solver, n_substeps=1, samples mode with the persistent sampler
-carry, kernel K2). Warms it for 2 iterations, then times one iteration
+Builds the agent of one row: the bench's ant rows at their width (1024
+envs x 100 steps, policy (64, 64), MLPBaseline(epochs=2, batch_size=1024),
+normalized_step_size=0.05), ``penalty`` (episodes mode, kernel K1) or
+``newton`` (Newton solver, n_substeps=1, samples mode with the persistent
+sampler carry, kernel K2); or ``hopper``, examples/hopper_npg.json as
+``python -m mjrl_tpu_torch.train`` builds it (256 envs x 1000 steps,
+episodes mode, kernel K1). Warms it for 2 iterations, then times one iteration
 phase by phase on the host clock (each phase ends in
 ``torch.cuda.synchronize()``), and traces a second one with
 ``torch.profiler`` for the device's busy share (device time over the
@@ -23,7 +25,8 @@ import sys
 import time
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
 
 
 def main() -> int:
@@ -42,26 +45,33 @@ def main() -> int:
         run_autoreset,
         run_episodes,
     )
+    from mjrl_tpu_torch.utils.configs import RunConfig, build
 
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--row", choices=("penalty", "newton"), default="penalty")
+    p.add_argument("--row", choices=("penalty", "newton", "hopper"), default="penalty")
     row = p.parse_args().row
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     newton = row == "newton"
-    if newton:
-        env = make("ant", horizon=100, device=dev, constraint_solver="newton", n_substeps=1)
-        kw = dict(num_samples=1024 * 100, sample_mode="samples")
-    else:
-        env = make("ant", horizon=100, device=dev)
-        kw = dict(horizon=100)
     kernel = K2 if newton else K1
-    init = torch.Generator().manual_seed(0)
-    policy = GaussianMLP(env.spec, hidden_sizes=(64, 64), generator=init).to(dev)
-    baseline = MLPBaseline(env.spec, epochs=2, batch_size=1024, generator=init).to(dev)
-    agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=1024, **kw)
+    if row == "hopper":
+        cfg = RunConfig.from_json(str(ROOT / "examples" / "hopper_npg.json"))
+        env, policy, baseline, agent = build(cfg, device=dev)
+        num_envs, horizon = cfg.num_traj, cfg.horizon
+    else:
+        num_envs, horizon = 1024, 100
+        if newton:
+            env = make("ant", horizon=horizon, device=dev, constraint_solver="newton", n_substeps=1)
+            kw = dict(num_samples=num_envs * horizon, sample_mode="samples")
+        else:
+            env = make("ant", horizon=horizon, device=dev)
+            kw = dict(horizon=horizon)
+        init = torch.Generator().manual_seed(0)
+        policy = GaussianMLP(env.spec, hidden_sizes=(64, 64), generator=init).to(dev)
+        baseline = MLPBaseline(env.spec, epochs=2, batch_size=1024, generator=init).to(dev)
+        agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=num_envs, **kw)
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
         agent.train_step(gen)
@@ -78,11 +88,11 @@ def main() -> int:
 
     def rollout():
         if not newton:
-            noise = timed("noise", lambda: draw_episode_noise(env, 1024, 100, gen))
+            noise = timed("noise", lambda: draw_episode_noise(env, num_envs, horizon, gen))
             return timed("rollout", lambda: run_episodes(env, policy, noise))
-        noise = timed("noise", lambda: draw_autoreset_noise(env, 1024, 100, gen))
+        noise = timed("noise", lambda: draw_autoreset_noise(env, num_envs, horizon, gen))
         batch, agent.sampler_carry = timed(
-            "rollout", lambda: run_autoreset(env, policy, noise, agent.sampler_carry, 100))
+            "rollout", lambda: run_autoreset(env, policy, noise, agent.sampler_carry, horizon))
         return batch
 
     def iteration():
@@ -116,7 +126,7 @@ def main() -> int:
         "card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,
         "profiled_wall_ms": wall, "profiled_phases_ms": phases, "device_busy_ms": busy,
         "device_busy_share": busy / wall, "kernel": kernel.name, "kernel_device_ms": kernel_ms,
-        "kernel_launches": kernel.launches,
+        "kernel_launches": kernel.launches, "num_envs": num_envs, "horizon": horizon,
         "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top},
     }))
     return 0
