@@ -28,7 +28,9 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    (physics/probe.py); counts the env-steps with a capsule-capsule
    candidate at depth > 0 and fails if there is none; both times at B=256.
 5. K1 on walker2d and half_cheetah against plain: one control step each at
-   B=1024 from states warmed by random actions.
+   B=1024 from states warmed by random actions; and K1 on walker2d at the
+   walker2d TRPO path's B=4096 and a ragged B=4090, one control step and 6
+   chained ones, both times at B=4096.
 6. The penalty slice: 3 full Ant NPG iterations at the bench's width (1024
    envs x 100 steps, episodes mode, policy (64, 64),
    MLPBaseline(epochs=2, batch_size=1024), normalized_step_size=0.05);
@@ -40,24 +42,40 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    metric finite, all state and the carry on the card, exactly 100 K2 and
    0 K1 launches per iteration, and rows mid-episode carried into the next
    window.
-8. The hopper slice through the entry point: ``run_job`` of
-   mjrl_tpu_torch.train on examples/hopper_npg.json at full width (256
-   envs x 1000 steps) with niter=1 and then niter=2, save_freq=1, into a
-   temporary directory, the second call resuming from the first one's
-   checkpoint; exactly 1000 K1 and 0 K2 launches per iteration, every
-   logged value finite, the agent's state on the card, log.csv and the
-   checkpoints written; prints each iteration's ms, valid and computed
-   env-steps/s and score.
-9. The card's name and power limit from nvidia-smi.
+8. K2 on hopper against plain (contacts between two moving links): hopper
+   with the Newton solver, 1 substep per frame, 10 iterations (4 substeps
+   per control step), B=256 and a ragged B=250, one control step and 3
+   chained ones, from states warmed by random actions and, in half the
+   batch, folded so a capsule-capsule pair lies inside its margin; counts
+   the env-steps that hold a row between two moving links and fails if
+   there is none; line-search flips as in phase 3; both times at B=256.
+9. K1 on swimmer against plain (the fluid stage), to swimmer's own
+   tolerance: B=256 and a ragged B=250, one control step (4 frames x 1
+   substep) and 6 chained ones from states warmed by random actions; both
+   times at B=256.
+10. Four paths through the entry point at full width, ``run_job`` of
+   mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
+   examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
+   then niter=2, the second call resuming from the first one's checkpoint;
+   examples/hopper_npg_newton.json (256 x 1000, K2),
+   examples/swimmer_npg.json (256 x 1000, K1) and
+   examples/walker2d_trpo.json (4096 x 1000, K1, TRPO) with niter=1.
+   Exactly 1000 launches of the path's kernel and 0 of the other per
+   iteration, every logged value finite, the agent's state on the card,
+   log.csv and the checkpoints written; prints each iteration's ms, valid
+   and computed env-steps/s, score and, for TRPO, backtrack_iters and
+   step_accepted.
+11. The card's name and power limit from nvidia-smi.
 
 Each kernel's launch count in the JSON line is its count over the slice
-that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper`` entry:
-phase 8), reset to 0 just before. ``bound_ms`` is the least time the card
-could take for one control step at the check's batch: the larger of the
-bytes the kernel must move (state in and out, its tables) over 3.35 TB/s
-and its f32 operations over 67 TFLOP/s, with the operations counted per
-env-substep on the plain version (which does the kernel's arithmetic) and,
-for K2, for the rows this run's states hold. No single PyTorch call
+that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper``,
+``swimmer`` and ``walker2d_trpo`` entries and K2's ``hopper`` entry: their
+path in phase 10), reset to 0 just before. ``bound_ms`` is the least
+time the card could take for one control step at the check's batch: the
+larger of the bytes the kernel must move (state in and out, its tables)
+over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
+operations counted per env-substep on the plain version (which does the
+kernel's arithmetic) and, for K2, for the rows this run's states hold. No single PyTorch call
 computes either function, so ``library_ms`` is null. The line before the
 last two holds one JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -90,10 +108,22 @@ from pathlib import Path
 # tests/test_torch_newton_kernel.py's card test. The chained checks step
 # the kernel and hold every step against the plain version started from
 # the kernel's own state; free-running trajectories diverge from round-off
-# alone, so they are not compared.
-TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2}}
+# alone, so they are not compared. K1 on swimmer (no contacts, the fluid
+# stage) has its own: ten times the largest spread between the plain
+# version on the card and on the CPU (5.4e-7 in q, 1.3e-5 in qd),
+# rounded up to a power of ten (tools/torch_fluid_check.py, PERF.md), so
+# that drag constants 1% off (1.1e-2 in qd) fail.
+TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2},
+       "K1 swimmer": {"q": 1e-5, "qd": 1e-3}}
 NUM_ENVS, HORIZON, ITERS = 1024, 100, 3
 HOPPER_ENVS, HOPPER_HORIZON = 256, 1000  # examples/hopper_npg.json
+TRPO_ENVS = 4096  # examples/walker2d_trpo.json
+# the paths through the entry point (phase 10): config, kernel,
+# envs (x HOPPER_HORIZON steps), run_job's niter per call
+ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, (1, 2)),
+               ("hopper_newton", "hopper_npg_newton.json", "K2", 256, (1,)),
+               ("swimmer", "swimmer_npg.json", "K1", 256, (1,)),
+               ("walker2d_trpo", "walker2d_trpo.json", "K1", TRPO_ENVS, (1,)))
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 ROOT = Path(__file__).resolve().parent
 
@@ -173,13 +203,10 @@ def _k2_op_count(model, q, qd, ctrl, held_cand: float, held_lim: float) -> float
 def _held_rows(model, q):
     """Mean rows inside their margin per env at the states ``q`` (nq, B):
     contact candidates with depth > -margin, limit rows out of range."""
-    from mjrl_tpu_torch.physics import soa, soa_newton
+    from mjrl_tpu_torch.physics import probe
     from mjrl_tpu_torch.physics.model import HINGE, SLIDE
 
-    pos, quat = soa._fk(model, q)
-    cands = soa._contact_candidates(model, pos, quat)
-    margins = [soa_newton.contact_params(model, c.gi, c.gj, c.mu)[2] for c in cands]
-    cand = sum(float((-c.depth - m < 0).float().mean()) for c, m in zip(cands, margins))
+    cand = float(probe.held_contact_rows(model, q).float().mean())
     lim = 0.0
     for i in range(model.nlink):
         if model.link_jnt_type[i] in (HINGE, SLIDE) and model.jnt_limited[i] > 0:
@@ -189,33 +216,22 @@ def _held_rows(model, q):
     return cand, lim
 
 
-def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, warm_scale=1.0,
-                          fold=False, timed=True):
-    """Holds ``kernel`` against the plain version over ``n_chain`` chained
-    control steps at each batch size of ``batches`` (the first the full
-    one), from states after ``warm_steps`` control steps of random actions
-    times ``warm_scale``; with ``fold``, half the batch is replaced by
-    states where a pair of links overlaps. ``timed``: both times and the
-    bound at the full batch."""
+def start_states(env, full, n_chain, warm_steps=10, warm_scale=1.0, fold=False):
+    """``(q (nq, full), qd (nv, full), [ctrl (nu, full)] * n_chain)`` on the
+    env's device: states after ``warm_steps`` control steps of random
+    actions times ``warm_scale`` from reset, with half the batch replaced by
+    states where a pair of links overlaps if ``fold``, and the controls of
+    ``n_chain`` chained steps (numpy seed 0, torch seed 0)."""
     import numpy as np
     import torch
 
-    from mjrl_tpu_torch.physics import probe, soa
+    from mjrl_tpu_torch.physics import probe
 
-    model, dev, frames = env.model, env.device, env.frame_skip
-    newton = model.constraint_solver == "newton"
-    tol = TOL["K2" if newton else "K1"]
+    model, dev = env.model, env.device
     rng = np.random.default_rng(0)
-    n_sub = frames * model.n_substeps
-    full = batches[0]
 
     def rand_ctrl():
         return torch.as_tensor(rng.uniform(-1, 1, (model.nu, full)), dtype=torch.float32, device=dev)
-
-    def in_contact(q):
-        pos, quat = soa._fk(model, q)
-        depth = torch.cat([c.depth for c in soa._contact_candidates(model, pos, quat)])
-        return int((depth > 0).any(dim=0).sum())
 
     state, _ = env.reset(full, torch.Generator(device=dev).manual_seed(0))
     for _ in range(warm_steps):
@@ -225,8 +241,36 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
         half = full // 2
         fq, fqd = probe.overlapping_states(model, full - half, rng)
         q0[:, half:], qd0[:, half:] = torch.as_tensor(fq, device=dev), torch.as_tensor(fqd, device=dev)
-    ctrls = [rand_ctrl() for _ in range(n_chain)]
+    return q0, qd0, [rand_ctrl() for _ in range(n_chain)]
+
+
+def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, warm_scale=1.0,
+                          fold=False, timed=True, tol=None):
+    """Holds ``kernel`` against the plain version over ``n_chain`` chained
+    control steps at each batch size of ``batches`` (the first the full
+    one), from ``start_states``; ``tol`` (default: TOL of the kernel)
+    bounds each step's max |err|. ``timed``: both times and the bound at
+    the full batch."""
+    import torch
+
+    from mjrl_tpu_torch.physics import probe, soa
+
+    model, dev, frames = env.model, env.device, env.frame_skip
+    newton = model.constraint_solver == "newton"
+    tol = tol or TOL["K2" if newton else "K1"]
+    n_sub = frames * model.n_substeps
+    full = batches[0]
+
+    def in_contact(q):
+        pos, quat = soa._fk(model, q)
+        cands = soa._contact_candidates(model, pos, quat)
+        if not cands:
+            return 0
+        return int((torch.cat([c.depth for c in cands]) > 0).any(dim=0).sum())
+
+    q0, qd0, ctrls = start_states(env, full, n_chain, warm_steps, warm_scale, fold)
     max_err, flips, held = 0.0, 0, []
+    held_pairs = 0
     for B in batches:
         q, qd = q0[:, :B].contiguous(), qd0[:, :B].contiguous()
         worst = {"q": 0.0, "qd": 0.0}
@@ -238,6 +282,9 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
             kw, plain_picks = {}, None
             if newton:
                 held.append(_held_rows(model, q))
+                if fold:
+                    pair_contact += int((probe.held_contact_rows(model, q, between_links=True) > 0)
+                                        .sum())
                 kw["picks"] = torch.full((n_sub * model.solver_iters, B), -1, dtype=torch.int32,
                                          device=dev)
                 plain_picks = []
@@ -272,10 +319,12 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
             print(f"[{tag}] B={B} bodies touching the floor or each other in {contact} of "
                   f"{n_chain * B} env-steps")
         if fold:
-            print(f"[{tag}] B={B} a capsule-capsule candidate at depth > 0 in {pair_contact} of "
-                  f"{n_chain * B} env-steps")
+            what = ("a held row between two moving links" if newton
+                    else "a capsule-capsule candidate at depth > 0")
+            print(f"[{tag}] B={B} {what} in {pair_contact} of {n_chain * B} env-steps")
             if pair_contact == 0:
-                raise RuntimeError(f"{tag}: no capsule-capsule contact at B={B}")
+                raise RuntimeError(f"{tag}: no {what} at B={B}")
+            held_pairs += pair_contact
         if newton:
             cand = sum(h[0] for h in held[-n_chain:]) / n_chain
             lim = sum(h[1] for h in held[-n_chain:]) / n_chain
@@ -285,7 +334,7 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
             print(f"[{tag}] B={B} envs with another line-search fraction in some iteration: "
                   f"{int(flipped.sum())} of {B}; in a substep's first iteration: "
                   f"{int(flipped_first.sum())}")
-    result = dict(max_abs_err=max_err, line_search_flips=flips)
+    result = dict(max_abs_err=max_err, line_search_flips=flips, link_pair_env_steps=held_pairs)
     if not timed:
         return result
     ctrl = ctrls[0]
@@ -367,50 +416,50 @@ def phase_slice(tag, env, agent, kernel, other):
     return kernel.launches
 
 
-def phase_hopper_entry(kernel, other):
-    """Hopper NPG through ``mjrl_tpu_torch.train.run_job`` at full width:
-    niter=1, then niter=2 resuming from the first call's checkpoint; returns
-    the kernel's launches over both."""
-    import torch
-
+def phase_entry(tag, config, kernel, other, num_envs, niters=(1,)):
+    """Full-width iterations of ``examples/<config>`` through
+    ``mjrl_tpu_torch.train.run_job``: one call per entry of ``niters``, all
+    into one temporary directory, each call after the first resuming from
+    the checkpoint of the one before; returns the kernel's launches over
+    them."""
     from mjrl_tpu_torch.train import load_config, run_job
 
-    config = ROOT / "examples" / "hopper_npg.json"
     kernel.launches = other.launches = 0
     per_iter = []
     with tempfile.TemporaryDirectory() as out:
-        for niter in (1, 2):
+        for niter in niters:
             before = kernel.launches
-            agent = run_job(load_config(config, [f"niter={niter}", "save_freq=1"]), out)
+            agent = run_job(load_config(ROOT / "examples" / config, [f"niter={niter}", "save_freq=1"]),
+                            out)
             per_iter.append(kernel.launches - before)
-        if per_iter != [HOPPER_HORIZON] * 2 or other.launches:
-            raise RuntimeError(f"{per_iter} {kernel.name} and {other.launches} {other.name} "
+        if per_iter != [HOPPER_HORIZON] * len(niters) or other.launches:
+            raise RuntimeError(f"{tag}: {per_iter} {kernel.name} and {other.launches} {other.name} "
                                f"launches, expected {HOPPER_HORIZON} and 0 per iteration")
         with open(os.path.join(out, "logs", "log.csv"), newline="") as f:
             rows = [{k: float(v) for k, v in row.items()} for row in csv.DictReader(f)]
-        if len(rows) != 2:
-            raise RuntimeError(f"log.csv has {len(rows)} rows, expected 2")
+        if len(rows) != niters[-1]:
+            raise RuntimeError(f"{tag}: log.csv has {len(rows)} rows, expected {niters[-1]}")
         for row, launches in zip(rows, per_iter):
             bad = [k for k, v in row.items() if not math.isfinite(v)]
             if bad:
-                raise RuntimeError(f"non-finite logged values {bad}")
+                raise RuntimeError(f"{tag}: non-finite logged values {bad}")
             dt = row["time_step"]
-            print(f"[hopper] iter {int(row['iteration'])}: {dt * 1e3:.1f} ms, valid "
+            trpo = (f", backtrack_iters {row['backtrack_iters']:.0f}, step_accepted "
+                    f"{row['step_accepted']:.0f}" if "backtrack_iters" in row else "")
+            print(f"[{tag}] iter {int(row['iteration'])}: {dt * 1e3:.1f} ms, valid "
                   f"{row['steps_per_sec']:.1f} env-steps/s ({row['num_samples']:.0f} valid "
-                  f"samples), computed {HOPPER_ENVS * HOPPER_HORIZON / dt:.1f} env-steps/s, "
+                  f"samples), computed {num_envs * HOPPER_HORIZON / dt:.1f} env-steps/s, "
                   f"launches {launches}, score {row['stoc_pol_mean']:.3f}, running score "
                   f"{row['running_score']:.3f}, kl {row['kl_dist']:.5f}, alpha {row['alpha']:.4f}, "
-                  f"VF {row['VF_error_before']:.3f}->{row['VF_error_after']:.3f}")
-        if sorted(os.listdir(os.path.join(out, "iterations"))) != ["1.pt", "2.pt"] or \
+                  f"VF {row['VF_error_before']:.3f}->{row['VF_error_after']:.3f}{trpo}")
+        if sorted(os.listdir(os.path.join(out, "iterations"))) != [f"{n}.pt" for n in niters] or \
                 not os.path.exists(os.path.join(out, "best.pt")):
-            raise RuntimeError("checkpoints missing")
+            raise RuntimeError(f"{tag}: checkpoints missing")
         state, obs = agent.env.reset(2)
         tensors = [*agent.policy.parameters(), *agent.baseline.parameters(), agent.running_score,
                    agent.env.qpos0, state.q, state.qd, obs]
         if not all(t.is_cuda for t in tensors):
-            raise RuntimeError("state or parameters off the card")
-    print(f"[hopper] 2 iterations through the entry point, checkpointed and resumed; "
-          f"{torch.cuda.get_device_name(0)}")
+            raise RuntimeError(f"{tag}: state or parameters off the card")
     return kernel.launches
 
 
@@ -442,10 +491,23 @@ def main() -> int:
     k1_walkers = {e.asset[:-4]: phase_kernel_vs_plain(f"K1 {e.asset[:-4]}", e, K1, 1, (NUM_ENVS,),
                                                       timed=False)
                   for e in walkers}
+    walker_trpo = make("walker2d", horizon=HOPPER_HORIZON)
+    k1_walker_trpo = phase_kernel_vs_plain("K1 walker2d_trpo", walker_trpo, K1, 6,
+                                           (TRPO_ENVS, TRPO_ENVS - 6))
     k1["launches"] = phase_slice("penalty", env, _agent(env, horizon=HORIZON), K1, K2)
     newton_agent = _agent(newton_env, num_samples=NUM_ENVS * HORIZON, sample_mode="samples")
     k2["launches"] = phase_slice("newton", newton_env, newton_agent, K2, K1)
-    k1_hopper["launches"] = phase_hopper_entry(K1, K2)
+
+    hopper_newton = make("hopper", horizon=HOPPER_HORIZON, constraint_solver="newton")
+    swimmer = make("swimmer", horizon=HOPPER_HORIZON)
+    k2_hopper = phase_kernel_vs_plain("K2 hopper", hopper_newton, K2, 3,
+                                      (HOPPER_ENVS, HOPPER_ENVS - 6), fold=True)
+    k1_swimmer = phase_kernel_vs_plain("K1 swimmer", swimmer, K1, 6, (HOPPER_ENVS, HOPPER_ENVS - 6),
+                                       tol=TOL["K1 swimmer"])
+    kernels_of = {"K1": (K1, K2), "K2": (K2, K1)}
+    entry = {tag: phase_entry(tag, config, *kernels_of[k], n, niters)
+             for tag, config, k, n, niters in ENTRY_PATHS}
+    k1_hopper["launches"] = entry["hopper"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -457,11 +519,19 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })
-    kernels[0]["hopper"] = {k: k1_hopper[k] for k in
-                            ("ms", "plain_ms", "bound_ms", "launches", "max_abs_err")}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launches", "max_abs_err")
+    kernels[0]["hopper"] = {k: k1_hopper[k] for k in keys}
     for name, r in k1_walkers.items():
         kernels[0][name] = {"max_abs_err": r["max_abs_err"]}
+    kernels[0]["swimmer"] = {k: k1_swimmer[k] for k in keys if k != "launches"}
+    kernels[0]["swimmer"]["launches"] = entry["swimmer"]
+    kernels[0]["walker2d_trpo"] = {k: k1_walker_trpo[k] for k in keys if k != "launches"}
+    kernels[0]["walker2d_trpo"]["launches"] = entry["walker2d_trpo"]
     kernels[1]["line_search_flips"] = k2["line_search_flips"]
+    kernels[1]["hopper"] = {k: k2_hopper[k] for k in keys if k != "launches"}
+    kernels[1]["hopper"].update(launches=entry["hopper_newton"],
+                                line_search_flips=k2_hopper["line_search_flips"],
+                                link_pair_env_steps=k2_hopper["link_pair_env_steps"])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""Agents: the policy-gradient base and NPG."""
+"""Agents: the policy-gradient base, NPG and TRPO."""
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE  # noqa: F401
 from mjrl_tpu_torch.algos.npg import NPG  # noqa: F401
+from mjrl_tpu_torch.algos.trpo import TRPO  # noqa: F401

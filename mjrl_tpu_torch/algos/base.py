@@ -38,6 +38,24 @@ from mjrl_tpu_torch.types import TrajectoryBatch
 Params = Dict[str, torch.Tensor]
 
 
+def masked_surrogate(new_mean: torch.Tensor, new_log_std: torch.Tensor,
+                     batch: TrajectoryBatch) -> torch.Tensor:
+    """CPI surrogate ``mean(LR * adv)`` over valid steps of the policy with
+    outputs ``new_mean, new_log_std`` on ``batch.observations``."""
+    lr = DiagGaussian.likelihood_ratio(batch.actions, new_mean, new_log_std,
+                                       batch.mean, batch.log_std)
+    validf = batch.valid.to(lr.dtype)
+    return torch.sum(lr * batch.advantages * validf) / torch.clamp(validf.sum(), min=1.0)
+
+
+def masked_kl(old_mean: torch.Tensor, old_log_std: torch.Tensor, new_mean: torch.Tensor,
+              new_log_std: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean ``KL(old || new)`` over the valid states."""
+    kl = DiagGaussian.kl(old_mean, old_log_std, new_mean, new_log_std)
+    w = valid.to(kl.dtype)
+    return torch.sum(kl * w) / torch.clamp(w.sum(), min=1.0)
+
+
 class BatchREINFORCE:
     """Policy-gradient machinery shared by the agents; subclasses (NPG)
     define ``update``. Hyperparameter names and defaults follow the
@@ -114,21 +132,14 @@ class BatchREINFORCE:
     # -- core math ---------------------------------------------------------
     def surrogate(self, params: Params, batch: TrajectoryBatch) -> torch.Tensor:
         """CPI surrogate ``mean(LR * adv)`` over valid steps."""
-        new_mean, new_log_std = self.apply(params, batch.observations)
-        lr = DiagGaussian.likelihood_ratio(batch.actions, new_mean, new_log_std,
-                                           batch.mean, batch.log_std)
-        validf = batch.valid.to(lr.dtype)
-        return torch.sum(lr * batch.advantages * validf) / torch.clamp(validf.sum(), min=1.0)
+        return masked_surrogate(*self.apply(params, batch.observations), batch)
 
     def mean_kl(self, params: Params, old_params: Params, batch: TrajectoryBatch) -> torch.Tensor:
         """Masked mean ``KL(old || new)`` over states; ``old_params`` are
         constants."""
         new_mean, new_log_std = self.apply(params, batch.observations)
         old = {k: v.detach() for k, v in old_params.items()}
-        old_mean, old_log_std = self.apply(old, batch.observations)
-        kl = DiagGaussian.kl(old_mean, old_log_std, new_mean, new_log_std)
-        w = batch.valid.to(kl.dtype)
-        return torch.sum(kl * w) / torch.clamp(w.sum(), min=1.0)
+        return masked_kl(*self.apply(old, batch.observations), new_mean, new_log_std, batch.valid)
 
     def vpg_grad(self, params: Params, batch: TrajectoryBatch) -> Params:
         return torch.func.grad(self.surrogate)(params, batch)

@@ -6,9 +6,9 @@
 // mjrl_tpu/physics/soa_newton.py:338). It computes what
 // mjrl_tpu_torch/physics/soa.py::multistep computes for a Newton model, for
 // one env as scalar code: the pipeline of mj_substep.h without penalty
-// contacts or limit springs gives the unconstrained qdd0 by the sparse
-// L^T D L solve; then solver_iters primal Newton iterations on the soft
-// contact and limit rows (physics/soa_newton.py):
+// contacts or limit springs (fluid drag stays) gives the unconstrained
+// qdd0 by the sparse L^T D L solve; then solver_iters primal Newton
+// iterations on the soft contact and limit rows (physics/soa_newton.py):
 //
 //   residuals jar = J x - aref, active weights w = D where jar < 0;
 //   gradient g = M (x - qdd0) + J^T (w jar);
@@ -19,11 +19,16 @@
 //
 // Held rows: the rows of one substep are built once from its entry state
 // and held in per-thread arrays across the iterations, each contact's J
-// over its link's dof chain only (free root plus the hinges below: <= 8
-// dofs for ant). A row outside its margin (pos >= 0) has D = 0 and adds
-// exactly nothing to the gradient, H or the cost, so only rows inside it
-// are held (a non-finite pos is held too, with D = 0, so NaN reaches the
-// result as in the plain version). The static per-row constants (k and b
+// over its pair's chain only: the dofs on one of its two links' chains and
+// not on the other's, each with its sign (+1 on li's side, -1 on lj's; a
+// dof on both chains has a column of exactly zero in the plain version,
+// see pkernel.pack_newton_tables). Against a world plane that is the
+// moving link's chain (free root plus the hinges below: <= 8 dofs for
+// ant); for hopper's pairs between two links, <= 3 dofs. A row outside
+// its margin (pos >= 0) has D = 0 and adds exactly nothing to the
+// gradient, H or the cost, so only rows inside it are held (a non-finite
+// pos is held too, with D = 0, so NaN reaches the result as in the plain
+// version). The static per-row constants (k and b
 // from solref, the solimp spline, margin, invweight, friction, facets,
 // chain) are packed on the host from the model after
 // ensure_solver_params; the offsets and maxima below are exported by
@@ -34,14 +39,15 @@
 
 #define MJ_MAX_CAND 32  // contact points of a model (rows held per substep)
 #define MJ_MAX_FACET 6  // pyramid facets per contact (condim 4)
-#define MJ_MAX_CHAIN 8  // dofs on a contact link's chain
+#define MJ_MAX_CHAIN 8  // dofs on a contact pair's chain
 
 // ---- Newton int table (ni) ---------------------------------------------
 #define MJ_N_I_NLIM 0  // number of limited 1-dof joints
 #define MJ_N_I_LIM 4   // per limit row: qadr, vadr
 #define MJ_LIM_I 2
 #define MJ_N_I_PAIR (MJ_N_I_LIM + MJ_LIM_I * MJ_MAX_NV)
-#define MJ_NPAIR_I (2 + MJ_MAX_CHAIN)  // nfacet, nchain, chain dofs
+// nfacet, nchain, chain dofs[MJ_MAX_CHAIN], their signs[MJ_MAX_CHAIN]
+#define MJ_NPAIR_I (2 + 2 * MJ_MAX_CHAIN)
 
 // ---- Newton float table (nf) -------------------------------------------
 // impedance block, first in every row's constants: k, b, dmin, dmax,
@@ -152,6 +158,7 @@ struct MjNewtonSink {
     const int c = rows->nc++;
     const int nfacet = pi_[0], nchain = pi_[1];
     const int* chain = pi_ + 2;
+    const int* sign = chain + MJ_MAX_CHAIN;
     // the middle of the penetration interval, about the origin
     const float half = 0.5f * mj_max(depth, 0.0f);
     float r[3];
@@ -169,9 +176,10 @@ struct MjNewtonSink {
     for (int f = 0; f < nfacet; ++f) vel[f] = 0.0f;
     for (int b = 0; b < nchain; ++b) {
       const float* cd = k->cdof[chain[b]];
+      const float sg = (float)sign[b];
       float jp[3];
       mj_cross(cd, r, jp);
-      for (int a = 0; a < 3; ++a) jp[a] = cd[3 + a] + jp[a];
+      for (int a = 0; a < 3; ++a) jp[a] = sg * (cd[3 + a] + jp[a]);
       const float jn = mj_dot3(n, jp);
       float* col[MJ_MAX_FACET];
       for (int f = 0; f < nfacet; ++f) col[f] = &rows->J[c][f][b];
@@ -184,7 +192,7 @@ struct MjNewtonSink {
         *col[2] = jn + mu * jt2;
         *col[3] = jn - mu * jt2;
         if (nfacet == 6) {
-          const float jt = mj_dot3(n, cd);
+          const float jt = sg * mj_dot3(n, cd);
           *col[4] = jn + mu_tor * jt;
           *col[5] = jn - mu_tor * jt;
         }
@@ -358,6 +366,14 @@ MJ_HD void mj_newton_substep(const float* mf, const int* mi, const float* nf,
   rows.nc = 0;
   MjNewtonSink sink{nf, ni, &k, qd, &rows};
   mj_narrow_phase(mf, mi, k, sink);
+  // fluid drag, the only external wrench of a Newton substep
+  const bool fluid = mi[MJ_I_HAS_FLUID] != 0;
+  float f_ext[MJ_MAX_LINK][6];
+  if (fluid) {
+    for (int i = 0; i < mi[MJ_I_NLINK]; ++i)
+      for (int c = 0; c < 6; ++c) f_ext[i][c] = 0.0f;
+    mj_fluid(mf, mi, k, f_ext);
+  }
 
   // unconstrained qdd0; the metric M + diag(armature + dt damping) kept
   // beside the factorization
@@ -369,7 +385,7 @@ MJ_HD void mj_newton_substep(const float* mf, const int* mi, const float* nf,
     Mf[i][i] = Mf[i][i] + mf[MJ_F_EXTRA + i];
   }
   float bias[MJ_MAX_NV], qdd0[MJ_MAX_NV];
-  mj_bias(mf, mi, k, qd, nullptr, bias);
+  mj_bias(mf, mi, k, qd, fluid ? f_ext : nullptr, bias);
   mj_applied<false>(mf, mi, q, qd, ctrl, qdd0, nullptr);
   for (int j = 0; j < nv; ++j) qdd0[j] = qdd0[j] - bias[j] - mf[MJ_F_DAMP + j] * qd[j];
   mj_ltdl_solve(mf, mi, H, nullptr, qdd0);

@@ -3,9 +3,9 @@
 // The body of kernel K1 (mj_kernel.cu), which replaces the TPU kernel
 // mjrl_tpu/physics/pkernel.py::multistep_pallas. It computes what
 // mjrl_tpu_torch/physics/soa.py::multistep computes for one env, as scalar
-// code: kinematics -> cdof/cvel -> penalty contacts -> composite inertias ->
-// sparse mass matrix -> RNE bias -> applied forces -> sparse L^T D L solve
-// -> semi-implicit Euler, n_sub times with ctrl held.
+// code: kinematics -> cdof/cvel -> penalty contacts -> fluid drag ->
+// composite inertias -> sparse mass matrix -> RNE bias -> applied forces ->
+// sparse L^T D L solve -> semi-implicit Euler, n_sub times with ctrl held.
 //
 // The stages are separate functions so that kernel K2 (mj_newton.h) runs
 // the same pipeline around its constraint solve; K1's substep calls them
@@ -50,6 +50,7 @@
 #define MJ_I_NU 3
 #define MJ_I_NPAIR 4
 #define MJ_I_HAS_FCAP 5
+#define MJ_I_HAS_FLUID 6  // density or viscosity != 0: run mj_fluid
 #define MJ_I_PARENT 8
 #define MJ_I_TYPE (MJ_I_PARENT + MJ_MAX_LINK)
 #define MJ_I_QADR (MJ_I_TYPE + MJ_MAX_LINK)
@@ -90,7 +91,14 @@
 #define MJ_F_GEAR (MJ_F_LIMDTC + MJ_MAX_NV)
 #define MJ_F_CLO (MJ_F_GEAR + MJ_MAX_NU)
 #define MJ_F_CHI (MJ_F_CLO + MJ_MAX_NU)
-#define MJ_F_PAIR (MJ_F_CHI + MJ_MAX_NU)
+// Fluid model, per link: the quaternion of its principal inertia frame
+// (link_iquat), then 8 drag constants lin, ang, quad_f[3], quad_t[3]
+// (physics/soa.py fluid_coefficients: folded on the host from link_ibox,
+// density and viscosity as the plain version folds them).
+#define MJ_F_IQUAT (MJ_F_CHI + MJ_MAX_NU)
+#define MJ_F_FLUID (MJ_F_IQUAT + 4 * MJ_MAX_LINK)
+#define MJ_FLUID_F 8
+#define MJ_F_PAIR (MJ_F_FLUID + MJ_FLUID_F * MJ_MAX_LINK)
 // A pair row: mu, then geom i's radius, half length, local pos[3] and
 // quat[4] (slots 1-9), then geom j from slot 10: a plane's world normal[3]
 // and point[3], or a capsule's radius, half length, local pos[3], quat[4].
@@ -98,7 +106,7 @@
 #define MJ_PAIR_GJ 10
 
 // The layout as the packer reads it, in this order.
-#define MJ_LAYOUT_LEN 51
+#define MJ_LAYOUT_LEN 55
 #define MJ_LAYOUT_VALUES                                                     \
   MJ_MAX_LINK, MJ_MAX_NV, MJ_MAX_NQ, MJ_MAX_NU, MJ_PAIR_I, MJ_PAIR_F,        \
       MJ_PAIR_GJ,                                                            \
@@ -109,7 +117,8 @@
       MJ_F_LQUAT, MJ_F_AXIS, MJ_F_ANCHOR, MJ_F_REF, MJ_F_RANGE, MJ_F_STIFF,  \
       MJ_F_SPRINGREF, MJ_F_MASS, MJ_F_COM, MJ_F_EIGD, MJ_F_EIGQ, MJ_F_CMASS, \
       MJ_F_DAMP, MJ_F_EXTRA, MJ_F_LIMK, MJ_F_LIMC, MJ_F_LIMDTC, MJ_F_GEAR,   \
-      MJ_F_CLO, MJ_F_CHI, MJ_F_PAIR
+      MJ_F_CLO, MJ_F_CHI, MJ_F_PAIR, MJ_I_HAS_FLUID, MJ_F_IQUAT, MJ_F_FLUID,  \
+      MJ_FLUID_F
 
 // ---- scalar helpers ---------------------------------------------------
 
@@ -161,6 +170,12 @@ MJ_HD void mj_qrot(const float* q, const float* v, float* out) {
   t[2] *= 2.0f;
   mj_cross(q + 1, t, c);
   for (int k = 0; k < 3; ++k) out[k] = v[k] + q[0] * t[k] + c[k];
+}
+
+// Rotation by the conjugate of q (world -> body axes).
+MJ_HD void mj_qrot_inv(const float* q, const float* v, float* out) {
+  const float qc[4] = {q[0], -q[1], -q[2], -q[3]};
+  mj_qrot(qc, v, out);
 }
 
 MJ_HD void mj_qnorm(float* q) {
@@ -498,6 +513,41 @@ MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
   }
 }
 
+// MuJoCo's legacy inertia-box fluid model (soa.py _fluid_forces): the
+// drag of each link with mass > 0, from its centre of mass velocity and its
+// angular velocity in the principal inertia frame, added to f_ext[l] as a
+// world wrench about the origin.
+MJ_HD void mj_fluid(const float* mf, const int* mi, const MjKin& k,
+                    float (*f_ext)[6]) {
+  const int nlink = mi[MJ_I_NLINK];
+  for (int i = 0; i < nlink; ++i) {
+    if (mf[MJ_F_MASS + i] <= 0.0f) continue;
+    const float* cf = mf + MJ_F_FLUID + MJ_FLUID_F * i;
+    float q_wp[4], com_w[3], r[3];
+    mj_qmul(k.quat[i], mf + MJ_F_IQUAT + 4 * i, q_wp);
+    mj_qrot(k.quat[i], mf + MJ_F_COM + 3 * i, r);
+    for (int c = 0; c < 3; ++c) com_w[c] = k.pos[i][c] - k.origin[c] + r[c];
+    const float* omega = k.cvel[i];
+    float v_com[3], w_p[3], v_p[3];
+    mj_cross(omega, com_w, r);
+    for (int c = 0; c < 3; ++c) v_com[c] = k.cvel[i][3 + c] + r[c];
+    mj_qrot_inv(q_wp, omega, w_p);
+    mj_qrot_inv(q_wp, v_com, v_p);
+    float force[3], torque[3], f_w[3], t_w[3];
+    for (int c = 0; c < 3; ++c) {
+      force[c] = cf[0] * v_p[c] - cf[2 + c] * fabsf(v_p[c]) * v_p[c];
+      torque[c] = cf[1] * w_p[c] - cf[5 + c] * fabsf(w_p[c]) * w_p[c];
+    }
+    mj_qrot(q_wp, force, f_w);
+    mj_qrot(q_wp, torque, t_w);
+    mj_cross(com_w, f_w, r);
+    for (int c = 0; c < 3; ++c) {
+      f_ext[i][c] += r[c] + t_w[c];
+      f_ext[i][3 + c] += f_w[c];
+    }
+  }
+}
+
 // Tree-sparse mass matrix: H[i][j] for j on the ancestor chain of i, from
 // the composite rigid-body inertias (reverse tree walk).
 MJ_HD void mj_mass_matrix(const float* mf, const int* mi, const MjKin& k,
@@ -699,6 +749,7 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
     for (int c = 0; c < 6; ++c) f_ext[i][c] = 0.0f;
   MjPenaltySink sink{mf, &k, f_ext, mi[MJ_I_HAS_FCAP]};
   mj_narrow_phase(mf, mi, k, sink);
+  if (mi[MJ_I_HAS_FLUID]) mj_fluid(mf, mi, k, f_ext);
 
   float H[MJ_MAX_NV][MJ_MAX_NV];
   mj_mass_matrix(mf, mi, k, H);

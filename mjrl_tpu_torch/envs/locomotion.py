@@ -1,12 +1,12 @@
-"""Gym-style locomotion envs on the first-party physics: Ant and the planar
-walkers (Hopper, Walker2d, HalfCheetah).
+"""Gym-style locomotion envs on the first-party physics: Ant, the planar
+walkers (Hopper, Walker2d, HalfCheetah) and Swimmer.
 
 Twin of ``mjrl_tpu/envs/locomotion.py`` (``LocomotionEnv``, ``HopperEnv``,
-``Walker2dEnv``, ``HalfCheetahEnv``, ``AntEnv``). Each model is compiled
-from the asset shipped in ``envs/assets/`` (Gymnasium 1.2.2's XML; the
-card's machine has no gymnasium), the contact and limit gains are tuned as
-the reference tunes them, and ``step`` advances all envs through one kernel
-call per control step: K1 with the penalty solver, K2 with the Newton
+``Walker2dEnv``, ``HalfCheetahEnv``, ``SwimmerEnv``, ``AntEnv``). Each
+model is compiled from the asset shipped in ``envs/assets/`` (Gymnasium
+1.2.2's XML; the card's machine has no gymnasium), the contact and limit
+gains are tuned as the reference tunes them, and ``step`` advances all
+envs through one kernel call per control step: K1 with the penalty solver, K2 with the Newton
 solver. Envs live on the card unless ``device="cpu"`` is asked for. Task
 conventions follow gymnasium's v4 tasks: observation ``[q[k:], clip(qd)]``,
 forward reward from the root's x velocity, the task's ctrl cost, healthy
@@ -178,6 +178,19 @@ class HalfCheetahEnv(LocomotionEnv):
     n_substeps = 2  # dt=0.01 with ~1 kg limbs needs a finer contact substep
 
 
+class SwimmerEnv(LocomotionEnv):
+    """Swimmer-v4 conventions (fluid-driven, ctrl cost 1e-4, no
+    termination)."""
+
+    asset = "swimmer.xml"
+    frame_skip = 4
+    ctrl_cost_weight = 1e-4
+    healthy_reward = 0.0
+    reset_noise_scale = 0.1
+    exclude_positions = 2
+    clip_qvel_obs = None
+
+
 class AntEnv(LocomotionEnv):
     """Ant-v4 conventions (27-dim obs, no contact-force obs or cost)."""
 
@@ -202,4 +215,5 @@ class AntEnv(LocomotionEnv):
 register("hopper", HopperEnv)
 register("walker2d", Walker2dEnv)
 register("half_cheetah", HalfCheetahEnv)
+register("swimmer", SwimmerEnv)
 register("ant", AntEnv)

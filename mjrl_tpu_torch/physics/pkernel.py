@@ -68,7 +68,7 @@ LAYOUT_NAMES = (
     "F_LQUAT", "F_AXIS", "F_ANCHOR", "F_REF", "F_RANGE", "F_STIFF",
     "F_SPRINGREF", "F_MASS", "F_COM", "F_EIGD", "F_EIGQ", "F_CMASS",
     "F_DAMP", "F_EXTRA", "F_LIMK", "F_LIMC", "F_LIMDTC", "F_GEAR",
-    "F_CLO", "F_CHI", "F_PAIR",
+    "F_CLO", "F_CHI", "F_PAIR", "I_HAS_FLUID", "F_IQUAT", "F_FLUID", "FLUID_F",
 )
 # Names of the values mj_newton_layout() writes, in its order (mj_newton.h).
 NEWTON_LAYOUT_NAMES = (
@@ -79,12 +79,13 @@ NEWTON_LAYOUT_NAMES = (
 _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2}
 
 
-def build_library(source: str, compiler_cmd, build_dir: Path) -> Path:
-    """Compile ``csrc/<source>`` into a shared library in ``build_dir``,
-    unless a build of the same sources (every header in ``csrc/``) and
+def build_library(source: str, compiler_cmd, build_dir: Path, csrc: Path = CSRC) -> Path:
+    """Compile ``<csrc>/<source>`` into a shared library in ``build_dir``,
+    unless a build of the same sources (every header in ``csrc``) and
     flags is there."""
+    csrc = Path(csrc)
     digest = hashlib.sha256()
-    for path in [*sorted(CSRC.glob("*.h")), CSRC / source]:
+    for path in [*sorted(csrc.glob("*.h")), csrc / source]:
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     digest.update(" ".join(compiler_cmd).encode())
@@ -93,7 +94,7 @@ def build_library(source: str, compiler_cmd, build_dir: Path) -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [*compiler_cmd, "-o", str(tmp), str(CSRC / source)]
+    cmd = [*compiler_cmd, "-o", str(tmp), str(csrc / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"build failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
@@ -159,7 +160,9 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
 
     ratio = model.contact_force_cap_ratio
     ks, cap = np.float32(model.contact_stiffness), np.float32(model.contact_depth_cap)
+    has_fluid = model.density != 0.0 or model.viscosity != 0.0
     put_i("I_NLINK", [nlink, nq, nv, nu, len(pairs), int(ratio > 0)])
+    put_i("I_HAS_FLUID", [int(has_fluid)])
     put_i("I_PARENT", model.link_parent)
     put_i("I_TYPE", model.link_jnt_type)
     put_i("I_QADR", model.link_qadr)
@@ -198,6 +201,13 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
     if nu:
         put_f("F_CLO", np.asarray(model.act_ctrlrange)[:, 0])
         put_f("F_CHI", np.asarray(model.act_ctrlrange)[:, 1])
+    if has_fluid:
+        put_f("F_IQUAT", model.link_iquat)
+        for i in range(nlink):
+            if float(model.link_mass[i]) > 0.0:
+                lin, ang, quad_f, quad_t = soa.fluid_coefficients(model, i)
+                o = L["F_FLUID"] + L["FLUID_F"] * i
+                mf[o : o + L["FLUID_F"]] = [lin, ang, *quad_f, *quad_t]
 
     for k, (kind, tab_k, p) in enumerate(pairs):
         gi, gj = int(tab_k["gi"][p]), int(tab_k["gj"][p])
@@ -232,7 +242,16 @@ def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int]
     """The Newton rows' static constants as K2 reads them: (f32 table, i32
     table) in the layout ``NL``, per limited 1-dof joint and per contact
     pair in K1's pair order. Fills the model's solver parameters first;
-    raises for a model beyond the kernel's maxima."""
+    raises for a model beyond the kernel's maxima.
+
+    A pair's Jacobian spans the dofs of ``li``'s chain that are not on
+    ``lj``'s and those of ``lj``'s that are not on ``li``'s, each with its
+    sign (+1 and -1: the point's velocity on ``li`` minus that on ``lj``).
+    The dofs the two chains share can go: a shared dof's point-Jacobian
+    columns on the two links are one expression at the same contact point,
+    so the plain version's ``a - b`` and its torsional ``w - cdof``
+    (physics/soa_newton.py ``_contact_rows``) are exactly zero there and
+    add exactly nothing to the rows, the gradient, H or the cost."""
     ensure_solver_params(model)
     n_cand = num_contact_candidates(model)
     if n_cand > NL["MAX_CAND"]:
@@ -256,15 +275,18 @@ def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int]
         gi, gj = int(tab_k["gi"][p]), int(tab_k["gj"][p])
         li, lj, mu = int(tab_k["li"][p]), int(tab_k["lj"][p]), float(tab_k["mu"][p])
         solref, solimp, margin, invw, condim = soa_newton.contact_params(model, gi, gj, mu)
-        chain = soa_newton._chain(model, li)
-        if lj >= 0 or not chain:
-            raise NotImplementedError("K2 contacts need a moving geom against a world plane")
+        ci, cj = set(soa_newton._chain(model, li)), set(soa_newton._chain(model, lj))
+        chain = sorted(ci ^ cj)
+        if not chain:
+            raise NotImplementedError(f"pair ({gi}, {gj}): no moving link, or both on one chain")
         if len(chain) > NL["MAX_CHAIN"]:
             raise NotImplementedError(f"{len(chain)} chain dofs exceed the kernel's {NL['MAX_CHAIN']}")
         nfacet = 1 if condim == 1 else (6 if condim >= 4 else 4)
         scale = 1.0 if condim == 1 else soa_newton.pyramid_scale(mu)
         o = NL["N_I_PAIR"] + NL["NPAIR_I"] * k
         ni[o : o + 2 + len(chain)] = [nfacet, len(chain), *chain]
+        o += 2 + NL["MAX_CHAIN"]
+        ni[o : o + len(chain)] = [1 if j in ci else -1 for j in chain]
         row = _impedance_block(solref, solimp) + [
             margin, max(invw, 0.0), mu, max(float(tor[gi]), float(tor[gj])), scale]
         o = NL["N_F_PAIR"] + NL["NPAIR_F"] * k
@@ -293,13 +315,15 @@ def check_inputs(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Te
 
 class MultistepKernel:
     """Wrapper of kernel K1: ``(q (nq,B), qd (nv,B), ctrl (nu,B)) -> (q, qd)``
-    after ``n_frames * model.n_substeps`` substeps."""
+    after ``n_frames * model.n_substeps`` substeps. ``csrc`` and
+    ``build_dir``: where its sources are read and its library is built."""
 
     name = "mj_multistep"
     source = "mjrl_tpu_torch/csrc/mj_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:79"
 
-    def __init__(self):
+    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
+        self.csrc, self.build_dir = Path(csrc), Path(build_dir)
         self.launches = 0
         self.build_seconds: Optional[float] = None
         self._lib: Optional[ctypes.CDLL] = None
@@ -310,7 +334,8 @@ class MultistepKernel:
         """Build (or find) and load the CUDA library."""
         if self._lib is None:
             t0 = time.perf_counter()
-            path = build_library("mj_kernel.cu", (nvcc_path(), *NVCC_FLAGS), BUILD_DIR)
+            path = build_library("mj_kernel.cu", (nvcc_path(), *NVCC_FLAGS), self.build_dir,
+                                 self.csrc)
             lib = ctypes.CDLL(str(path))
             lib.mj_multistep_launch.argtypes = [ctypes.c_void_p] * 7 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
@@ -368,7 +393,8 @@ class NewtonKernel(MultistepKernel):
     def build(self) -> ctypes.CDLL:
         if self._lib is None:
             t0 = time.perf_counter()
-            path = build_library("mj_newton_kernel.cu", (nvcc_path(), *NVCC_FLAGS), BUILD_DIR)
+            path = build_library("mj_newton_kernel.cu", (nvcc_path(), *NVCC_FLAGS),
+                                 self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
             lib.mj_newton_launch.argtypes = [ctypes.c_void_p] * 10 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]

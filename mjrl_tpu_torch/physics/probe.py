@@ -5,6 +5,7 @@ pairs (thigh, leg and foot against each other) to touch, so the kernel
 checks (the CPU tests and ``chip_smoke.py``) add states drawn here: the
 root at its default pose and each limited hinge uniform in its range, kept
 where some pair between two links overlaps by less than a centimetre.
+``held_contact_rows`` counts the Newton rows such a pair holds.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mjrl_tpu_torch.physics import soa
+from mjrl_tpu_torch.physics import soa, soa_newton
+from mjrl_tpu_torch.physics.csolve import ensure_solver_params
 from mjrl_tpu_torch.physics.model import HINGE, Model
 
 
@@ -24,6 +26,21 @@ def link_pair_depth(model: Model, q: torch.Tensor) -> torch.Tensor:
     if not depths:
         return torch.full((q.shape[1],), -float("inf"), device=q.device)
     return torch.cat(depths).amax(dim=0)
+
+
+def held_contact_rows(model: Model, q: torch.Tensor, between_links: bool = False) -> torch.Tensor:
+    """Per env (``q`` is ``(nq, B)``), the contact candidates inside their
+    margin: the rows the Newton solver holds for them (``-depth - margin <
+    0``, as physics/soa_newton.py decides); with ``between_links``, only
+    those between two moving links."""
+    ensure_solver_params(model)
+    pos, quat = soa._fk(model, q)
+    held = torch.zeros(q.shape[1], dtype=torch.int64, device=q.device)
+    for c in soa._contact_candidates(model, pos, quat):
+        if c.lj >= 0 or not between_links:
+            margin = soa_newton.contact_params(model, c.gi, c.gj, c.mu)[2]
+            held += (-c.depth - float(np.float32(margin)) < 0.0)[0]
+    return held
 
 
 def overlapping_states(model: Model, n: int, rng: np.random.Generator):
@@ -41,6 +58,6 @@ def overlapping_states(model: Model, n: int, rng: np.random.Generator):
         depth = link_pair_depth(model, torch.as_tensor(q)).numpy()
         kept.append(q[:, (depth > 0) & (depth < 0.01)])
         if sum(k.shape[1] for k in kept) >= n:
-            q = np.concatenate(kept, axis=1)[:, :n]
+            q = np.ascontiguousarray(np.concatenate(kept, axis=1)[:, :n])
             return q, rng.uniform(-0.1, 0.1, (model.nv, n)).astype(np.float32)
     raise ValueError("no overlapping link pairs found")

@@ -7,8 +7,9 @@ loops (tree walks, dof chains, contact pairs) unroll in Python over the
 static tables of physics/tables.py, in the reference's order. The pipeline
 per substep is kinematics -> cdof/cvel -> contacts -> composite inertias ->
 sparse mass matrix -> RNE bias -> applied forces -> sparse L^T D L solve ->
-semi-implicit Euler. With the penalty solver the contacts are spring-damper
-wrenches and the limits penalty springs; with the Newton solver both become
+semi-implicit Euler, with fluid drag added to the link wrenches before the
+bias. With the penalty solver the contacts are spring-damper wrenches and
+the limits penalty springs; with the Newton solver both become
 soft-constraint rows solved after the L^T D L step (physics/soa_newton.py).
 
 This is the kernels' plain version: physics/pkernel.py runs it for tensors
@@ -18,8 +19,9 @@ launch-bound and only fit for comparisons.
 
 Feature set (``check_supported``): free, hinge, slide and fixed links;
 sphere- and capsule-plane contacts against world planes and capsule-capsule
-contacts between links; ctrl-limited gear motors; joint springs; per-dof
-limit penalties; the penalty and Newton solvers.
+contacts between links; the inertia-box fluid model (density, viscosity);
+ctrl-limited gear motors; joint springs; per-dof limit penalties; the
+penalty and Newton solvers.
 """
 
 from __future__ import annotations
@@ -57,8 +59,6 @@ def check_supported(model: Model) -> None:
             raise NotImplementedError("planes must be world geoms")
     if model.tendon_Jq is not None:
         raise NotImplementedError("tendons are not ported")
-    if model.density != 0.0 or model.viscosity != 0.0:
-        raise NotImplementedError("fluid forces are not ported")
     fl = model.dof_frictionloss
     if fl is not None and np.any(np.asarray(fl)):
         raise NotImplementedError("frictionloss is not ported")
@@ -493,6 +493,55 @@ def _contact_forces(model: Model, cvel, origin, candidates: List[_Cand]):
     return f_ext
 
 
+def _qrot_inv(q, v):
+    """Rotate by the conjugate quaternion (world -> body axes)."""
+    w, qv = q[0:1], -q[1:4]
+    t = 2.0 * _cross(qv, v)
+    return v + w * t + _cross(qv, t)
+
+
+def fluid_coefficients(model: Model, i: int) -> Tuple[float, float, np.ndarray, np.ndarray]:
+    """Link ``i``'s drag constants of the inertia-box fluid model, folded
+    in f64 from ``link_ibox``, density and viscosity: ``(lin, ang, quad_f,
+    quad_t)`` with force ``lin v - quad_f |v| v`` and torque ``ang w -
+    quad_t |w| w`` in the link's principal axes (``quad_*`` are the f32
+    products ``f32(2 rho) f32(b_j b_k)`` and ``f32(rho / 2) f32(b (b_j^4 +
+    b_k^4))`` the plain version forms)."""
+    rho, mu = float(model.density), float(model.viscosity)
+    b = np.asarray(model.link_ibox[i], np.float64)
+    b_j, b_k = b[[1, 2, 0]], b[[2, 0, 1]]
+    d_eq = 2.0 * float(b.mean())
+    quad_f = np.float32(2.0 * rho) * (b_j * b_k).astype(np.float32)
+    quad_t = np.float32(0.5 * rho) * (b * (b_j**4 + b_k**4)).astype(np.float32)
+    return -3.0 * np.pi * d_eq * mu, -np.pi * d_eq**3 * mu, quad_f, quad_t
+
+
+def _fluid_forces(model: Model, pos, quat, cvel, origin, f_ext):
+    """MuJoCo's legacy inertia-box fluid model: per-link world wrenches
+    about ``origin`` added into ``f_ext`` (dict l -> (6, B), or None).
+    Links with mass <= 0 feel none."""
+    dev = origin.device
+    out = dict(f_ext) if f_ext is not None else {}
+    for i in range(model.nlink):
+        if float(model.link_mass[i]) <= 0.0:
+            continue
+        lin, ang, quad_f, quad_t = fluid_coefficients(model, i)
+        # world -> principal-inertia frame of the link
+        q_wp = _qmul(quat[i], _c(model, model.link_iquat[i], dev))
+        com_w = pos[i] - origin + _qrot(quat[i], _c(model, model.link_com[i], dev))
+        omega_w = cvel[i][0:3]
+        v_com_w = cvel[i][3:6] + _cross(omega_w, com_w)
+        w_p = _qrot_inv(q_wp, omega_w)
+        v_p = _qrot_inv(q_wp, v_com_w)
+        force = lin * v_p - _c(model, quad_f, dev) * torch.abs(v_p) * v_p
+        torque = ang * w_p - _c(model, quad_t, dev) * torch.abs(w_p) * w_p
+        f_w = _qrot(q_wp, force)
+        t_w = _qrot(q_wp, torque)
+        wrench = torch.cat([_cross(com_w, f_w) + t_w, f_w], dim=0)
+        out[i] = wrench if out.get(i) is None else out[i] + wrench
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Joint-space forces and integration.
 # ---------------------------------------------------------------------------
@@ -606,6 +655,8 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
     inert = _world_inertias(model, tab, pos, quat, origin)
     candidates = _contact_candidates(model, pos, quat) if model.contact_pairs else []
     f_ext = None if newton else _contact_forces(model, cvel, origin, candidates)
+    if model.density != 0.0 or model.viscosity != 0.0:
+        f_ext = _fluid_forces(model, pos, quat, cvel, origin, f_ext)
     crb = _composite_inertias(model, tab, inert)
     M = _mass_matrix_sparse(model, tab, cdof, crb)
     C = _bias_forces(model, tab, cdof, cvel, inert, qd, f_ext)

@@ -3,7 +3,7 @@
 Twin of ``mjrl_tpu/utils/configs.py``. ``RunConfig`` has the reference's
 fields, names and defaults, so every ``examples/*.json`` parses and a run's
 ``config.json`` diffs field for field against the JAX package's. ``build``
-makes what the port has: NPG with a ``GaussianMLP`` policy and an
+makes what the port has: NPG or TRPO with a ``GaussianMLP`` policy and an
 ``MLPBaseline``, on the env's device. Every other choice raises
 ``NotImplementedError`` naming the ROADMAP item that ports it; none is
 ignored.
@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from mjrl_tpu_torch import envs
-from mjrl_tpu_torch.algos import NPG
+from mjrl_tpu_torch.algos import NPG, TRPO
 from mjrl_tpu_torch.models import GaussianMLP, MLPBaseline
 
 
@@ -85,10 +85,13 @@ class RunConfig:
         return cfg
 
 
+AGENTS = {"npg": NPG, "trpo": TRPO}
+
+
 def check_ported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError`` for a setting the port does not have."""
     unported = [
-        (cfg.algorithm != "npg", f"algorithm {cfg.algorithm!r}", "queue 1 item 12"),
+        (cfg.algorithm not in AGENTS, f"algorithm {cfg.algorithm!r}", "queue 1 item 12"),
         (cfg.policy != "mlp", f"policy {cfg.policy!r}", "queue 1 item 3"),
         (cfg.baseline != "mlp", f"baseline {cfg.baseline!r}", "queue 1 item 3"),
         (cfg.demo_file is not None or cfg.bc_init, "demo_file / bc_init (BC, DAPG)",
@@ -113,7 +116,8 @@ def build(cfg: RunConfig, device="cuda"):
     policy = GaussianMLP(env.spec, hidden_sizes=cfg.hidden_sizes, min_log_std=cfg.min_log_std,
                          init_log_std=cfg.init_log_std, generator=init).to(env.device)
     baseline = MLPBaseline(env.spec, generator=init, **cfg.baseline_kwargs).to(env.device)
-    agent = NPG(env, policy, baseline, num_traj=cfg.num_traj, num_samples=cfg.num_samples,
-                sample_mode=cfg.sample_mode, horizon=cfg.horizon, gamma=cfg.gamma,
-                gae_lambda=cfg.gae_lambda, **cfg.agent_kwargs)
+    agent = AGENTS[cfg.algorithm](
+        env, policy, baseline, num_traj=cfg.num_traj, num_samples=cfg.num_samples,
+        sample_mode=cfg.sample_mode, horizon=cfg.horizon, gamma=cfg.gamma,
+        gae_lambda=cfg.gae_lambda, **cfg.agent_kwargs)
     return env, policy, baseline, agent

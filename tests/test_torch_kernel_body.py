@@ -133,7 +133,7 @@ def test_kernel_body_keeps_nonfinite_states(env, host, warm):
 def test_pack_tables_refuses_unsupported(env):
     model = copy.copy(env.model)
     model.__dict__.pop("_k1_tables", None)
-    model.density = 1.2  # fluid forces, not in the kernels' feature set
+    model.dof_frictionloss = np.ones(model.nv, np.float32)  # not in the kernels' feature set
     with pytest.raises(NotImplementedError):
         pkernel.pack_tables(model, {})
 
@@ -301,9 +301,46 @@ def test_walker_newton_kernel_body_matches_plain(lib):
 
 
 def test_pack_newton_tables_refuses_pairs_between_links(lib):
-    """Hopper's capsule-capsule pairs join two moving links: K2 does not
-    hold such rows yet."""
+    """Hopper's capsule-capsule pairs join two moving links: K2 holds their
+    rows over the dofs on one link's chain and not the other's (up to 3),
+    and refuses such a pair beyond its chain maximum, or one whose two
+    links share their whole chain."""
     env = make("hopper", horizon=8, device="cpu", constraint_solver="newton", n_substeps=1)
     L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
-    with pytest.raises(NotImplementedError, match="world plane"):
-        pkernel.pack_newton_tables(env.model, L, NL)
+    pkernel.pack_newton_tables(env.model, L, NL)
+    # hopper's floor contacts need 6 chain dofs, its pairs between links 3
+    model = copy.copy(env.model)
+    model.contact_pairs = tuple(p for p in model.contact_pairs
+                                if min(model.geom_link[g] for g in p) >= 0)
+    model._pair_groups = None
+    pkernel.pack_newton_tables(model, L, {**NL, "MAX_CHAIN": 3})
+    with pytest.raises(NotImplementedError, match="chain dofs exceed"):
+        pkernel.pack_newton_tables(model, L, {**NL, "MAX_CHAIN": 2})
+    gi, gj = model.contact_pairs[0]
+    model.contact_pairs = ((gi, gi),)  # both geoms on one link
+    model._pair_groups = None
+    with pytest.raises(NotImplementedError, match="no moving link"):
+        pkernel.pack_newton_tables(model, L, NL)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_on_swimmer():
+    """K1's fluid stage: swimmer at B=250 from lively states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = make("swimmer", horizon=8)
+    m, rng, dev = env.model, np.random.default_rng(0), torch.device("cuda")
+    q = torch.as_tensor(m.default_qpos[:, None] + rng.uniform(-0.5, 0.5, (m.nq, 250)),
+                        dtype=torch.float32, device=dev)
+    qd = torch.as_tensor(rng.uniform(-2, 2, (m.nv, 250)), dtype=torch.float32, device=dev)
+    ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
+    kernel = pkernel.MultistepKernel()
+    got_q, got_qd = kernel(m, q, qd, ctrl, env.frame_skip)
+    torch.cuda.synchronize()
+    want_q, want_qd = soa.multistep(m, q, qd, ctrl, env.frame_skip)
+    assert kernel.launches == 1
+    # chip_smoke.py's tolerances for K1 on swimmer: ten times the spread
+    # between the plain version on the card and on the CPU on these states
+    # and chip_smoke.py's, rounded up to a power of ten
+    torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-3)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from mjrl_tpu_torch.envs import make
-from mjrl_tpu_torch.physics import pkernel, soa
+from mjrl_tpu_torch.physics import pkernel, probe, soa
 
 torch.set_num_threads(1)
 
@@ -219,6 +219,27 @@ def test_cuda_newton_kernel_matches_plain(env):
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(env.model, q, qd, ctrl, env.frame_skip)
     assert kernel.launches == 1 and bool(((picks >= 0) & (picks <= 4)).all())
+    # chip_smoke.py's tolerances for K2
+    torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_newton_kernel_matches_plain_on_hopper():
+    """K2's rows between two moving links: hopper at B=250 in folded states
+    (physics/probe.py), each holding such a row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = make("hopper", horizon=8, constraint_solver="newton")
+    rng, dev = np.random.default_rng(0), torch.device("cuda")
+    q, qd = (torch.as_tensor(x, device=dev) for x in probe.overlapping_states(env.model, 250, rng))
+    assert bool((probe.held_contact_rows(env.model, q, between_links=True) > 0).all())
+    ctrl = torch.as_tensor(rng.uniform(-1, 1, (3, 250)), dtype=torch.float32, device=dev)
+    kernel = pkernel.NewtonKernel()
+    got_q, got_qd = kernel(env.model, q, qd, ctrl, env.frame_skip)
+    torch.cuda.synchronize()
+    want_q, want_qd = soa.multistep(env.model, q, qd, ctrl, env.frame_skip)
+    assert kernel.launches == 1
     # chip_smoke.py's tolerances for K2
     torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-4)
     torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-2)

@@ -116,11 +116,11 @@ def test_mass_matrix_diag_matches_reference_crba(ants):
     "edit",
     [
         dict(link_jnt_type=(0, -1, 1) + (2,) * 10),
-        dict(density=1.2),
+        dict(act_gainprm=np.ones((8, 3), np.float32)),
         dict(dof_frictionloss=np.ones(14, np.float32)),
         dict(tendon_Jq=np.zeros((1, 15), np.float32)),
     ],
-    ids=["ball", "fluid", "frictionloss", "tendon"],
+    ids=["ball", "gain_bias", "frictionloss", "tendon"],
 )
 def test_unsupported_features_raise(ants, edit):
     model = copy.copy(ants[0].model)

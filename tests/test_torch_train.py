@@ -5,12 +5,14 @@ the CLI writes ``config.json``, a ``log.csv`` with every column of the JAX
 package's hopper run (``runs/hopper_npg_expert/logs/log.csv``) and
 checkpoints; a resumed run continues at the checkpoint's iteration with
 the log cut to match and ends with the policy of a straight run; settings
-the port does not have raise; and a run on the card never falls back to
-the CPU.
+the port does not have raise; every other config the port runs goes
+through the entry point at 2 envs x 2 steps; and a run on the card never
+falls back to the CPU.
 """
 
 import csv
 import glob
+import math
 import os
 import subprocess
 import sys
@@ -79,12 +81,35 @@ def test_resume_continues_a_run_exactly(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "algorithm=\"trpo\"", "evaluation_rollouts=1", "policy=\"linear\"", "baseline=\"quadratic\"",
+    "algorithm=\"ppo\"", "evaluation_rollouts=1", "policy=\"linear\"", "baseline=\"quadratic\"",
     "bc_init=true", "init_policy_from=\"runs/x\"", "obs_norm=true", "mesh_devices=2",
 ])
 def test_unported_settings_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(load_config(HOPPER, [override]), device="cpu")
+
+
+# the example configs the port runs and no other test drives through the
+# entry point (hopper, hopper Newton, swimmer and walker2d TRPO have theirs)
+OTHER_CONFIGS = ("ant_npg.json", "ant_npg_newton.json", "ant_npg_newton1.json",
+                 "ant_npg_newton_fast.json", "ant_npg_newton_samples.json",
+                 "half_cheetah_trpo.json", "walker2d_trpo_newton.json")
+
+
+@pytest.mark.parametrize("name", OTHER_CONFIGS)
+def test_cli_runs_each_other_config_at_a_tiny_width(tmp_path, name):
+    """One iteration of 2 envs x 2 steps (samples mode: 4 samples) of the
+    config through ``run_job``, every logged value finite."""
+    path = os.path.join(ROOT, "examples", name)
+    small = ["num_traj=2", "horizon=2", "niter=1", "save_freq=1"]
+    if RunConfig.from_json(path).sample_mode == "samples":
+        small.append("num_samples=4")
+    config = load_config(path, small)
+    agent = run_job(config, str(tmp_path), device="cpu")
+    assert agent.iteration == 1 and type(agent).__name__ == config.algorithm.upper()
+    assert agent.env.model.constraint_solver == config.env_kwargs.get("constraint_solver", "penalty")
+    (row,) = _rows(str(tmp_path / "logs" / "log.csv"))
+    assert all(math.isfinite(float(v)) for v in row.values()), row
 
 
 def test_cuda_run_needs_a_card(tmp_path):

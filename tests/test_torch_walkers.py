@@ -115,10 +115,10 @@ def test_capsule_capsule_candidates_match_reference():
     assert len(cc) == 3 and bool((torch.cat([c.depth for c in cc]) > 0).any(dim=0).all())
 
 
-@pytest.mark.parametrize("asset", ["swimmer.xml", "humanoid.xml"])
+@pytest.mark.parametrize("asset", ["humanoid.xml"])
 def test_check_supported_refuses_swimmer_and_humanoid(asset):
-    """Swimmer's fluid forces and humanoid's sphere and capsule pair kinds
-    are not ported."""
+    """Humanoid's sphere and capsule pair kinds are not ported. (Swimmer's
+    fluid forces are: tests/test_torch_swimmer.py.)"""
     path = os.path.join(os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", asset)
     with pytest.raises(NotImplementedError):
         soa.check_supported(load_mjcf(path))

@@ -1,14 +1,19 @@
-"""Where one NPG iteration of the PyTorch port spends its time, on a GPU.
+"""Where one training iteration of the PyTorch port spends its time, on a
+GPU.
 
-    python3 tools/torch_npg_breakdown.py [--row penalty|newton|hopper]
+    python3 tools/torch_npg_breakdown.py [--row ROW]
 
 Builds the agent of one row: the bench's ant rows at their width (1024
 envs x 100 steps, policy (64, 64), MLPBaseline(epochs=2, batch_size=1024),
 normalized_step_size=0.05), ``penalty`` (episodes mode, kernel K1) or
 ``newton`` (Newton solver, n_substeps=1, samples mode with the persistent
-sampler carry, kernel K2); or ``hopper``, examples/hopper_npg.json as
-``python -m mjrl_tpu_torch.train`` builds it (256 envs x 1000 steps,
-episodes mode, kernel K1). Warms it for 2 iterations, then times one iteration
+sampler carry, kernel K2); or a config of ``examples/`` as
+``python -m mjrl_tpu_torch.train`` builds it, in episodes mode:
+``hopper`` (hopper_npg.json, 256 envs x 1000 steps, K1), ``hopper_newton``
+(hopper_npg_newton.json, 256 x 1000, K2), ``swimmer`` (swimmer_npg.json,
+256 x 1000, K1) or ``walker2d_trpo`` (walker2d_trpo.json, 4096 x 1000, K1;
+its ``npg_update`` phase is TRPO's update with its line-search probes).
+Warms it for 2 iterations, then times one iteration
 phase by phase on the host clock (each phase ends in
 ``torch.cuda.synchronize()``), and traces a second one with
 ``torch.profiler`` for the device's busy share (device time over the
@@ -27,6 +32,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+CONFIG_ROWS = {"hopper": "hopper_npg.json", "hopper_newton": "hopper_npg_newton.json",
+               "swimmer": "swimmer_npg.json", "walker2d_trpo": "walker2d_trpo.json"}
 
 
 def main() -> int:
@@ -48,16 +55,15 @@ def main() -> int:
     from mjrl_tpu_torch.utils.configs import RunConfig, build
 
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--row", choices=("penalty", "newton", "hopper"), default="penalty")
+    p.add_argument("--row", choices=("penalty", "newton", *CONFIG_ROWS), default="penalty")
     row = p.parse_args().row
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    newton = row == "newton"
-    kernel = K2 if newton else K1
-    if row == "hopper":
-        cfg = RunConfig.from_json(str(ROOT / "examples" / "hopper_npg.json"))
+    newton = row == "newton"  # the samples-mode row
+    if row in CONFIG_ROWS:
+        cfg = RunConfig.from_json(str(ROOT / "examples" / CONFIG_ROWS[row]))
         env, policy, baseline, agent = build(cfg, device=dev)
         num_envs, horizon = cfg.num_traj, cfg.horizon
     else:
@@ -72,6 +78,7 @@ def main() -> int:
         policy = GaussianMLP(env.spec, hidden_sizes=(64, 64), generator=init).to(dev)
         baseline = MLPBaseline(env.spec, epochs=2, batch_size=1024, generator=init).to(dev)
         agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=num_envs, **kw)
+    kernel = K2 if env.model.constraint_solver == "newton" else K1
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
         agent.train_step(gen)
