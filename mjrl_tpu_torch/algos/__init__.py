@@ -1,5 +1,6 @@
-"""Agents: the policy-gradient base, NPG and TRPO."""
+"""Agents: the policy-gradient base, NPG, TRPO and PPO."""
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE  # noqa: F401
 from mjrl_tpu_torch.algos.npg import NPG  # noqa: F401
+from mjrl_tpu_torch.algos.ppo import PPO  # noqa: F401
 from mjrl_tpu_torch.algos.trpo import TRPO  # noqa: F401

@@ -57,8 +57,8 @@ def masked_kl(old_mean: torch.Tensor, old_log_std: torch.Tensor, new_mean: torch
 
 
 class BatchREINFORCE:
-    """Policy-gradient machinery shared by the agents; subclasses (NPG)
-    define ``update``. Hyperparameter names and defaults follow the
+    """Policy-gradient machinery shared by the agents; subclasses (NPG,
+    TRPO, PPO) define ``update``. Hyperparameter names and defaults follow the
     reference."""
 
     def __init__(self, env: LocomotionEnv, policy: GaussianMLP, baseline: Baseline,
@@ -160,8 +160,11 @@ class BatchREINFORCE:
             batch = batch.replace(advantages=adv * batch.valid.to(adv.dtype))
         return batch
 
-    def update(self, batch: TrajectoryBatch) -> Dict[str, torch.Tensor]:
-        """One policy update on a processed batch; returns its metrics."""
+    def update(self, batch: TrajectoryBatch,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """One policy update on a processed batch; returns its metrics.
+        ``generator`` draws whatever randomness the update has (PPO's
+        minibatch order)."""
         raise NotImplementedError
 
     # -- the train step ------------------------------------------------------
@@ -185,7 +188,7 @@ class BatchREINFORCE:
         """Everything after sampling; ``fit_perms`` fixes the baseline's
         minibatch order (else drawn from ``generator``)."""
         batch = self.process_batch(batch)
-        update_metrics = self.update(batch)
+        update_metrics = self.update(batch, generator=generator)
         vf_metrics = self.baseline.fit(batch, generator=generator, perms=fit_perms)
         stats = rollout_statistics(batch)
         # the EMA seeds at the first iteration that completes an episode;

@@ -57,7 +57,7 @@ class NPG(BatchREINFORCE):
         alpha = torch.sqrt(2.0 * self.normalized_step_size / (inner + 1e-20))
         return npg_flat, alpha, flat, unravel
 
-    def update(self, batch: TrajectoryBatch) -> Dict[str, torch.Tensor]:
+    def update(self, batch: TrajectoryBatch, generator=None) -> Dict[str, torch.Tensor]:
         params = self.params()
         surr_before = self.surrogate(params, batch)
         npg_flat, alpha, flat, unravel = self.step_direction(params, batch)

@@ -59,7 +59,7 @@ class TRPO(NPG):
                 alpha = alpha * self.backtrack_ratio
         return k, alpha, accepted, surr, kl
 
-    def update(self, batch: TrajectoryBatch) -> Dict[str, torch.Tensor]:
+    def update(self, batch: TrajectoryBatch, generator=None) -> Dict[str, torch.Tensor]:
         params = self.params()
         surr_before = self.surrogate(params, batch).detach()
         npg_flat, alpha0, flat, unravel = self.step_direction(params, batch)

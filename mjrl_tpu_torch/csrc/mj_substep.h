@@ -31,10 +31,23 @@
 #define MJ_HD inline
 #endif
 
+// The compile-time maxima size every per-env array. The defaults are the
+// small size class (ant, the planar walkers, swimmer); physics/pkernel.py
+// builds a larger class with -DMJ_MAX_LINK=... etc. for bigger models
+// (humanoid) and picks the smallest class a model fits, so the small
+// models keep their stack.
+#ifndef MJ_MAX_LINK
 #define MJ_MAX_LINK 16
+#endif
+#ifndef MJ_MAX_NV
 #define MJ_MAX_NV 16
+#endif
+#ifndef MJ_MAX_NQ
 #define MJ_MAX_NQ 24
+#endif
+#ifndef MJ_MAX_NU
 #define MJ_MAX_NU 16
+#endif
 
 #define MJ_FREE 0
 #define MJ_HINGE 2
@@ -42,6 +55,8 @@
 #define MJ_KIND_SPHERE_PLANE 0
 #define MJ_KIND_CAPSULE_PLANE 1
 #define MJ_KIND_CAPSULE_CAPSULE 2
+#define MJ_KIND_SPHERE_SPHERE 3
+#define MJ_KIND_SPHERE_CAPSULE 4  // geom i the sphere, geom j the capsule
 
 // ---- int table --------------------------------------------------------
 #define MJ_I_NLINK 0
@@ -101,7 +116,8 @@
 #define MJ_F_PAIR (MJ_F_FLUID + MJ_FLUID_F * MJ_MAX_LINK)
 // A pair row: mu, then geom i's radius, half length, local pos[3] and
 // quat[4] (slots 1-9), then geom j from slot 10: a plane's world normal[3]
-// and point[3], or a capsule's radius, half length, local pos[3], quat[4].
+// and point[3], or a sphere's or capsule's radius, half length, local
+// pos[3], quat[4].
 #define MJ_PAIR_F 19
 #define MJ_PAIR_GJ 10
 
@@ -432,6 +448,37 @@ MJ_HD void mj_capsule_segment(const float* gp, const float* gq, float hl,
   }
 }
 
+// Sphere-sphere contact between centres c1 (radius r1, geom i) and c2
+// (r2, geom j): depth, the normal from j to i, and the point inside the
+// overlap (soa.py sphere_sphere). The capsule kinds end in it.
+template <class Sink>
+MJ_HD void mj_sphere_sphere(int pi, int li, int lj, float mu, const float* c1,
+                            float r1, const float* c2, float r2, Sink& sink) {
+  float d[3];
+  for (int c = 0; c < 3; ++c) d[c] = c1[c] - c2[c];
+  const float dist = sqrtf(mj_dot3(d, d)) + 1e-12f;
+  float n[3], pt[3];
+  for (int c = 0; c < 3; ++c) n[c] = d[c] / dist;
+  const float depth = (r1 + r2) - dist;
+  const float back = r2 - 0.5f * mj_max(depth, 0.0f);
+  for (int c = 0; c < 3; ++c) pt[c] = c2[c] + n[c] * back;
+  sink(pi, li, lj, mu, depth, n, pt);
+}
+
+// Sphere-capsule: the sphere (geom i) against the closest point of the
+// capsule's axis segment, t clamped to [0, 1] (soa.py sphere_capsule).
+template <class Sink>
+MJ_HD void mj_sphere_capsule(int pi, int li, int lj, float mu, const float* c1,
+                             float r1, const float* gp2, const float* gq2,
+                             float r2, float hl2, Sink& sink) {
+  float a[3], d[3], ca[3], c2[3];
+  mj_capsule_segment(gp2, gq2, hl2, a, d);
+  for (int c = 0; c < 3; ++c) ca[c] = c1[c] - a[c];
+  const float t = mj_clamp01(mj_dot3(ca, d) / (mj_dot3(d, d) + 1e-12f));
+  for (int c = 0; c < 3; ++c) c2[c] = a[c] + t * d[c];
+  mj_sphere_sphere(pi, li, lj, mu, c1, r1, c2, r2, sink);
+}
+
 // Capsule-capsule: the closest points of the two axis segments (the
 // reference's clamps, soa.py capsule_capsule), then a sphere-sphere contact
 // between them with the normal from j to i.
@@ -454,19 +501,12 @@ MJ_HD void mj_capsule_capsule(int pi, int li, int lj, float mu, const float* gp1
   s = mj_clamp01(s);
   const float t = mj_clamp01((b * s + f) / e);
   s = mj_clamp01((b * t - cc) / a);
-  float c1[3], c2[3], d[3];
+  float c1[3], c2[3];
   for (int c = 0; c < 3; ++c) {
     c1[c] = p1[c] + s * d1[c];
     c2[c] = p2[c] + t * d2[c];
-    d[c] = c1[c] - c2[c];
   }
-  const float dist = sqrtf(mj_dot3(d, d)) + 1e-12f;
-  float n[3], pt[3];
-  for (int c = 0; c < 3; ++c) n[c] = d[c] / dist;
-  const float depth = (r1 + r2) - dist;
-  const float back = r2 - 0.5f * mj_max(depth, 0.0f);
-  for (int c = 0; c < 3; ++c) pt[c] = c2[c] + n[c] * back;
-  sink(pi, li, lj, mu, depth, n, pt);
+  mj_sphere_sphere(pi, li, lj, mu, c1, r1, c2, r2, sink);
 }
 
 // Narrow phase: every contact point of every pair, in the reference's
@@ -485,11 +525,16 @@ MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
     const float* pp = gj + 3;
     float gp[3], gq[4];
     mj_geom_pose(k, li, pt_f + 3, pt_f + 6, gp, gq);
-    if (kind == MJ_KIND_CAPSULE_CAPSULE) {
+    if (kind >= MJ_KIND_CAPSULE_CAPSULE) {  // geom j on a link
       float gp2[3], gq2[4];
       mj_geom_pose(k, lj, gj + 2, gj + 5, gp2, gq2);
-      mj_capsule_capsule(pi, li, lj, mu, gp, gq, r, hl, gp2, gq2, gj[0], gj[1],
-                         sink);
+      if (kind == MJ_KIND_CAPSULE_CAPSULE)
+        mj_capsule_capsule(pi, li, lj, mu, gp, gq, r, hl, gp2, gq2, gj[0],
+                           gj[1], sink);
+      else if (kind == MJ_KIND_SPHERE_SPHERE)
+        mj_sphere_sphere(pi, li, lj, mu, gp, r, gp2, gj[0], sink);
+      else
+        mj_sphere_capsule(pi, li, lj, mu, gp, r, gp2, gq2, gj[0], gj[1], sink);
     } else if (kind == MJ_KIND_SPHERE_PLANE) {
       float d[3], pt[3];
       for (int c = 0; c < 3; ++c) d[c] = gp[c] - pp[c];

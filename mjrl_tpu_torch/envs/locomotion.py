@@ -1,16 +1,18 @@
-"""Gym-style locomotion envs on the first-party physics: Ant, the planar
-walkers (Hopper, Walker2d, HalfCheetah) and Swimmer.
+"""Gym-style locomotion envs on the first-party physics: Ant, Humanoid, the
+planar walkers (Hopper, Walker2d, HalfCheetah) and Swimmer.
 
 Twin of ``mjrl_tpu/envs/locomotion.py`` (``LocomotionEnv``, ``HopperEnv``,
-``Walker2dEnv``, ``HalfCheetahEnv``, ``SwimmerEnv``, ``AntEnv``). Each
+``Walker2dEnv``, ``HalfCheetahEnv``, ``SwimmerEnv``, ``AntEnv``,
+``HumanoidEnv``). Each
 model is compiled from the asset shipped in ``envs/assets/`` (Gymnasium
 1.2.2's XML; the card's machine has no gymnasium), the contact and limit
 gains are tuned as the reference tunes them, and ``step`` advances all
 envs through one kernel call per control step: K1 with the penalty solver, K2 with the Newton
 solver. Envs live on the card unless ``device="cpu"`` is asked for. Task
-conventions follow gymnasium's v4 tasks: observation ``[q[k:], clip(qd)]``,
-forward reward from the root's x velocity, the task's ctrl cost, healthy
-reward and termination.
+conventions follow gymnasium's v4 tasks: observation ``[q[k:], clip(qd)]``
+(humanoid adds its com-based features), forward reward from the root's x
+velocity (humanoid's centre of mass), the task's ctrl cost, healthy reward
+and termination.
 """
 
 from __future__ import annotations
@@ -22,7 +24,11 @@ import numpy as np
 import torch
 
 from mjrl_tpu_torch.envs.base import Env, EnvState, StepResult, register
+from mjrl_tpu_torch.physics import math3d as m3
+from mjrl_tpu_torch.physics.comfeat import body_links, com_features
+from mjrl_tpu_torch.physics.contact import contact_forces
 from mjrl_tpu_torch.physics.dispatch import make_frame_stepper
+from mjrl_tpu_torch.physics.engine import compute_kinematics, const, forward_kinematics
 from mjrl_tpu_torch.physics.mjcf import load_mjcf
 from mjrl_tpu_torch.physics.soa import check_supported
 from mjrl_tpu_torch.physics.tables import scale_limit_penalties
@@ -80,7 +86,9 @@ class LocomotionEnv(Env):
             horizon=horizon,
         )
 
-    def _obs(self, state: EnvState) -> torch.Tensor:
+    def _obs(self, state: EnvState, action: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The observation of ``state``; ``action`` is the control that led
+        to it (None after a reset)."""
         qvel = state.qd
         if self.clip_qvel_obs is not None:
             qvel = torch.clamp(qvel, -self.clip_qvel_obs, self.clip_qvel_obs)
@@ -130,7 +138,7 @@ class LocomotionEnv(Env):
             + self.healthy_reward * healthy.to(x_velocity.dtype)
         )
         reward = torch.where(sane, reward, torch.zeros_like(reward))
-        obs = self._obs(state)
+        obs = self._obs(state, action)
         # non-finite obs would ride through valid-masked losses as 0*nan=nan
         obs = torch.where(torch.isfinite(obs), obs, torch.zeros_like(obs))
         return state, obs, reward, ~healthy, {"x_velocity": x_velocity}
@@ -212,6 +220,61 @@ class AntEnv(LocomotionEnv):
         return finite & (z > lo) & (z < hi)
 
 
+class HumanoidEnv(LocomotionEnv):
+    """Humanoid-v4 conventions: forward reward weight 1.25 on the centre of
+    mass's x velocity, healthy reward 5, ctrl cost 0.1, healthy while the
+    root's z is in (1, 2); gym's v4 contact cost is left out, as in the
+    reference. ``obs_mode="gym"`` (the default) observes gym's 376-dim stack
+    ``[qpos[2:], qvel, cinert, cvel, qfrc_actuator, cfrc_ext]``, with
+    ``cfrc_ext`` from the penalty contact wrenches; ``"compact"`` keeps the
+    45-dim ``[qpos[2:], qvel]``. Penalty contacts only: the reference's
+    humanoid takes no ``constraint_solver``."""
+
+    asset = "humanoid.xml"
+    frame_skip = 5
+    forward_reward_weight = 1.25
+    ctrl_cost_weight = 0.1
+    healthy_reward = 5.0
+    reset_noise_scale = 1e-2
+    exclude_positions = 2
+    clip_qvel_obs = None
+    n_substeps = 2  # dt=0.003 with ~0.5 kg hands: a finer contact substep
+
+    def __init__(self, horizon: int = 1000, device="cuda", asset_path: Optional[str] = None,
+                 obs_mode: str = "gym"):
+        super().__init__(horizon=horizon, device=device, asset_path=asset_path)
+        if obs_mode not in ("gym", "compact"):
+            raise ValueError(f"obs_mode {obs_mode!r}")
+        self.obs_mode = obs_mode
+        if obs_mode == "gym":
+            nb = body_links(self.model).size + 1  # + the world row
+            self.spec = EnvSpec(observation_dim=self.spec.observation_dim + 22 * nb + self.model.nv,
+                                action_dim=self.spec.action_dim, horizon=self.spec.horizon)
+
+    def _obs(self, state: EnvState, action: Optional[torch.Tensor] = None) -> torch.Tensor:
+        base = super()._obs(state)
+        if self.obs_mode != "gym":
+            return base
+        kin = compute_kinematics(self.model, state.q, state.qd)
+        f_ext = contact_forces(self.model, kin)
+        cinert, cvel, qfrc_act, cfrc = com_features(self.model, kin, action, f_ext)
+        return torch.cat([base, cinert.flatten(1), cvel.flatten(1), qfrc_act, cfrc.flatten(1)],
+                         dim=-1)
+
+    def _healthy(self, state: EnvState) -> torch.Tensor:
+        z = state.q[:, 2]
+        return (z > 1.0) & (z < 2.0)
+
+    def _x_pos(self, state: EnvState) -> torch.Tensor:
+        """The centre of mass's x, as gym's humanoid measures progress."""
+        m, dev = self.model, state.q.device
+        pos, quat = forward_kinematics(m, state.q)
+        com = pos + m3.quat_rotate(quat, const(m, "link_com", m.link_com, dev))
+        mass = const(m, "link_mass", m.link_mass, dev)
+        return torch.sum(mass * com[..., 0], dim=-1) / torch.sum(mass)
+
+
+register("humanoid", HumanoidEnv)
 register("hopper", HopperEnv)
 register("walker2d", Walker2dEnv)
 register("half_cheetah", HalfCheetahEnv)

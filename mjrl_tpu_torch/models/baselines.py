@@ -5,7 +5,10 @@ Twin of ``mjrl_tpu/models/baselines.py`` (``Baseline``, ``_base_features``,
 1]`` with ``o = clip(obs, -10, 10) / 10`` and ``al = t / 1000``; the fit is
 minibatch Adam over shuffled fixed-size minibatches against the in-episode
 returns, with padded steps weighted 0, reporting
-``VF_error_before/after = sum((y - yhat)^2) / sum(y^2)``.
+``VF_error_before/after = sum((y - yhat)^2) / sum(y^2)``. Two options,
+off by default as in the reference: ``reg_coef`` adds an L2 penalty on the
+weights, and ``vf_clip_coef`` clips the value loss PPO-style around the
+pre-fit prediction.
 """
 
 from __future__ import annotations
@@ -50,12 +53,20 @@ class Baseline(nn.Module, abc.ABC):
 
 class MLPBaseline(Baseline):
     """Reference defaults: lr 1e-3, minibatch 64, hidden (128, 128),
-    ``epochs`` passes per fit; a partial trailing minibatch is dropped."""
+    ``epochs`` passes per fit; a partial trailing minibatch is dropped.
 
-    def __init__(self, spec: EnvSpec, learn_rate: float = 1e-3, batch_size: int = 64,
-                 epochs: int = 1, hidden_sizes: Sequence[int] = (128, 128),
-                 generator: Optional[torch.Generator] = None):
+    ``reg_coef > 0`` adds ``reg_coef * sum(w^2)`` over the layers' weights
+    (not the biases) to each minibatch loss. ``vf_clip_coef > 0`` takes the
+    loss as ``max((v - y)^2, (v_clip - y)^2)`` with ``v_clip = v_old +
+    clip(v - v_old, +-eps)``, ``v_old`` the prediction before the fit and
+    ``eps = vf_clip_coef * std(targets)`` over the valid steps."""
+
+    def __init__(self, spec: EnvSpec, learn_rate: float = 1e-3, reg_coef: float = 0.0,
+                 batch_size: int = 64, epochs: int = 1, hidden_sizes: Sequence[int] = (128, 128),
+                 vf_clip_coef: float = 0.0, generator: Optional[torch.Generator] = None):
         super().__init__(spec)
+        self.reg_coef = reg_coef
+        self.vf_clip_coef = vf_clip_coef
         self.batch_size = batch_size
         self.epochs = epochs
         self.hidden_sizes = tuple(hidden_sizes)
@@ -82,12 +93,26 @@ class MLPBaseline(Baseline):
         target = batch.returns.reshape(m)
         w = batch.valid.reshape(m).to(target.dtype)
         with torch.no_grad():
-            err_before = relative_error(self.mlp(feats)[..., 0], target, w)
+            pred0 = self.mlp(feats)[..., 0]
+            err_before = relative_error(pred0, target, w)
+            if self.vf_clip_coef > 0.0:
+                n = torch.clamp(w.sum(), min=1.0)
+                t_mu = torch.sum(target * w) / n
+                vf_eps = self.vf_clip_coef * torch.sqrt(
+                    torch.sum(torch.square(target - t_mu) * w) / n + 1e-8)
         for perm in self.fit_perms(m, generator) if perms is None else perms:
             for idx in perm:
-                ww = w[idx]
-                sq = torch.square(self.mlp(feats[idx])[..., 0] - target[idx])
+                ww, y = w[idx], target[idx]
+                pred = self.mlp(feats[idx])[..., 0]
+                sq = torch.square(pred - y)
+                if self.vf_clip_coef > 0.0:
+                    v_old = pred0[idx]
+                    v_clip = v_old + torch.clamp(pred - v_old, -vf_eps, vf_eps)
+                    sq = torch.maximum(sq, torch.square(v_clip - y))
                 loss = torch.sum(ww * sq) / torch.clamp(ww.sum(), min=1.0)
+                if self.reg_coef > 0.0:
+                    loss = loss + self.reg_coef * sum(
+                        torch.sum(torch.square(layer.weight)) for layer in self.mlp.layers)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
                 self.optimizer.step()

@@ -1,6 +1,6 @@
 """Diagonal-Gaussian policy distribution math (twin of
-``mjrl_tpu/ops/distributions.py``): log-likelihood, likelihood ratio and
-``KL(old || new)`` of ``N(mean, diag(exp(log_std))^2)``, broadcasting over
+``mjrl_tpu/ops/distributions.py``): log-likelihood, likelihood ratio,
+``KL(old || new)`` and entropy of ``N(mean, diag(exp(log_std))^2)``, broadcasting over
 leading batch dims."""
 
 from __future__ import annotations
@@ -45,3 +45,8 @@ class DiagGaussian:
         mean_term = torch.square(new_mean - old_mean) * torch.exp(-2.0 * new_log_std)
         per_dim = 0.5 * (var_ratio + mean_term) + new_log_std - old_log_std - 0.5
         return torch.sum(per_dim, dim=-1)
+
+    @staticmethod
+    def entropy(log_std: torch.Tensor) -> torch.Tensor:
+        """Per-sample entropy, reduced over the action dim."""
+        return torch.sum(log_std + 0.5 * (1.0 + _LOG_2PI), dim=-1)

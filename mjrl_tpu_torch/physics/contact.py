@@ -1,0 +1,157 @@
+"""Penalty contact wrenches of a batch, batched by collider kind.
+
+Twin of ``contact_forces``, ``_collide_kind``, ``_geom_world_batch``,
+``_point_velocity`` and ``_penalty_forces`` of
+``mjrl_tpu/physics/contact.py``, batch-first: each kind's pairs are one
+set of ops over ``(B, P, ...)`` tensors, as the reference's are, not one
+per contact point. Kernel K1 computes the same forces inside its substep
+(physics/soa.py is its plain version); this module serves the observation
+outside it: humanoid's ``cfrc_ext`` (physics/comfeat.py).
+
+Force model, per contact point (depth > 0 only):
+
+    f_n = max(0, k_n * min(depth, cap) - c_n * v_n)   [capped if set]
+    f_t = -mu * f_n * v_t / (|v_t| + v_reg)
+
+Kinds: sphere-plane, capsule-plane, sphere-sphere, sphere-capsule and
+capsule-capsule (the kinds ``soa.check_supported`` admits).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mjrl_tpu_torch.physics import math3d as m3
+from mjrl_tpu_torch.physics.engine import Kinematics, const
+from mjrl_tpu_torch.physics.model import Model
+from mjrl_tpu_torch.physics.tables import pair_groups
+
+
+def _geom_world_batch(model: Model, kin: Kinematics, g_idx: np.ndarray, tag: str):
+    """World poses ``(B, P, 3), (B, P, 4)`` of the geoms ``g_idx``; world
+    geoms take the identity pose of a padded dump row."""
+    dev, B = kin.pos.device, kin.pos.shape[0]
+    pos_all = torch.cat([kin.pos, kin.pos.new_zeros(B, 1, 3)], dim=1)
+    ident = const(model, "quat_ident", [[1.0, 0.0, 0.0, 0.0]], dev).expand(B, 1, 4)
+    quat_all = torch.cat([kin.quat, ident], dim=1)
+    links = np.asarray([model.geom_link[g] for g in g_idx], np.int64)
+    links = const(model, f"geom_links_{tag}", np.where(links < 0, model.nlink, links), dev,
+                  torch.int64)
+    lq = quat_all[:, links]
+    gp = const(model, f"geom_pos_{tag}", np.asarray(model.geom_pos)[g_idx], dev)
+    gq = const(model, f"geom_quat_{tag}", np.asarray(model.geom_quat)[g_idx], dev)
+    return pos_all[:, links] + m3.quat_rotate(lq, gp), m3.quat_mul(lq, gq)
+
+
+def _point_velocity(kin: Kinematics, links: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """World velocity of the link-fixed points ``points`` (origin-relative,
+    ``(B, P, 3)``) on ``links``, with the world as the dump row ``nlink``,
+    which stands still."""
+    B = kin.cvel.shape[0]
+    cvel = torch.cat([kin.cvel, kin.cvel.new_zeros(B, 1, 6)], dim=1)
+    v = cvel[:, links]
+    return v[..., 3:] + m3.cross(v[..., :3], points)
+
+
+def _penalty_forces(model: Model, depth, n, v_rel, mu) -> torch.Tensor:
+    """``(B, P)`` contacts -> ``(B, P, 3)`` world force on geom i (the
+    reaction on j)."""
+    v_n = torch.sum(v_rel * n, dim=-1)
+    v_t = v_rel - v_n[..., None] * n
+    fn = torch.clamp(model.contact_stiffness * torch.clamp(depth, max=model.contact_depth_cap)
+                     - model.contact_damping * v_n, min=0.0)
+    fn = torch.where(depth > 0.0, fn, torch.zeros_like(fn))
+    if model.contact_force_cap_ratio > 0:
+        fn = torch.clamp(fn, max=model.contact_force_cap_ratio * model.contact_stiffness
+                         * model.contact_depth_cap)
+    vt_norm = torch.linalg.vector_norm(v_t, dim=-1, keepdim=True)
+    ft = -mu[:, None] * fn[..., None] * v_t / (vt_norm + model.friction_vel)
+    return fn[..., None] * n + ft
+
+
+def _sphere_sphere(c1, r1, c2, r2):
+    d = c1 - c2
+    dist = torch.linalg.vector_norm(d, dim=-1) + 1e-12
+    nrm = d / dist[..., None]
+    depth = (r1 + r2) - dist
+    pts = c2 + nrm * (r2 - 0.5 * torch.clamp(depth, min=0.0))[..., None]
+    return depth, nrm, pts
+
+
+def _collide_kind(model: Model, kin: Kinematics, kind: str, tab):
+    """One kind's narrow phase: per contact point ``depth (B, P)``,
+    ``normal (B, P, 3)`` from j to i, world ``points (B, P, 3)``, and the
+    links ``li, lj`` (numpy, -1 for the world) and frictions ``mu`` of each
+    point."""
+    dev = kin.pos.device
+    gi, gj, li, lj = tab["gi"], tab["gj"], tab["li"], tab["lj"]
+    mu = const(model, f"mu_{kind}", tab["mu"], dev)
+    pi, qi = _geom_world_batch(model, kin, gi, f"{kind}_i")
+    pj, qj = _geom_world_batch(model, kin, gj, f"{kind}_j")
+    si = const(model, f"size_{kind}_i", np.asarray(model.geom_size)[gi], dev)
+    sj = const(model, f"size_{kind}_j", np.asarray(model.geom_size)[gj], dev)
+    z = const(model, "z_axis", [0.0, 0.0, 1.0], dev)
+
+    if kind == "sphere_plane":
+        nrm = m3.quat_rotate(qj, z)
+        dist = torch.sum((pi - pj) * nrm, dim=-1) - si[:, 0]
+        return -dist, nrm, pi - nrm * si[:, 0:1], li, lj, mu
+    if kind == "capsule_plane":
+        axis = m3.quat_rotate(qi, z)
+        ends = torch.stack([pi - si[:, 1:2] * axis, pi + si[:, 1:2] * axis], dim=2)  # (B, P, 2, 3)
+        nrm = m3.quat_rotate(qj, z)[:, :, None, :]
+        dist = torch.sum((ends - pj[:, :, None, :]) * nrm, dim=-1) - si[:, 0:1]
+        pts = ends - nrm * si[:, 0:1, None]
+        B, P = ends.shape[:2]
+        return ((-dist).reshape(B, 2 * P), nrm.expand(B, P, 2, 3).reshape(B, 2 * P, 3),
+                pts.reshape(B, 2 * P, 3), np.repeat(li, 2), np.repeat(lj, 2),
+                torch.repeat_interleave(mu, 2))
+    if kind == "sphere_sphere":
+        return (*_sphere_sphere(pi, si[:, 0], pj, sj[:, 0]), li, lj, mu)
+    if kind == "sphere_capsule":  # geom i the sphere, geom j the capsule
+        axis = m3.quat_rotate(qj, z)
+        a = pj - sj[:, 1:2] * axis
+        d = 2.0 * sj[:, 1:2] * axis
+        t = torch.clamp(torch.sum((pi - a) * d, dim=-1) / (torch.sum(d * d, dim=-1) + 1e-12),
+                        0.0, 1.0)
+        return (*_sphere_sphere(pi, si[:, 0], a + t[..., None] * d, sj[:, 0]), li, lj, mu)
+    if kind == "capsule_capsule":
+        ax_i, ax_j = m3.quat_rotate(qi, z), m3.quat_rotate(qj, z)
+        p1 = pi - si[:, 1:2] * ax_i
+        d1 = 2.0 * si[:, 1:2] * ax_i
+        p2 = pj - sj[:, 1:2] * ax_j
+        d2 = 2.0 * sj[:, 1:2] * ax_j
+        r = p1 - p2
+        a = torch.sum(d1 * d1, -1) + 1e-12
+        e = torch.sum(d2 * d2, -1) + 1e-12
+        b = torch.sum(d1 * d2, -1)
+        c = torch.sum(d1 * r, -1)
+        f = torch.sum(d2 * r, -1)
+        denom = a * e - b * b
+        s = torch.where(denom.abs() > 1e-9, (b * f - c * e) / (denom + 1e-12),
+                        torch.zeros_like(denom))
+        s = torch.clamp(s, 0.0, 1.0)
+        t = torch.clamp((b * s + f) / e, 0.0, 1.0)
+        s = torch.clamp((b * t - c) / a, 0.0, 1.0)
+        return (*_sphere_sphere(p1 + s[..., None] * d1, si[:, 0], p2 + t[..., None] * d2,
+                                sj[:, 0]), li, lj, mu)
+    raise NotImplementedError(f"contact kind {kind!r} is not ported")
+
+
+def contact_forces(model: Model, kin: Kinematics) -> torch.Tensor:
+    """``(B, nlink, 6)`` world wrenches about ``kin.origin``."""
+    B = kin.pos.shape[0]
+    f_ext = kin.pos.new_zeros(B, model.nlink + 1, 6)  # + a dump row for world geoms
+    for kind, tab in pair_groups(model).kinds:
+        depth, n, pts, li, lj, mu = _collide_kind(model, kin, kind, tab)
+        dev = pts.device
+        li = const(model, f"li_{kind}", np.where(li < 0, model.nlink, li), dev, torch.int64)
+        lj = const(model, f"lj_{kind}", np.where(lj < 0, model.nlink, lj), dev, torch.int64)
+        pts_rel = pts - kin.origin[:, None]
+        v_rel = _point_velocity(kin, li, pts_rel) - _point_velocity(kin, lj, pts_rel)
+        f = _penalty_forces(model, depth, n, v_rel, mu)
+        wrench = torch.cat([m3.cross(pts_rel, f), f], dim=-1)
+        f_ext.index_add_(1, li, wrench)
+        f_ext.index_add_(1, lj, -wrench)
+    return f_ext[:, : model.nlink]

@@ -33,7 +33,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -76,7 +75,31 @@ NEWTON_LAYOUT_NAMES = (
     "NPAIR_I", "NPAIR_F", "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM",
     "N_F_PAIR",
 )
-_KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2}
+_KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphere_sphere": 3,
+              "sphere_capsule": 4}
+# K1's size classes: the compile-time maxima (links, dofs, qpos,
+# actuators) of each build, smallest first. The first is mj_substep.h's
+# default (ant, the planar walkers, swimmer); the second fits humanoid
+# (20 links, 23 dofs, 24 qpos, 17 actuators). A model runs in the smallest
+# class it fits, so the larger per-thread arrays cost the small models
+# nothing.
+SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24))
+
+
+def size_flags(size_class: int) -> Tuple[str, ...]:
+    """The compiler defines of one size class."""
+    return tuple(f"-DMJ_MAX_{name}={n}" for name, n in
+                 zip(("LINK", "NV", "NQ", "NU"), SIZE_CLASSES[size_class]))
+
+
+def size_class(model: Model) -> int:
+    """The smallest size class ``model`` fits; raises beyond the largest."""
+    need = (model.nlink, model.nv, model.nq, model.nu)
+    for k, cap in enumerate(SIZE_CLASSES):
+        if all(n <= c for n, c in zip(need, cap)):
+            return k
+    raise NotImplementedError(f"(links, dofs, qpos, actuators) {need} exceed every size class "
+                              f"{SIZE_CLASSES}")
 
 
 def build_library(source: str, compiler_cmd, build_dir: Path, csrc: Path = CSRC) -> Path:
@@ -216,9 +239,10 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
         o = L["F_PAIR"] + L["PAIR_F"] * k
         mf[o : o + L["PAIR_GJ"]] = np.concatenate(
             [[tab_k["mu"][p]], _geom_row(model, gi)])
-        # geom j: a plane's world normal and point, or a capsule's row
-        gj_row = (_geom_row(model, gj) if kind == "capsule_capsule"
-                  else np.concatenate(plane_normal_point(model, gj)))
+        # geom j: a plane's world normal and point, or a sphere's or
+        # capsule's row
+        gj_row = (np.concatenate(plane_normal_point(model, gj)) if kind in soa._PLANE_KINDS
+                  else _geom_row(model, gj))
         mf[o + L["PAIR_GJ"] : o + L["PAIR_GJ"] + gj_row.size] = gj_row
     return mf, mi
 
@@ -315,8 +339,10 @@ def check_inputs(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Te
 
 class MultistepKernel:
     """Wrapper of kernel K1: ``(q (nq,B), qd (nv,B), ctrl (nu,B)) -> (q, qd)``
-    after ``n_frames * model.n_substeps`` substeps. ``csrc`` and
-    ``build_dir``: where its sources are read and its library is built."""
+    after ``n_frames * model.n_substeps`` substeps. One library per size
+    class (``SIZE_CLASSES``), each built at first use; a model runs in the
+    smallest class it fits. ``csrc`` and ``build_dir``: where its sources
+    are read and its libraries are built."""
 
     name = "mj_multistep"
     source = "mjrl_tpu_torch/csrc/mj_kernel.cu"
@@ -325,31 +351,28 @@ class MultistepKernel:
     def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
         self.csrc, self.build_dir = Path(csrc), Path(build_dir)
         self.launches = 0
-        self.build_seconds: Optional[float] = None
-        self._lib: Optional[ctypes.CDLL] = None
-        self._layout: Optional[Dict[str, int]] = None
+        self._libs: Dict[int, ctypes.CDLL] = {}
+        self._layouts: Dict[int, Dict[str, int]] = {}
         self._newton_layout: Optional[Dict[str, int]] = None
 
-    def build(self) -> ctypes.CDLL:
-        """Build (or find) and load the CUDA library."""
-        if self._lib is None:
-            t0 = time.perf_counter()
-            path = build_library("mj_kernel.cu", (nvcc_path(), *NVCC_FLAGS), self.build_dir,
-                                 self.csrc)
+    def build(self, size: int = 0) -> ctypes.CDLL:
+        """Build (or find) and load the CUDA library of size class ``size``."""
+        if size not in self._libs:
+            path = build_library("mj_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
+                                 self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
             lib.mj_multistep_launch.argtypes = [ctypes.c_void_p] * 7 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
             lib.mj_multistep_launch.restype = ctypes.c_int
-            self._layout = read_layout(lib)
-            self._lib = lib
-            self.build_seconds = time.perf_counter() - t0
-        return self._lib
+            self._layouts[size] = read_layout(lib)
+            self._libs[size] = lib
+        return self._libs[size]
 
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k1_tables", {})
         key = str(device)
         if key not in cache:
-            mf, mi = pack_tables(model, self._layout)
+            mf, mi = pack_tables(model, self._layouts[size_class(model)])
             cache[key] = (torch.from_numpy(mf).to(device), torch.from_numpy(mi).to(device))
         return cache[key]
 
@@ -362,7 +385,7 @@ class MultistepKernel:
             return soa.multistep(model, q, qd, ctrl, n_frames)
         if q.device.type != "cuda":
             raise ValueError(f"no K1 path for device {q.device}")
-        lib = self.build()
+        lib = self.build(size_class(model))
         mf, mi = self._tables(model, q.device)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         n_sub = n_frames * model.n_substeps
@@ -390,27 +413,30 @@ class NewtonKernel(MultistepKernel):
     source = "mjrl_tpu_torch/csrc/mj_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:79 (soa_newton.py:338)"
 
-    def build(self) -> ctypes.CDLL:
-        if self._lib is None:
-            t0 = time.perf_counter()
-            path = build_library("mj_newton_kernel.cu", (nvcc_path(), *NVCC_FLAGS),
+    def build(self, size: int = 0) -> ctypes.CDLL:
+        """Build (or find) and load the CUDA library. K2 has the small size
+        class only: no model the JAX package runs with the Newton solver
+        needs more."""
+        if size != 0:
+            raise NotImplementedError("K2 is built in the small size class only")
+        if 0 not in self._libs:
+            path = build_library("mj_newton_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(0)),
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
             lib.mj_newton_launch.argtypes = [ctypes.c_void_p] * 10 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
             lib.mj_newton_launch.restype = ctypes.c_int
-            self._layout = read_layout(lib)
+            self._layouts[0] = read_layout(lib)
             self._newton_layout = read_newton_layout(lib)
-            self._lib = lib
-            self.build_seconds = time.perf_counter() - t0
-        return self._lib
+            self._libs[0] = lib
+        return self._libs[0]
 
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k2_tables", {})
         key = str(device)
         if key not in cache:
-            packed = (*pack_tables(model, self._layout),
-                      *pack_newton_tables(model, self._layout, self._newton_layout))
+            packed = (*pack_tables(model, self._layouts[0]),
+                      *pack_newton_tables(model, self._layouts[0], self._newton_layout))
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
         return cache[key]
 

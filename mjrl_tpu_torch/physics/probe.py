@@ -1,14 +1,18 @@
 """States that reach the contacts between two moving links, for checks.
 
 A random policy rarely folds a hopper far enough for its capsule-capsule
-pairs (thigh, leg and foot against each other) to touch, so the kernel
-checks (the CPU tests and ``chip_smoke.py``) add states drawn here: the
-root at its default pose and each limited hinge uniform in its range, kept
-where some pair between two links overlaps by less than a centimetre.
+pairs (thigh, leg and foot against each other) to touch, nor a humanoid
+for its sphere-sphere and sphere-capsule pairs (feet, hands and head), so
+the kernel checks (the CPU tests and ``chip_smoke.py``) add states drawn
+here: the root at its default pose and each limited hinge uniform in its
+range, kept where some pair between two links overlaps by less than a
+centimetre. ``kind_depth`` reads the deepest point of each contact kind;
 ``held_contact_rows`` counts the Newton rows such a pair holds.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -16,6 +20,7 @@ import torch
 from mjrl_tpu_torch.physics import soa, soa_newton
 from mjrl_tpu_torch.physics.csolve import ensure_solver_params
 from mjrl_tpu_torch.physics.model import HINGE, Model
+from mjrl_tpu_torch.physics.tables import pair_groups, points_per_pair
 
 
 def link_pair_depth(model: Model, q: torch.Tensor) -> torch.Tensor:
@@ -26,6 +31,19 @@ def link_pair_depth(model: Model, q: torch.Tensor) -> torch.Tensor:
     if not depths:
         return torch.full((q.shape[1],), -float("inf"), device=q.device)
     return torch.cat(depths).amax(dim=0)
+
+
+def kind_depth(model: Model, q: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per contact kind, the deepest of its candidates in each env (``q``
+    is ``(nq, B)``): a ``(B,)`` tensor per kind, in the reference's kind
+    order."""
+    cands = soa._contact_candidates(model, *soa._fk(model, q))
+    out, k = {}, 0
+    for kind, tab in pair_groups(model).kinds:
+        n = len(tab["gi"]) * points_per_pair(kind)
+        out[kind] = torch.cat([c.depth for c in cands[k : k + n]]).amax(dim=0)
+        k += n
+    return out
 
 
 def held_contact_rows(model: Model, q: torch.Tensor, between_links: bool = False) -> torch.Tensor:

@@ -18,8 +18,9 @@ against it. It issues thousands of tiny ops per substep, so on a card it is
 launch-bound and only fit for comparisons.
 
 Feature set (``check_supported``): free, hinge, slide and fixed links;
-sphere- and capsule-plane contacts against world planes and capsule-capsule
-contacts between links; the inertia-box fluid model (density, viscosity);
+sphere- and capsule-plane contacts against world planes and sphere-sphere,
+sphere-capsule and capsule-capsule contacts between links; the inertia-box
+fluid model (density, viscosity);
 ctrl-limited gear motors; joint springs; per-dof limit penalties; the
 penalty and Newton solvers.
 """
@@ -39,7 +40,8 @@ from mjrl_tpu_torch.physics.tables import (
     soa_tables,
 )
 
-SUPPORTED_KINDS = ("sphere_plane", "capsule_plane", "capsule_capsule")
+SUPPORTED_KINDS = ("sphere_plane", "capsule_plane", "sphere_sphere", "sphere_capsule",
+                   "capsule_capsule")
 _PLANE_KINDS = ("sphere_plane", "capsule_plane")
 
 
@@ -448,6 +450,19 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
                 t = torch.clamp((b * s + f) / e, 0.0, 1.0)
                 s = torch.clamp((b * t - c) / a, 0.0, 1.0)
                 dep, n, pt = sphere_sphere(p1 + s * d1, si[0], p2 + t * d2, sj[0])
+                out.append(_Cand(gi, gj, li, lj, mu, dep, n, pt))
+            elif kind == "sphere_sphere":
+                dep, n, pt = sphere_sphere(pi_, si[0], geom_pose(gj)[0], sj[0])
+                out.append(_Cand(gi, gj, li, lj, mu, dep, n, pt))
+            elif kind == "sphere_capsule":
+                # the sphere (geom i) against the closest point of the
+                # capsule's axis segment
+                pj_, qj_ = geom_pose(gj)
+                axis = _qrot(qj_, Z)
+                a = pj_ - float(sj[1]) * axis
+                d = float(2.0 * sj[1]) * axis
+                t = torch.clamp(_dot(pi_ - a, d) / (_dot(d, d) + 1e-12), 0.0, 1.0)
+                dep, n, pt = sphere_sphere(pi_, si[0], a + t * d, sj[0])
                 out.append(_Cand(gi, gj, li, lj, mu, dep, n, pt))
             else:  # gated by check_supported
                 raise NotImplementedError(kind)

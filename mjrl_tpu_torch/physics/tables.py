@@ -108,11 +108,14 @@ def pair_groups(model: Model) -> PairGroups:
     return groups
 
 
+def points_per_pair(kind: str) -> int:
+    """Contact points each pair of ``kind`` contributes."""
+    return _POINTS.get(kind, 1)
+
+
 def num_contact_candidates(model: Model) -> int:
     """Static count of narrow-phase contact points for this model."""
-    return sum(
-        len(tab["gi"]) * _POINTS.get(kind, 1) for kind, tab in pair_groups(model).kinds
-    )
+    return sum(len(tab["gi"]) * points_per_pair(kind) for kind, tab in pair_groups(model).kinds)
 
 
 def plane_normal_point(model: Model, g: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -4,9 +4,12 @@ Twin of ``mjrl_tpu/train.py``: builds the env, policy, baseline and agent
 from a JSON config (the same ``examples/*.json``) and trains into
 ``--output``, resuming from its latest checkpoint. ``--set key=value``
 overrides a field (JSON-parsed; dotted keys reach into dict fields, e.g.
-``env_kwargs.n_substeps=1``). The run is on the card (``--device cuda``,
-the default) unless ``--device cpu`` is asked for; without a card a CUDA
-run fails and never falls back to the CPU.
+``env_kwargs.n_substeps=1``). With ``obs_norm`` a fresh run first sets the
+policy's input normalization from one batch of the initial policy
+(``utils.configs.obs_norm_init``); a resumed run keeps its checkpoint's.
+The run is on the card (``--device cuda``, the default) unless ``--device
+cpu`` is asked for; without a card a CUDA run fails and never falls back
+to the CPU.
 
     python -m mjrl_tpu_torch.train --config examples/hopper_npg.json --output runs/hopper
 """
@@ -17,10 +20,12 @@ import argparse
 import json
 import os
 
+import numpy as np
 import torch
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
-from mjrl_tpu_torch.utils.configs import RunConfig, build
+from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
+from mjrl_tpu_torch.utils.configs import RunConfig, build, obs_norm_init
 from mjrl_tpu_torch.utils.train_agent import train_agent
 
 
@@ -31,6 +36,10 @@ def run_job(cfg: RunConfig, output: str, device="cuda") -> BatchREINFORCE:
         raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
     cfg.to_json(os.path.join(output, "config.json"))
     _, _, _, agent = build(cfg, device=device)
+    if cfg.obs_norm and CheckpointManager(output).latest_step() is None:
+        # a generator of its own, apart from the iterations' (train_agent)
+        seed = int(np.random.SeedSequence(cfg.seed, spawn_key=(2,)).generate_state(1)[0])
+        obs_norm_init(agent, torch.Generator(device=device).manual_seed(seed))
     return train_agent(output, agent, seed=cfg.seed, niter=cfg.niter, save_freq=cfg.save_freq)
 
 

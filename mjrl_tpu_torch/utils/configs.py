@@ -3,8 +3,9 @@
 Twin of ``mjrl_tpu/utils/configs.py``. ``RunConfig`` has the reference's
 fields, names and defaults, so every ``examples/*.json`` parses and a run's
 ``config.json`` diffs field for field against the JAX package's. ``build``
-makes what the port has: NPG or TRPO with a ``GaussianMLP`` policy and an
-``MLPBaseline``, on the env's device. Every other choice raises
+makes what the port has: NPG, TRPO or PPO with a ``GaussianMLP`` policy and
+an ``MLPBaseline``, on the env's device; ``obs_norm_init`` sets the
+policy's input normalization for ``obs_norm``. Every other choice raises
 ``NotImplementedError`` naming the ROADMAP item that ports it; none is
 ignored.
 """
@@ -19,8 +20,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from mjrl_tpu_torch import envs
-from mjrl_tpu_torch.algos import NPG, TRPO
+from mjrl_tpu_torch.algos import NPG, PPO, TRPO
+from mjrl_tpu_torch.algos.base import BatchREINFORCE
 from mjrl_tpu_torch.models import GaussianMLP, MLPBaseline
+from mjrl_tpu_torch.samplers import init_autoreset_carry, sample_autoreset, sample_episodes
 
 
 @dataclasses.dataclass
@@ -85,7 +88,7 @@ class RunConfig:
         return cfg
 
 
-AGENTS = {"npg": NPG, "trpo": TRPO}
+AGENTS = {"npg": NPG, "trpo": TRPO, "ppo": PPO}
 
 
 def check_ported(cfg: RunConfig) -> None:
@@ -96,8 +99,7 @@ def check_ported(cfg: RunConfig) -> None:
         (cfg.baseline != "mlp", f"baseline {cfg.baseline!r}", "queue 1 item 3"),
         (cfg.demo_file is not None or cfg.bc_init, "demo_file / bc_init (BC, DAPG)",
          "queue 1 item 12"),
-        (cfg.init_policy_from is not None or cfg.obs_norm, "init_policy_from / obs_norm",
-         "queue 1 item 9, warm starts"),
+        (cfg.init_policy_from is not None, "init_policy_from", "queue 1 item 9, warm starts"),
         (cfg.mesh_devices > 1, "mesh_devices > 1", "queue 1 item 15"),
         (cfg.evaluation_rollouts > 0, "evaluation_rollouts > 0",
          "queue 1 item 9, evaluation rollouts"),
@@ -121,3 +123,28 @@ def build(cfg: RunConfig, device="cuda"):
         sample_mode=cfg.sample_mode, horizon=cfg.horizon, gamma=cfg.gamma,
         gae_lambda=cfg.gae_lambda, **cfg.agent_kwargs)
     return env, policy, baseline, agent
+
+
+@torch.no_grad()
+def obs_norm_init(agent: BatchREINFORCE, generator: Optional[torch.Generator] = None,
+                  scale_min: float = 1e-2) -> None:
+    """Set the policy's ``in_shift`` / ``in_scale`` to the mean and the
+    std (at least ``scale_min``, for constant channels) of the observations
+    of one batch of the initial policy, over its valid steps. The batch
+    comes from the agent's sampler with a fresh reset: a samples-mode
+    agent's persistent carry is untouched. One-shot statistics, not running
+    ones, keep the policy fixed for the on-policy ratios."""
+    env, policy = agent.env, agent.policy
+    if agent.sample_mode == "trajectories":
+        batch = sample_episodes(env, policy, agent.num_traj, agent.horizon, generator)
+    else:
+        carry = init_autoreset_carry(env, agent.num_traj, generator)
+        window = -(-int(agent.num_samples) // agent.num_traj)
+        batch, _ = sample_autoreset(env, policy, carry, window, agent.horizon, generator)
+    obs = batch.observations.reshape(-1, batch.observations.shape[-1])
+    w = batch.valid.reshape(-1).to(obs.dtype)[:, None]
+    n = torch.clamp(w.sum(), min=1.0)
+    mean = (obs * w).sum(0) / n
+    var = (torch.square(obs - mean) * w).sum(0) / n
+    policy.mlp.in_shift.copy_(mean)
+    policy.mlp.in_scale.copy_(torch.clamp(torch.sqrt(var), min=scale_min))

@@ -1,8 +1,9 @@
 """The port stands without JAX: with jax, jaxlib, gymnasium and mjrl_tpu
 blocked, every mjrl_tpu_torch module imports (the harness in ``utils``,
-the ``train`` entry point and TRPO among them), the ant env steps on the
-CPU with either solver and the hopper and swimmer envs with their shipped
-assets. (The card's
+the ``train`` entry point, TRPO and PPO among them), the ant env steps on
+the CPU with either solver and the hopper, swimmer and humanoid envs (its
+376-dim observation from physics/engine.py, contact.py and comfeat.py)
+with their shipped assets. (The card's
 machine has none of those packages.)"""
 
 import os
@@ -47,7 +48,13 @@ for name, obs_dim in (("hopper", 11), ("swimmer", 8)):
     state, obs = env.reset(2, torch.Generator().manual_seed(0))
     state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
     assert obs.shape == (2, obs_dim) and torch.isfinite(reward).all()
-assert "mjrl_tpu_torch.algos.trpo" in names
+env = make("humanoid", horizon=4, device="cpu")
+state, obs = env.reset(2, torch.Generator().manual_seed(0))
+state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
+assert obs.shape == (2, 376) and torch.isfinite(reward).all()
+for name in ("algos.trpo", "algos.ppo", "physics.engine", "physics.contact", "physics.comfeat",
+             "physics.math3d"):
+    assert "mjrl_tpu_torch." + name in names, name
 print("imported", len(names), "modules")
 """
 

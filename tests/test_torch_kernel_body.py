@@ -3,8 +3,10 @@
 ``mjrl_tpu_torch/csrc/mj_substep.h`` is compiled with g++ (no CUDA, no
 torch headers) into a ctypes library, and its control steps are held
 against the plain PyTorch version (physics/soa.py) on the same inputs:
-ant, and the planar walkers (slide joints; hopper's capsule-capsule
-contacts between links), plus one Newton case (K2's body) on walker2d.
+ant, the planar walkers (slide joints; hopper's capsule-capsule contacts
+between links) and humanoid (sphere-sphere and sphere-capsule contacts,
+built in the large size class), plus one Newton case (K2's body) on
+walker2d.
 This catches math and table-layout faults before the kernel ever runs on
 a card. The tests marked ``cuda`` launch the real kernel and run only
 where a card is present.
@@ -344,3 +346,94 @@ def test_cuda_kernel_matches_plain_on_swimmer():
     # and chip_smoke.py's, rounded up to a power of ten
     torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-5)
     torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-3)
+
+
+# ---- humanoid: sphere-sphere and sphere-capsule contacts, the large size class
+
+@pytest.fixture(scope="module")
+def humanoid(tmp_path_factory):
+    """``(env, run, q, qd, L)``: the host build of the large size class
+    (``L`` its layout), and 8 humanoids: 4 after 6 control steps of random actions from reset
+    (through the host build), 4 folded so a pair of links overlaps."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    env = make("humanoid", horizon=8, device="cpu")
+    assert pkernel.size_class(env.model) == 1
+    path = pkernel.build_library("mj_host.cpp", ("g++", *pkernel.GXX_FLAGS, *pkernel.size_flags(1)),
+                                 tmp_path_factory.mktemp("k1_host_large"))
+    lib = ctypes.CDLL(str(path))
+    lib.mj_multistep_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
+                                                              ctypes.c_float]
+    lib.mj_multistep_host.restype = ctypes.c_int
+    L = pkernel.read_layout(lib)
+    assert (L["MAX_LINK"], L["MAX_NV"], L["MAX_NQ"], L["MAX_NU"]) == pkernel.SIZE_CLASSES[1]
+    run = _host_runner(lib, env.model)
+    rng = np.random.default_rng(0)
+    state, _ = env.reset(B // 2, torch.Generator().manual_seed(0))
+    q, qd = state.q.T.numpy().copy(), state.qd.T.numpy().copy()
+    for _ in range(6):
+        q, qd = run(q, qd, rng.uniform(-1, 1, (env.model.nu, B // 2)), env.frame_skip)
+    fq, fqd = probe.overlapping_states(env.model, B // 2, rng)
+    q, qd = np.concatenate([q, fq], axis=1), np.concatenate([qd, fqd], axis=1)
+    return env, run, np.ascontiguousarray(q), np.ascontiguousarray(qd), L
+
+
+def test_humanoid_packs_sphere_pairs_in_the_large_class(humanoid, lib):
+    """Humanoid runs in the large size class, the small models in the
+    small one; the small class's packer refuses humanoid. Every pair of a
+    kind between links carries geom j's row (a sphere's or a capsule's)."""
+    env, *_, L = humanoid
+    with pytest.raises(NotImplementedError, match="exceed"):
+        pkernel.pack_tables(env.model, pkernel.read_layout(lib))
+    assert [pkernel.size_class(make(n, horizon=2, device="cpu").model)
+            for n in ("ant", "hopper", "swimmer")] == [0, 0, 0]
+    mf, mi = pkernel.pack_tables(env.model, L)
+    kinds = mi[L["I_PAIR"] :].reshape(-1, L["PAIR_I"])[:, 0]
+    rows = mf[L["F_PAIR"] :].reshape(-1, L["PAIR_F"])
+    assert [int((kinds == k).sum()) for k in range(5)] == [5, 12, 52, 10, 49]
+    between = kinds >= 2
+    assert (rows[between, L["PAIR_GJ"]] > 0).all()  # geom j's radius
+    np.testing.assert_allclose(np.linalg.norm(rows[between, L["PAIR_GJ"] + 5 :
+                                                   L["PAIR_GJ"] + 9], axis=1), 1.0, rtol=1e-6)
+
+
+def test_humanoid_kernel_body_matches_plain(humanoid):
+    """Two chained control steps of the host build from warmed and folded
+    states, each held against the plain version from the same state; every
+    sphere kind touches on the way."""
+    env, run, q, qd, _ = humanoid
+    rng = np.random.default_rng(1)
+    touched = dict.fromkeys(("sphere_sphere", "sphere_capsule", "capsule_capsule"), 0)
+    for _ in range(2):
+        depth = probe.kind_depth(env.model, torch.as_tensor(q))
+        for kind in touched:
+            touched[kind] += int((depth[kind] > 0).sum())
+        ctrl = rng.uniform(-1, 1, (env.model.nu, B)).astype(np.float32)
+        got_q, got_qd = run(q, qd, ctrl, env.frame_skip)
+        want_q, want_qd = _plain(env, q, qd, ctrl, env.frame_skip)
+        np.testing.assert_allclose(got_q, want_q, **TOL_Q)
+        np.testing.assert_allclose(got_qd, want_qd, **TOL_QD)
+        q, qd = got_q, got_qd
+    assert all(touched.values()), touched
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain_on_humanoid():
+    """K1 in the large size class on humanoid: B=250 folded states."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = make("humanoid", horizon=8)
+    m, rng, dev = env.model, np.random.default_rng(0), torch.device("cuda")
+    q, qd = (torch.as_tensor(x, device=dev) for x in probe.overlapping_states(m, 250, rng))
+    ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
+    kernel = pkernel.MultistepKernel()
+    got_q, got_qd = kernel(m, q, qd, ctrl, env.frame_skip)
+    torch.cuda.synchronize()
+    want_q, want_qd = soa.multistep(m, q, qd, ctrl, env.frame_skip)
+    assert kernel.launches == 1
+    # chip_smoke.py's tolerance for K1 on humanoid, on the 99% quantile of
+    # the per-env max |err| (a contact or limit event near round-off sends
+    # a rare env to either side of it, the plain version too)
+    for got, want, tol in ((got_q, want_q, 1e-4), (got_qd, want_qd, 5e-2)):
+        assert torch.isfinite(got).all()
+        assert float(torch.quantile((got - want).abs().amax(dim=0), 0.99)) <= tol

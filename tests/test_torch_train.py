@@ -6,8 +6,9 @@ package's hopper run (``runs/hopper_npg_expert/logs/log.csv``) and
 checkpoints; a resumed run continues at the checkpoint's iteration with
 the log cut to match and ends with the policy of a straight run; settings
 the port does not have raise; every other config the port runs goes
-through the entry point at 2 envs x 2 steps; and a run on the card never
-falls back to the CPU.
+through the entry point at 2 envs x 2 steps; the humanoid PPO and TRPO
+configs run with their obs_norm at a small width and resume; and a run on
+the card never falls back to the CPU.
 """
 
 import csv
@@ -81,8 +82,9 @@ def test_resume_continues_a_run_exactly(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "algorithm=\"ppo\"", "evaluation_rollouts=1", "policy=\"linear\"", "baseline=\"quadratic\"",
-    "bc_init=true", "init_policy_from=\"runs/x\"", "obs_norm=true", "mesh_devices=2",
+    "algorithm=\"dapg\"", "evaluation_rollouts=1", "policy=\"linear\"", "baseline=\"quadratic\"",
+    "bc_init=true", "init_policy_from=\"runs/x\"", "demo_file=\"demos/x.pickle\"",
+    "mesh_devices=2",
 ])
 def test_unported_settings_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -90,10 +92,13 @@ def test_unported_settings_raise(override):
 
 
 # the example configs the port runs and no other test drives through the
-# entry point (hopper, hopper Newton, swimmer and walker2d TRPO have theirs)
+# entry point (hopper, hopper Newton, swimmer, walker2d TRPO and the two
+# humanoid configs of the slice have theirs)
 OTHER_CONFIGS = ("ant_npg.json", "ant_npg_newton.json", "ant_npg_newton1.json",
                  "ant_npg_newton_fast.json", "ant_npg_newton_samples.json",
-                 "half_cheetah_trpo.json", "walker2d_trpo_newton.json")
+                 "half_cheetah_trpo.json", "walker2d_trpo_newton.json", "ant_ppo.json",
+                 "ant_ppo2.json", "ant_ppo3.json", "ant_ppo_v5.json", "humanoid_ppo.json",
+                 "humanoid_ppo3.json")
 
 
 @pytest.mark.parametrize("name", OTHER_CONFIGS)
@@ -110,6 +115,33 @@ def test_cli_runs_each_other_config_at_a_tiny_width(tmp_path, name):
     assert agent.env.model.constraint_solver == config.env_kwargs.get("constraint_solver", "penalty")
     (row,) = _rows(str(tmp_path / "logs" / "log.csv"))
     assert all(math.isfinite(float(v)) for v in row.values()), row
+
+
+@pytest.mark.parametrize("name", ["humanoid_ppo_v4.json", "humanoid_trpo.json"])
+def test_cli_runs_the_humanoid_configs_with_obs_norm(tmp_path, name):
+    """The slice's two humanoid configs, one iteration at a small width
+    (``--set`` overrides of the envs, steps and widths): the policy's input
+    normalization comes from the obs_norm rollout, every logged value is
+    finite, and a resumed run keeps the checkpoint's normalization."""
+    path = os.path.join(ROOT, "examples", name)
+    small = ["num_traj=3", "num_samples=12", "horizon=5", "hidden_sizes=[8,8]",
+             "baseline_kwargs.hidden_sizes=[8,8]", "save_freq=1"]
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    cmd = [sys.executable, "-m", "mjrl_tpu_torch.train", "--device", "cpu", "--config", path,
+           "--output", str(tmp_path), "--set", *small, "niter=1"]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    (row,) = _rows(str(tmp_path / "logs" / "log.csv"))
+    assert all(math.isfinite(float(v)) for v in row.values()), row
+    state = CheckpointManager(str(tmp_path)).restore(1)
+    shift, scale = state["policy"]["mlp.in_shift"], state["policy"]["mlp.in_scale"]
+    assert shift.shape == (376,) and shift.abs().max() > 0.1 and (scale != 1.0).any()
+    assert float(scale.min()) == pytest.approx(1e-2)  # constant channels: the floor
+    agent = run_job(load_config(path, [*small, "niter=2"]), str(tmp_path), device="cpu")
+    assert agent.iteration == 2
+    torch.testing.assert_close(agent.policy.mlp.in_shift, shift, rtol=0, atol=0)
+    if name == "humanoid_ppo_v4.json":
+        assert agent.lr_anneal_iters == 600 and agent.optimizer.state  # Adam resumed
 
 
 def test_cuda_run_needs_a_card(tmp_path):

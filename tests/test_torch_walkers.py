@@ -115,10 +115,42 @@ def test_capsule_capsule_candidates_match_reference():
     assert len(cc) == 3 and bool((torch.cat([c.depth for c in cc]) > 0).any(dim=0).all())
 
 
-@pytest.mark.parametrize("asset", ["humanoid.xml"])
-def test_check_supported_refuses_swimmer_and_humanoid(asset):
-    """Humanoid's sphere and capsule pair kinds are not ported. (Swimmer's
-    fluid forces are: tests/test_torch_swimmer.py.)"""
-    path = os.path.join(os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", asset)
-    with pytest.raises(NotImplementedError):
-        soa.check_supported(load_mjcf(path))
+# a model with features the kernels do not have yet (Adroit's): a box over
+# the floor (the box_plane kind) on a hinge with frictionloss
+_UNPORTED_MJCF = """
+<mujoco model="unported">
+  <worldbody>
+    <geom name="floor" type="plane" size="5 5 0.1"/>
+    <body name="box" pos="0 0 0.5">
+      <joint name="hinge" type="hinge" axis="0 1 0" frictionloss="0.5"/>
+      <geom name="box" type="box" size="0.1 0.1 0.1" mass="1"/>
+    </body>
+  </worldbody>
+  <actuator><motor joint="hinge" gear="1"/></actuator>
+</mujoco>
+"""
+
+
+@pytest.mark.parametrize("case", ["humanoid.xml", "box_and_frictionloss"])
+def test_check_supported_refuses_swimmer_and_humanoid(case, tmp_path):
+    """Humanoid's pair kinds (sphere-sphere, sphere-capsule) are ported:
+    its model is accepted. A model with a box over the floor and a hinge
+    with frictionloss is still refused. (Swimmer's fluid forces are
+    ported: tests/test_torch_swimmer.py.)"""
+    if case == "humanoid.xml":
+        path = os.path.join(os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", case)
+        model = load_mjcf(path)
+        tables.scale_limit_penalties(model)  # as the env sets them
+        soa.check_supported(model)
+        return
+    path = tmp_path / "unported.xml"
+    path.write_text(_UNPORTED_MJCF)
+    model = load_mjcf(str(path))
+    assert [k for k, _ in tables.pair_groups(model).kinds] == ["box_plane"]
+    assert np.any(model.dof_frictionloss)
+    with pytest.raises(NotImplementedError, match="box_plane"):
+        soa.check_supported(model)
+    model.contact_pairs = ()
+    model._pair_groups = None
+    with pytest.raises(NotImplementedError, match="frictionloss"):
+        soa.check_supported(model)

@@ -107,7 +107,7 @@ def launch(kernel, model, frames):
 
 def check_swimmer(kernel) -> dict:
     env = make("swimmer", horizon=1000)
-    model, frames, L = env.model, env.frame_skip, kernel._layout
+    model, frames, L = env.model, env.frame_skip, kernel._layouts[0]
     q0, qd0, ctrls = start_states(env, 256, 6)
     rng = np.random.default_rng(0)  # the cuda test's states
     lively = [torch.as_tensor(x, dtype=torch.float32, device=env.device) for x in (

@@ -1,0 +1,160 @@
+"""K1 on humanoid on one NVIDIA GPU: the spread that sets its tolerance, and
+a faulty sphere-capsule narrow phase that must fail that tolerance.
+
+    python3 tools/torch_humanoid_check.py
+
+Needs one CUDA card and nvcc; run it from the root of a checkout. On
+humanoid (chip_smoke.py's ``start_states``: 1024 envs after 10 control
+steps of random actions from reset, half of them replaced by folded states
+where a pair of links overlaps, then 3 chained control steps; the first
+1018 of them; and 4096 such envs, one control step) it reads, per
+env-step, the max |err| of q and of qd of:
+
+1. spread: the plain version (physics/soa.py) on the card against the
+   plain version on the CPU;
+2. kernel: K1 against the plain version on the card;
+3. control: K1 with every sphere-capsule pair's sphere radius 2% too large
+   (its pair rows edited) against the plain version on the card;
+
+all from the same state at every step, the kernel's own (the chain
+follows K1), as chip_smoke.py holds it.
+
+Humanoid's penalty forces jump where a contact's depth crosses 0 while it
+closes (the damper's ``-kd v_n``) and where a joint crosses its limit (the
+limit damper), so an env-step near such an event can take either side of
+it from round-off alone, and the plain version disagrees with itself
+across devices there by far more than elsewhere. The tool prints, for q
+and qd and each variant, how many env-steps exceed each power of ten, the
+max and the QUANTILE (99%) quantile of the per env-step max |err|.
+chip_smoke.py's tolerance for K1 on humanoid is ten times the spread's
+quantile, rounded up to a power of ten and no looser than K1's (q 1e-3,
+qd 5e-2), and it holds that quantile of K1's per env-step error to it.
+It also counts the envs with a sphere-sphere and with a sphere-capsule
+contact point at depth > 0. The last lines: one JSON object with every
+reading, and the card's name and power limit from nvidia-smi.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import TOL, kind_contacts, start_states  # noqa: E402
+from mjrl_tpu_torch.envs import make  # noqa: E402
+from mjrl_tpu_torch.physics import pkernel, soa  # noqa: E402
+
+RADIUS_SCALE = 1.02
+QUANTILE = 0.99
+
+
+def per_env(variants, q, qd, ctrls):
+    """Per variant ``name: (step, against)``, the per env-step max |err|
+    ``(q (steps, B), qd (steps, B))`` of ``step`` against ``against`` over
+    the chained control steps, all from the kernel's state (the first
+    variant's ``step``)."""
+    errs = {name: ([], []) for name in variants}
+    for ctrl in ctrls:
+        outs = {}
+        for name, (step, against) in variants.items():
+            got, want = step(q, qd, ctrl), against(q, qd, ctrl)
+            for k in range(2):
+                errs[name][k].append((got[k].cpu() - want[k].cpu()).abs().amax(dim=0))
+            outs[name] = got
+        q, qd = outs[next(iter(variants))]
+    return {name: tuple(torch.stack(e) for e in pair) for name, pair in errs.items()}
+
+
+def plain(model, frames, device=None):
+    """The plain control step, on ``device`` if given (else the inputs')."""
+    def run(q, qd, ctrl):
+        if device is not None:
+            q, qd, ctrl = (x.to(device) for x in (q, qd, ctrl))
+        return soa.multistep(model, q, qd, ctrl, frames)
+    return run
+
+
+def larger_sphere_capsule_radius(model, kernel, device):
+    """A copy of ``model`` whose K1 pair rows give every sphere-capsule
+    pair's sphere a radius ``RADIUS_SCALE`` times its own."""
+    L = kernel._layouts[pkernel.size_class(model)]
+    mf, mi = (t.cpu().numpy().copy() for t in kernel._tables(model, device))
+    kinds = mi[L["I_PAIR"] :].reshape(-1, L["PAIR_I"])[:, 0]
+    rows = mf[L["F_PAIR"] :].reshape(-1, L["PAIR_F"])
+    rows[kinds == 4, 1] *= np.float32(RADIUS_SCALE)  # MJ_KIND_SPHERE_CAPSULE, slot 1: radius
+    faulty = copy.copy(model)
+    faulty.__dict__["_k1_tables"] = {str(device): (torch.from_numpy(mf).to(device),
+                                                   torch.from_numpy(mi).to(device))}
+    return faulty
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_humanoid_check: no CUDA device", file=sys.stderr)
+        return 2
+    kernel = pkernel.MultistepKernel()
+    env = make("humanoid", horizon=1000)
+    model, frames = env.model, env.frame_skip
+    kernel.build(pkernel.size_class(model))
+    q0, qd0, ctrls = start_states(env, 1024, 3, fold=True)
+    q4, qd4, ctrls4 = start_states(env, 4096, 1, fold=True)
+    cases = {"1024": (q0, qd0, ctrls),
+             "1018": (q0[:, :1018].contiguous(), qd0[:, :1018].contiguous(),
+                      [c[:, :1018].contiguous() for c in ctrls]),
+             "4096": (q4, qd4, ctrls4)}
+    on_card = plain(model, frames)
+    faulty = larger_sphere_capsule_radius(model, kernel, q0.device)
+    variants = {"kernel": (lambda q, qd, c: kernel(model, q, qd, c, frames), on_card),
+                "spread": (on_card, plain(model, frames, "cpu")),
+                "sphere_capsule_radius_x1.02": (lambda q, qd, c: kernel(faulty, q, qd, c, frames),
+                                                on_card)}
+    out = {"contacts": {}}
+    for case, (q, qd, cs) in cases.items():
+        out["contacts"][case] = kind_contacts(model, q)
+        print(f"[humanoid] {case}: envs with a point at depth > 0 (first state): "
+              f"{out['contacts'][case]}")
+    cap = TOL["K1"]
+    for case in cases:
+        errs = per_env(variants, *cases[case])
+        entry = {}
+        for variant, pair in errs.items():
+            for name, e in zip(("q", "qd"), pair):
+                e = e.reshape(-1)
+                entry[f"{variant}_{name}"] = {
+                    "max": float(e.max()), "quantile": float(torch.quantile(e, QUANTILE)),
+                    "env_steps": e.numel(),
+                    "above": {f"1e{p}": int((e > 10.0 ** p).sum()) for p in range(-7, 2)}}
+        out[case] = entry
+        print(f"[humanoid] {case}: {json.dumps(entry)}", flush=True)
+    tol = {}
+    for name in ("q", "qd"):
+        s = max(out[c][f"spread_{name}"]["quantile"] for c in cases)
+        tol[name] = min(10.0 ** math.ceil(math.log10(10 * s)), cap[name]) if s > 0 else cap[name]
+    out["tolerance"] = tol
+    print(f"[humanoid] tolerance (10 x the spread's {QUANTILE:.0%} quantile, up to a power of "
+          f"ten, at most K1's): {tol}")
+    for case in cases:
+        for variant in ("kernel", "sphere_capsule_radius_x1.02"):
+            held = {n: out[case][f"{variant}_{n}"]["quantile"] for n in ("q", "qd")}
+            verdict = "passes" if all(held[n] <= tol[n] for n in tol) else "fails"
+            print(f"[humanoid] {case} {variant}: {QUANTILE:.0%} quantile q {held['q']:.3e} "
+                  f"qd {held['qd']:.3e}: {verdict} the tolerance")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out["card"] = smi
+    print(json.dumps(out))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,11 +8,14 @@ envs x 100 steps, policy (64, 64), MLPBaseline(epochs=2, batch_size=1024),
 normalized_step_size=0.05), ``penalty`` (episodes mode, kernel K1) or
 ``newton`` (Newton solver, n_substeps=1, samples mode with the persistent
 sampler carry, kernel K2); or a config of ``examples/`` as
-``python -m mjrl_tpu_torch.train`` builds it, in episodes mode:
+``python -m mjrl_tpu_torch.train`` builds it (with its obs_norm, if set):
 ``hopper`` (hopper_npg.json, 256 envs x 1000 steps, K1), ``hopper_newton``
 (hopper_npg_newton.json, 256 x 1000, K2), ``swimmer`` (swimmer_npg.json,
-256 x 1000, K1) or ``walker2d_trpo`` (walker2d_trpo.json, 4096 x 1000, K1;
-its ``npg_update`` phase is TRPO's update with its line-search probes).
+256 x 1000, K1), ``walker2d_trpo`` (walker2d_trpo.json, 4096 x 1000, K1),
+``humanoid_trpo`` (humanoid_trpo.json, 1024 x 1000, K1) or
+``humanoid_ppo`` (humanoid_ppo_v4.json, 4096 x 64-step windows in samples
+mode, K1). The ``update`` phase is the agent's policy update: NPG's, TRPO's
+with its line-search probes, or PPO's minibatch Adam epochs.
 Warms it for 2 iterations, then times one iteration
 phase by phase on the host clock (each phase ends in
 ``torch.cuda.synchronize()``), and traces a second one with
@@ -33,7 +36,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 CONFIG_ROWS = {"hopper": "hopper_npg.json", "hopper_newton": "hopper_npg_newton.json",
-               "swimmer": "swimmer_npg.json", "walker2d_trpo": "walker2d_trpo.json"}
+               "swimmer": "swimmer_npg.json", "walker2d_trpo": "walker2d_trpo.json",
+               "humanoid_trpo": "humanoid_trpo.json", "humanoid_ppo": "humanoid_ppo_v4.json"}
 
 
 def main() -> int:
@@ -52,7 +56,7 @@ def main() -> int:
         run_autoreset,
         run_episodes,
     )
-    from mjrl_tpu_torch.utils.configs import RunConfig, build
+    from mjrl_tpu_torch.utils.configs import RunConfig, build, obs_norm_init
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--row", choices=("penalty", "newton", *CONFIG_ROWS), default="penalty")
@@ -61,14 +65,15 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    newton = row == "newton"  # the samples-mode row
     if row in CONFIG_ROWS:
         cfg = RunConfig.from_json(str(ROOT / "examples" / CONFIG_ROWS[row]))
         env, policy, baseline, agent = build(cfg, device=dev)
+        if cfg.obs_norm:
+            obs_norm_init(agent, torch.Generator(device=dev).manual_seed(2))
         num_envs, horizon = cfg.num_traj, cfg.horizon
     else:
         num_envs, horizon = 1024, 100
-        if newton:
+        if row == "newton":  # the samples-mode row
             env = make("ant", horizon=horizon, device=dev, constraint_solver="newton", n_substeps=1)
             kw = dict(num_samples=num_envs * horizon, sample_mode="samples")
         else:
@@ -78,6 +83,8 @@ def main() -> int:
         policy = GaussianMLP(env.spec, hidden_sizes=(64, 64), generator=init).to(dev)
         baseline = MLPBaseline(env.spec, epochs=2, batch_size=1024, generator=init).to(dev)
         agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=num_envs, **kw)
+    samples = agent.sample_mode == "samples"
+    window = -(-agent.num_samples // num_envs) if samples else horizon  # steps per iteration
     kernel = K2 if env.model.constraint_solver == "newton" else K1
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
@@ -94,10 +101,10 @@ def main() -> int:
         return out
 
     def rollout():
-        if not newton:
+        if not samples:
             noise = timed("noise", lambda: draw_episode_noise(env, num_envs, horizon, gen))
             return timed("rollout", lambda: run_episodes(env, policy, noise))
-        noise = timed("noise", lambda: draw_autoreset_noise(env, num_envs, horizon, gen))
+        noise = timed("noise", lambda: draw_autoreset_noise(env, num_envs, window, gen))
         batch, agent.sampler_carry = timed(
             "rollout", lambda: run_autoreset(env, policy, noise, agent.sampler_carry, horizon))
         return batch
@@ -106,7 +113,7 @@ def main() -> int:
         t0 = time.perf_counter()
         batch = rollout()
         batch = timed("returns_gae", lambda: agent.process_batch(batch))
-        timed("npg_update", lambda: agent.update(batch))
+        timed("update", lambda: agent.update(batch, generator=gen))
         timed("baseline_fit", lambda: baseline.fit(batch, generator=gen))
         timed("statistics", lambda: rollout_statistics(batch).mean.item())
         return (time.perf_counter() - t0) * 1e3
@@ -134,6 +141,7 @@ def main() -> int:
         "profiled_wall_ms": wall, "profiled_phases_ms": phases, "device_busy_ms": busy,
         "device_busy_share": busy / wall, "kernel": kernel.name, "kernel_device_ms": kernel_ms,
         "kernel_launches": kernel.launches, "num_envs": num_envs, "horizon": horizon,
+        "steps_per_iteration": window,
         "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top},
     }))
     return 0
