@@ -139,13 +139,21 @@ from pathlib import Path
 # K1's per env-step error (tools/torch_humanoid_check.py, PERF.md: the
 # spread's quantile is 3.6e-6 in q, 1.2e-3 in qd); a sphere-capsule radius
 # 2% off reads 2e-2 / 2.7 there and fails it.
+# K3 on pen has its own by swimmer's rule: ten times the largest spread
+# between the plain version on the card and on the CPU (1.0e-6 in q, 1.9e-4
+# in qd over pen_states' 512 and 506 envs x 3 chained steps), rounded up
+# to a power of ten; every box's half-sizes 2% too large read 3.2e-3 / 0.34
+# there and every tendon's limit stiffness 2% too large 1.9e-3 / 0.28, and
+# both fail it (tools/torch_adroit_check.py, PERF.md).
 TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2},
-       "K1 swimmer": {"q": 1e-5, "qd": 1e-3}, "K1 humanoid": {"q": 1e-4, "qd": 5e-2}}
+       "K1 swimmer": {"q": 1e-5, "qd": 1e-3}, "K1 humanoid": {"q": 1e-4, "qd": 5e-2},
+       "K3 pen": {"q": 1e-4, "qd": 1e-2}}
 HUMANOID_QUANTILE = 0.99
 NUM_ENVS, HORIZON, ITERS = 1024, 100, 3
 HOPPER_ENVS, HOPPER_HORIZON = 256, 1000  # examples/hopper_npg.json
 TRPO_ENVS = 4096  # examples/walker2d_trpo.json
 HUMANOID_TRPO_ENVS, HUMANOID_PPO_ENVS, PPO_WINDOW = 1024, 4096, 64  # examples/humanoid_*.json
+PEN_ENVS, PEN_HORIZON = 512, 100  # examples/adroit_pen_npg.json
 # the paths through the entry point (phase 11): config, kernel, envs, steps
 # per iteration (the episode or the samples-mode window), run_job's niter
 # per call
@@ -156,12 +164,13 @@ ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, HOPPER_HORIZON, (1, 2)),
                ("humanoid_ppo", "humanoid_ppo_v4.json", "K1", HUMANOID_PPO_ENVS, PPO_WINDOW,
                 (1, 2)),
                ("humanoid_trpo", "humanoid_trpo.json", "K1", HUMANOID_TRPO_ENVS, HOPPER_HORIZON,
-                (1,)))
+                (1,)),
+               ("adroit_pen", "adroit_pen_npg.json", "K3", PEN_ENVS, PEN_HORIZON, (1, 2)))
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 ROOT = Path(__file__).resolve().parent
 
 _ARITH = {"add", "sub", "rsub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "sin", "cos",
-          "pow", "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "reciprocal"}
+          "pow", "clamp", "clamp_min", "clamp_max", "maximum", "minimum", "reciprocal", "tanh"}
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -176,7 +185,7 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _f32_ops_per_env_substep(model, q, qd, ctrl) -> float:
+def _f32_ops_per_env_substep(model, q, qd, ctrl, link_delta=None) -> float:
     """f32 arithmetic operations of one plain substep per env (elements
     produced by add/mul/div/sqrt/sin/... and reduced by sum), counted by
     running the plain version on the CPU under a dispatch counter."""
@@ -195,16 +204,21 @@ def _f32_ops_per_env_substep(model, q, qd, ctrl) -> float:
                 Count.n += out.numel()
             elif name == "sum":
                 Count.n += args[0].numel() - out.numel()
+            elif name == "mm":  # the tendons' Jq q, Jv qd, Jv^T f: their nonzeros
+                Count.n += 2 * int((args[0] != 0).sum()) * out.shape[1]
             return out
 
     q, qd, ctrl = (x.cpu() for x in (q, qd, ctrl))
+    if link_delta is not None:
+        link_delta = link_delta.cpu()
     with Count():
-        soa.substep(model, q, qd, ctrl, model.dt / model.n_substeps)
+        soa.substep(model, q, qd, ctrl, model.dt / model.n_substeps, link_delta=link_delta)
     return Count.n / q.shape[1]
 
 
-def _bound_ms(model, n_sub: int, ops_per_env_substep: float, tables, batch: int) -> tuple:
-    io = (2 * model.nq + 2 * model.nv + model.nu) * 4 * batch
+def _bound_ms(model, n_sub: int, ops_per_env_substep: float, tables, batch: int,
+              extra_rows: int = 0) -> tuple:
+    io = (2 * model.nq + 2 * model.nv + model.nu + extra_rows) * 4 * batch
     t_bytes = (io + sum(t.numel() * 4 for t in tables)) / HBM_BYTES_PER_S
     t_ops = ops_per_env_substep * n_sub * batch / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
@@ -289,6 +303,108 @@ def start_states(env, full, n_chain, warm_steps=10, warm_scale=1.0, fold=False):
     return q0, qd0, [rand_ctrl() for _ in range(n_chain)]
 
 
+PEN_KINDS = ("box_plane", "capsule_plane", "capsule_box", "box_box", "capsule_capsule")
+
+
+def pen_states(env, full, n_chain, warm_steps=10):
+    """``(q (nq, full), qd (nv, full), link_delta (3 nlink, full), [ctrl (nu,
+    full)] * n_chain)`` on the env's device for Adroit pen: the first half
+    after ``warm_steps`` control steps of random actions from reset (K3 on
+    the card), each of their links offset by a draw uniform in +-5 mm; the
+    second half from ``probe.kind_states``, equal shares in which each of
+    pen's five contact kinds touches (some through a link offset that
+    lowers the hand or the pen onto the table or the floor); and the
+    controls of ``n_chain`` chained steps (numpy seed 0, torch seed 0)."""
+    import numpy as np
+    import torch
+
+    from mjrl_tpu_torch.physics import probe
+
+    model, dev = env.model, env.device
+    rng = np.random.default_rng(0)
+
+    def rand_ctrl():
+        return torch.as_tensor(rng.uniform(-1, 1, (model.nu, full)), dtype=torch.float32, device=dev)
+
+    state, _ = env.reset(full, torch.Generator(device=dev).manual_seed(0))
+    for _ in range(warm_steps):
+        state, *_ = env.step(state, rand_ctrl().T)
+    q0, qd0 = state.q.T.contiguous(), state.qd.T.contiguous()
+    half = full // 2
+    delta = torch.zeros(3 * model.nlink, full, device=dev)
+    delta[:, :half] = torch.as_tensor(rng.uniform(-0.005, 0.005, (3 * model.nlink, half)),
+                                      dtype=torch.float32, device=dev)
+    n_kind = -(-(full - half) // len(PEN_KINDS))
+    kq, kqd, kd = probe.kind_states(model, n_kind, rng)
+    q0[:, half:] = torch.as_tensor(kq[:, : full - half], device=dev)
+    qd0[:, half:] = torch.as_tensor(kqd[:, : full - half], device=dev)
+    delta[:, half:] = torch.as_tensor(kd[:, : full - half], device=dev)
+    return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
+
+
+def phase_k3_pen(tag, env, kernel, n_chain, batches, tol):
+    """Holds K3 against the plain version on Adroit pen over ``n_chain``
+    chained control steps at each batch size of ``batches`` (the first the
+    full one), from ``pen_states`` with their link offsets; ``tol`` bounds
+    each step's max |err| of q and qd; each of pen's five contact kinds
+    must touch (a point at depth > 0) in some env-step. Both times and the
+    bound at the full batch."""
+    import torch
+
+    from mjrl_tpu_torch.physics import probe, soa
+
+    model, frames = env.model, env.frame_skip
+    full = batches[0]
+    q0, qd0, d0, ctrls = pen_states(env, full, n_chain)
+    max_err, kind_steps = 0.0, {}
+    for B in batches:
+        q, qd, d = (x[:, :B].contiguous() for x in (q0, qd0, d0))
+        worst = {"q": 0.0, "qd": 0.0}
+        kind_steps = dict.fromkeys(PEN_KINDS, 0)
+        for step, ctrl in enumerate(ctrls):
+            ctrl = ctrl[:, :B].contiguous()
+            for k, depth in probe.kind_depth(model, q, d).items():
+                kind_steps[k] += int((depth > 0).sum())
+            kq, kqd = kernel(model, q, qd, ctrl, frames, link_delta=d)
+            pq, pqd = soa.multistep(model, q, qd, ctrl, frames, link_delta=d)
+            torch.cuda.synchronize()
+            for name, got, want in (("q", kq, pq), ("qd", kqd, pqd)):
+                if not bool(torch.isfinite(want).all()):
+                    raise RuntimeError(f"{tag}: plain {name} not finite at B={B}")
+                err = float((got - want).abs().max())
+                worst[name] = max(worst[name], err)
+                if step == 0:
+                    print(f"[{tag}] B={B} one control step {name}: max|err|={err:.3e} "
+                          f"tol={tol[name]:.0e}")
+            q, qd = kq, kqd
+        for name in ("q", "qd"):
+            ok = worst[name] <= tol[name]
+            max_err = max(max_err, worst[name])
+            print(f"[{tag}] B={B} {n_chain} chained control steps {name}: max per-step "
+                  f"|err|={worst[name]:.3e} tol={tol[name]:.0e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{tag} disagrees with the plain version: {name} at B={B}")
+        for k, n in kind_steps.items():
+            print(f"[{tag}] B={B} a {k} point at depth > 0 in {n} of {n_chain * B} env-steps")
+            if n == 0:
+                raise RuntimeError(f"{tag}: no {k} contact at B={B}")
+    ctrl = ctrls[0]
+    for _ in range(3):
+        kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
+    ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames, link_delta=d0), 20)
+    soa.multistep(model, q0, qd0, ctrl, frames, link_delta=d0)
+    plain_ms = _cuda_ms(lambda: soa.multistep(model, q0, qd0, ctrl, frames, link_delta=d0), 2)
+    ops = _f32_ops_per_env_substep(model, q0[:, :1], qd0[:, :1], ctrl[:, :1], d0[:, :1])
+    n_sub = frames * model.n_substeps
+    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, q0.device), full,
+                                   extra_rows=3 * model.nlink)
+    print(f"[{tag}] B={full} one control step ({n_sub} substeps): {kernel.name} {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"({ops:.0f} f32 operations per env-substep)")
+    return dict(max_abs_err=max_err, kind_env_steps=kind_steps, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, warm_scale=1.0,
                           fold=False, timed=True, tol=None, kinds=(), quantile=None):
     """Holds ``kernel`` against the plain version over ``n_chain`` chained
@@ -297,8 +413,11 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
     bounds each step's max |err|; every contact kind of ``kinds`` must have
     a point at depth > 0 in some env-step. With ``quantile``, ``tol``
     bounds that quantile of the per env-step max |err| instead of the max
-    (the max and the env-steps above ``tol`` are printed). ``timed``: both
-    times and the bound at the full batch."""
+    (the max and the env-steps above ``tol`` are printed), over all
+    env-steps and, for each kind of ``kinds``, over the env-steps where
+    that kind touches, so that a fault confined to a rare kind cannot hide
+    in the quantile's tail. ``timed``: both times and the bound at the
+    full batch."""
     import torch
 
     from mjrl_tpu_torch.physics import probe, soa
@@ -324,6 +443,7 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
         worst = {"q": 0.0, "qd": 0.0}
         contact = pair_contact = 0
         kind_steps = dict.fromkeys(kinds, 0)
+        kind_masks = {k: [] for k in kinds}
         per_env = {"q": [], "qd": []}
         flipped = torch.zeros(B, dtype=torch.bool, device=dev)
         flipped_first = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -340,8 +460,11 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
                 plain_picks = []
             else:
                 contact += in_contact(q)
-                for k, n in kind_contacts(model, q, kinds).items():
-                    kind_steps[k] += n
+                if kinds:
+                    depth = probe.kind_depth(model, q)
+                    for k in kinds:
+                        kind_masks[k].append(depth[k] > 0)
+                        kind_steps[k] += int(kind_masks[k][-1].sum())
                 if fold:
                     pair_contact += int((probe.link_pair_depth(model, q) > 0).sum())
             kq, kqd = kernel(model, q, qd, ctrl, frames, **kw)
@@ -376,6 +499,19 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
                   f"|err|={held_err:.3e} tol={tol[name]:.0e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise RuntimeError(f"{tag} disagrees with the plain version: {name} at B={B}")
+            if quantile is not None:
+                for k in kinds:
+                    e = torch.cat(per_env[name])[torch.cat(kind_masks[k])]
+                    if e.numel() == 0:
+                        continue
+                    held_k = float(torch.quantile(e, quantile))
+                    ok = held_k <= tol[name]
+                    print(f"[{tag}] B={B} {name} over the {e.numel()} env-steps where {k} "
+                          f"touches: {quantile:.0%} quantile |err|={held_k:.3e}, max "
+                          f"{float(e.max()):.3e} tol={tol[name]:.0e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise RuntimeError(f"{tag} disagrees with the plain version where {k} "
+                                           f"touches: {name} at B={B}")
         if not newton:  # Newton feet rest inside the margin: see the rows below
             print(f"[{tag}] B={B} bodies touching the floor or each other in {contact} of "
                   f"{n_chain * B} env-steps")
@@ -542,9 +678,9 @@ def phase_entry(tag, config, kernel, other, num_envs, steps, niters=(1,)):
                       f"{row['steps_per_sec']:.1f} env-steps/s ({row['num_samples']:.0f} valid "
                       f"samples), computed {num_envs * steps / dt:.1f} env-steps/s, launches "
                       f"{steps}, score {row['stoc_pol_mean']:.3f}, running score "
-                      f"{row['running_score']:.3f}, kl {row['kl_dist']:.5f}, alpha "
-                      f"{row['alpha']:.6f}, VF {row['VF_error_before']:.3f}->"
-                      f"{row['VF_error_after']:.3f}{extra}")
+                      f"{row['running_score']:.3f}, success {row['success_rate']:.2f}%, kl "
+                      f"{row['kl_dist']:.5f}, alpha {row['alpha']:.6f}, VF "
+                      f"{row['VF_error_before']:.3f}->{row['VF_error_after']:.3f}{extra}")
             if agent.sample_mode == "samples":
                 lr = [row["alpha"] for row in rows]
                 if len(lr) > 1 and not lr[1] < lr[0]:
@@ -575,14 +711,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from mjrl_tpu_torch.envs import make
-    from mjrl_tpu_torch.physics.pkernel import K1, K2, SIZE_CLASSES
+    from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, SIZE_CLASSES
 
     t0 = time.perf_counter()
-    builds = [(K1, size) for size in range(len(SIZE_CLASSES))] + [(K2, 0)]
+    builds = [(K1, 0), (K1, 1), (K2, 0), (K3, 2)]
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: b[0].build(b[1]), builds))
-    print(f"[1] built {K1.source} in size classes {SIZE_CLASSES} and {K2.source} in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[1] built {K1.source} in size classes {SIZE_CLASSES[:2]}, {K2.source} and "
+          f"{K3.source} in {SIZE_CLASSES[2]} in {time.perf_counter() - t0:.1f} s")
 
     env = make("ant", horizon=HORIZON)  # on the card by default
     newton_env = make("ant", horizon=HORIZON, constraint_solver="newton", n_substeps=1)
@@ -620,15 +756,18 @@ def main() -> int:
             "K1 humanoid", humanoid, K1, 1, (HUMANOID_PPO_ENVS,), fold=True,
             tol=TOL["K1 humanoid"], kinds=SPHERE_KINDS, quantile=HUMANOID_QUANTILE),
     }
-    kernels_of = {"K1": (K1, K2), "K2": (K2, K1)}
+    pen = make("adroit_pen", horizon=PEN_HORIZON)
+    k3 = phase_k3_pen("K3 pen", pen, K3, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K3 pen"])
+    kernels_of = {"K1": (K1, K2), "K2": (K2, K1), "K3": (K3, K1)}
     entry = {tag: phase_entry(tag, config, *kernels_of[k], n, steps, niters)
              for tag, config, k, n, steps, niters in ENTRY_PATHS}
     k1_hopper["launches"] = entry["hopper"]
+    k3["launches"] = entry["adroit_pen"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels = []
-    for kernel, r in ((K1, k1), (K2, k2)):
+    for kernel, r in ((K1, k1), (K2, k2), (K3, k3)):
         kernels.append({
             "name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
@@ -651,6 +790,7 @@ def main() -> int:
     kernels[1]["hopper"].update(launches=entry["hopper_newton"],
                                 line_search_flips=k2_hopper["line_search_flips"],
                                 link_pair_env_steps=k2_hopper["link_pair_env_steps"])
+    kernels[2]["kind_env_steps"] = k3["kind_env_steps"]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -103,8 +103,8 @@ class BatchREINFORCE:
             "iteration": self.iteration,
             "running_score": self.running_score,
             "sampler_carry": None if carry is None else dict(
-                q=carry.state.q, qd=carry.state.qd, obs=carry.obs, t_in_ep=carry.t_in_ep,
-                ep_return=carry.ep_return),
+                **carry.state._asdict(), obs=carry.obs, t_in_ep=carry.t_in_ep,
+                ep_return=carry.ep_return, ep_success=carry.ep_success),
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -114,8 +114,10 @@ class BatchREINFORCE:
         self.iteration = int(state["iteration"])
         self.running_score = state["running_score"].to(self.env.device)
         c = state["sampler_carry"]
+        state_type = getattr(self.env, "state_type", EnvState)
         self.sampler_carry = None if c is None else SamplerCarry(
-            EnvState(q=c["q"], qd=c["qd"]), c["obs"], c["t_in_ep"], c["ep_return"])
+            state_type(*(c[f] for f in state_type._fields)), c["obs"], c["t_in_ep"],
+            c["ep_return"], c.get("ep_success"))
 
     # -- parameters as dicts ---------------------------------------------
     def params(self) -> Params:

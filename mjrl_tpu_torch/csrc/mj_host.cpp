@@ -1,5 +1,5 @@
-// Host build of the K1 and K2 bodies (mj_substep.h, mj_newton.h) for the
-// CPU tests: the same arithmetic as the CUDA kernels, one env after
+// Host build of the K1, K2 and K3 bodies (mj_substep.h, mj_newton.h) for
+// the CPU tests: the same arithmetic as the CUDA kernels, one env after
 // another.
 #include "mj_newton.h"
 
@@ -22,6 +22,15 @@ int mj_multistep_host(const float* mf, const int* mi, const float* q,
                       float* qd_out, int B, int n_sub, float dt) {
   for (int env = 0; env < B; ++env)
     mj_env_multistep(mf, mi, env, B, q, qd, ctrl, q_out, qd_out, n_sub, dt);
+  return 0;
+}
+
+int mj_ext_host(const float* mf, const int* mi, const float* q, const float* qd,
+                const float* ctrl, const float* delta, float* q_out,
+                float* qd_out, int B, int n_sub, float dt) {
+  for (int env = 0; env < B; ++env)
+    mj_ext_env_multistep(mf, mi, env, B, q, qd, ctrl, delta, q_out, qd_out,
+                         n_sub, dt);
   return 0;
 }
 

@@ -11,6 +11,12 @@
 // the same pipeline around its constraint solve; K1's substep calls them
 // in the order above and holds none of K2's state.
 //
+// Kernel K3 (mj_ext_kernel.cu) runs the same substep with EXT = true: the
+// stages Adroit adds (per-env link offsets in the kinematics, the box
+// contact kinds, gain/bias servos, fixed tendons, frictionloss). They are
+// template branches, so the builds of K1 and K2 (EXT = false) hold none of
+// their code and keep their registers and stack.
+//
 // Every function is MJ_HD: __host__ __device__ under nvcc, plain inline
 // under a host compiler, so the same source builds into the CUDA library
 // and into a host library that the CPU tests check against the plain
@@ -57,6 +63,11 @@
 #define MJ_KIND_CAPSULE_CAPSULE 2
 #define MJ_KIND_SPHERE_SPHERE 3
 #define MJ_KIND_SPHERE_CAPSULE 4  // geom i the sphere, geom j the capsule
+// The box kinds, EXT only; geom j is the box (box_plane: geom i).
+#define MJ_KIND_BOX_PLANE 5
+#define MJ_KIND_SPHERE_BOX 6
+#define MJ_KIND_CAPSULE_BOX 7
+#define MJ_KIND_BOX_BOX 8
 
 // ---- int table --------------------------------------------------------
 #define MJ_I_NLINK 0
@@ -66,7 +77,14 @@
 #define MJ_I_NPAIR 4
 #define MJ_I_HAS_FCAP 5
 #define MJ_I_HAS_FLUID 6  // density or viscosity != 0: run mj_fluid
-#define MJ_I_PARENT 8
+// EXT: affine gain/bias actuators, frictionloss, and the fixed tendons,
+// whose block starts at mi[MJ_I_TEN_I] and mf[MJ_I_TEN_F] (after the pairs)
+#define MJ_I_HAS_GAINBIAS 7
+#define MJ_I_HAS_FRIC 8
+#define MJ_I_NTEN 9
+#define MJ_I_TEN_I 10
+#define MJ_I_TEN_F 11
+#define MJ_I_PARENT 16
 #define MJ_I_TYPE (MJ_I_PARENT + MJ_MAX_LINK)
 #define MJ_I_QADR (MJ_I_TYPE + MJ_MAX_LINK)
 #define MJ_I_VADR (MJ_I_QADR + MJ_MAX_LINK)
@@ -75,7 +93,8 @@
 #define MJ_I_LAM (MJ_I_DOFLINK + MJ_MAX_NV)
 #define MJ_I_ACTV (MJ_I_LAM + MJ_MAX_NV)
 #define MJ_I_ACTLIM (MJ_I_ACTV + MJ_MAX_NU)
-#define MJ_I_PAIR (MJ_I_ACTLIM + MJ_MAX_NU)
+#define MJ_I_ACTQ (MJ_I_ACTLIM + MJ_MAX_NU)  // EXT: qpos address of a servo
+#define MJ_I_PAIR (MJ_I_ACTQ + MJ_MAX_NU)
 #define MJ_PAIR_I 4  // kind, li, lj, unused
 
 // ---- float table ------------------------------------------------------
@@ -113,16 +132,27 @@
 #define MJ_F_IQUAT (MJ_F_CHI + MJ_MAX_NU)
 #define MJ_F_FLUID (MJ_F_IQUAT + 4 * MJ_MAX_LINK)
 #define MJ_FLUID_F 8
-#define MJ_F_PAIR (MJ_F_FLUID + MJ_FLUID_F * MJ_MAX_LINK)
-// A pair row: mu, then geom i's radius, half length, local pos[3] and
-// quat[4] (slots 1-9), then geom j from slot 10: a plane's world normal[3]
-// and point[3], or a sphere's or capsule's radius, half length, local
+// EXT: servo gain g0 and bias b0, b1, b2 per actuator; frictionloss per
+// dof and its velocity scale v_eps
+#define MJ_F_GAIN (MJ_F_FLUID + MJ_FLUID_F * MJ_MAX_LINK)
+#define MJ_F_BIAS (MJ_F_GAIN + MJ_MAX_NU)
+#define MJ_F_FRIC (MJ_F_BIAS + 3 * MJ_MAX_NU)
+#define MJ_F_FVEPS (MJ_F_FRIC + MJ_MAX_NV)
+#define MJ_F_PAIR (MJ_F_FVEPS + 4)
+// A pair row: mu, then geom i's size[3] (radius, half length or the box's
+// half-sizes), local pos[3] and quat[4] (slots 1-10), then geom j from
+// slot 11: a plane's world normal[3] and point[3], or its size[3], local
 // pos[3], quat[4].
-#define MJ_PAIR_F 19
-#define MJ_PAIR_GJ 10
+#define MJ_PAIR_F 21
+#define MJ_PAIR_GJ 11
+// The tendon block (EXT), compressed rows of Jq and Jv:
+//   ints   nt qptr[nt + 1] qidx[nnz_q] vptr[nt + 1] vidx[nnz_v]
+//   floats P[nt][8] qval[nnz_q] vval[nnz_v]
+// P per tendon: stiffness, spring length, damping, range lo, range hi,
+// limit stiffness, limit damping, limited.
 
 // The layout as the packer reads it, in this order.
-#define MJ_LAYOUT_LEN 55
+#define MJ_LAYOUT_LEN 65
 #define MJ_LAYOUT_VALUES                                                     \
   MJ_MAX_LINK, MJ_MAX_NV, MJ_MAX_NQ, MJ_MAX_NU, MJ_PAIR_I, MJ_PAIR_F,        \
       MJ_PAIR_GJ,                                                            \
@@ -134,7 +164,8 @@
       MJ_F_SPRINGREF, MJ_F_MASS, MJ_F_COM, MJ_F_EIGD, MJ_F_EIGQ, MJ_F_CMASS, \
       MJ_F_DAMP, MJ_F_EXTRA, MJ_F_LIMK, MJ_F_LIMC, MJ_F_LIMDTC, MJ_F_GEAR,   \
       MJ_F_CLO, MJ_F_CHI, MJ_F_PAIR, MJ_I_HAS_FLUID, MJ_F_IQUAT, MJ_F_FLUID,  \
-      MJ_FLUID_F
+      MJ_FLUID_F, MJ_I_HAS_GAINBIAS, MJ_I_HAS_FRIC, MJ_I_NTEN, MJ_I_TEN_I,   \
+      MJ_I_TEN_F, MJ_I_ACTQ, MJ_F_GAIN, MJ_F_BIAS, MJ_F_FRIC, MJ_F_FVEPS
 
 // ---- scalar helpers ---------------------------------------------------
 
@@ -289,8 +320,11 @@ struct MjKin {
   float ih[MJ_MAX_LINK][3], iI[MJ_MAX_LINK][6];
 };
 
+// delta (EXT, or nullptr): this env's offsets of each link's position in
+// its parent's frame, 3 per link.
 MJ_HD void mj_kinematics(const float* mf, const int* mi, const float* q,
-                         const float* qd, MjKin& k) {
+                         const float* qd, MjKin& k,
+                         const float* delta = nullptr) {
   const int nlink = mi[MJ_I_NLINK];
   const int* parent = mi + MJ_I_PARENT;
   const int* type = mi + MJ_I_TYPE;
@@ -303,6 +337,11 @@ MJ_HD void mj_kinematics(const float* mf, const int* mi, const float* q,
   for (int i = 0; i < nlink; ++i) {
     const float* lp = mf + MJ_F_LPOS + 3 * i;
     const float* lq = mf + MJ_F_LQUAT + 4 * i;
+    float lpd[3];
+    if (delta) {
+      for (int c = 0; c < 3; ++c) lpd[c] = lp[c] + delta[3 * i + c];
+      lp = lpd;
+    }
     float rel_p[3], rel_q[4];
     const int t = type[i];
     if (t == MJ_SLIDE) {  // a translation along the axis, no rotation
@@ -509,9 +548,118 @@ MJ_HD void mj_capsule_capsule(int pi, int li, int lj, float mu, const float* gp1
   mj_sphere_sphere(pi, li, lj, mu, c1, r1, c2, r2, sink);
 }
 
+// ---- the box kinds (EXT) ------------------------------------------------
+
+// One-hot of the smallest of three gaps, the first on a tie (soa.py
+// min_axis_onehot).
+MJ_HD void mj_min_axis_onehot(const float* gap, float* o) {
+  o[0] = (gap[0] <= gap[1] && gap[0] <= gap[2]) ? 1.0f : 0.0f;
+  o[1] = (1.0f - o[0]) * (gap[1] <= gap[2] ? 1.0f : 0.0f);
+  o[2] = 1.0f - o[0] - o[1];
+}
+
+// Sphere centre c (radius r) against the box at pb, qb with half-sizes sb:
+// depth, the normal from the box (world) and the point (soa.py sphere_box).
+MJ_HD void mj_sphere_box(const float* c, float r, const float* pb,
+                         const float* qb, const float* sb, float& depth,
+                         float* n, float* pt) {
+  float d[3], p[3], clamped[3], delta[3], gap[3], o[3], nb[3];
+  for (int a = 0; a < 3; ++a) d[a] = c[a] - pb[a];
+  mj_qrot_inv(qb, d, p);
+  for (int a = 0; a < 3; ++a) {
+    clamped[a] = mj_min(mj_max(p[a], -sb[a]), sb[a]);
+    delta[a] = p[a] - clamped[a];
+    gap[a] = sb[a] - fabsf(p[a]);
+  }
+  const float d_out = sqrtf(mj_dot3(delta, delta));
+  const bool inside = d_out < 1e-9f;
+  mj_min_axis_onehot(gap, o);
+  const float gmin = mj_min(mj_min(gap[0], gap[1]), gap[2]);
+  for (int a = 0; a < 3; ++a)
+    nb[a] = inside ? o[a] * (p[a] >= 0.0f ? 1.0f : -1.0f)
+                   : delta[a] / (d_out + 1e-12f);
+  depth = inside ? r + gmin : r - d_out;
+  mj_qrot(qb, nb, n);
+  float w[3];
+  mj_qrot(qb, clamped, w);
+  for (int a = 0; a < 3; ++a) pt[a] = pb[a] + w[a];
+}
+
+// The corners of box a (pa, qa, half-sizes sa) against box b, in the
+// reference's corner order, each with the normal from b times sign (soa.py
+// box_corners_in_box; box_box's second pass negates it).
+template <class Sink>
+MJ_HD void mj_box_corners(int pi, int li, int lj, float mu, const float* pa,
+                          const float* qa, const float* sa, const float* pb,
+                          const float* qb, const float* sb, float sign,
+                          Sink& sink) {
+  for (int c = 0; c < 8; ++c) {
+    const float loc[3] = {(c & 4) ? sa[0] : -sa[0], (c & 2) ? sa[1] : -sa[1],
+                          (c & 1) ? sa[2] : -sa[2]};
+    float corner[3], d[3], p[3], gap[3], o[3], nb[3], n[3];
+    mj_qrot(qa, loc, corner);
+    for (int a = 0; a < 3; ++a) {
+      corner[a] = pa[a] + corner[a];
+      d[a] = corner[a] - pb[a];
+    }
+    mj_qrot_inv(qb, d, p);
+    for (int a = 0; a < 3; ++a) gap[a] = sb[a] - fabsf(p[a]);
+    mj_min_axis_onehot(gap, o);
+    for (int a = 0; a < 3; ++a) nb[a] = o[a] * (p[a] >= 0.0f ? 1.0f : -1.0f);
+    mj_qrot(qb, nb, n);
+    for (int a = 0; a < 3; ++a) n[a] = sign * n[a];
+    sink(pi, li, lj, mu, mj_min(mj_min(gap[0], gap[1]), gap[2]), n, corner);
+  }
+}
+
+// A box kind's contact points: box_plane (8 corners against the plane),
+// sphere_box, capsule_box (3 spheres along the axis) and box_box (16
+// corners). gp, gq, si: geom i's pose and size; gj: geom j's row.
+template <class Sink>
+MJ_HD void mj_box_kinds(const MjKin& k, int kind, int pi, int li, int lj,
+                        float mu, const float* gp, const float* gq,
+                        const float* si, const float* gj, Sink& sink) {
+  if (kind == MJ_KIND_BOX_PLANE) {
+    const float* n = gj;
+    const float* pp = gj + 3;
+    for (int c = 0; c < 8; ++c) {
+      const float loc[3] = {(c & 4) ? si[0] : -si[0], (c & 2) ? si[1] : -si[1],
+                            (c & 1) ? si[2] : -si[2]};
+      float corner[3], d[3];
+      mj_qrot(gq, loc, corner);
+      for (int a = 0; a < 3; ++a) {
+        corner[a] = gp[a] + corner[a];
+        d[a] = corner[a] - pp[a];
+      }
+      sink(pi, li, lj, mu, -mj_dot3(d, n), n, corner);
+    }
+    return;
+  }
+  float gp2[3], gq2[4];
+  mj_geom_pose(k, lj, gj + 3, gj + 6, gp2, gq2);
+  if (kind == MJ_KIND_BOX_BOX) {
+    mj_box_corners(pi, li, lj, mu, gp, gq, si, gp2, gq2, gj, 1.0f, sink);
+    mj_box_corners(pi, li, lj, mu, gp2, gq2, gj, gp, gq, si, -1.0f, sink);
+    return;
+  }
+  const float z[3] = {0.0f, 0.0f, 1.0f};
+  float axis[3];
+  mj_qrot(gq, z, axis);
+  const int ns = kind == MJ_KIND_CAPSULE_BOX ? 3 : 1;
+  for (int e = 0; e < ns; ++e) {
+    // capsule_box: centres at -hl, 0, +hl along the axis
+    const float off = ns == 1 ? 0.0f : (e == 0 ? -si[1] : (e == 1 ? 0.0f : si[1]));
+    float c[3], n[3], pt[3], depth;
+    for (int a = 0; a < 3; ++a) c[a] = gp[a] + off * axis[a];
+    mj_sphere_box(ns == 1 ? gp : c, si[0], gp2, gq2, gj, depth, n, pt);
+    sink(pi, li, lj, mu, depth, n, pt);
+  }
+}
+
 // Narrow phase: every contact point of every pair, in the reference's
 // pair / sub-point order, handed to sink(pair, li, lj, mu, depth, n, pt).
-template <class Sink>
+// EXT adds the box kinds.
+template <bool EXT = false, class Sink>
 MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
                            Sink& sink) {
   const int npair = mi[MJ_I_NPAIR];
@@ -524,10 +672,12 @@ MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
     const float* n = gj;
     const float* pp = gj + 3;
     float gp[3], gq[4];
-    mj_geom_pose(k, li, pt_f + 3, pt_f + 6, gp, gq);
-    if (kind >= MJ_KIND_CAPSULE_CAPSULE) {  // geom j on a link
+    mj_geom_pose(k, li, pt_f + 4, pt_f + 7, gp, gq);
+    if (EXT && kind >= MJ_KIND_BOX_PLANE) {
+      mj_box_kinds(k, kind, pi, li, lj, mu, gp, gq, pt_f + 1, gj, sink);
+    } else if (kind >= MJ_KIND_CAPSULE_CAPSULE) {  // geom j on a link
       float gp2[3], gq2[4];
-      mj_geom_pose(k, lj, gj + 2, gj + 5, gp2, gq2);
+      mj_geom_pose(k, lj, gj + 3, gj + 6, gp2, gq2);
       if (kind == MJ_KIND_CAPSULE_CAPSULE)
         mj_capsule_capsule(pi, li, lj, mu, gp, gq, r, hl, gp2, gq2, gj[0],
                            gj[1], sink);
@@ -667,8 +817,9 @@ MJ_HD void mj_bias(const float* mf, const int* mi, const MjKin& k,
 }
 
 // Applied forces: motors, joint springs and, with LIMITS, the limit
-// penalties, whose implicit damper half goes to lim_diag.
-template <bool LIMITS>
+// penalties, whose implicit damper half goes to lim_diag. EXT adds the
+// affine servos: force = g0 ctrl + b0 + b1 (gear q) + b2 (gear qd).
+template <bool LIMITS, bool EXT = false>
 MJ_HD void mj_applied(const float* mf, const int* mi, const float* q,
                       const float* qd, const float* ctrl, float* rhs,
                       float* lim_diag) {
@@ -686,7 +837,14 @@ MJ_HD void mj_applied(const float* mf, const int* mi, const float* q,
     float cu = ctrl[u];
     if (mi[MJ_I_ACTLIM + u])
       cu = mj_min(mj_max(cu, mf[MJ_F_CLO + u]), mf[MJ_F_CHI + u]);
-    rhs[mi[MJ_I_ACTV + u]] += mf[MJ_F_GEAR + u] * cu;
+    const int v = mi[MJ_I_ACTV + u];
+    const float gear = mf[MJ_F_GEAR + u];
+    if (EXT && mi[MJ_I_HAS_GAINBIAS]) {
+      const float* b = mf + MJ_F_BIAS + 3 * u;
+      cu = mf[MJ_F_GAIN + u] * cu + b[0] + b[1] * (gear * q[mi[MJ_I_ACTQ + u]]) +
+           b[2] * (gear * qd[v]);
+    }
+    rhs[v] += gear * cu;
   }
   for (int i = 0; i < nlink; ++i) {
     if (type[i] != MJ_HINGE && type[i] != MJ_SLIDE) continue;
@@ -700,6 +858,48 @@ MJ_HD void mj_applied(const float* mf, const int* mi, const float* q,
       rhs[v] += -mf[MJ_F_LIMK + v] * viol - (active ? mf[MJ_F_LIMC + v] * qd[v] : 0.0f);
       if (active) lim_diag[v] = mf[MJ_F_LIMDTC + v];
     }
+  }
+}
+
+// Fixed tendons (EXT): a spring and damper on each tendon's length Jq q
+// and velocity Jv qd, plus its limit penalty where limited, added to tau
+// through Jv^T (soa.py _tendon_forces). Jq and Jv are compressed rows.
+MJ_HD void mj_tendons(const float* mf, const int* mi, const float* q,
+                      const float* qd, float* tau) {
+  const int nt = mi[MJ_I_NTEN];
+  const int* ti = mi + mi[MJ_I_TEN_I];
+  const float* tf = mf + mi[MJ_I_TEN_F];
+  const int* qptr = ti + 1;
+  const int* qidx = qptr + nt + 1;
+  const int* vptr = qidx + qptr[nt];
+  const int* vidx = vptr + nt + 1;
+  const float* qval = tf + 8 * nt;
+  const float* vval = qval + qptr[nt];
+  for (int t = 0; t < nt; ++t) {
+    const float* P = tf + 8 * t;
+    float len = 0.0f, vel = 0.0f;
+    for (int e = qptr[t]; e < qptr[t + 1]; ++e) len += qval[e] * q[qidx[e]];
+    for (int e = vptr[t]; e < vptr[t + 1]; ++e) vel += vval[e] * qd[vidx[e]];
+    float f = -P[0] * (len - P[1]) - P[2] * vel;
+    const float viol = mj_min(len - P[3], 0.0f) + mj_max(len - P[4], 0.0f);
+    const float f_lim = -P[5] * viol - (fabsf(viol) > 0.0f ? P[6] * vel : 0.0f);
+    f = f + P[7] * f_lim;
+    for (int e = vptr[t]; e < vptr[t + 1]; ++e) tau[vidx[e]] += vval[e] * f;
+  }
+}
+
+// Frictionloss (EXT): -fl tanh(qd / v_eps) into rhs, and the dt-scaled
+// Jacobian fl / v_eps (1 - tanh^2) into the implicit diagonal
+// (engine.py friction_terms).
+MJ_HD void mj_friction(const float* mf, const int* mi, const float* qd,
+                       float dt, float* rhs, float* lim_diag) {
+  const int nv = mi[MJ_I_NV];
+  const float v_eps = mf[MJ_F_FVEPS];
+  for (int j = 0; j < nv; ++j) {
+    const float fl = mf[MJ_F_FRIC + j];
+    const float t = tanhf(qd[j] / v_eps);
+    rhs[j] = rhs[j] + -fl * t;
+    lim_diag[j] = lim_diag[j] + dt * ((fl / v_eps) * (1.0f - t * t));
   }
 }
 
@@ -781,19 +981,22 @@ struct MjPenaltySink {
   }
 };
 
-// Advances one env's q (nq), qd (nv) by one substep of length dt.
+// Advances one env's q (nq), qd (nv) by one substep of length dt. EXT
+// (kernel K3) adds the link offsets delta, the box kinds, the servos, the
+// tendons and frictionloss.
+template <bool EXT = false>
 MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
-                      const float* ctrl, float dt) {
+                      const float* ctrl, float dt, const float* delta = nullptr) {
   const int nlink = mi[MJ_I_NLINK];
   const int nv = mi[MJ_I_NV];
   MjKin k;
-  mj_kinematics(mf, mi, q, qd, k);
+  mj_kinematics(mf, mi, q, qd, k, EXT ? delta : nullptr);
 
   float f_ext[MJ_MAX_LINK][6];
   for (int i = 0; i < nlink; ++i)
     for (int c = 0; c < 6; ++c) f_ext[i][c] = 0.0f;
   MjPenaltySink sink{mf, &k, f_ext, mi[MJ_I_HAS_FCAP]};
-  mj_narrow_phase(mf, mi, k, sink);
+  mj_narrow_phase<EXT>(mf, mi, k, sink);
   if (mi[MJ_I_HAS_FLUID]) mj_fluid(mf, mi, k, f_ext);
 
   float H[MJ_MAX_NV][MJ_MAX_NV];
@@ -801,8 +1004,15 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
   float bias[MJ_MAX_NV];
   mj_bias(mf, mi, k, qd, f_ext, bias);
   float rhs[MJ_MAX_NV], lim_diag[MJ_MAX_NV];
-  mj_applied<true>(mf, mi, q, qd, ctrl, rhs, lim_diag);
+  mj_applied<true, EXT>(mf, mi, q, qd, ctrl, rhs, lim_diag);
+  if (EXT && mi[MJ_I_NTEN]) {
+    float tau[MJ_MAX_NV];
+    for (int j = 0; j < nv; ++j) tau[j] = 0.0f;
+    mj_tendons(mf, mi, q, qd, tau);
+    for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] + tau[j];
+  }
   for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] - bias[j] - mf[MJ_F_DAMP + j] * qd[j];
+  if (EXT && mi[MJ_I_HAS_FRIC]) mj_friction(mf, mi, qd, dt, rhs, lim_diag);
   mj_ltdl_solve(mf, mi, H, lim_diag, rhs);
   mj_integrate(mi, q, qd, rhs, dt);
 }
@@ -820,6 +1030,27 @@ MJ_HD void mj_env_multistep(const float* mf, const int* mi, int env, int B,
   for (int r = 0; r < nv; ++r) qd[r] = qd_in[(long)r * B + env];
   for (int r = 0; r < nu; ++r) ctrl[r] = ctrl_in[(long)r * B + env];
   for (int s = 0; s < n_sub; ++s) mj_substep(mf, mi, q, qd, ctrl, dt);
+  for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
+  for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
+}
+
+// Kernel K3's env: as mj_env_multistep with the EXT substep and, when
+// delta_in (3 nlink, B) is given, this env's link offsets held in the
+// thread for the control step.
+MJ_HD void mj_ext_env_multistep(const float* mf, const int* mi, int env, int B,
+                                const float* q_in, const float* qd_in,
+                                const float* ctrl_in, const float* delta_in,
+                                float* q_out, float* qd_out, int n_sub,
+                                float dt) {
+  const int nq = mi[MJ_I_NQ], nv = mi[MJ_I_NV], nu = mi[MJ_I_NU];
+  const int nd = 3 * mi[MJ_I_NLINK];
+  float q[MJ_MAX_NQ], qd[MJ_MAX_NV], ctrl[MJ_MAX_NU], delta[3 * MJ_MAX_LINK];
+  for (int r = 0; r < nq; ++r) q[r] = q_in[(long)r * B + env];
+  for (int r = 0; r < nv; ++r) qd[r] = qd_in[(long)r * B + env];
+  for (int r = 0; r < nu; ++r) ctrl[r] = ctrl_in[(long)r * B + env];
+  for (int r = 0; r < nd; ++r) delta[r] = delta_in ? delta_in[(long)r * B + env] : 0.0f;
+  for (int s = 0; s < n_sub; ++s)
+    mj_substep<true>(mf, mi, q, qd, ctrl, dt, delta_in ? delta : nullptr);
   for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
   for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
 }

@@ -2,3 +2,4 @@
 
 from mjrl_tpu_torch.envs.base import Env, EnvState, make, register  # noqa: F401
 import mjrl_tpu_torch.envs.locomotion  # noqa: F401
+import mjrl_tpu_torch.envs.adroit  # noqa: F401

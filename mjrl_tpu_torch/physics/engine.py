@@ -7,7 +7,7 @@ the leading dim instead of ``vmap``: ``q (B, nq)``, ``qd (B, nv)``,
 ``ctrl (B, nu)``. The stepping itself is kernel K1 (physics/pkernel.py);
 this module serves what runs outside it, as in the reference: humanoid's
 com-based observation (physics/comfeat.py) and contact wrenches
-(physics/contact.py).
+(physics/contact.py), and Adroit's link and site positions.
 
 The loops are vectorised as the reference's are: joint poses batched by
 joint type, the tree composed one depth level per step, dof subspaces
@@ -83,8 +83,10 @@ def const(model: Model, name: str, value, device: torch.device,
     return t
 
 
-def forward_kinematics(model: Model, q: torch.Tensor):
-    """World link poses ``(pos (B, nlink, 3), quat (B, nlink, 4))``."""
+def forward_kinematics(model: Model, q: torch.Tensor, link_pos_delta=None):
+    """World link poses ``(pos (B, nlink, 3), quat (B, nlink, 4))``.
+    ``link_pos_delta`` (``(B, nlink, 3)``): per-env offsets of each link's
+    position in its parent's frame (Adroit's randomised scenes)."""
     tab = _fk_tables(model)
     dev, B, nlink = q.device, q.shape[0], model.nlink
     qadr = np.asarray(model.link_qadr)
@@ -111,7 +113,10 @@ def forward_kinematics(model: Model, q: torch.Tensor):
         jp[:, i] = q[:, adr : adr + 3]
         jq[:, i] = m3.quat_normalize(q[:, adr + 3 : adr + 7])
     off_q = const(model, "link_quat", model.link_quat, dev)
-    rel_p = const(model, "link_pos", model.link_pos, dev) + m3.quat_rotate(off_q, jp)
+    off_p = const(model, "link_pos", model.link_pos, dev)
+    if link_pos_delta is not None:
+        off_p = off_p + link_pos_delta
+    rel_p = off_p + m3.quat_rotate(off_q, jp)
     rel_q = m3.quat_mul(off_q, jq)
     pos, quat = rel_p.clone(), rel_q.clone()
     for d in range(1, len(tab.levels)):
@@ -153,8 +158,9 @@ def _build_cdof(model: Model, pos: torch.Tensor, quat: torch.Tensor,
     return cdof
 
 
-def compute_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor) -> Kinematics:
-    pos, quat = forward_kinematics(model, q)
+def compute_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor,
+                       link_pos_delta=None) -> Kinematics:
+    pos, quat = forward_kinematics(model, q, link_pos_delta)
     origin = pos[:, 0]
     cdof = _build_cdof(model, pos, quat, origin)
     L = const(model, "L_mask", tree_tables(model).L_mask, q.device)
@@ -162,10 +168,22 @@ def compute_kinematics(model: Model, q: torch.Tensor, qd: torch.Tensor) -> Kinem
     return Kinematics(pos=pos, quat=quat, origin=origin, cdof=cdof, cvel=cvel, qd=qd)
 
 
+def site_positions(model: Model, pos: torch.Tensor, quat: torch.Tensor) -> torch.Tensor:
+    """World positions of all sites ``(B, nsite, 3)`` from the link poses;
+    a world site (link -1) stays where it is."""
+    dev = pos.device
+    links = np.asarray(model.site_link, np.int64)
+    ix = const(model, "site_ix", np.where(links < 0, model.nlink, links), dev, torch.int64)
+    pos_all = torch.cat([pos, pos.new_zeros(pos.shape[0], 1, 3)], dim=1)
+    ident = quat.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(quat.shape[0], 1, 4)
+    quat_all = torch.cat([quat, ident], dim=1)
+    return pos_all[:, ix] + m3.quat_rotate(quat_all[:, ix], const(model, "site_pos", model.site_pos, dev))
+
+
 def actuation(model: Model, ctrl: torch.Tensor) -> torch.Tensor:
     """Joint torques of the gear motors, ``(B, nv)``, from ``ctrl`` clipped
-    to the ctrl range where limited. (Gain/bias actuators are not ported:
-    ``soa.check_supported`` refuses them.)"""
+    to the ctrl range where limited (humanoid's observation reads them;
+    its actuators are gear motors)."""
     dev = ctrl.device
     lo = const(model, "ctrl_lo", np.asarray(model.act_ctrlrange)[:, 0], dev)
     hi = const(model, "ctrl_hi", np.asarray(model.act_ctrlrange)[:, 1], dev)

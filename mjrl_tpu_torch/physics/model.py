@@ -490,3 +490,36 @@ class ModelBuilder:
             qpos0=qpos0,
             **{k: v for k, v in self.options.items()},
         )
+
+
+def load_model_npz(path: str) -> Model:
+    """A ``Model`` from the arrays ``tools/gen_adroit_model.py`` stores: one
+    entry per set field, the geom-pair dicts as ``<name>__keys`` and
+    ``<name>__values``. Tuples, ints, floats and strings come back as the
+    dataclass declares them."""
+    with np.load(path, allow_pickle=False) as z:
+        data = {k: z[k] for k in z.files}
+    kw = {}
+    for f in dataclasses.fields(Model):
+        if f"{f.name}__keys" in data:
+            keys, vals = data[f"{f.name}__keys"], data[f"{f.name}__values"]
+            kw[f.name] = {(int(a), int(b)): v.item() for (a, b), v in zip(keys, vals)}
+        elif f.name in data:
+            v = data[f.name]
+            if f.type.startswith("Tuple[str"):
+                kw[f.name] = tuple(str(s) for s in v)
+            elif f.type.startswith("Tuple[Tuple[int"):
+                kw[f.name] = tuple((int(a), int(b)) for a, b in v.reshape(-1, 2))
+            elif f.type.startswith("Tuple[int"):
+                kw[f.name] = tuple(int(s) for s in v)
+            elif f.type.startswith("Tuple[float"):
+                kw[f.name] = tuple(float(s) for s in v)
+            elif f.type == "int":
+                kw[f.name] = int(v)
+            elif f.type == "float":
+                kw[f.name] = float(v)
+            elif f.type == "str":
+                kw[f.name] = str(v)
+            else:
+                kw[f.name] = v
+    return Model(**kw)

@@ -1,13 +1,16 @@
-"""Kernels K1 and K2: a full control step of physics per launch, CUDA C++
-on Hopper.
+"""Kernels K1, K2 and K3: a full control step of physics per launch, CUDA
+C++ on Hopper.
 
-Both replace ``mjrl_tpu/physics/pkernel.py::multistep_pallas``, the Pallas
-TPU mega-kernel: K1 with the penalty solver, K2 with the Newton solver
-(``soa_newton.constrained_qdd``). The sources are in
-``mjrl_tpu_torch/csrc/``: ``mj_substep.h`` holds the table-driven pipeline
-and K1's substep, ``mj_newton.h`` K2's constraint stage and substep, and
-``mj_kernel.cu`` / ``mj_newton_kernel.cu`` the one-thread-per-env
-``__global__`` wrappers with plain C launch functions. Each is built with
+They replace ``mjrl_tpu/physics/pkernel.py::multistep_pallas``, the Pallas
+TPU mega-kernel: K1 its penalty body (``_kernel_body``), K2 the same with
+the Newton solver (``soa_newton.constrained_qdd``), K3 its body for
+models with fixed tendons and per-env scene offsets (``_kernel_body_ext``,
+every Adroit env). The sources are in ``mjrl_tpu_torch/csrc/``:
+``mj_substep.h`` holds the table-driven pipeline and the penalty substep
+(K3's stages as its ``EXT`` branches), ``mj_newton.h`` K2's constraint
+stage and substep, and ``mj_kernel.cu`` / ``mj_newton_kernel.cu`` /
+``mj_ext_kernel.cu`` the one-thread-per-env ``__global__`` wrappers with
+plain C launch functions. Each is built with
 ``nvcc`` for ``sm_90a`` at first use into ``mjrl_tpu_torch/_build/`` (keyed
 by a hash of the sources) and bound with ``ctypes``.
 
@@ -19,11 +22,11 @@ design keeps the state in one thread for the whole control step (one
 launch per control step, no intermediate in device memory) and leaves
 occupancy to later work.
 
-:class:`MultistepKernel` (K1) and :class:`NewtonKernel` (K2) are the
-wrappers: for a CUDA tensor they launch the kernel or raise; for a CPU
-tensor they run the plain version, ``physics/soa.py::multistep``. ``K1``
-and ``K2`` are the instances the frame stepper calls; their ``launches``
-count kernel launches.
+:class:`MultistepKernel` (K1), :class:`NewtonKernel` (K2) and
+:class:`ExtKernel` (K3) are the wrappers: for a CUDA tensor they launch the
+kernel or raise; for a CPU tensor they run the plain version,
+``physics/soa.py::multistep``. ``K1``, ``K2`` and ``K3`` are the instances
+the frame stepper calls; their ``launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -68,6 +71,8 @@ LAYOUT_NAMES = (
     "F_SPRINGREF", "F_MASS", "F_COM", "F_EIGD", "F_EIGQ", "F_CMASS",
     "F_DAMP", "F_EXTRA", "F_LIMK", "F_LIMC", "F_LIMDTC", "F_GEAR",
     "F_CLO", "F_CHI", "F_PAIR", "I_HAS_FLUID", "F_IQUAT", "F_FLUID", "FLUID_F",
+    "I_HAS_GAINBIAS", "I_HAS_FRIC", "I_NTEN", "I_TEN_I", "I_TEN_F", "I_ACTQ", "F_GAIN",
+    "F_BIAS", "F_FRIC", "F_FVEPS",
 )
 # Names of the values mj_newton_layout() writes, in its order (mj_newton.h).
 NEWTON_LAYOUT_NAMES = (
@@ -76,14 +81,16 @@ NEWTON_LAYOUT_NAMES = (
     "N_F_PAIR",
 )
 _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphere_sphere": 3,
-              "sphere_capsule": 4}
-# K1's size classes: the compile-time maxima (links, dofs, qpos,
+              "sphere_capsule": 4, "box_plane": 5, "sphere_box": 6, "capsule_box": 7,
+              "box_box": 8}
+# The size classes: the compile-time maxima (links, dofs, qpos,
 # actuators) of each build, smallest first. The first is mj_substep.h's
 # default (ant, the planar walkers, swimmer); the second fits humanoid
-# (20 links, 23 dofs, 24 qpos, 17 actuators). A model runs in the smallest
-# class it fits, so the larger per-thread arrays cost the small models
-# nothing.
-SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24))
+# (20 links, 23 dofs, 24 qpos, 17 actuators); the third the Adroit hand
+# (pen: 34 links, 30 dofs, 30 qpos, 24 actuators; relocate's 36 dofs). A
+# model runs in the smallest class it fits, so the larger per-thread
+# arrays cost the small models nothing.
+SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24), (38, 36, 36, 30))
 
 
 def size_flags(size_class: int) -> Tuple[str, ...]:
@@ -153,11 +160,16 @@ def read_newton_layout(lib: ctypes.CDLL) -> Dict[str, int]:
     return read_layout(lib, "mj_newton_layout", NEWTON_LAYOUT_NAMES)
 
 
-def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray]:
+def pack_tables(model: Model, L: Dict[str, int], ext: bool = False
+                ) -> Tuple[np.ndarray, np.ndarray]:
     """The model as the kernel reads it: (f32 table, i32 table) in the
-    layout ``L``. Raises for a model outside the kernel's feature set or
-    its compile-time maxima."""
+    layout ``L``; ``ext`` adds the stages of K3's build (servos,
+    frictionloss, the tendon block after the pairs). Raises for a model
+    outside the kernel's feature set or its compile-time maxima."""
     soa.check_supported(model)
+    if not ext and soa.needs_ext(model):
+        raise NotImplementedError("tendons, frictionloss, gain/bias actuators and box contacts "
+                                  "run in kernel K3's build")
     nlink, nq, nv, nu = model.nlink, model.nq, model.nv, model.nu
     for n, cap, what in ((nlink, "MAX_LINK", "links"), (nv, "MAX_NV", "dofs"),
                          (nq, "MAX_NQ", "qpos"), (nu, "MAX_NU", "actuators")):
@@ -170,8 +182,12 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
     pairs = [(kind, tab_k, p) for kind, tab_k in pair_groups(model).kinds
              for p in range(len(tab_k["gi"]))]
 
-    mi = np.zeros(L["I_PAIR"] + L["PAIR_I"] * len(pairs), np.int32)
-    mf = np.zeros(L["F_PAIR"] + L["PAIR_F"] * len(pairs), np.float32)
+    ten_i, ten_f = _tendon_block(model) if ext else (np.zeros(0, np.int32),
+                                                      np.zeros(0, np.float32))
+    n_pi, n_pf = L["I_PAIR"] + L["PAIR_I"] * len(pairs), L["F_PAIR"] + L["PAIR_F"] * len(pairs)
+    mi = np.zeros(n_pi + ten_i.size, np.int32)
+    mf = np.zeros(n_pf + ten_f.size, np.float32)
+    mi[n_pi:], mf[n_pf:] = ten_i, ten_f
 
     def put_i(name, values):
         v = np.asarray(values, np.int32).reshape(-1)
@@ -232,6 +248,21 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
                 o = L["F_FLUID"] + L["FLUID_F"] * i
                 mf[o : o + L["FLUID_F"]] = [lin, ang, *quad_f, *quad_t]
 
+    if ext:
+        if model.act_gainprm is not None:
+            put_i("I_HAS_GAINBIAS", [1])
+            put_i("I_ACTQ", model.act_qadr)
+            put_f("F_GAIN", np.asarray(model.act_gainprm)[:, 0])
+            put_f("F_BIAS", model.act_biasprm)
+        if soa.has_frictionloss(model):
+            put_i("I_HAS_FRIC", [1])
+            put_f("F_FRIC", model.dof_frictionloss)
+            put_f("F_FVEPS", [model.dof_friction_vel])
+        if ten_i.size:
+            put_i("I_NTEN", [ten_i[0]])
+            put_i("I_TEN_I", [n_pi])
+            put_i("I_TEN_F", [n_pf])
+
     for k, (kind, tab_k, p) in enumerate(pairs):
         gi, gj = int(tab_k["gi"][p]), int(tab_k["gj"][p])
         o = L["I_PAIR"] + L["PAIR_I"] * k
@@ -239,8 +270,7 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
         o = L["F_PAIR"] + L["PAIR_F"] * k
         mf[o : o + L["PAIR_GJ"]] = np.concatenate(
             [[tab_k["mu"][p]], _geom_row(model, gi)])
-        # geom j: a plane's world normal and point, or a sphere's or
-        # capsule's row
+        # geom j: a plane's world normal and point, or its row
         gj_row = (np.concatenate(plane_normal_point(model, gj)) if kind in soa._PLANE_KINDS
                   else _geom_row(model, gj))
         mf[o + L["PAIR_GJ"] : o + L["PAIR_GJ"] + gj_row.size] = gj_row
@@ -248,9 +278,27 @@ def pack_tables(model: Model, L: Dict[str, int]) -> Tuple[np.ndarray, np.ndarray
 
 
 def _geom_row(model: Model, g: int) -> np.ndarray:
-    """Radius, half length, local pos (3) and quat (4) of geom ``g``."""
+    """Size (3: radius and half length, or a box's half-sizes), local pos
+    (3) and quat (4) of geom ``g``."""
     size = np.asarray(model.geom_size[g], np.float32)
-    return np.concatenate([size[:2], model.geom_pos[g], model.geom_quat[g]]).astype(np.float32)
+    return np.concatenate([size[:3], model.geom_pos[g], model.geom_quat[g]]).astype(np.float32)
+
+
+def _tendon_block(model: Model) -> Tuple[np.ndarray, np.ndarray]:
+    """The tendon block of K3's tables (mj_substep.h): ints ``nt, qptr,
+    qidx, vptr, vidx`` and floats ``P (nt, 8), qval, vval``, the nonzeros
+    of Jq and Jv in compressed rows; empty without tendons."""
+    if model.tendon_Jq is None:
+        return np.zeros(0, np.int32), np.zeros(0, np.float32)
+    Jq, Jv, P = soa.tendon_params(model)
+    ints, floats = [[Jq.shape[0]]], [P.T.reshape(-1)]
+    for J in (Jq, Jv):
+        rows, cols = np.nonzero(J)
+        ptr = np.searchsorted(rows, np.arange(J.shape[0] + 1))
+        ints += [ptr, cols]
+    for J in (Jq, Jv):
+        floats.append(J[np.nonzero(J)])
+    return (np.concatenate(ints).astype(np.int32), np.concatenate(floats).astype(np.float32))
 
 
 def _impedance_block(solref, solimp) -> list:
@@ -381,6 +429,9 @@ class MultistepKernel:
         B = check_inputs(model, q, qd, ctrl)
         if model.constraint_solver != "penalty":
             raise ValueError("K1 runs models with constraint_solver='penalty'")
+        if soa.needs_ext(model):
+            raise ValueError("tendons, frictionloss, gain/bias actuators and box contacts "
+                             "run in K3")
         if q.device.type == "cpu":
             return soa.multistep(model, q, qd, ctrl, n_frames)
         if q.device.type != "cuda":
@@ -471,5 +522,71 @@ class NewtonKernel(MultistepKernel):
         return q_out, qd_out
 
 
+class ExtKernel(MultistepKernel):
+    """Wrapper of kernel K3: ``(q (nq,B), qd (nv,B), ctrl (nu,B)[,
+    link_delta (3 nlink, B)]) -> (q, qd)`` after ``n_frames *
+    model.n_substeps`` penalty substeps with Adroit's stages (link offsets,
+    box contacts, servos, tendons, frictionloss). Built in every size class
+    a model needs, like K1."""
+
+    name = "mj_ext"
+    source = "mjrl_tpu_torch/csrc/mj_ext_kernel.cu"
+    replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext)"
+
+    def build(self, size: int = 0) -> ctypes.CDLL:
+        """Build (or find) and load the CUDA library of size class ``size``."""
+        if size not in self._libs:
+            path = build_library("mj_ext_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
+                                 self.build_dir, self.csrc)
+            lib = ctypes.CDLL(str(path))
+            lib.mj_ext_launch.argtypes = [ctypes.c_void_p] * 8 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            lib.mj_ext_launch.restype = ctypes.c_int
+            self._layouts[size] = read_layout(lib)
+            self._libs[size] = lib
+        return self._libs[size]
+
+    def _tables(self, model: Model, device: torch.device):
+        cache = model.__dict__.setdefault("_k3_tables", {})
+        key = str(device)
+        if key not in cache:
+            mf, mi = pack_tables(model, self._layouts[size_class(model)], ext=True)
+            cache[key] = (torch.from_numpy(mf).to(device), torch.from_numpy(mi).to(device))
+        return cache[key]
+
+    def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
+                 ctrl: torch.Tensor, n_frames: int = 1,
+                 link_delta: Optional[torch.Tensor] = None):
+        B = check_inputs(model, q, qd, ctrl)
+        if model.constraint_solver != "penalty":
+            raise ValueError("K3 runs models with constraint_solver='penalty'")
+        if link_delta is not None and (
+                link_delta.dtype != torch.float32 or link_delta.device != q.device
+                or tuple(link_delta.shape) != (3 * model.nlink, B)
+                or not link_delta.is_contiguous()):
+            raise ValueError(f"link_delta must be contiguous float32 {(3 * model.nlink, B)} "
+                             f"on {q.device}")
+        if q.device.type == "cpu":
+            return soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta)
+        if q.device.type != "cuda":
+            raise ValueError(f"no K3 path for device {q.device}")
+        lib = self.build(size_class(model))
+        mf, mi = self._tables(model, q.device)
+        q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
+        n_sub = n_frames * model.n_substeps
+        dt = float(np.float32(model.dt / model.n_substeps))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.mj_ext_launch(
+                mf.data_ptr(), mi.data_ptr(), q.data_ptr(), qd.data_ptr(), ctrl.data_ptr(),
+                0 if link_delta is None else link_delta.data_ptr(), q_out.data_ptr(),
+                qd_out.data_ptr(), B, n_sub, dt, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
+        self.launches += 1
+        return q_out, qd_out
+
+
 K1 = MultistepKernel()
 K2 = NewtonKernel()
+K3 = ExtKernel()

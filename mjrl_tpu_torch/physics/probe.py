@@ -8,6 +8,13 @@ here: the root at its default pose and each limited hinge uniform in its
 range, kept where some pair between two links overlaps by less than a
 centimetre. ``kind_depth`` reads the deepest point of each contact kind;
 ``held_contact_rows`` counts the Newton rows such a pair holds.
+
+Some of Adroit pen's kinds cannot touch at any joint angle: the thumb's
+boxes never reach the floor, the hand never reaches the table, the pen
+floats above the floor. ``kind_states`` draws states for each kind all
+the same, with a per-env link offset (``link_delta``, the randomised
+scenes' input) that lowers the moving geom's root link onto the static
+geom: a contact the kernels must get right whatever the scene.
 """
 
 from __future__ import annotations
@@ -33,11 +40,11 @@ def link_pair_depth(model: Model, q: torch.Tensor) -> torch.Tensor:
     return torch.cat(depths).amax(dim=0)
 
 
-def kind_depth(model: Model, q: torch.Tensor) -> Dict[str, torch.Tensor]:
+def kind_depth(model: Model, q: torch.Tensor, link_delta=None) -> Dict[str, torch.Tensor]:
     """Per contact kind, the deepest of its candidates in each env (``q``
-    is ``(nq, B)``): a ``(B,)`` tensor per kind, in the reference's kind
-    order."""
-    cands = soa._contact_candidates(model, *soa._fk(model, q))
+    is ``(nq, B)``, ``link_delta`` ``(3 nlink, B)`` or None): a ``(B,)``
+    tensor per kind, in the reference's kind order."""
+    cands = soa._contact_candidates(model, *soa._fk(model, q, link_delta))
     out, k = {}, 0
     for kind, tab in pair_groups(model).kinds:
         n = len(tab["gi"]) * points_per_pair(kind)
@@ -79,3 +86,81 @@ def overlapping_states(model: Model, n: int, rng: np.random.Generator):
             q = np.ascontiguousarray(np.concatenate(kept, axis=1)[:, :n])
             return q, rng.uniform(-0.1, 0.1, (model.nv, n)).astype(np.float32)
     raise ValueError("no overlapping link pairs found")
+
+
+def _root(model: Model, link: int) -> int:
+    while model.link_parent[link] >= 0:
+        link = model.link_parent[link]
+    return link
+
+
+def _static(model: Model, link: int) -> bool:
+    """True for the world (-1) and for a link with no joint on its chain."""
+    while link >= 0:
+        if model.link_jnt_type[link] != -1:
+            return False
+        link = model.link_parent[link]
+    return True
+
+
+def _random_hinges(model: Model, draws: int, rng: np.random.Generator) -> np.ndarray:
+    q = np.tile(np.asarray(model.default_qpos, np.float32)[:, None], (1, draws))
+    for i in range(model.nlink):
+        if model.link_jnt_type[i] == HINGE and model.jnt_limited[i] > 0:
+            lo, hi = model.jnt_range[i]
+            q[model.link_qadr[i]] = rng.uniform(lo, hi, draws)
+    return q
+
+
+def kind_states(model: Model, n: int, rng: np.random.Generator):
+    """``(q (nq, N), qd (nv, N), link_delta (3 nlink, N))`` float32 numpy
+    with ``n`` states per contact kind, in which that kind touches 0 to 1 cm
+    deep; qd uniform in +-0.1. Each kind's states come from
+    random limited hinges where some touch; where none does, the root link
+    of the moving geom of the kind's pairs against a static geom (the world,
+    or a body with no joint on its chain) is lowered (its offset in the
+    world z) so that those pairs' deepest point lands 1 to 9 mm deep.
+    Raises if a kind can be reached neither way."""
+    draws = max(256, 4 * n)
+    qs, deltas = [], []
+    cands_per_kind = []
+    for kind, tab in pair_groups(model).kinds:
+        cands_per_kind.append((kind, tab))
+    for kind, tab in cands_per_kind:
+        q = _random_hinges(model, draws, rng)
+        delta = np.zeros((3 * model.nlink, draws), np.float32)
+        d = kind_depth(model, torch.as_tensor(q))[kind].numpy()
+        keep = (d > 0) & (d < 0.01)
+        if keep.sum() < n:
+            # lower the moving side of the pairs against a static geom
+            roots = {}
+            for p in range(len(tab["gi"])):
+                li, lj = int(tab["li"][p]), int(tab["lj"][p])
+                si, sj = _static(model, li), _static(model, lj)
+                if si != sj:
+                    root = _root(model, lj if si else li)
+                    fixed = li if si else lj
+                    if fixed < 0 or _root(model, fixed) != root:  # not carried along
+                        roots.setdefault(root, []).append(p)
+            if not roots:
+                raise ValueError(f"{kind}: no pair against a static geom to lower onto")
+            root, pairs = max(roots.items(), key=lambda kv: len(kv[1]))
+            pts = points_per_pair(kind)
+            first = sum(len(t["gi"]) * points_per_pair(k) for k, t in cands_per_kind[
+                : [k for k, _ in cands_per_kind].index(kind)])
+
+            def pushed_depth(d):
+                cands = soa._contact_candidates(model, *soa._fk(model, torch.as_tensor(q), d))
+                return torch.cat([cands[first + p * pts + c].depth for p in pairs
+                                  for c in range(pts)]).amax(dim=0).numpy()
+
+            delta[3 * root + 2] = -(rng.uniform(0.001, 0.009, draws) - pushed_depth(None))
+            d = pushed_depth(torch.as_tensor(delta))
+            keep = (d > 0) & (d < 0.01)
+            if keep.sum() < n:
+                raise ValueError(f"{kind}: {keep.sum()} of {draws} lowered states touch")
+        qs.append(q[:, keep][:, :n])
+        deltas.append(delta[:, keep][:, :n])
+    q = np.ascontiguousarray(np.concatenate(qs, axis=1))
+    delta = np.ascontiguousarray(np.concatenate(deltas, axis=1))
+    return q, rng.uniform(-0.1, 0.1, (model.nv, q.shape[1])).astype(np.float32), delta

@@ -1,12 +1,13 @@
-"""Plain PyTorch batch-last physics substep: the reference for kernels K1
-and K2.
+"""Plain PyTorch batch-last physics substep: the reference for kernels K1,
+K2 and K3.
 
-Twin of ``mjrl_tpu/physics/soa.py`` on ant's feature set: every per-env
+Twin of ``mjrl_tpu/physics/soa.py``: every per-env
 scalar is a ``(1, B)`` row and every 3-vector a ``(3, B)`` tensor, and all
 loops (tree walks, dof chains, contact pairs) unroll in Python over the
 static tables of physics/tables.py, in the reference's order. The pipeline
 per substep is kinematics -> cdof/cvel -> contacts -> composite inertias ->
-sparse mass matrix -> RNE bias -> applied forces -> sparse L^T D L solve ->
+sparse mass matrix -> RNE bias -> applied forces (with tendons and
+frictionloss) -> sparse L^T D L solve ->
 semi-implicit Euler, with fluid drag added to the link wrenches before the
 bias. With the penalty solver the contacts are spring-damper wrenches and
 the limits penalty springs; with the Newton solver both become
@@ -18,11 +19,14 @@ against it. It issues thousands of tiny ops per substep, so on a card it is
 launch-bound and only fit for comparisons.
 
 Feature set (``check_supported``): free, hinge, slide and fixed links;
-sphere- and capsule-plane contacts against world planes and sphere-sphere,
-sphere-capsule and capsule-capsule contacts between links; the inertia-box
-fluid model (density, viscosity);
-ctrl-limited gear motors; joint springs; per-dof limit penalties; the
-penalty and Newton solvers.
+sphere-, capsule- and box-plane contacts against world planes and
+sphere-sphere, sphere-capsule, capsule-capsule, sphere-box, capsule-box and
+box-box contacts between geoms; the inertia-box fluid model (density,
+viscosity); ctrl-limited gear motors and affine gain/bias servos; joint
+springs; per-dof limit penalties; per-dof frictionloss (a tanh-regularised
+force with its implicit diagonal); fixed tendons (springs, dampers and limit
+penalties on ``Jq q``); per-env parent-frame link offsets (``link_delta``);
+the penalty solver, and the Newton solver on the locomotion feature set.
 """
 
 from __future__ import annotations
@@ -40,9 +44,24 @@ from mjrl_tpu_torch.physics.tables import (
     soa_tables,
 )
 
-SUPPORTED_KINDS = ("sphere_plane", "capsule_plane", "sphere_sphere", "sphere_capsule",
-                   "capsule_capsule")
-_PLANE_KINDS = ("sphere_plane", "capsule_plane")
+SUPPORTED_KINDS = ("sphere_plane", "capsule_plane", "box_plane", "sphere_sphere",
+                   "sphere_capsule", "capsule_capsule", "sphere_box", "capsule_box", "box_box")
+_PLANE_KINDS = ("sphere_plane", "capsule_plane", "box_plane")
+# what the Newton path (physics/soa_newton.py, kernel K2) does not have yet
+_BOX_KINDS = ("box_plane", "sphere_box", "capsule_box", "box_box")
+
+
+def has_frictionloss(model: Model) -> bool:
+    fl = model.dof_frictionloss
+    return fl is not None and bool(np.any(np.asarray(fl)))
+
+
+def needs_ext(model: Model) -> bool:
+    """True if the model uses a stage that only kernel K3's build has:
+    fixed tendons, frictionloss, gain/bias actuators or a box contact kind."""
+    return (model.tendon_Jq is not None or has_frictionloss(model)
+            or model.act_gainprm is not None
+            or any(kind in _BOX_KINDS for kind, _ in pair_groups(model).kinds))
 
 
 def check_supported(model: Model) -> None:
@@ -59,15 +78,15 @@ def check_supported(model: Model) -> None:
             raise NotImplementedError(f"contact kind {kind!r} is not ported")
         if kind in _PLANE_KINDS and any(model.geom_link[int(g)] >= 0 for g in tab["gj"]):
             raise NotImplementedError("planes must be world geoms")
-    if model.tendon_Jq is not None:
-        raise NotImplementedError("tendons are not ported")
-    fl = model.dof_frictionloss
-    if fl is not None and np.any(np.asarray(fl)):
-        raise NotImplementedError("frictionloss is not ported")
-    if model.act_gainprm is not None:
-        raise NotImplementedError("gain/bias actuators are not ported")
+    if model.constraint_solver == "newton" and needs_ext(model):
+        raise NotImplementedError(
+            "the Newton solver with tendons, frictionloss, gain/bias actuators or box "
+            "contacts is not ported (ROADMAP queue 2 item 3)")
     if model.dof_limit_stiffness is None and np.any(model.jnt_limited > 0):
         raise ValueError("limited joints need per-dof limit gains")
+    if (model.tendon_Jq is not None and model.tendon_limit_stiffness is None
+            and model.tendon_limited is not None and np.any(np.asarray(model.tendon_limited) > 0)):
+        raise ValueError("limited tendons need per-tendon limit gains")
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +167,10 @@ def _spatial_cross_force(v, f):
 # ---------------------------------------------------------------------------
 
 
-def _fk(model: Model, q: torch.Tensor):
-    """World link poses: (pos list (3, B), quat list (4, B))."""
+def _fk(model: Model, q: torch.Tensor, link_delta: Optional[torch.Tensor] = None):
+    """World link poses: (pos list (3, B), quat list (4, B)). ``link_delta``
+    (``(3 nlink, B)``): per-env offsets of each link's position in its
+    parent's frame (the randomised scenes of Adroit)."""
     dev = q.device
     pos: List[torch.Tensor] = [None] * model.nlink
     quat: List[torch.Tensor] = [None] * model.nlink
@@ -157,6 +178,8 @@ def _fk(model: Model, q: torch.Tensor):
         t = model.link_jnt_type[i]
         adr = model.link_qadr[i]
         lp, lq = _c(model, model.link_pos[i], dev), _c(model, model.link_quat[i], dev)
+        if link_delta is not None:
+            lp = lp + link_delta[3 * i : 3 * i + 3]
         jp = jq = None
         if t == HINGE:
             ax = _c(model, model.jnt_axis[i], dev)
@@ -409,6 +432,42 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
         pt = c2 + n * (float(r2) - 0.5 * torch.clamp(depth, min=0.0))
         return depth, n, pt
 
+    def min_axis_onehot(gap):
+        # one-hot of the smallest of the three rows, the first on a tie
+        g0, g1, g2 = gap[0:1], gap[1:2], gap[2:3]
+        o0 = ((g0 <= g1) & (g0 <= g2)).to(gap.dtype)
+        o1 = (1.0 - o0) * (g1 <= g2).to(gap.dtype)
+        return torch.cat([o0, o1, 1.0 - o0 - o1], dim=0)
+
+    def sphere_box(c, r, pb, qb, sb):
+        """Sphere centre ``c`` (radius ``r``) against the box at ``pb``,
+        ``qb`` with half-sizes ``sb``: depth, normal from the box, point."""
+        sbc = _c(model, sb, dev)
+        p = _qrot_inv(qb, c - pb)
+        clamped = torch.minimum(torch.maximum(p, -sbc), sbc)
+        delta = p - clamped
+        d_out = torch.sqrt(_dot(delta, delta))
+        inside = d_out < 1e-9
+        n_out = delta / (d_out + 1e-12)
+        gap = sbc - p.abs()
+        gmin = torch.amin(gap, dim=0, keepdim=True)
+        n_in = min_axis_onehot(gap) * torch.where(p >= 0, 1.0, -1.0)
+        depth = torch.where(inside, float(r) + gmin, float(r) - d_out)
+        return depth, _qrot(qb, torch.where(inside, n_in, n_out)), pb + _qrot(qb, clamped)
+
+    def box_corners_in_box(pa, qa, sa, pb, qb, sb):
+        """The 8 corners of box a against box b: depth, normal from b,
+        the corner."""
+        sbc = _c(model, sb, dev)
+        for sx in (-1.0, 1.0):
+            for sy in (-1.0, 1.0):
+                for sz in (-1.0, 1.0):
+                    corner = pa + _qrot(qa, _c(model, [sx * sa[0], sy * sa[1], sz * sa[2]], dev))
+                    p = _qrot_inv(qb, corner - pb)
+                    gap = sbc - p.abs()
+                    n = _qrot(qb, min_axis_onehot(gap) * torch.where(p >= 0, 1.0, -1.0))
+                    yield torch.amin(gap, dim=0, keepdim=True), n, corner
+
     Z = _c(model, [0.0, 0.0, 1.0], dev)
     for kind, tab in pair_groups(model).kinds:
         for p_i in range(len(tab["gi"])):
@@ -431,6 +490,33 @@ def _contact_candidates(model: Model, pos, quat) -> List[_Cand]:
                     end = pi_ + float(np.float32(sgn * si[1])) * axis
                     dist = _dot(end - pp, nrm) - r
                     out.append(_Cand(gi, gj, li, lj, mu, -dist, nrm, end - nrm * r))
+            elif kind == "box_plane":
+                for sx in (-1.0, 1.0):
+                    for sy in (-1.0, 1.0):
+                        for sz in (-1.0, 1.0):
+                            corner = pi_ + _qrot(
+                                qi_, _c(model, [sx * si[0], sy * si[1], sz * si[2]], dev))
+                            out.append(_Cand(gi, gj, li, lj, mu, -_dot(corner - pp, nrm), nrm,
+                                             corner))
+            elif kind == "sphere_box":
+                pj_, qj_ = geom_pose(gj)
+                dep, n, pt = sphere_box(pi_, si[0], pj_, qj_, sj)
+                out.append(_Cand(gi, gj, li, lj, mu, dep, n, pt))
+            elif kind == "capsule_box":
+                # three spheres along the axis against the box
+                pj_, qj_ = geom_pose(gj)
+                axis = _qrot(qi_, Z)
+                for t in (-1.0, 0.0, 1.0):
+                    centre = pi_ + float(np.float32(t * si[1])) * axis
+                    dep, n, pt = sphere_box(centre, si[0], pj_, qj_, sj)
+                    out.append(_Cand(gi, gj, li, lj, mu, dep, n, pt))
+            elif kind == "box_box":
+                # the corners of each box against the other, 16 points
+                pj_, qj_ = geom_pose(gj)
+                for dep, n, pt in box_corners_in_box(pi_, qi_, si, pj_, qj_, sj):
+                    out.append(_Cand(gi, gj, li, lj, mu, dep, n, pt))
+                for dep, n, pt in box_corners_in_box(pj_, qj_, sj, pi_, qi_, si):
+                    out.append(_Cand(gi, gj, li, lj, mu, dep, -n, pt))
             elif kind == "capsule_capsule":
                 # closest points of the two segments, then a sphere pair
                 pj_, qj_ = geom_pose(gj)
@@ -568,9 +654,11 @@ def _limit_viol(model: Model, i: int, qi):
 
 
 def _applied_forces(model: Model, q, qd, ctrl, include_limits: bool = True):
-    """Motors + joint springs + limit penalties: (nv, B) generalized force.
-    ``include_limits=False`` leaves out the limit penalties: the Newton
-    solver makes limits constraint rows instead."""
+    """Actuators + joint springs + limit penalties: (nv, B) generalized
+    force. An actuator is a gear motor (force = ctrl) or, with
+    ``act_gainprm``, an affine servo: force = g0 ctrl + b0 + b1 (gear q) +
+    b2 (gear qd). ``include_limits=False`` leaves out the limit penalties:
+    the Newton solver makes limits constraint rows instead."""
     rows: List[Optional[torch.Tensor]] = [None] * model.nv
 
     def add(v, val):
@@ -582,7 +670,14 @@ def _applied_forces(model: Model, q, qd, ctrl, include_limits: bool = True):
         if model.act_ctrllimited[u] > 0:
             lo, hi = model.act_ctrlrange[u]
             cu = torch.clamp(cu, float(lo), float(hi))
-        add(v, float(model.act_gear[u]) * cu)
+        gear = float(np.float32(model.act_gear[u]))
+        if model.act_gainprm is not None:
+            g = np.asarray(model.act_gainprm[u], np.float32)
+            b = np.asarray(model.act_biasprm[u], np.float32)
+            qa = int(model.act_qadr[u])
+            cu = (float(g[0]) * cu + float(b[0]) + float(b[1]) * (gear * q[qa : qa + 1])
+                  + float(b[2]) * (gear * qd[v : v + 1]))
+        add(v, gear * cu)
 
     for i in range(model.nlink):
         if model.link_jnt_type[i] not in (HINGE, SLIDE):
@@ -601,6 +696,57 @@ def _applied_forces(model: Model, q, qd, ctrl, include_limits: bool = True):
 
     zero = qd.new_zeros((1, qd.shape[1]))
     return torch.cat([r if r is not None else zero for r in rows], dim=0)
+
+
+def friction_terms(model: Model, qd):
+    """Regularised per-dof dry friction (``dof_frictionloss``), twin of
+    ``mjrl_tpu/physics/engine.py::friction_terms``: ``(force (nv, B),
+    diag (nv, B))`` with force ``-fl tanh(qd / v_eps)`` and its velocity
+    Jacobian ``fl / v_eps (1 - tanh^2)``, or ``(None, None)`` without
+    frictionloss."""
+    if not has_frictionloss(model):
+        return None, None
+    fl = _c(model, model.dof_frictionloss, qd.device)
+    v_eps = float(np.float32(model.dof_friction_vel))
+    t = torch.tanh(qd / v_eps)
+    return -fl * t, (fl / v_eps) * (1.0 - t * t)
+
+
+def tendon_params(model: Model):
+    """The tendon constants ``(Jq (nt, nq), Jv (nt, nv), P (8, nt))`` f32;
+    ``P``'s rows: stiffness, spring length, damping, range lo, range hi,
+    limit stiffness, limit damping, limited."""
+    nt = np.asarray(model.tendon_Jq).shape[0]
+    if model.tendon_limit_stiffness is not None:
+        k = np.asarray(model.tendon_limit_stiffness, np.float32)
+        c = np.asarray(model.tendon_limit_damping, np.float32)
+    else:
+        k = np.full(nt, model.limit_stiffness, np.float32)
+        c = np.full(nt, model.limit_damping, np.float32)
+    rng = np.asarray(model.tendon_range, np.float32)
+    P = np.stack([np.asarray(model.tendon_stiffness, np.float32),
+                  np.asarray(model.tendon_springlength, np.float32),
+                  np.asarray(model.tendon_damping, np.float32), rng[:, 0], rng[:, 1], k, c,
+                  np.asarray(model.tendon_limited, np.float32)])
+    return (np.asarray(model.tendon_Jq, np.float32), np.asarray(model.tendon_Jv, np.float32), P)
+
+
+def _tendon_forces(model: Model, q, qd):
+    """Fixed-tendon passive forces ``(nv, B)``: a spring and damper on the
+    length ``l = Jq q`` and the velocity ``Jv qd``, plus a limit penalty
+    where limited, projected back through ``Jv^T``."""
+    dev = q.device
+    cache = model.__dict__.setdefault("_torch_tendon", {})
+    if str(dev) not in cache:
+        cache[str(dev)] = tuple(torch.from_numpy(a).to(dev) for a in tendon_params(model))
+    Jq, Jv, P = cache[str(dev)]
+    length = Jq @ q
+    vel = Jv @ qd
+    col = lambda i: P[i][:, None]
+    f = -col(0) * (length - col(1)) - col(2) * vel
+    viol = torch.clamp(length - col(3), max=0.0) + torch.clamp(length - col(4), min=0.0)
+    f_lim = -col(5) * viol - torch.where(viol.abs() > 0, col(6) * vel, torch.zeros_like(vel))
+    return Jv.T @ (f + col(7) * f_lim)
 
 
 def _limit_damping_rows(model: Model, q, dt: float):
@@ -657,13 +803,14 @@ def _integrate(model: Model, q, qd, qdd, dt: float):
 
 
 def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, dt: float,
-            picks: Optional[list] = None):
-    """One physics substep, batch-last: q (nq, B), qd (nv, B), ctrl (nu, B).
-    With the Newton solver, ``picks`` (a list) collects each iteration's
-    line-search fraction index (see ``soa_newton.constrained_qdd``)."""
+            picks: Optional[list] = None, link_delta: Optional[torch.Tensor] = None):
+    """One physics substep, batch-last: q (nq, B), qd (nv, B), ctrl (nu, B),
+    ``link_delta`` (3 nlink, B) or None. With the Newton solver, ``picks``
+    (a list) collects each iteration's line-search fraction index (see
+    ``soa_newton.constrained_qdd``)."""
     newton = model.constraint_solver == "newton"
     tab = soa_tables(model)
-    pos, quat = _fk(model, q)
+    pos, quat = _fk(model, q, link_delta)
     origin = pos[0]
     cdof = _cdofs(model, pos, quat, origin)
     cvel = _cvels(model, cdof, qd)
@@ -676,8 +823,13 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
     M = _mass_matrix_sparse(model, tab, cdof, crb)
     C = _bias_forces(model, tab, cdof, cvel, inert, qd, f_ext)
     tau = _applied_forces(model, q, qd, ctrl, include_limits=not newton)
+    if model.tendon_Jq is not None:
+        tau = tau + _tendon_forces(model, q, qd)
     damping = _c(model, model.dof_damping, q.device)
     rhs = tau - C - damping * qd
+    f_fric, d_fric = friction_terms(model, qd)
+    if f_fric is not None:
+        rhs = rhs + f_fric
     if newton:
         from mjrl_tpu_torch.physics import soa_newton
 
@@ -685,17 +837,24 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
         qdd = soa_newton.constrained_qdd(model, pos, cdof, M, q, qd, qdd0, candidates, dt,
                                          picks=picks)
     else:
-        qdd = _ltdl_solve(model, tab, M, rhs, dt, _limit_damping_rows(model, q, dt))
+        diag = _limit_damping_rows(model, q, dt)
+        if d_fric is not None:
+            # the friction's implicit diagonal, dt-scaled like the dampers
+            dt32 = float(np.float32(dt))
+            diag = [dt32 * d_fric[k : k + 1] if l is None else l + dt32 * d_fric[k : k + 1]
+                    for k, l in enumerate(diag)]
+        qdd = _ltdl_solve(model, tab, M, rhs, dt, diag)
     return _integrate(model, q, qd, qdd, dt)
 
 
 def multistep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
-              n_frames: int = 1, picks: Optional[list] = None):
+              n_frames: int = 1, picks: Optional[list] = None,
+              link_delta: Optional[torch.Tensor] = None):
     """``n_frames`` control frames = ``n_frames * model.n_substeps`` substeps
-    with ``ctrl`` held."""
+    with ``ctrl`` (and ``link_delta``) held."""
     dt = model.dt / model.n_substeps
     for _ in range(n_frames * model.n_substeps):
-        q, qd = substep(model, q, qd, ctrl, dt, picks)
+        q, qd = substep(model, q, qd, ctrl, dt, picks, link_delta)
     return q, qd
 
 

@@ -171,12 +171,11 @@ def soa_tables(model: Model) -> SoATables:
 
 
 def scale_limit_penalties(model: Model, omega: float = 60.0, zeta: float = 1.0) -> None:
-    """Per-dof limit-penalty gains with one response frequency ``omega``
-    (rad/s) and damping ratio ``zeta``: k_j = omega^2 M_jj(qpos0),
-    c_j = 2 zeta omega M_jj. ``M_jj`` comes from the plain mass matrix
-    (physics/soa.py) at qpos0 for one env, plus the armature."""
-    if model.tendon_Jv is not None:
-        raise NotImplementedError("tendon limit gains are not ported")
+    """Per-dof and per-tendon limit-penalty gains with one response
+    frequency ``omega`` (rad/s) and damping ratio ``zeta``: k_j = omega^2
+    M_jj(qpos0), c_j = 2 zeta omega M_jj; a tendon's mass is its reflected
+    inertia ``1 / sum_j Jv_tj^2 / M_jj``. ``M_jj`` comes from the plain mass
+    matrix (physics/soa.py) at qpos0 for one env, plus the armature."""
     from mjrl_tpu_torch.physics import soa
 
     Mdiag = soa.mass_matrix_diag(model, model.default_qpos) + np.asarray(
@@ -184,4 +183,9 @@ def scale_limit_penalties(model: Model, omega: float = 60.0, zeta: float = 1.0) 
     )
     model.dof_limit_stiffness = (omega**2 * Mdiag).astype(np.float32)
     model.dof_limit_damping = (2.0 * zeta * omega * Mdiag).astype(np.float32)
-
+    if model.tendon_Jv is not None:
+        Jv = model.tendon_Jv
+        inv = (Jv**2 / Mdiag[None, :]).sum(axis=1)
+        m_t = 1.0 / np.maximum(inv, 1e-12)
+        model.tendon_limit_stiffness = (omega**2 * m_t).astype(np.float32)
+        model.tendon_limit_damping = (2.0 * zeta * omega * m_t).astype(np.float32)

@@ -10,9 +10,9 @@ Two modes, as in the reference:
 - samples (``sample_autoreset``): rows run continuously and reset in place
   at termination or at the episode horizon, so every step is valid. The
   rows persist across calls in a carry (:class:`SamplerCarry`), and each
-  episode's whole score is emitted at its end as ``episode_score``. (The
-  reference's per-episode success accumulator is left out: no ported env
-  reports success.)
+  episode's whole score is emitted at its end as ``episode_score``; for an
+  env that reports ``info["success"]`` (Adroit), whether the episode ever
+  succeeded is emitted at its end as ``episode_success``.
 
 The reference's ``lax.scan`` over time becomes a Python loop over control
 steps, each a batched env step on the device. All randomness of a rollout
@@ -22,7 +22,10 @@ reference, the auto-reset sampler draws a reset for every env at every step
 and keeps the ones of the rows that end; since those resets depend on the
 noise alone, their states and observations are made for the whole window
 in one batched call (one set of ops, not one per step: humanoid's
-observation is ~1350 ops).
+observation is ~1350 ops). An env's state is a NamedTuple of batch-first
+tensors (``EnvState``, or Adroit's with its link offsets and target); its
+reset noise is the pair ``reset_noise`` draws (locomotion: q and qd noise;
+pen: the target angles and an empty tensor).
 """
 
 from __future__ import annotations
@@ -32,21 +35,26 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from mjrl_tpu_torch.envs.base import EnvState
-from mjrl_tpu_torch.envs.locomotion import LocomotionEnv
+from mjrl_tpu_torch.envs.base import Env
 from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 
+def _select(mask: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
+    """Field by field, ``a``'s rows where ``mask`` (N,) holds, else ``b``'s."""
+    return type(a)(*(torch.where(mask.view(-1, *[1] * (x.dim() - 1)), x, y)
+                     for x, y in zip(a, b)))
+
+
 @dataclasses.dataclass(frozen=True)
 class EpisodeNoise:
-    reset_q: torch.Tensor  # (N, nq), added to qpos0
-    reset_qd: torch.Tensor  # (N, nv), the initial qd
+    reset_q: torch.Tensor  # (N, nq): added to qpos0 (pen: (N, 2), the target angles)
+    reset_qd: torch.Tensor  # (N, nv): the initial qd (pen: (N, 0))
     action: torch.Tensor  # (T, N, da), standard normal
 
 
-def draw_episode_noise(env: LocomotionEnv, num_envs: int, horizon: int,
+def draw_episode_noise(env: Env, num_envs: int, horizon: int,
                        generator: Optional[torch.Generator] = None) -> EpisodeNoise:
     reset_q, reset_qd = env.reset_noise(num_envs, generator)
     action = torch.randn(horizon, num_envs, env.spec.action_dim, device=env.device,
@@ -55,7 +63,7 @@ def draw_episode_noise(env: LocomotionEnv, num_envs: int, horizon: int,
 
 
 @torch.no_grad()
-def run_episodes(env: LocomotionEnv, policy: GaussianMLP, noise: EpisodeNoise) -> TrajectoryBatch:
+def run_episodes(env: Env, policy: GaussianMLP, noise: EpisodeNoise) -> TrajectoryBatch:
     """One fresh episode per row, with the given noise."""
     T, N = noise.action.shape[:2]
     state, obs = env.reset_from_noise(noise.reset_q, noise.reset_qd)
@@ -75,22 +83,20 @@ def run_episodes(env: LocomotionEnv, policy: GaussianMLP, noise: EpisodeNoise) -
             time=torch.full((N,), t, dtype=torch.int32, device=obs.device), info=info,
         ))
         # freeze finished envs so post-termination dynamics can't blow up
-        keep = finished[:, None]
-        state = EnvState(q=torch.where(keep, state.q, new_state.q),
-                         qd=torch.where(keep, state.qd, new_state.qd))
-        obs = torch.where(keep, obs, new_obs)
+        state = _select(finished, state, new_state)
+        obs = torch.where(finished[:, None], obs, new_obs)
         finished = finished | term
     return _to_batch(steps)
 
 
-def sample_episodes(env: LocomotionEnv, policy: GaussianMLP, num_envs: int, horizon: int,
+def sample_episodes(env: Env, policy: GaussianMLP, num_envs: int, horizon: int,
                     generator: Optional[torch.Generator] = None) -> TrajectoryBatch:
     return run_episodes(env, policy, draw_episode_noise(env, num_envs, horizon, generator))
 
 
 @dataclasses.dataclass(frozen=True)
 class AutoresetNoise:
-    reset_q: torch.Tensor  # (T, N, nq), each step's reset draw, added to qpos0
+    reset_q: torch.Tensor  # (T, N, nq), each step's reset draw (as EpisodeNoise's)
     reset_qd: torch.Tensor  # (T, N, nv)
     action: torch.Tensor  # (T, N, da), standard normal
 
@@ -98,46 +104,50 @@ class AutoresetNoise:
 class SamplerCarry(NamedTuple):
     """The persistent rows of the auto-reset sampler."""
 
-    state: EnvState
+    state: NamedTuple
     obs: torch.Tensor  # (N, do)
     t_in_ep: torch.Tensor  # (N,) int32, steps since the row's episode began
     ep_return: torch.Tensor  # (N,), the episode's reward so far
+    ep_success: Optional[torch.Tensor] = None  # (N,), 1 once the episode has succeeded
 
 
-def carry_from_noise(env: LocomotionEnv, q_noise: torch.Tensor,
+def carry_from_noise(env: Env, q_noise: torch.Tensor,
                      qd_noise: torch.Tensor) -> SamplerCarry:
     """A fresh carry whose rows start from the given reset noise."""
     state, obs = env.reset_from_noise(q_noise, qd_noise)
     zeros = torch.zeros(obs.shape[0], dtype=obs.dtype, device=obs.device)
-    return SamplerCarry(state, obs, torch.zeros_like(zeros, dtype=torch.int32), zeros)
+    return SamplerCarry(state, obs, torch.zeros_like(zeros, dtype=torch.int32), zeros, zeros)
 
 
-def init_autoreset_carry(env: LocomotionEnv, num_envs: int,
+def init_autoreset_carry(env: Env, num_envs: int,
                          generator: Optional[torch.Generator] = None) -> SamplerCarry:
     """A fresh carry for :func:`sample_autoreset`'s persistent mode."""
     return carry_from_noise(env, *env.reset_noise(num_envs, generator))
 
 
-def draw_autoreset_noise(env: LocomotionEnv, num_envs: int, num_steps: int,
+def draw_autoreset_noise(env: Env, num_envs: int, num_steps: int,
                          generator: Optional[torch.Generator] = None) -> AutoresetNoise:
     reset_q, reset_qd = env.reset_noise(num_steps * num_envs, generator)
     action = torch.randn(num_steps, num_envs, env.spec.action_dim, device=env.device,
                          generator=generator)
-    return AutoresetNoise(reset_q=reset_q.reshape(num_steps, num_envs, -1),
-                          reset_qd=reset_qd.reshape(num_steps, num_envs, -1), action=action)
+    return AutoresetNoise(reset_q=reset_q.reshape(num_steps, num_envs, *reset_q.shape[1:]),
+                          reset_qd=reset_qd.reshape(num_steps, num_envs, *reset_qd.shape[1:]),
+                          action=action)
 
 
 @torch.no_grad()
-def run_autoreset(env: LocomotionEnv, policy: GaussianMLP, noise: AutoresetNoise,
+def run_autoreset(env: Env, policy: GaussianMLP, noise: AutoresetNoise,
                   carry: SamplerCarry, episode_horizon: int
                   ) -> Tuple[TrajectoryBatch, SamplerCarry]:
     """Continuous rows from ``carry`` with in-place resets, with the given
     noise; returns the batch and the carry after the window."""
     T, N = noise.action.shape[:2]
-    state, obs, t_in_ep, ep_ret = carry
-    resets, reset_obs = env.reset_from_noise(noise.reset_q.reshape(T * N, -1),
-                                             noise.reset_qd.reshape(T * N, -1))
-    reset_q, reset_qd = resets.q.reshape(T, N, -1), resets.qd.reshape(T, N, -1)
+    state, obs, t_in_ep, ep_ret, ep_suc = carry
+    if ep_suc is None:
+        ep_suc = torch.zeros_like(ep_ret)
+    resets, reset_obs = env.reset_from_noise(noise.reset_q.reshape(T * N, *noise.reset_q.shape[2:]),
+                                             noise.reset_qd.reshape(T * N, *noise.reset_qd.shape[2:]))
+    resets = type(resets)(*(x.reshape(T, N, *x.shape[1:]) for x in resets))
     reset_obs = reset_obs.reshape(T, N, -1)
     steps: List[Dict[str, torch.Tensor]] = []
     for t in range(T):
@@ -148,23 +158,28 @@ def run_autoreset(env: LocomotionEnv, policy: GaussianMLP, noise: AutoresetNoise
         done = term | ((t_in_ep + 1) >= episode_horizon)
         d = done[:, None]
         ret_acc = ep_ret + reward
+        zero = torch.zeros_like(ret_acc)
+        # the whole episode's score (and success), emitted at its end, so
+        # episodes that span windows are scored whole
+        if "success" in info:
+            suc_acc = torch.maximum(ep_suc, info["success"].to(ep_suc.dtype))
+            info = {**info, "episode_success": torch.where(done, suc_acc, zero)}
+        else:
+            suc_acc = ep_suc
         steps.append(dict(
             obs=obs, action=action, reward=reward, done=done, terminated=term,
             valid=torch.ones_like(done), mean=mean, log_std=log_std, log_prob=log_prob,
-            time=t_in_ep,
-            # the whole episode's score, emitted at its end, so episodes that
-            # span windows are scored whole
-            info={**info, "episode_score": torch.where(done, ret_acc, torch.zeros_like(ret_acc))},
+            time=t_in_ep, info={**info, "episode_score": torch.where(done, ret_acc, zero)},
         ))
-        state = EnvState(q=torch.where(d, reset_q[t], new_state.q),
-                         qd=torch.where(d, reset_qd[t], new_state.qd))
+        state = _select(done, type(resets)(*(x[t] for x in resets)), new_state)
         obs = torch.where(d, reset_obs[t], new_obs)
         t_in_ep = torch.where(done, torch.zeros_like(t_in_ep), t_in_ep + 1)
-        ep_ret = torch.where(done, torch.zeros_like(ret_acc), ret_acc)
-    return _to_batch(steps), SamplerCarry(state, obs, t_in_ep, ep_ret)
+        ep_ret = torch.where(done, zero, ret_acc)
+        ep_suc = torch.where(done, zero, suc_acc)
+    return _to_batch(steps), SamplerCarry(state, obs, t_in_ep, ep_ret, ep_suc)
 
 
-def sample_autoreset(env: LocomotionEnv, policy: GaussianMLP, carry: SamplerCarry,
+def sample_autoreset(env: Env, policy: GaussianMLP, carry: SamplerCarry,
                      num_steps: int, episode_horizon: Optional[int] = None,
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[TrajectoryBatch, SamplerCarry]:
@@ -207,8 +222,10 @@ class RolloutStats:
 def rollout_statistics(batch: TrajectoryBatch) -> RolloutStats:
     """Scores of the episodes that end in the batch, emitted at ``done``:
     the sampler's ``episode_score`` where it reports one (samples mode),
-    else the rewards summed per episode along each row. No ported env
-    reports success, so ``success_rate`` is 0."""
+    else the rewards summed per episode along each row. ``success_rate``
+    is 100 times the share of those episodes that ever succeeded: from
+    ``episode_success`` (samples mode) or from ``success`` taken along each
+    row (episodes mode), and 0 for an env that reports no success."""
     validf = batch.valid.to(batch.rewards.dtype)
     rewards = batch.rewards * validf
     done = batch.done
@@ -230,5 +247,18 @@ def rollout_statistics(batch: TrajectoryBatch) -> RolloutStats:
     zero = rewards.new_zeros(())
     mx = torch.where(has_ep, torch.where(done, scores, -big).max(), zero)
     mn = torch.where(has_ep, torch.where(done, scores, big).min(), zero)
+    if "episode_success" in batch.env_info:
+        success_rate = 100.0 * (batch.env_info["episode_success"] * validf).sum() / n_ep
+    elif "success" in batch.env_info:
+        succ = batch.env_info["success"].to(rewards.dtype) * validf
+        acc = succ.new_zeros(succ.shape[0])
+        ep_succ = torch.zeros_like(succ)
+        for t in range(succ.shape[1]):
+            acc = torch.maximum(acc, succ[:, t])
+            ep_succ[:, t] = torch.where(done[:, t], acc, torch.zeros_like(acc))
+            acc = torch.where(done[:, t], torch.zeros_like(acc), acc)
+        success_rate = 100.0 * ep_succ.sum() / n_ep
+    else:
+        success_rate = zero
     return RolloutStats(mean=mean, std=torch.sqrt(var), max=mx, min=mn,
-                        success_rate=zero, num_episodes=raw_ep)
+                        success_rate=success_rate, num_episodes=raw_ep)

@@ -41,6 +41,17 @@ TOL_Q = dict(rtol=0, atol=1e-5)
 TOL_QD = dict(rtol=0, atol=1e-3)
 # the observation: its contact wrenches reach ~1e4 (N, N m)
 TOL_OBS = dict(rtol=1e-4, atol=1e-4)
+# cfrc_ext (the last 84 entries) of a post-step state, against the f64
+# value: a penalty wrench is the contact stiffness (206579 N/m) times a
+# depth that is a difference of ~1 m coordinates, so each f32 result
+# carries an error of a few f32 ulps of 1 m times the stiffness. Measured
+# on the test's folded env 6 against JAX in f64: the port's f32 wrench is
+# off by up to 1.66e-2 and the reference's own f32 by up to 1.09e-2, on
+# opposite sides (145.2761 and 145.25339 against 145.26170), which is why
+# the two f32 results disagree by 2.27e-2. The bound: two f32 ulps of 1 m
+# (2 x 1.19e-7 m) times the stiffness, 4.9e-2, held by both.
+CFRC = slice(376 - 84, 376)
+CFRC_ULPS_M = 2 * float(np.finfo(np.float32).eps)
 
 
 @pytest.fixture(scope="module")
@@ -146,8 +157,10 @@ def test_humanoid_obs_matches_reference(obs_mode, folded):
 
 
 def test_humanoid_reward_and_termination_match_reference(envs, folded):
-    """Reward, ``x_velocity`` (the centre of mass's) and termination of one
-    step, given the same post-step state in both packages."""
+    """Reward, ``x_velocity`` (the centre of mass's), termination and the
+    observation of one step, given the same post-step state in both
+    packages; the observation's contact wrenches against their f64 value
+    (the reference's in f64), to which both packages' f32 are held."""
     env, jenv = envs
     q, qd = (np.ascontiguousarray(x.T) for x in folded)
     rng = np.random.default_rng(3)
@@ -173,4 +186,13 @@ def test_humanoid_reward_and_termination_match_reference(envs, folded):
     np.testing.assert_allclose(rew.numpy(), np.asarray(jrew), rtol=1e-4, atol=1e-4)
     np.testing.assert_array_equal(term.numpy(), np.asarray(jterm))
     assert term.numpy()[:2].all() and not term.numpy()[2:].any()
-    np.testing.assert_allclose(obs.numpy(), np.asarray(jobs), **TOL_OBS)
+    obs, jobs = obs.numpy(), np.asarray(jobs)
+    np.testing.assert_allclose(obs[:, : CFRC.start], jobs[:, : CFRC.start], **TOL_OBS)
+    with jax.enable_x64(True):
+        f64 = jax.jit(jax.vmap(lambda q, qd, a: jenv._obs(PhysicsState(q, qd), a)))
+        want = np.asarray(f64(*(x.astype(np.float64) for x in (q2, qd2, action))))
+    assert want.dtype == np.float64
+    tol = dict(rtol=1e-4, atol=CFRC_ULPS_M * env.model.contact_stiffness)
+    np.testing.assert_allclose(obs[:, CFRC], want[:, CFRC], **tol)
+    np.testing.assert_allclose(jobs[:, CFRC], want[:, CFRC], **tol)  # the reference's own f32
+    assert np.abs(want[:, CFRC]).max() > 1.0  # the folded limbs push

@@ -1,10 +1,11 @@
-"""The port stands without JAX: with jax, jaxlib, gymnasium and mjrl_tpu
-blocked, every mjrl_tpu_torch module imports (the harness in ``utils``,
-the ``train`` entry point, TRPO and PPO among them), the ant env steps on
-the CPU with either solver and the hopper, swimmer and humanoid envs (its
-376-dim observation from physics/engine.py, contact.py and comfeat.py)
-with their shipped assets. (The card's
-machine has none of those packages.)"""
+"""The port stands without JAX: with jax, jaxlib, gymnasium,
+gymnasium_robotics, mujoco and mjrl_tpu blocked, every mjrl_tpu_torch
+module imports (the harness in ``utils``, the ``train`` entry point, TRPO
+and PPO among them), the ant env steps on the CPU with either solver and
+the hopper, swimmer and humanoid envs (its 376-dim observation from
+physics/engine.py, contact.py and comfeat.py) with their shipped assets,
+and Adroit pen (envs/adroit.py, kernel K3's plain version) with its
+shipped model. (The card's machine has none of those packages.)"""
 
 import os
 import subprocess
@@ -14,7 +15,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _SCRIPT = r"""
 import sys
-BLOCKED = ("jax", "jaxlib", "gymnasium", "mjrl_tpu")
+BLOCKED = ("jax", "jaxlib", "gymnasium", "gymnasium_robotics", "mujoco", "mjrl_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -52,8 +53,12 @@ env = make("humanoid", horizon=4, device="cpu")
 state, obs = env.reset(2, torch.Generator().manual_seed(0))
 state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
 assert obs.shape == (2, 376) and torch.isfinite(reward).all()
+env = make("adroit_pen", device="cpu")
+state, obs = env.reset(2, torch.Generator().manual_seed(0))
+state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
+assert obs.shape == (2, 45) and torch.isfinite(reward).all() and "success" in info
 for name in ("algos.trpo", "algos.ppo", "physics.engine", "physics.contact", "physics.comfeat",
-             "physics.math3d"):
+             "physics.math3d", "envs.adroit", "physics.probe", "physics.dispatch"):
     assert "mjrl_tpu_torch." + name in names, name
 print("imported", len(names), "modules")
 """

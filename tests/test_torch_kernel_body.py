@@ -393,8 +393,8 @@ def test_humanoid_packs_sphere_pairs_in_the_large_class(humanoid, lib):
     assert [int((kinds == k).sum()) for k in range(5)] == [5, 12, 52, 10, 49]
     between = kinds >= 2
     assert (rows[between, L["PAIR_GJ"]] > 0).all()  # geom j's radius
-    np.testing.assert_allclose(np.linalg.norm(rows[between, L["PAIR_GJ"] + 5 :
-                                                   L["PAIR_GJ"] + 9], axis=1), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(rows[between, L["PAIR_GJ"] + 6 :
+                                                   L["PAIR_GJ"] + 10], axis=1), 1.0, rtol=1e-6)
 
 
 def test_humanoid_kernel_body_matches_plain(humanoid):

@@ -243,3 +243,35 @@ def test_cuda_newton_kernel_matches_plain_on_hopper():
     # chip_smoke.py's tolerances for K2
     torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-4)
     torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("condim", [1, 4])
+def test_cuda_newton_kernel_matches_plain_on_hopper_with_condim(condim):
+    """K2's one-row (condim 1) and six-facet (condim 4, torsional friction)
+    contacts on the card: hopper with every geom forced to ``condim``, at
+    B=250 folded states (a row between two moving links held in each) and
+    after 6 control steps of random actions (the feet on the floor)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    env = make("hopper", horizon=8, constraint_solver="newton")
+    model = copy.copy(env.model)
+    model.geom_condim = np.full(model.ngeom, condim, np.int32)
+    rng, dev = np.random.default_rng(0), torch.device("cuda")
+    fq, fqd = probe.overlapping_states(model, 125, rng)
+    state, _ = env.reset(125, torch.Generator(device=dev).manual_seed(0))
+    for _ in range(6):
+        state, *_ = env.step(state, torch.as_tensor(rng.uniform(-1, 1, (125, 3)),
+                                                    dtype=torch.float32, device=dev))
+    q = torch.cat([torch.as_tensor(fq, device=dev), state.q.T], dim=1).contiguous()
+    qd = torch.cat([torch.as_tensor(fqd, device=dev), state.qd.T], dim=1).contiguous()
+    ctrl = torch.as_tensor(rng.uniform(-1, 1, (3, 250)), dtype=torch.float32, device=dev)
+    kernel = pkernel.NewtonKernel()
+    got_q, got_qd = kernel(model, q, qd, ctrl, env.frame_skip)
+    torch.cuda.synchronize()
+    want_q, want_qd = soa.multistep(model, q, qd, ctrl, env.frame_skip)
+    assert kernel.launches == 1
+    assert int((probe.held_contact_rows(model, q) > 0).sum()) >= 125
+    # chip_smoke.py's tolerances for K2
+    torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-4)
+    torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-2)

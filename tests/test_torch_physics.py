@@ -20,7 +20,7 @@ from mjrl_tpu.physics import soa as jsoa
 from mjrl_tpu.physics.contact import _pair_groups as j_pair_groups
 from mjrl_tpu.physics.engine import tree_tables as j_tree_tables
 from mjrl_tpu_torch.envs import make
-from mjrl_tpu_torch.physics import soa, tables
+from mjrl_tpu_torch.physics import pkernel, soa, tables
 
 torch.set_num_threads(1)
 
@@ -123,8 +123,17 @@ def test_mass_matrix_diag_matches_reference_crba(ants):
     ids=["ball", "gain_bias", "frictionloss", "tendon"],
 )
 def test_unsupported_features_raise(ants, edit):
+    """A ball joint is refused everywhere. Gain/bias actuators,
+    frictionloss and tendons are Adroit's stages: the plain version takes
+    them and only kernel K3's build has them, so K1 refuses them."""
     model = copy.copy(ants[0].model)
     for k, v in edit.items():
         setattr(model, k, v)
-    with pytest.raises(NotImplementedError):
-        soa.check_supported(model)
+    if "link_jnt_type" in edit:
+        with pytest.raises(NotImplementedError):
+            soa.check_supported(model)
+        return
+    assert soa.needs_ext(model)
+    zeros = lambda n: torch.zeros(n, 2)  # noqa: E731
+    with pytest.raises(ValueError, match="K3"):
+        pkernel.MultistepKernel()(model, zeros(model.nq), zeros(model.nv), zeros(model.nu), 1)

@@ -8,7 +8,9 @@ the log cut to match and ends with the policy of a straight run; settings
 the port does not have raise; every other config the port runs goes
 through the entry point at 2 envs x 2 steps; the humanoid PPO and TRPO
 configs run with their obs_norm at a small width and resume; and a run on
-the card never falls back to the CPU.
+the card never falls back to the CPU; the Adroit pen NPG configs run at 2
+envs x 2 steps and every other Adroit config raises naming its ROADMAP
+item.
 """
 
 import csv
@@ -98,7 +100,7 @@ OTHER_CONFIGS = ("ant_npg.json", "ant_npg_newton.json", "ant_npg_newton1.json",
                  "ant_npg_newton_fast.json", "ant_npg_newton_samples.json",
                  "half_cheetah_trpo.json", "walker2d_trpo_newton.json", "ant_ppo.json",
                  "ant_ppo2.json", "ant_ppo3.json", "ant_ppo_v5.json", "humanoid_ppo.json",
-                 "humanoid_ppo3.json")
+                 "humanoid_ppo3.json", "adroit_pen_npg.json", "adroit_pen_npg_small.json")
 
 
 @pytest.mark.parametrize("name", OTHER_CONFIGS)
@@ -115,6 +117,16 @@ def test_cli_runs_each_other_config_at_a_tiny_width(tmp_path, name):
     assert agent.env.model.constraint_solver == config.env_kwargs.get("constraint_solver", "penalty")
     (row,) = _rows(str(tmp_path / "logs" / "log.csv"))
     assert all(math.isfinite(float(v)) for v in row.values()), row
+
+
+@pytest.mark.parametrize("name", sorted(
+    os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "examples", "adroit_*.json"))
+    if os.path.basename(p) not in OTHER_CONFIGS))
+def test_other_adroit_configs_raise(name):
+    """Relocate, hammer, door, DAPG and Adroit on the Newton solver are not
+    ported yet: their configs raise naming the ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(load_config(os.path.join(ROOT, "examples", name), []), device="cpu")
 
 
 @pytest.mark.parametrize("name", ["humanoid_ppo_v4.json", "humanoid_trpo.json"])

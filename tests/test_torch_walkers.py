@@ -24,8 +24,9 @@ from mjrl_tpu import envs as jenvs
 from mjrl_tpu.physics import soa as jsoa
 from mjrl_tpu.physics.contact import _pair_groups as j_pair_groups
 from mjrl_tpu_torch.envs import make
-from mjrl_tpu_torch.physics import probe, soa, tables
+from mjrl_tpu_torch.physics import pkernel, probe, soa, tables
 from mjrl_tpu_torch.physics.mjcf import load_mjcf
+from test_torch_adroit_kernel import _BOX_FRICTION  # a box on a hinge with frictionloss
 
 torch.set_num_threads(1)
 
@@ -115,42 +116,54 @@ def test_capsule_capsule_candidates_match_reference():
     assert len(cc) == 3 and bool((torch.cat([c.depth for c in cc]) > 0).any(dim=0).all())
 
 
-# a model with features the kernels do not have yet (Adroit's): a box over
-# the floor (the box_plane kind) on a hinge with frictionloss
-_UNPORTED_MJCF = """
-<mujoco model="unported">
+# a ball joint, which no kernel has yet
+_BALL_MJCF = """
+<mujoco model="ball">
   <worldbody>
     <geom name="floor" type="plane" size="5 5 0.1"/>
-    <body name="box" pos="0 0 0.5">
-      <joint name="hinge" type="hinge" axis="0 1 0" frictionloss="0.5"/>
-      <geom name="box" type="box" size="0.1 0.1 0.1" mass="1"/>
+    <body name="pendulum" pos="0 0 1">
+      <joint name="ball" type="ball"/>
+      <geom name="bob" type="sphere" size="0.1" pos="0 0 -0.5" mass="1"/>
     </body>
   </worldbody>
-  <actuator><motor joint="hinge" gear="1"/></actuator>
 </mujoco>
 """
 
 
-@pytest.mark.parametrize("case", ["humanoid.xml", "box_and_frictionloss"])
+@pytest.mark.parametrize("case", ["humanoid.xml", "box_and_frictionloss", "ball_joint"])
 def test_check_supported_refuses_swimmer_and_humanoid(case, tmp_path):
     """Humanoid's pair kinds (sphere-sphere, sphere-capsule) are ported:
     its model is accepted. A model with a box over the floor and a hinge
-    with frictionloss is still refused. (Swimmer's fluid forces are
-    ported: tests/test_torch_swimmer.py.)"""
+    with frictionloss (Adroit's stages) is accepted too, and the frame
+    stepper sends it to kernel K3; a ball joint is still refused. (Swimmer's
+    fluid forces are ported: tests/test_torch_swimmer.py.)"""
     if case == "humanoid.xml":
         path = os.path.join(os.path.dirname(gymnasium.__file__), "envs", "mujoco", "assets", case)
         model = load_mjcf(path)
         tables.scale_limit_penalties(model)  # as the env sets them
         soa.check_supported(model)
         return
-    path = tmp_path / "unported.xml"
-    path.write_text(_UNPORTED_MJCF)
+    path = tmp_path / f"{case}.xml"
+    path.write_text(_BOX_FRICTION if case == "box_and_frictionloss" else _BALL_MJCF)
     model = load_mjcf(str(path))
+    if case == "ball_joint":
+        with pytest.raises(NotImplementedError, match="joint type"):
+            soa.check_supported(model)
+        return
     assert [k for k, _ in tables.pair_groups(model).kinds] == ["box_plane"]
     assert np.any(model.dof_frictionloss)
-    with pytest.raises(NotImplementedError, match="box_plane"):
-        soa.check_supported(model)
-    model.contact_pairs = ()
-    model._pair_groups = None
-    with pytest.raises(NotImplementedError, match="frictionloss"):
-        soa.check_supported(model)
+    soa.check_supported(model)
+    assert soa.needs_ext(model)
+    with pytest.raises(NotImplementedError, match="K3"):
+        pkernel.pack_tables(model, pkernel.read_layout(_host_lib(tmp_path)))
+    q = torch.tensor([[0.3], [-0.2]]).T.contiguous()
+    qd = torch.tensor([[2.0, -1.0]])
+    q2, qd2 = pkernel.K3(model, q, qd, torch.zeros(1, 2), 2)
+    assert torch.isfinite(q2).all() and torch.isfinite(qd2).all()
+
+
+def _host_lib(tmp_path):
+    import ctypes
+
+    path = pkernel.build_library("mj_host.cpp", ("g++", *pkernel.GXX_FLAGS), tmp_path / "host")
+    return ctypes.CDLL(str(path))

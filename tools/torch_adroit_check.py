@@ -1,0 +1,161 @@
+"""K3 on Adroit pen on one NVIDIA GPU: the spread that sets its tolerance,
+and two faulty tables that must fail that tolerance.
+
+    python3 tools/torch_adroit_check.py
+
+Needs one CUDA card and nvcc; run it from the root of a checkout. On pen
+(chip_smoke.py's ``pen_states``: 512 envs, half after 10 control steps of
+random actions from reset with every link offset by up to 5 mm, half drawn
+so that each of pen's five contact kinds touches, then 3 chained control
+steps; and the first 506 of them) it reads, per env-step, the max |err| of
+q and of qd of:
+
+1. spread: the plain version (physics/soa.py) on the card against the
+   plain version on the CPU;
+2. kernel: K3 against the plain version on the card;
+3. box_halfsize_x1.02: K3 with every box's half-sizes 2% too large in its
+   pair rows;
+4. tendon_limit_stiffness_x1.02: K3 with every tendon's limit stiffness 2%
+   too large in its tendon block (pen's tendons are limit-only: their
+   spring stiffness is 0, so a 2% error there changes nothing);
+
+all from the same state and link offsets at every step, the kernel's own
+(the chain follows K3), as chip_smoke.py holds it. It prints, for q and qd
+and each variant, the max, the 99% quantile and how many env-steps exceed
+each power of ten, and the tolerance chip_smoke.py takes: ten times the
+spread's max, rounded up to a power of ten. The last lines: one JSON
+object with every reading, and the card's name and power limit from
+nvidia-smi.
+"""
+
+from __future__ import annotations
+
+import copy
+import json
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from chip_smoke import PEN_KINDS, pen_states  # noqa: E402
+from mjrl_tpu_torch.envs import make  # noqa: E402
+from mjrl_tpu_torch.physics import pkernel, probe, soa  # noqa: E402
+
+SCALE = 1.02
+QUANTILE = 0.99
+_BOX_KINDS = {5: (1,), 7: (11,), 8: (1, 11)}  # mj_substep.h kind -> box size slots
+
+
+def faulty_tables(model, kernel, device, edit):
+    """A copy of ``model`` whose K3 tables are ``edit(mf, mi, L)``'s."""
+    L = kernel._layouts[pkernel.size_class(model)]
+    mf, mi = (t.cpu().numpy().copy() for t in kernel._tables(model, device))
+    edit(mf, mi, L)
+    faulty = copy.copy(model)
+    faulty.__dict__["_k3_tables"] = {str(device): (torch.from_numpy(mf).to(device),
+                                                   torch.from_numpy(mi).to(device))}
+    return faulty
+
+
+def larger_boxes(mf, mi, L):
+    npair = mi[L["I_NPAIR"]]
+    kinds = mi[L["I_PAIR"] : L["I_PAIR"] + L["PAIR_I"] * npair].reshape(-1, L["PAIR_I"])[:, 0]
+    rows = mf[L["F_PAIR"] : L["F_PAIR"] + L["PAIR_F"] * npair].reshape(-1, L["PAIR_F"])
+    for kind, slots in _BOX_KINDS.items():
+        for slot in slots:
+            rows[kinds == kind, slot : slot + 3] *= np.float32(SCALE)
+
+
+def stiffer_tendon_limits(mf, mi, L):
+    nt, off = mi[L["I_NTEN"]], mi[L["I_TEN_F"]]
+    mf[off : off + 8 * nt].reshape(nt, 8)[:, 5] *= np.float32(SCALE)
+
+
+def per_env(variants, q, qd, delta, ctrls):
+    """Per variant ``name: (step, against)``, the per env-step max |err|
+    ``(q (steps, B), qd (steps, B))`` over the chained control steps, all
+    from the kernel's state (the first variant's ``step``)."""
+    errs = {name: ([], []) for name in variants}
+    for ctrl in ctrls:
+        outs = {}
+        for name, (step, against) in variants.items():
+            got, want = step(q, qd, ctrl, delta), against(q, qd, ctrl, delta)
+            for k in range(2):
+                errs[name][k].append((got[k].cpu() - want[k].cpu()).abs().amax(dim=0))
+            outs[name] = got
+        q, qd = outs[next(iter(variants))]
+    return {name: tuple(torch.stack(e) for e in pair) for name, pair in errs.items()}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_adroit_check: no CUDA device", file=sys.stderr)
+        return 2
+    kernel = pkernel.ExtKernel()
+    env = make("adroit_pen")
+    model, frames = env.model, env.frame_skip
+    kernel.build(pkernel.size_class(model))
+    q0, qd0, d0, ctrls = pen_states(env, 512, 3)
+    cut = lambda x: x[:, :506].contiguous()  # noqa: E731
+    cases = {"512": (q0, qd0, d0, ctrls),
+             "506": (cut(q0), cut(qd0), cut(d0), [cut(c) for c in ctrls])}
+
+    def plain(device=None):
+        def run(q, qd, ctrl, d):
+            if device is not None:
+                q, qd, ctrl, d = (x.to(device) for x in (q, qd, ctrl, d))
+            return soa.multistep(model, q, qd, ctrl, frames, link_delta=d)
+        return run
+
+    def k3(m):
+        return lambda q, qd, c, d: kernel(m, q, qd, c, frames, link_delta=d)
+
+    on_card = plain()
+    dev = q0.device
+    variants = {"kernel": (k3(model), on_card), "spread": (on_card, plain("cpu")),
+                "box_halfsize_x1.02": (k3(faulty_tables(model, kernel, dev, larger_boxes)), on_card),
+                "tendon_limit_stiffness_x1.02": (
+                    k3(faulty_tables(model, kernel, dev, stiffer_tendon_limits)), on_card)}
+    out = {"contacts": {k: int((v > 0).sum()) for k, v in probe.kind_depth(model, q0, d0).items()}}
+    print(f"[pen] 512: envs with a point at depth > 0 (first state): {out['contacts']}")
+    assert set(out["contacts"]) == set(PEN_KINDS)
+    for case in cases:
+        errs = per_env(variants, *cases[case])
+        entry = {}
+        for variant, pair in errs.items():
+            for name, e in zip(("q", "qd"), pair):
+                e = e.reshape(-1)
+                entry[f"{variant}_{name}"] = {
+                    "max": float(e.max()), "quantile": float(torch.quantile(e, QUANTILE)),
+                    "env_steps": e.numel(),
+                    "above": {f"1e{p}": int((e > 10.0 ** p).sum()) for p in range(-8, 2)}}
+        out[case] = entry
+        print(f"[pen] {case}: {json.dumps(entry)}", flush=True)
+    tol = {}
+    for name in ("q", "qd"):
+        s = max(out[c][f"spread_{name}"]["max"] for c in cases)
+        tol[name] = 10.0 ** math.ceil(math.log10(10 * s)) if s > 0 else 1e-6
+    out["tolerance"] = tol
+    print(f"[pen] tolerance (10 x the spread's max, up to a power of ten): {tol}")
+    for case in cases:
+        for variant in variants:
+            held = {n: out[case][f"{variant}_{n}"]["max"] for n in ("q", "qd")}
+            verdict = "passes" if all(held[n] <= tol[n] for n in tol) else "fails"
+            print(f"[pen] {case} {variant}: max q {held['q']:.3e} qd {held['qd']:.3e}: "
+                  f"{verdict} the tolerance")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out["card"] = smi
+    print(json.dumps(out))
+    print(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,10 +12,11 @@ sampler carry, kernel K2); or a config of ``examples/`` as
 ``hopper`` (hopper_npg.json, 256 envs x 1000 steps, K1), ``hopper_newton``
 (hopper_npg_newton.json, 256 x 1000, K2), ``swimmer`` (swimmer_npg.json,
 256 x 1000, K1), ``walker2d_trpo`` (walker2d_trpo.json, 4096 x 1000, K1),
-``humanoid_trpo`` (humanoid_trpo.json, 1024 x 1000, K1) or
+``humanoid_trpo`` (humanoid_trpo.json, 1024 x 1000, K1),
 ``humanoid_ppo`` (humanoid_ppo_v4.json, 4096 x 64-step windows in samples
-mode, K1). The ``update`` phase is the agent's policy update: NPG's, TRPO's
-with its line-search probes, or PPO's minibatch Adam epochs.
+mode, K1) or ``adroit_pen`` (adroit_pen_npg.json, 512 x 100, K3). The
+``update`` phase is the agent's policy update: NPG's, TRPO's with its
+line-search probes, or PPO's minibatch Adam epochs.
 Warms it for 2 iterations, then times one iteration
 phase by phase on the host clock (each phase ends in
 ``torch.cuda.synchronize()``), and traces a second one with
@@ -37,7 +38,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 CONFIG_ROWS = {"hopper": "hopper_npg.json", "hopper_newton": "hopper_npg_newton.json",
                "swimmer": "swimmer_npg.json", "walker2d_trpo": "walker2d_trpo.json",
-               "humanoid_trpo": "humanoid_trpo.json", "humanoid_ppo": "humanoid_ppo_v4.json"}
+               "humanoid_trpo": "humanoid_trpo.json", "humanoid_ppo": "humanoid_ppo_v4.json",
+               "adroit_pen": "adroit_pen_npg.json"}
 
 
 def main() -> int:
@@ -48,7 +50,8 @@ def main() -> int:
     from mjrl_tpu_torch.algos import NPG
     from mjrl_tpu_torch.envs import make
     from mjrl_tpu_torch.models import GaussianMLP, MLPBaseline
-    from mjrl_tpu_torch.physics.pkernel import K1, K2
+    from mjrl_tpu_torch.physics import soa
+    from mjrl_tpu_torch.physics.pkernel import K1, K2, K3
     from mjrl_tpu_torch.samplers import (
         draw_autoreset_noise,
         draw_episode_noise,
@@ -85,7 +88,8 @@ def main() -> int:
         agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=num_envs, **kw)
     samples = agent.sample_mode == "samples"
     window = -(-agent.num_samples // num_envs) if samples else horizon  # steps per iteration
-    kernel = K2 if env.model.constraint_solver == "newton" else K1
+    kernel = (K2 if env.model.constraint_solver == "newton"
+              else K3 if soa.needs_ext(env.model) else K1)
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
         agent.train_step(gen)

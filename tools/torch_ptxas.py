@@ -5,9 +5,9 @@
 Compiles every ``*.cu`` in each directory (default: the port's
 ``mjrl_tpu_torch/csrc``) with the kernels' own nvcc flags plus
 ``-Xptxas -v`` into ``mjrl_tpu_torch/_build/ptxas/`` and prints, per
-kernel and size class (K1, ``mj_kernel.cu``, in every class of
-``pkernel.SIZE_CLASSES``; K2 in the small one), ptxas's registers, stack
-frame, spill stores and loads. Give it a
+kernel and size class (K1, ``mj_kernel.cu``, in the two classes its
+models use; K2 in the small one; K3, ``mj_ext_kernel.cu``, in the Adroit
+class), ptxas's registers, stack frame, spill stores and loads. Give it a
 second directory, such as an older checkout's ``csrc``, to compare two
 versions in one run. Needs nvcc (the CUDA toolkit); no card.
 """
@@ -32,6 +32,8 @@ from mjrl_tpu_torch.physics.pkernel import (  # noqa: E402
     size_flags,
 )
 
+# the size classes each source is built in (pkernel.SIZE_CLASSES)
+_CLASSES = {"mj_kernel.cu": (0, 1), "mj_ext_kernel.cu": (2,)}
 _FUNC = re.compile(r"Compiling entry function '(\w+)'")
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
@@ -62,7 +64,7 @@ def main() -> int:
     dirs = [Path(d) for d in sys.argv[1:]] or [CSRC]
     jobs = [(src, BUILD_DIR / "ptxas" / str(i), size) for i, d in enumerate(dirs)
             for src in sorted(d.glob("*.cu"))
-            for size in (range(len(SIZE_CLASSES)) if src.name == "mj_kernel.cu" else (0,))]
+            for size in _CLASSES.get(src.name, (0,))]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for report in pool.map(lambda job: ptxas_report(*job), jobs):
             print(report)
