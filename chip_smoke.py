@@ -6,9 +6,12 @@ Runs from the root of a checkout and needs one CUDA card; without one it
 exits non-zero and prints no result. Phases, any failure exits non-zero:
 
 1. Build: kernel K1 (mjrl_tpu_torch/csrc/mj_kernel.cu, penalty solver) in
-   both size classes (physics/pkernel.py SIZE_CLASSES: the small models
-   and humanoid) and K2 (csrc/mj_newton_kernel.cu, Newton solver) with nvcc
-   for sm_90a from the checkout's sources, the three builds side by side.
+   the first two size classes (physics/pkernel.py SIZE_CLASSES: the small
+   models and humanoid), K2 (csrc/mj_newton_kernel.cu, Newton solver) in
+   the first, K3 (csrc/mj_ext_kernel.cu, Adroit's stages) and K4
+   (csrc/mj_ext_newton_kernel.cu, Adroit's stages under the Newton solver)
+   in the third, with nvcc for sm_90a from the checkout's sources, the five
+   builds side by side.
 2. K1 against plain: K1 against its plain PyTorch version (physics/soa.py)
    on the card, ant (penalty, 4 substeps per frame) at B=1024 and a ragged
    B=1000, one control step (5 frames x 4 substeps) and 6 chained control
@@ -62,7 +65,17 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    counts the env-steps with a sphere-sphere and with a sphere-capsule
    point at depth > 0 and fails if either is 0; both times at B=1024 and
    at B=4096.
-11. Six paths through the entry point at full width, ``run_job`` of
+11. K3 on Adroit pen against plain (link offsets, box kinds, servos,
+   tendons, frictionloss), to its own tolerance: B=512 and a ragged B=506,
+   one control step and 3 chained ones from ``pen_states``; every one of
+   pen's five contact kinds must touch; both times at B=512.
+12. K4 on Adroit pen with the Newton solver against plain, to its own
+   tolerance: the same, from ``pen_states`` warmed by K4; counts the
+   env-steps that hold a row of each contact kind, of each facet count (1,
+   4, 6) and of a joint limit, and fails if any is 0; the rows held per
+   env-step (mean, max), the line-search flips, and K4's overflow counter,
+   which must stay 0 (its check raises otherwise).
+13. Eight paths through the entry point at full width, ``run_job`` of
    mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
    examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
    then niter=2, the second call resuming from the first one's checkpoint;
@@ -73,25 +86,28 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    windows in samples mode, K1) with niter=1 and then niter=2, resumed, so
    the second iteration runs with the annealed learning rate and the
    sampler carry from the checkpoint; examples/humanoid_trpo.json (TRPO,
-   obs_norm, 1024 x 1000, K1) with niter=1. Exactly the path's launches
-   of its kernel per iteration (1000, or humanoid PPO's 64) and 0 of the
-   other, the obs_norm rollout's counted apart (one more window or
+   obs_norm, 1024 x 1000, K1) with niter=1; examples/adroit_pen_npg.json
+   (512 x 100, K3) and examples/adroit_pen_npg_newton.json (512 x 100, K4)
+   with niter=1 and then niter=2, resumed. Exactly the path's launches
+   of its kernel per iteration (1000, 100, or humanoid PPO's 64) and 0 of
+   the others, the obs_norm rollout's counted apart (one more window or
    episode), every logged value finite, the agent's state on the card,
    log.csv and the checkpoints written; prints each iteration's ms, valid
    and computed env-steps/s, score and, for TRPO, backtrack_iters and
    step_accepted, for PPO alpha, kl_dist and log_std_mean.
-12. The card's name and power limit from nvidia-smi.
+14. The card's name and power limit from nvidia-smi.
 
 Each kernel's launch count in the JSON line is its count over the slice
 that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper``,
 ``swimmer``, ``walker2d_trpo``, ``humanoid_trpo`` and ``humanoid_ppo``
-entries and K2's ``hopper`` entry: their path in phase 11, the obs_norm
-rollout included), reset to 0 just before. ``bound_ms`` is the least
+entries, K2's ``hopper`` entry, K3 and K4: their path in phase 13, the
+obs_norm rollout included), reset to 0 just before. ``bound_ms`` is the least
 time the card could take for one control step at the check's batch: the
 larger of the bytes the kernel must move (state in and out, its tables)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
 operations counted per env-substep on the plain version (which does the
-kernel's arithmetic) and, for K2, for the rows this run's states hold. No single PyTorch call
+kernel's arithmetic) and, for K2 and K4, for the rows this run's states
+hold (the count with no row held, plus each held row's). No single PyTorch call
 computes either function, so ``library_ms`` is null. The line before the
 last two holds one JSON object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -145,9 +161,21 @@ from pathlib import Path
 # to a power of ten; every box's half-sizes 2% too large read 3.2e-3 / 0.34
 # there and every tendon's limit stiffness 2% too large 1.9e-3 / 0.28, and
 # both fail it (tools/torch_adroit_check.py, PERF.md).
+# K4 on pen by the same rule: the plain version on the card and on the CPU
+# differ by up to 2.0e-5 in q and 4.7e-3 in qd (over pen_states' 512 and
+# 506 envs x 3 chained steps: a converged Newton iteration's line-search
+# ties flip on round-off at a few env-steps), so 1e-3 / 1e-1; K4 reads
+# 4.8e-5 / 1.15e-2. Frictionloss's diagonal left out of the Newton metric
+# fails that max by only 8-13%, so K4 is also held to the 99% quantile of
+# its per env-step error, by humanoid's rule (ten times the spread's
+# quantile, 2.7e-7 / 3.8e-5, up to a power of ten): 1e-5 / 1e-3, where K4
+# reads 1.3e-6 / 1.9e-4 and the missing diagonal 4.9e-4 / 5.7e-2, every box
+# geom's solref 2% off 2.2e-3 / 0.32 and the condim-4 torsional friction 2%
+# off 4.7e-4 / 6.7e-2 (tools/torch_adroit_newton_check.py, PERF.md).
 TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2},
        "K1 swimmer": {"q": 1e-5, "qd": 1e-3}, "K1 humanoid": {"q": 1e-4, "qd": 5e-2},
-       "K3 pen": {"q": 1e-4, "qd": 1e-2}}
+       "K3 pen": {"q": 1e-4, "qd": 1e-2}, "K4 pen": {"q": 1e-3, "qd": 1e-1},
+       "K4 pen quantile": {"q": 1e-5, "qd": 1e-3}}
 HUMANOID_QUANTILE = 0.99
 NUM_ENVS, HORIZON, ITERS = 1024, 100, 3
 HOPPER_ENVS, HOPPER_HORIZON = 256, 1000  # examples/hopper_npg.json
@@ -165,7 +193,9 @@ ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, HOPPER_HORIZON, (1, 2)),
                 (1, 2)),
                ("humanoid_trpo", "humanoid_trpo.json", "K1", HUMANOID_TRPO_ENVS, HOPPER_HORIZON,
                 (1,)),
-               ("adroit_pen", "adroit_pen_npg.json", "K3", PEN_ENVS, PEN_HORIZON, (1, 2)))
+               ("adroit_pen", "adroit_pen_npg.json", "K3", PEN_ENVS, PEN_HORIZON, (1, 2)),
+               ("adroit_pen_newton", "adroit_pen_npg_newton.json", "K4", PEN_ENVS, PEN_HORIZON,
+                (1, 2)))
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 ROOT = Path(__file__).resolve().parent
 
@@ -224,43 +254,52 @@ def _bound_ms(model, n_sub: int, ops_per_env_substep: float, tables, batch: int,
     return max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes"
 
 
-def _k2_op_count(model, q, qd, ctrl, held_cand: float, held_lim: float) -> float:
-    """K2's operations per env-substep for the rows this run holds: the
-    plain version's count with no rows, plus the count of one held
-    contact and of one held limit row, from the plain version with all
-    rows (the kernel holds only the rows inside their margin)."""
+def _newton_op_count(model, q, qd, ctrl, held_cand: float, held_lim: float,
+                     link_delta=None) -> float:
+    """K2's and K4's operations per env-substep for the rows this run
+    holds: the plain version's count with no row held (the pipeline, the
+    narrow phase of every contact point and the iterations' dense algebra),
+    plus the count of one held contact row, from the plain version with a
+    row for every point, and of one held limit row, from a model with one
+    contact pair with and without its limits (the kernels hold only the
+    rows inside their margin)."""
+    from mjrl_tpu_torch.physics import soa_newton
     from mjrl_tpu_torch.physics.tables import num_contact_candidates
 
-    B = 1
-    q, qd, ctrl = q[:, :B], qd[:, :B], ctrl[:, :B]
-    full = _f32_ops_per_env_substep(model, q, qd, ctrl)
-    no_pairs = copy.copy(model)
-    no_pairs.contact_pairs = ()
-    no_pairs._pair_groups = None
-    no_lim = copy.copy(no_pairs)
-    no_lim.jnt_limited = tuple(0 for _ in model.jnt_limited)
-    with_lim = _f32_ops_per_env_substep(no_pairs, q, qd, ctrl)
-    base = _f32_ops_per_env_substep(no_lim, q, qd, ctrl)
+    q, qd, ctrl = q[:, :1], qd[:, :1], ctrl[:, :1]
+    if link_delta is not None:
+        link_delta = link_delta[:, :1]
+
+    def ops(m, rows):
+        held = soa_newton._in_margin_somewhere
+        soa_newton._in_margin_somewhere = lambda _, cands: cands if rows else []
+        try:
+            return _f32_ops_per_env_substep(m, q, qd, ctrl, link_delta)
+        finally:
+            soa_newton._in_margin_somewhere = held
+
+    def variant(pairs, limited):
+        m = copy.copy(model)
+        m.contact_pairs, m._pair_groups = pairs, None
+        m.jnt_limited = limited
+        return m
+
     n_lim = sum(1 for v in model.jnt_limited if v > 0)
-    per_lim = (with_lim - base) / n_lim
-    per_cand = (full - with_lim) / num_contact_candidates(model)
-    return base + held_cand * per_cand + held_lim * per_lim
+    one_pair = model.contact_pairs[:1]
+    per_lim = (ops(variant(one_pair, model.jnt_limited), True) - ops(variant(
+        one_pair, tuple(0 for _ in model.jnt_limited)), True)) / n_lim
+    no_row = ops(model, False) - n_lim * per_lim
+    per_row = (ops(model, True) - ops(model, False)) / num_contact_candidates(model)
+    return no_row + held_cand * per_row + held_lim * per_lim
 
 
 def _held_rows(model, q):
     """Mean rows inside their margin per env at the states ``q`` (nq, B):
     contact candidates with depth > -margin, limit rows out of range."""
     from mjrl_tpu_torch.physics import probe
-    from mjrl_tpu_torch.physics.model import HINGE, SLIDE
 
-    cand = float(probe.held_contact_rows(model, q).float().mean())
-    lim = 0.0
-    for i in range(model.nlink):
-        if model.link_jnt_type[i] in (HINGE, SLIDE) and model.jnt_limited[i] > 0:
-            lo, hi = model.jnt_range[i]
-            qi = q[model.link_qadr[i]]
-            lim += float(((qi < lo) | (qi > hi)).float().mean())
-    return cand, lim
+    rows = probe.held_rows(model, q)
+    return float(rows["contacts"].float().mean()), float(rows["limits"].float().mean())
 
 
 SPHERE_KINDS = ("sphere_sphere", "sphere_capsule")
@@ -403,6 +442,111 @@ def phase_k3_pen(tag, env, kernel, n_chain, batches, tol):
           f"({ops:.0f} f32 operations per env-substep)")
     return dict(max_abs_err=max_err, kind_env_steps=kind_steps, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+FACETS = ("facets_1", "facets_4", "facets_6")
+
+
+def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
+    """Holds K4 against the plain version on Adroit pen with the Newton
+    solver over ``n_chain`` chained control steps at each batch size of
+    ``batches`` (the first the full one), from ``pen_states`` (half the
+    batch warmed by K4) with their link offsets; ``tol`` bounds each step's
+    max |err| of q and qd, ``tol_quantile`` the HUMANOID_QUANTILE quantile
+    of the per env-step max |err|. At each step's entry state it counts the
+    env-steps that hold a row of each of pen's five contact kinds, of each
+    facet count (condim 1, 3, 4: 1, 4, 6 facets) and of a joint limit, and
+    fails if any is 0; the rows held per env (mean, max); the envs whose
+    line search picked another fraction than the plain version's; and K4's
+    overflow counter, which must stay 0. Both times and the bound at the
+    full batch."""
+    import torch
+
+    from mjrl_tpu_torch.physics import probe, soa
+    from mjrl_tpu_torch.physics.pkernel import size_class
+
+    model, dev, frames = env.model, env.device, env.frame_skip
+    n_sub, iters = frames * model.n_substeps, int(model.solver_iters)
+    full = batches[0]
+    q0, qd0, d0, ctrls = pen_states(env, full, n_chain)
+    kernel.check()
+    max_err, quantile_err, flips, held_all, lim_all = 0.0, 0.0, 0, [], []
+    for B in batches:
+        q, qd, d = (x[:, :B].contiguous() for x in (q0, qd0, d0))
+        worst = {"q": 0.0, "qd": 0.0}
+        per_env = {"q": [], "qd": []}
+        counts = dict.fromkeys((*PEN_KINDS, *FACETS, "limits"), 0)
+        held = []
+        flipped = torch.zeros(B, dtype=torch.bool, device=dev)
+        flipped_first = torch.zeros(B, dtype=torch.bool, device=dev)
+        for step, ctrl in enumerate(ctrls):
+            ctrl = ctrl[:, :B].contiguous()
+            rows = probe.held_rows(model, q, d)
+            for k in counts:
+                counts[k] += int((rows[k] > 0).sum())
+            held.append(rows["contacts"].float())
+            lim_all.append(rows["limits"].float())
+            picks = torch.full((n_sub * iters, B), -1, dtype=torch.int32, device=dev)
+            plain_picks = []
+            kq, kqd = kernel(model, q, qd, ctrl, frames, link_delta=d, picks=picks)
+            pq, pqd = soa.multistep(model, q, qd, ctrl, frames, picks=plain_picks, link_delta=d)
+            torch.cuda.synchronize()
+            differ = picks != torch.cat(plain_picks)
+            flipped |= differ.any(dim=0)
+            flipped_first |= differ[::iters].any(dim=0)
+            for name, got, want in (("q", kq, pq), ("qd", kqd, pqd)):
+                if not bool(torch.isfinite(want).all()):
+                    raise RuntimeError(f"{tag}: plain {name} not finite at B={B}")
+                per_env[name].append((got - want).abs().amax(dim=0))
+                err = float(per_env[name][-1].max())
+                worst[name] = max(worst[name], err)
+                if step == 0:
+                    print(f"[{tag}] B={B} one control step {name}: max|err|={err:.3e} "
+                          f"tol={tol[name]:.0e}")
+            q, qd = kq, kqd
+        kernel.check()  # raises on an env-substep with more rows than MAX_HELD
+        for name in ("q", "qd"):
+            quant = float(torch.quantile(torch.cat(per_env[name]), HUMANOID_QUANTILE))
+            ok = worst[name] <= tol[name] and quant <= tol_quantile[name]
+            max_err = max(max_err, worst[name])
+            quantile_err = max(quantile_err, quant)
+            print(f"[{tag}] B={B} {n_chain} chained control steps {name}: max per-step "
+                  f"|err|={worst[name]:.3e} tol={tol[name]:.0e}, {HUMANOID_QUANTILE:.0%} quantile "
+                  f"of the per env-step |err|={quant:.3e} tol={tol_quantile[name]:.0e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{tag} disagrees with the plain version: {name} at B={B}")
+        for k, n in counts.items():
+            print(f"[{tag}] B={B} a held {k} row in {n} of {n_chain * B} env-steps")
+            if n == 0:
+                raise RuntimeError(f"{tag}: no held {k} row at B={B}")
+        held = torch.stack(held)
+        held_all.append(held.reshape(-1))
+        flips += int(flipped.sum())
+        print(f"[{tag}] B={B} contact rows inside their margin per env-step: mean "
+              f"{float(held.mean()):.3f}, max {int(held.max())} (the build holds "
+              f"{kernel._newton_layouts[size_class(model)]['MAX_HELD']}); overflow counter 0")
+        print(f"[{tag}] B={B} envs with another line-search fraction in some iteration: "
+              f"{int(flipped.sum())} of {B}; in a substep's first iteration: "
+              f"{int(flipped_first.sum())}")
+    ctrl = ctrls[0]
+    for _ in range(3):
+        kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
+    ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames, link_delta=d0), 20)
+    plain_ms = _cuda_ms(lambda: soa.multistep(model, q0, qd0, ctrl, frames, link_delta=d0), 1)
+    kernel.check()
+    held = torch.cat(held_all)
+    ops = _newton_op_count(model, q0, qd0, ctrl, float(held.mean()),
+                           float(torch.cat(lim_all).mean()), d0)
+    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev), full,
+                                   extra_rows=3 * model.nlink)
+    print(f"[{tag}] B={full} one control step ({n_sub} substeps): {kernel.name} {ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"({ops:.0f} f32 operations per env-substep)")
+    return dict(max_abs_err=max_err, quantile=HUMANOID_QUANTILE, quantile_abs_err=quantile_err,
+                env_steps=counts, held_rows_mean=float(held.mean()),
+                held_rows_max=int(held.max()), line_search_flips=flips, overflow=0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, warm_scale=1.0,
@@ -550,7 +694,7 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
     if newton:
         cand = sum(h[0] for h in held) / len(held)
         lim = sum(h[1] for h in held) / len(held)
-        ops = _k2_op_count(model, q0, qd0, ctrl, cand, lim)
+        ops = _newton_op_count(model, q0, qd0, ctrl, cand, lim)
     else:
         ops = _f32_ops_per_env_substep(model, q0[:, :1], qd0[:, :1], ctrl[:, :1])
     bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev), full)
@@ -620,18 +764,19 @@ def phase_slice(tag, env, agent, kernel, other):
     return kernel.launches
 
 
-def phase_entry(tag, config, kernel, other, num_envs, steps, niters=(1,)):
+def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,)):
     """Full-width iterations of ``examples/<config>`` through
     ``mjrl_tpu_torch.train.run_job``: one call per entry of ``niters``, all
     into one temporary directory, each call after the first resuming from
     the checkpoint of the one before. Each iteration must launch ``kernel``
-    ``steps`` times and ``other`` never; a config with ``obs_norm`` adds
+    ``steps`` times and none of ``others``; a config with ``obs_norm`` adds
     its rollout to the first call, counted apart. Returns the kernel's
     launches over the phase."""
     from mjrl_tpu_torch import train
     from mjrl_tpu_torch.train import load_config, run_job
 
-    kernel.launches = other.launches = 0
+    for k in (kernel, *others):
+        k.launches = 0
     per_call, obs_norm, carried = [], [], []
     obs_norm_init = train.obs_norm_init
 
@@ -653,10 +798,12 @@ def phase_entry(tag, config, kernel, other, num_envs, steps, niters=(1,)):
                     carried.append(int((agent.sampler_carry.t_in_ep > 0).sum()))
             done = [n - p for n, p in zip(niters, (0, *niters[:-1]))]
             want_norm = [steps] if cfg.obs_norm else []
-            if per_call != [steps * d for d in done] or obs_norm != want_norm or other.launches:
+            stray = {k.name: k.launches for k in others if k.launches}
+            if per_call != [steps * d for d in done] or obs_norm != want_norm or stray:
                 raise RuntimeError(f"{tag}: {per_call} {kernel.name} launches per call, obs_norm "
-                                   f"rollout {obs_norm}, {other.launches} {other.name}; expected "
-                                   f"{steps} per iteration, {want_norm} and 0")
+                                   f"rollout {obs_norm}, other kernels {stray}; expected "
+                                   f"{steps} per iteration, {want_norm} and none")
+            kernel.check()
             if obs_norm:
                 print(f"[{tag}] obs_norm rollout: {obs_norm[0]} launches, policy in_scale in "
                       f"[{float(agent.policy.mlp.in_scale.min()):.4f}, "
@@ -711,14 +858,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from mjrl_tpu_torch.envs import make
-    from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, SIZE_CLASSES
+    from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4, SIZE_CLASSES
 
     t0 = time.perf_counter()
-    builds = [(K1, 0), (K1, 1), (K2, 0), (K3, 2)]
+    builds = [(K1, 0), (K1, 1), (K2, 0), (K3, 2), (K4, 2)]
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: b[0].build(b[1]), builds))
-    print(f"[1] built {K1.source} in size classes {SIZE_CLASSES[:2]}, {K2.source} and "
-          f"{K3.source} in {SIZE_CLASSES[2]} in {time.perf_counter() - t0:.1f} s")
+    print(f"[1] built {K1.source} in size classes {SIZE_CLASSES[:2]}, {K2.source} in "
+          f"{SIZE_CLASSES[0]}, {K3.source} and {K4.source} in {SIZE_CLASSES[2]} in "
+          f"{time.perf_counter() - t0:.1f} s")
 
     env = make("ant", horizon=HORIZON)  # on the card by default
     newton_env = make("ant", horizon=HORIZON, constraint_solver="newton", n_substeps=1)
@@ -758,16 +906,21 @@ def main() -> int:
     }
     pen = make("adroit_pen", horizon=PEN_HORIZON)
     k3 = phase_k3_pen("K3 pen", pen, K3, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K3 pen"])
-    kernels_of = {"K1": (K1, K2), "K2": (K2, K1), "K3": (K3, K1)}
-    entry = {tag: phase_entry(tag, config, *kernels_of[k], n, steps, niters)
+    pen_newton = make("adroit_pen", horizon=PEN_HORIZON, constraint_solver="newton")
+    k4 = phase_k4_pen("K4 pen", pen_newton, K4, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K4 pen"],
+                      TOL["K4 pen quantile"])
+    every = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+    entry = {tag: phase_entry(tag, config, every[k], [v for n, v in every.items() if n != k],
+                              n, steps, niters)
              for tag, config, k, n, steps, niters in ENTRY_PATHS}
     k1_hopper["launches"] = entry["hopper"]
     k3["launches"] = entry["adroit_pen"]
+    k4["launches"] = entry["adroit_pen_newton"]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kernels = []
-    for kernel, r in ((K1, k1), (K2, k2), (K3, k3)):
+    for kernel, r in ((K1, k1), (K2, k2), (K3, k3), (K4, k4)):
         kernels.append({
             "name": kernel.name, "route": "cuda", "source": kernel.source,
             "replaces": kernel.replaces, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
@@ -791,6 +944,9 @@ def main() -> int:
                                 line_search_flips=k2_hopper["line_search_flips"],
                                 link_pair_env_steps=k2_hopper["link_pair_env_steps"])
     kernels[2]["kind_env_steps"] = k3["kind_env_steps"]
+    kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
+                                          "held_rows_mean", "held_rows_max",
+                                          "line_search_flips", "overflow")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-// Host build of the K1, K2 and K3 bodies (mj_substep.h, mj_newton.h) for
+// Host build of the K1, K2, K3 and K4 bodies (mj_substep.h, mj_newton.h) for
 // the CPU tests: the same arithmetic as the CUDA kernels, one env after
 // another.
 #include "mj_newton.h"
@@ -41,6 +41,19 @@ int mj_newton_host(const float* mf, const int* mi, const float* nf,
   for (int env = 0; env < B; ++env)
     mj_newton_env_multistep(mf, mi, nf, ni, env, B, q, qd, ctrl, q_out, qd_out,
                             picks, n_sub, iters, dt);
+  return 0;
+}
+
+// K4's body; *overflow counts the env-substeps with more contact rows
+// inside their margin than MJ_MAX_HELD.
+int mj_ext_newton_host(const float* mf, const int* mi, const float* nf,
+                       const int* ni, const float* q, const float* qd,
+                       const float* ctrl, const float* delta, float* q_out,
+                       float* qd_out, int* picks, int* overflow, int B, int n_sub,
+                       int iters, float dt) {
+  for (int env = 0; env < B; ++env)
+    mj_ext_newton_env_multistep(mf, mi, nf, ni, env, B, q, qd, ctrl, delta, q_out,
+                                qd_out, picks, overflow, n_sub, iters, dt);
   return 0;
 }
 

@@ -1,9 +1,10 @@
 // Newton soft-constraint substep for one env, table-driven: the body of
-// kernel K2 (mj_newton_kernel.cu).
+// kernels K2 (mj_newton_kernel.cu) and K4 (mj_ext_newton_kernel.cu).
 //
 // Replaces the TPU kernel mjrl_tpu/physics/pkernel.py::multistep_pallas run
 // with constraint_solver="newton" (soa_newton.constrained_qdd,
-// mjrl_tpu/physics/soa_newton.py:338). It computes what
+// mjrl_tpu/physics/soa_newton.py:338): K2 its body _kernel_body, K4 its
+// body _kernel_body_ext (Adroit). It computes what
 // mjrl_tpu_torch/physics/soa.py::multistep computes for a Newton model, for
 // one env as scalar code: the pipeline of mj_substep.h without penalty
 // contacts or limit springs (fluid drag stays) gives the unconstrained
@@ -33,13 +34,29 @@
 // chain) are packed on the host from the model after
 // ensure_solver_params; the offsets and maxima below are exported by
 // mj_newton_layout() so the packer reads them instead of repeating them.
+//
+// K4 (EXT = true) adds K3's stages (mj_substep.h): the link offsets in the
+// kinematics, the box kinds in the narrow phase, the servos, the tendons
+// and frictionloss, whose force joins qdd0's right-hand side and whose
+// dt-scaled diagonal joins both the L^T D L solve and the Newton metric
+// (soa.py:1056-1072 in the reference). Adroit's models have 364-760
+// contact points, of which a few are inside their margin at a time, so K4
+// holds up to MJ_MAX_HELD rows per env-substep, not one slot per point as
+// K2 does: an env-substep with more rows inside their margin than that
+// counts itself in a device-side counter that the wrapper checks and
+// raises on. K2's build (EXT = false) compiles none of this.
 #pragma once
 
 #include "mj_substep.h"
 
-#define MJ_MAX_CAND 32  // contact points of a model (rows held per substep)
+#define MJ_MAX_CAND 32  // K2: contact points of a model (one slot each)
+#ifndef MJ_MAX_HELD
+#define MJ_MAX_HELD 64  // K4: contact rows held per env-substep
+#endif
 #define MJ_MAX_FACET 6  // pyramid facets per contact (condim 4)
-#define MJ_MAX_CHAIN 8  // dofs on a contact pair's chain
+#ifndef MJ_MAX_CHAIN
+#define MJ_MAX_CHAIN 8  // dofs on a contact pair's chain (a size class's)
+#endif
 
 // ---- Newton int table (ni) ---------------------------------------------
 #define MJ_N_I_NLIM 0  // number of limited 1-dof joints
@@ -60,11 +77,11 @@
 // for the pyramid, 1 for condim 1)
 #define MJ_NPAIR_F (MJ_IMP_F + 5)
 
-#define MJ_NEWTON_LAYOUT_LEN 13
+#define MJ_NEWTON_LAYOUT_LEN 14
 #define MJ_NEWTON_LAYOUT_VALUES                                             \
   MJ_MAX_CAND, MJ_MAX_FACET, MJ_MAX_CHAIN, MJ_IMP_F, MJ_LIM_I, MJ_LIM_F,    \
       MJ_NPAIR_I, MJ_NPAIR_F, MJ_N_I_NLIM, MJ_N_I_LIM, MJ_N_I_PAIR,         \
-      MJ_N_F_LIM, MJ_N_F_PAIR
+      MJ_N_F_LIM, MJ_N_F_PAIR, MJ_MAX_HELD
 
 #define MJ_MINVAL 1e-10f
 
@@ -104,21 +121,24 @@ MJ_HD float mj_row_D(const float* p, float pos, float invw, float scale,
   return pos < 0.0f ? 1.0f / mj_max(R, MJ_MINVAL) : 0.0f;
 }
 
-// The rows held for one substep: limit rows, then contact candidates in
-// narrow-phase order.
+// The rows held for one substep: limit rows, then contact rows in
+// narrow-phase order, at most CAP of them (K2: MJ_MAX_CAND, K4:
+// MJ_MAX_HELD).
+template <int CAP>
 struct MjRows {
   int nl;
   int lv[MJ_MAX_NV];
   float ls[MJ_MAX_NV], laref[MJ_MAX_NV], lD[MJ_MAX_NV];
   int nc;
-  int pair[MJ_MAX_CAND];
-  float D[MJ_MAX_CAND];
-  float aref[MJ_MAX_CAND][MJ_MAX_FACET];
-  float J[MJ_MAX_CAND][MJ_MAX_FACET][MJ_MAX_CHAIN];
+  int pair[CAP];
+  float D[CAP];
+  float aref[CAP][MJ_MAX_FACET];
+  float J[CAP][MJ_MAX_FACET][MJ_MAX_CHAIN];
 };
 
+template <int CAP>
 MJ_HD void mj_limit_rows(const float* nf, const int* ni, const float* q,
-                         const float* qd, MjRows& rows) {
+                         const float* qd, MjRows<CAP>& rows) {
   rows.nl = 0;
   const int nlim = ni[MJ_N_I_NLIM];
   for (int l = 0; l < nlim; ++l) {
@@ -142,19 +162,29 @@ MJ_HD void mj_limit_rows(const float* nf, const int* ni, const float* q,
   }
 }
 
-// One contact point's pyramid facet rows (the narrow phase's sink).
+// One contact point's pyramid facet rows (the narrow phase's sink). K2
+// has a slot for every contact point of its models (the packer refuses
+// more); K4 (EXT) holds the first MJ_MAX_HELD rows inside their margin and
+// sets *overflow when another one finds no slot.
+template <bool EXT = false>
 struct MjNewtonSink {
+  static constexpr int CAP = EXT ? MJ_MAX_HELD : MJ_MAX_CAND;
   const float* nf;
   const int* ni;
   const MjKin* k;
   const float* qd;
-  MjRows* rows;
+  MjRows<CAP>* rows;
+  int* overflow;
   MJ_HD void operator()(int pi, int, int, float mu, float depth,
                         const float* n, const float* pt) {
     const int* pi_ = ni + MJ_N_I_PAIR + MJ_NPAIR_I * pi;
     const float* pf = nf + MJ_N_F_PAIR + MJ_NPAIR_F * pi;
     const float pos = -depth - pf[MJ_IMP_F];
-    if (pos >= 0.0f || rows->nc >= MJ_MAX_CAND) return;  // D = 0
+    if (pos >= 0.0f) return;  // D = 0
+    if (rows->nc >= CAP) {
+      if (EXT) *overflow = 1;
+      return;
+    }
     const int c = rows->nc++;
     const int nfacet = pi_[0], nchain = pi_[1];
     const int* chain = pi_ + 2;
@@ -219,14 +249,15 @@ MJ_HD void mj_sym_mul(const float (*M)[MJ_MAX_NV], const float* x, float* out,
 
 // The Newton solve: x = qdd0 in, the constrained qdd out. picks (or null)
 // receives each iteration's fraction index at picks[it * stride].
+template <int CAP>
 MJ_HD void mj_newton_solve(const int* mi, const int* ni,
                            const float (*Mf)[MJ_MAX_NV], const float* qdd0,
-                           const MjRows& rows, int iters, float* x, int* picks,
+                           const MjRows<CAP>& rows, int iters, float* x, int* picks,
                            long stride) {
   const int nv = mi[MJ_I_NV];
   const float alphas[5] = {1.0f, 0.5f, 0.25f, 0.0625f, 0.0f};
   float jar_l[MJ_MAX_NV], jd_l[MJ_MAX_NV];
-  float jar[MJ_MAX_CAND][MJ_MAX_FACET], jd[MJ_MAX_CAND][MJ_MAX_FACET];
+  float jar[CAP][MJ_MAX_FACET], jd[CAP][MJ_MAX_FACET];
   for (int it = 0; it < iters; ++it) {
     float d0[MJ_MAX_NV], Md0[MJ_MAX_NV], g[MJ_MAX_NV];
     for (int j = 0; j < nv; ++j) d0[j] = x[j] - qdd0[j];
@@ -350,22 +381,39 @@ MJ_HD void mj_newton_solve(const int* mi, const int* ni,
   }
 }
 
+// One count on the device-side counter *c (K4's overflow).
+MJ_HD void mj_count(int* c) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(c, 1);
+#else
+  ++*c;
+#endif
+}
+
 // Advances one env's q (nq), qd (nv) by one Newton substep of length dt.
+// EXT (kernel K4) adds the link offsets delta, the box kinds, the servos,
+// the tendons and frictionloss, and counts the substep in *overflow when
+// it has more contact rows inside their margin than MJ_MAX_HELD.
+template <bool EXT = false>
 MJ_HD void mj_newton_substep(const float* mf, const int* mi, const float* nf,
                              const int* ni, float* q, float* qd,
                              const float* ctrl, float dt, int iters,
-                             int* picks, long stride) {
+                             int* picks, long stride,
+                             const float* delta = nullptr,
+                             int* overflow = nullptr) {
   const int nv = mi[MJ_I_NV];
   const int* lam = mi + MJ_I_LAM;
   MjKin k;
-  mj_kinematics(mf, mi, q, qd, k);
+  mj_kinematics(mf, mi, q, qd, k, EXT ? delta : nullptr);
 
   // the rows, from the substep's entry state
-  MjRows rows;
+  MjRows<MjNewtonSink<EXT>::CAP> rows;
   mj_limit_rows(nf, ni, q, qd, rows);
   rows.nc = 0;
-  MjNewtonSink sink{nf, ni, &k, qd, &rows};
-  mj_narrow_phase(mf, mi, k, sink);
+  int over = 0;
+  MjNewtonSink<EXT> sink{nf, ni, &k, qd, &rows, &over};
+  mj_narrow_phase<EXT>(mf, mi, k, sink);
+  if (EXT && over) mj_count(overflow);
   // fluid drag, the only external wrench of a Newton substep
   const bool fluid = mi[MJ_I_HAS_FLUID] != 0;
   float f_ext[MJ_MAX_LINK][6];
@@ -386,9 +434,25 @@ MJ_HD void mj_newton_substep(const float* mf, const int* mi, const float* nf,
   }
   float bias[MJ_MAX_NV], qdd0[MJ_MAX_NV];
   mj_bias(mf, mi, k, qd, fluid ? f_ext : nullptr, bias);
-  mj_applied<false>(mf, mi, q, qd, ctrl, qdd0, nullptr);
+  mj_applied<false, EXT>(mf, mi, q, qd, ctrl, qdd0, nullptr);
+  if (EXT && mi[MJ_I_NTEN]) {
+    // the full tendon force, limit penalty included, as in penalty mode
+    float tau[MJ_MAX_NV];
+    for (int j = 0; j < nv; ++j) tau[j] = 0.0f;
+    mj_tendons(mf, mi, q, qd, tau);
+    for (int j = 0; j < nv; ++j) qdd0[j] = qdd0[j] + tau[j];
+  }
   for (int j = 0; j < nv; ++j) qdd0[j] = qdd0[j] - bias[j] - mf[MJ_F_DAMP + j] * qd[j];
-  mj_ltdl_solve(mf, mi, H, nullptr, qdd0);
+  // frictionloss: its force into qdd0's right-hand side, its dt-scaled
+  // diagonal into the L^T D L solve and onto the Newton metric
+  const bool fric = EXT && mi[MJ_I_HAS_FRIC];
+  float fdiag[MJ_MAX_NV];
+  if (fric) {
+    for (int j = 0; j < nv; ++j) fdiag[j] = 0.0f;
+    mj_friction(mf, mi, qd, dt, qdd0, fdiag);
+    for (int j = 0; j < nv; ++j) Mf[j][j] = Mf[j][j] + fdiag[j];
+  }
+  mj_ltdl_solve(mf, mi, H, fric ? fdiag : nullptr, qdd0);
 
   float x[MJ_MAX_NV];
   for (int j = 0; j < nv; ++j) x[j] = qdd0[j];
@@ -412,6 +476,32 @@ MJ_HD void mj_newton_env_multistep(const float* mf, const int* mi,
   for (int s = 0; s < n_sub; ++s)
     mj_newton_substep(mf, mi, nf, ni, q, qd, ctrl, dt, iters,
                       picks ? picks + (long)s * iters * B + env : nullptr, B);
+  for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
+  for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
+}
+
+// Kernel K4's env: as mj_newton_env_multistep with the EXT substep and,
+// when delta_in (3 nlink, B) is given, this env's link offsets held in the
+// thread for the control step; overflow counts the env-substeps with more
+// contact rows inside their margin than MJ_MAX_HELD.
+MJ_HD void mj_ext_newton_env_multistep(const float* mf, const int* mi,
+                                       const float* nf, const int* ni, int env,
+                                       int B, const float* q_in,
+                                       const float* qd_in, const float* ctrl_in,
+                                       const float* delta_in, float* q_out,
+                                       float* qd_out, int* picks, int* overflow,
+                                       int n_sub, int iters, float dt) {
+  const int nq = mi[MJ_I_NQ], nv = mi[MJ_I_NV], nu = mi[MJ_I_NU];
+  const int nd = 3 * mi[MJ_I_NLINK];
+  float q[MJ_MAX_NQ], qd[MJ_MAX_NV], ctrl[MJ_MAX_NU], delta[3 * MJ_MAX_LINK];
+  for (int r = 0; r < nq; ++r) q[r] = q_in[(long)r * B + env];
+  for (int r = 0; r < nv; ++r) qd[r] = qd_in[(long)r * B + env];
+  for (int r = 0; r < nu; ++r) ctrl[r] = ctrl_in[(long)r * B + env];
+  for (int r = 0; r < nd; ++r) delta[r] = delta_in ? delta_in[(long)r * B + env] : 0.0f;
+  for (int s = 0; s < n_sub; ++s)
+    mj_newton_substep<true>(mf, mi, nf, ni, q, qd, ctrl, dt, iters,
+                            picks ? picks + (long)s * iters * B + env : nullptr, B,
+                            delta_in ? delta : nullptr, overflow);
   for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
   for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
 }

@@ -12,7 +12,9 @@ settings (contact gains, one substep, per-dof and per-tendon limit gains).
 Scene randomisation is data, as in the reference: each env carries its
 link offsets (``link_delta``, zeros for pen) and its task target in the
 state. ``step`` advances all envs through one launch of kernel K3 per
-control step (physics/dispatch.py), which takes the offsets; envs live on
+control step, or of K4 with ``constraint_solver="newton"`` (MuJoCo-parity
+soft contacts and joint limits; the tendon limits stay penalties, as in
+the reference) (physics/dispatch.py); both take the offsets. Envs live on
 the card unless ``device="cpu"`` is asked for. Relocate, hammer and door
 are not ported yet (ROADMAP queue 1 item 3).
 """
@@ -44,6 +46,25 @@ class AdroitState(NamedTuple):
     target: torch.Tensor  # (B, 3) the task's target vector
 
 
+def adroit_model(task: str, constraint_solver: str = "penalty"):
+    """The Adroit ``task``'s model (``envs/assets/adroit_<task>.npz``) with
+    the reference env's settings: the solver, the penalty tuning for
+    gram-scale fingers and hectogram objects (left as the reference leaves
+    it under either solver), one 2 ms substep, per-dof limit gains. The
+    Newton rows' parameters are filled by the frame stepper, before the
+    first launch."""
+    model = load_model_npz(os.path.join(ASSETS, f"adroit_{task}.npz"))
+    model.constraint_solver = constraint_solver
+    model.contact_stiffness = 1000.0
+    model.contact_damping = 6.0
+    model.contact_depth_cap = 0.01
+    model.friction_vel = 0.01
+    model.n_substeps = 1
+    scale_limit_penalties(model, omega=60.0)
+    check_supported(model)
+    return model
+
+
 class AdroitEnv(Env):
     """Shared machinery: the model and its settings, action scaling, the
     blow-up guard."""
@@ -56,18 +77,7 @@ class AdroitEnv(Env):
     def __init__(self, horizon: Optional[int] = None, device="cuda",
                  constraint_solver: str = "penalty"):
         self.device = torch.device(device)
-        model = load_model_npz(os.path.join(ASSETS, f"adroit_{self.task}.npz"))
-        model.constraint_solver = constraint_solver
-        # the reference's penalty tuning for gram-scale fingers and
-        # hectogram objects, one 2 ms substep, per-dof limit gains
-        model.contact_stiffness = 1000.0
-        model.contact_damping = 6.0
-        model.contact_depth_cap = 0.01
-        model.friction_vel = 0.01
-        model.n_substeps = 1
-        scale_limit_penalties(model, omega=60.0)
-        check_supported(model)
-        self.model = model
+        self.model = model = adroit_model(self.task, constraint_solver)
         self._frame_step = make_frame_stepper(model, self.frame_skip, with_link_delta=True)
         self._site = {n: i for i, n in enumerate(model.site_name)}
         self._link = {n: i for i, n in enumerate(model.link_name)}
@@ -95,6 +105,11 @@ class AdroitEnv(Env):
     def _physics(self, st: AdroitState, ctrl: torch.Tensor) -> AdroitState:
         q, qd = self._frame_step(st.q, st.qd, ctrl, st.link_delta)
         return st._replace(q=q, qd=qd)
+
+    def check(self) -> None:
+        """Raise if the kernel flagged a fault (K4: an env-substep with more
+        contact rows inside their margin than its build holds)."""
+        self._frame_step.check()
 
     @staticmethod
     def _guard(st: AdroitState, reward, terminated, obs):

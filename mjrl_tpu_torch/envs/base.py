@@ -41,6 +41,11 @@ class Env(abc.ABC):
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         """One control step: ``(state, obs, reward, terminated, info)``."""
 
+    def check(self) -> None:
+        """Raise if the physics flagged a fault in the steps so far; the
+        samplers call it at the end of each rollout. Nothing to check by
+        default."""
+
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {}
 

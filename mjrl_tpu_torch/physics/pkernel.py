@@ -1,16 +1,17 @@
-"""Kernels K1, K2 and K3: a full control step of physics per launch, CUDA
-C++ on Hopper.
+"""Kernels K1, K2, K3 and K4: a full control step of physics per launch,
+CUDA C++ on Hopper.
 
 They replace ``mjrl_tpu/physics/pkernel.py::multistep_pallas``, the Pallas
 TPU mega-kernel: K1 its penalty body (``_kernel_body``), K2 the same with
 the Newton solver (``soa_newton.constrained_qdd``), K3 its body for
 models with fixed tendons and per-env scene offsets (``_kernel_body_ext``,
-every Adroit env). The sources are in ``mjrl_tpu_torch/csrc/``:
-``mj_substep.h`` holds the table-driven pipeline and the penalty substep
-(K3's stages as its ``EXT`` branches), ``mj_newton.h`` K2's constraint
-stage and substep, and ``mj_kernel.cu`` / ``mj_newton_kernel.cu`` /
-``mj_ext_kernel.cu`` the one-thread-per-env ``__global__`` wrappers with
-plain C launch functions. Each is built with
+every Adroit env), K4 that body with the Newton solver. The sources are in
+``mjrl_tpu_torch/csrc/``: ``mj_substep.h`` holds the table-driven pipeline
+and the penalty substep (K3's stages as its ``EXT`` branches),
+``mj_newton.h`` the Newton constraint stage and substep (K4's as its
+``EXT`` branches), and ``mj_kernel.cu`` / ``mj_newton_kernel.cu`` /
+``mj_ext_kernel.cu`` / ``mj_ext_newton_kernel.cu`` the one-thread-per-env
+``__global__`` wrappers with plain C launch functions. Each is built with
 ``nvcc`` for ``sm_90a`` at first use into ``mjrl_tpu_torch/_build/`` (keyed
 by a hash of the sources) and bound with ``ctypes``.
 
@@ -22,11 +23,12 @@ design keeps the state in one thread for the whole control step (one
 launch per control step, no intermediate in device memory) and leaves
 occupancy to later work.
 
-:class:`MultistepKernel` (K1), :class:`NewtonKernel` (K2) and
-:class:`ExtKernel` (K3) are the wrappers: for a CUDA tensor they launch the
-kernel or raise; for a CPU tensor they run the plain version,
-``physics/soa.py::multistep``. ``K1``, ``K2`` and ``K3`` are the instances
-the frame stepper calls; their ``launches`` count kernel launches.
+:class:`MultistepKernel` (K1), :class:`NewtonKernel` (K2),
+:class:`ExtKernel` (K3) and :class:`ExtNewtonKernel` (K4) are the
+wrappers: for a CUDA tensor they launch the kernel or raise; for a CPU
+tensor they run the plain version, ``physics/soa.py::multistep``. ``K1``,
+``K2``, ``K3`` and ``K4`` are the instances the frame stepper calls; their
+``launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ LAYOUT_NAMES = (
 NEWTON_LAYOUT_NAMES = (
     "MAX_CAND", "MAX_FACET", "MAX_CHAIN", "IMP_F", "LIM_I", "LIM_F",
     "NPAIR_I", "NPAIR_F", "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM",
-    "N_F_PAIR",
+    "N_F_PAIR", "MAX_HELD",
 )
 _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphere_sphere": 3,
               "sphere_capsule": 4, "box_plane": 5, "sphere_box": 6, "capsule_box": 7,
@@ -89,14 +91,18 @@ _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphe
 # (20 links, 23 dofs, 24 qpos, 17 actuators); the third the Adroit hand
 # (pen: 34 links, 30 dofs, 30 qpos, 24 actuators; relocate's 36 dofs). A
 # model runs in the smallest class it fits, so the larger per-thread
-# arrays cost the small models nothing.
+# arrays cost the small models nothing. CHAIN_CLASSES: each class's dofs
+# on a Newton contact pair's chain (mj_newton.h; pen's pairs reach 13,
+# hammer's 15, relocate's 19).
 SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24), (38, 36, 36, 30))
+CHAIN_CLASSES = (8, 8, 19)
 
 
 def size_flags(size_class: int) -> Tuple[str, ...]:
     """The compiler defines of one size class."""
     return tuple(f"-DMJ_MAX_{name}={n}" for name, n in
-                 zip(("LINK", "NV", "NQ", "NU"), SIZE_CLASSES[size_class]))
+                 zip(("LINK", "NV", "NQ", "NU", "CHAIN"),
+                     (*SIZE_CLASSES[size_class], CHAIN_CLASSES[size_class])))
 
 
 def size_class(model: Model) -> int:
@@ -169,7 +175,7 @@ def pack_tables(model: Model, L: Dict[str, int], ext: bool = False
     soa.check_supported(model)
     if not ext and soa.needs_ext(model):
         raise NotImplementedError("tendons, frictionloss, gain/bias actuators and box contacts "
-                                  "run in kernel K3's build")
+                                  "run in kernel K3's and K4's builds")
     nlink, nq, nv, nu = model.nlink, model.nq, model.nv, model.nu
     for n, cap, what in ((nlink, "MAX_LINK", "links"), (nv, "MAX_NV", "dofs"),
                          (nq, "MAX_NQ", "qpos"), (nu, "MAX_NU", "actuators")):
@@ -309,12 +315,16 @@ def _impedance_block(solref, solimp) -> list:
             1.0 / mid ** (power - 1.0), 1.0 / (1.0 - mid) ** (power - 1.0), dmax - dmin]
 
 
-def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int]
-                       ) -> Tuple[np.ndarray, np.ndarray]:
-    """The Newton rows' static constants as K2 reads them: (f32 table, i32
-    table) in the layout ``NL``, per limited 1-dof joint and per contact
-    pair in K1's pair order. Fills the model's solver parameters first;
-    raises for a model beyond the kernel's maxima.
+def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int],
+                       ext: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """The Newton rows' static constants as K2 (and, with ``ext``, K4)
+    reads them: (f32 table, i32 table) in the layout ``NL``, per limited
+    1-dof joint and per contact pair in K1's pair order. Fills the model's
+    solver parameters first; raises for a model beyond the kernel's maxima.
+    K2 has a row slot for each contact point, so its models have at most
+    ``MAX_CAND``; K4 holds the rows inside their margin, at most
+    ``MAX_HELD`` per env-substep, and counts a substep that has more (its
+    wrapper raises), so any number of contact points is packed.
 
     A pair's Jacobian spans the dofs of ``li``'s chain that are not on
     ``lj``'s and those of ``lj``'s that are not on ``li``'s, each with its
@@ -326,7 +336,7 @@ def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int]
     add exactly nothing to the rows, the gradient, H or the cost."""
     ensure_solver_params(model)
     n_cand = num_contact_candidates(model)
-    if n_cand > NL["MAX_CAND"]:
+    if not ext and n_cand > NL["MAX_CAND"]:
         raise NotImplementedError(f"{n_cand} contact points exceed the kernel's {NL['MAX_CAND']}")
     tables = tree_tables(model)
     lim = [(int(l), int(qa), int(va)) for l, qa, va in
@@ -366,6 +376,15 @@ def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int]
     return nf, ni
 
 
+def check_optional(name: str, x: Optional[torch.Tensor], dtype: torch.dtype, shape: tuple,
+                   device: torch.device) -> None:
+    """Raise unless ``x`` is None or a contiguous ``dtype`` tensor of
+    ``shape`` on ``device`` (the kernels' optional inputs and outputs)."""
+    if x is not None and (x.dtype != dtype or x.device != device or tuple(x.shape) != shape
+                          or not x.is_contiguous()):
+        raise ValueError(f"{name} must be contiguous {dtype} {shape} on {device}")
+
+
 def check_inputs(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor) -> int:
     """Device, dtype, shape and layout checks; returns the batch size."""
     if q.dim() != 2:
@@ -401,7 +420,7 @@ class MultistepKernel:
         self.launches = 0
         self._libs: Dict[int, ctypes.CDLL] = {}
         self._layouts: Dict[int, Dict[str, int]] = {}
-        self._newton_layout: Optional[Dict[str, int]] = None
+        self._newton_layouts: Dict[int, Dict[str, int]] = {}
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library of size class ``size``."""
@@ -415,6 +434,10 @@ class MultistepKernel:
             self._layouts[size] = read_layout(lib)
             self._libs[size] = lib
         return self._libs[size]
+
+    def check(self) -> None:
+        """Raise if a launch so far flagged a fault; K1's, K2's and K3's
+        flag none."""
 
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k1_tables", {})
@@ -478,7 +501,7 @@ class NewtonKernel(MultistepKernel):
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
             lib.mj_newton_launch.restype = ctypes.c_int
             self._layouts[0] = read_layout(lib)
-            self._newton_layout = read_newton_layout(lib)
+            self._newton_layouts[0] = read_newton_layout(lib)
             self._libs[0] = lib
         return self._libs[0]
 
@@ -487,7 +510,7 @@ class NewtonKernel(MultistepKernel):
         key = str(device)
         if key not in cache:
             packed = (*pack_tables(model, self._layouts[0]),
-                      *pack_newton_tables(model, self._layouts[0], self._newton_layout))
+                      *pack_newton_tables(model, self._layouts[0], self._newton_layouts[0]))
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
         return cache[key]
 
@@ -496,6 +519,9 @@ class NewtonKernel(MultistepKernel):
         B = check_inputs(model, q, qd, ctrl)
         if model.constraint_solver != "newton":
             raise ValueError("K2 runs models with constraint_solver='newton'")
+        if soa.needs_ext(model):
+            raise ValueError("tendons, frictionloss, gain/bias actuators and box contacts "
+                             "run in K4")
         if q.device.type == "cpu":
             return soa.multistep(model, q, qd, ctrl, n_frames)
         if q.device.type != "cuda":
@@ -504,10 +530,7 @@ class NewtonKernel(MultistepKernel):
         mf, mi, nf, ni = self._tables(model, q.device)
         n_sub = n_frames * model.n_substeps
         iters = int(model.solver_iters)
-        if picks is not None and (picks.dtype != torch.int32 or picks.device != q.device
-                                  or tuple(picks.shape) != (n_sub * iters, B)
-                                  or not picks.is_contiguous()):
-            raise ValueError(f"picks must be contiguous int32 {(n_sub * iters, B)} on {q.device}")
+        check_optional("picks", picks, torch.int32, (n_sub * iters, B), q.device)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         dt = float(np.float32(model.dt / model.n_substeps))
         with torch.cuda.device(q.device):
@@ -560,12 +583,7 @@ class ExtKernel(MultistepKernel):
         B = check_inputs(model, q, qd, ctrl)
         if model.constraint_solver != "penalty":
             raise ValueError("K3 runs models with constraint_solver='penalty'")
-        if link_delta is not None and (
-                link_delta.dtype != torch.float32 or link_delta.device != q.device
-                or tuple(link_delta.shape) != (3 * model.nlink, B)
-                or not link_delta.is_contiguous()):
-            raise ValueError(f"link_delta must be contiguous float32 {(3 * model.nlink, B)} "
-                             f"on {q.device}")
+        check_optional("link_delta", link_delta, torch.float32, (3 * model.nlink, B), q.device)
         if q.device.type == "cpu":
             return soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta)
         if q.device.type != "cuda":
@@ -587,6 +605,102 @@ class ExtKernel(MultistepKernel):
         return q_out, qd_out
 
 
+class ExtNewtonKernel(MultistepKernel):
+    """Wrapper of kernel K4: ``(q (nq,B), qd (nv,B), ctrl (nu,B)[,
+    link_delta (3 nlink, B)]) -> (q, qd)`` after ``n_frames *
+    model.n_substeps`` Newton substeps of ``model.solver_iters`` iterations
+    with Adroit's stages (link offsets, box contacts, servos, tendons,
+    frictionloss). Built in every size class a model needs, like K3;
+    ``picks`` as K2's. An env-substep with more contact rows inside their
+    margin than the build holds (``MAX_HELD``) adds one to a counter on the
+    device; :meth:`check` reads it and raises, and the env calls it at the
+    end of each rollout."""
+
+    name = "mj_ext_newton"
+    source = "mjrl_tpu_torch/csrc/mj_ext_newton_kernel.cu"
+    replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext; soa_newton.py:338)"
+
+    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
+        super().__init__(csrc, build_dir)
+        self._overflow: Dict[str, torch.Tensor] = {}
+
+    def build(self, size: int = 0) -> ctypes.CDLL:
+        """Build (or find) and load the CUDA library of size class ``size``."""
+        if size not in self._libs:
+            path = build_library("mj_ext_newton_kernel.cu",
+                                 (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
+                                 self.build_dir, self.csrc)
+            lib = ctypes.CDLL(str(path))
+            lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * 12 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            lib.mj_ext_newton_launch.restype = ctypes.c_int
+            self._layouts[size] = read_layout(lib)
+            self._newton_layouts[size] = read_newton_layout(lib)
+            self._libs[size] = lib
+        return self._libs[size]
+
+    def _tables(self, model: Model, device: torch.device):
+        cache = model.__dict__.setdefault("_k4_tables", {})
+        key = str(device)
+        if key not in cache:
+            size = size_class(model)
+            L = self._layouts[size]
+            packed = (*pack_tables(model, L, ext=True),
+                      *pack_newton_tables(model, L, self._newton_layouts[size], ext=True))
+            cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
+        return cache[key]
+
+    def overflow(self, device: torch.device) -> torch.Tensor:
+        """The device's counter of env-substeps that held too many rows."""
+        key = str(device)
+        if key not in self._overflow:
+            self._overflow[key] = torch.zeros(1, dtype=torch.int32, device=device)
+        return self._overflow[key]
+
+    def check(self) -> None:
+        """Raise ``RuntimeError`` if any launch so far had an env-substep
+        with more contact rows inside their margin than the build holds
+        (synchronises with the device)."""
+        for key, counter in self._overflow.items():
+            n = int(counter.item())
+            if n:
+                counter.zero_()
+                raise RuntimeError(
+                    f"{self.name}: {n} env-substeps on {key} held more contact rows inside "
+                    f"their margin than the build's MAX_HELD; those substeps are wrong")
+
+    def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
+                 ctrl: torch.Tensor, n_frames: int = 1,
+                 link_delta: Optional[torch.Tensor] = None, picks: Optional[torch.Tensor] = None):
+        B = check_inputs(model, q, qd, ctrl)
+        if model.constraint_solver != "newton":
+            raise ValueError("K4 runs models with constraint_solver='newton'")
+        check_optional("link_delta", link_delta, torch.float32, (3 * model.nlink, B), q.device)
+        if q.device.type == "cpu":
+            return soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta)
+        if q.device.type != "cuda":
+            raise ValueError(f"no K4 path for device {q.device}")
+        lib = self.build(size_class(model))
+        mf, mi, nf, ni = self._tables(model, q.device)
+        n_sub = n_frames * model.n_substeps
+        iters = int(model.solver_iters)
+        check_optional("picks", picks, torch.int32, (n_sub * iters, B), q.device)
+        q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
+        dt = float(np.float32(model.dt / model.n_substeps))
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.mj_ext_newton_launch(
+                mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
+                qd.data_ptr(), ctrl.data_ptr(), 0 if link_delta is None else link_delta.data_ptr(),
+                q_out.data_ptr(), qd_out.data_ptr(), 0 if picks is None else picks.data_ptr(),
+                self.overflow(q.device).data_ptr(), B, n_sub, iters, dt, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
+        self.launches += 1
+        return q_out, qd_out
+
+
 K1 = MultistepKernel()
 K2 = NewtonKernel()
 K3 = ExtKernel()
+K4 = ExtNewtonKernel()

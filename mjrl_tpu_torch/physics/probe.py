@@ -7,7 +7,7 @@ the kernel checks (the CPU tests and ``chip_smoke.py``) add states drawn
 here: the root at its default pose and each limited hinge uniform in its
 range, kept where some pair between two links overlaps by less than a
 centimetre. ``kind_depth`` reads the deepest point of each contact kind;
-``held_contact_rows`` counts the Newton rows such a pair holds.
+``held_contact_rows`` and ``held_rows`` count the Newton rows held.
 
 Some of Adroit pen's kinds cannot touch at any joint angle: the thumb's
 boxes never reach the floor, the hand never reaches the table, the pen
@@ -26,7 +26,7 @@ import torch
 
 from mjrl_tpu_torch.physics import soa, soa_newton
 from mjrl_tpu_torch.physics.csolve import ensure_solver_params
-from mjrl_tpu_torch.physics.model import HINGE, Model
+from mjrl_tpu_torch.physics.model import HINGE, SLIDE, Model
 from mjrl_tpu_torch.physics.tables import pair_groups, points_per_pair
 
 
@@ -53,19 +53,46 @@ def kind_depth(model: Model, q: torch.Tensor, link_delta=None) -> Dict[str, torc
     return out
 
 
-def held_contact_rows(model: Model, q: torch.Tensor, between_links: bool = False) -> torch.Tensor:
-    """Per env (``q`` is ``(nq, B)``), the contact candidates inside their
-    margin: the rows the Newton solver holds for them (``-depth - margin <
-    0``, as physics/soa_newton.py decides); with ``between_links``, only
-    those between two moving links."""
+def held_contact_rows(model: Model, q: torch.Tensor, between_links: bool = False,
+                      link_delta=None) -> torch.Tensor:
+    """Per env (``q`` is ``(nq, B)``, ``link_delta`` ``(3 nlink, B)`` or
+    None), the contact candidates inside their margin: the rows the Newton
+    solver holds for them (``-depth - margin < 0``, as
+    physics/soa_newton.py decides); with ``between_links``, only those
+    between two moving links."""
+    return held_rows(model, q, link_delta)["between_links" if between_links else "contacts"]
+
+
+def held_rows(model: Model, q: torch.Tensor, link_delta=None) -> Dict[str, torch.Tensor]:
+    """Per env (``q`` is ``(nq, B)``, ``link_delta`` ``(3 nlink, B)`` or
+    None), the Newton rows held at these states, each a ``(B,)`` int
+    tensor: ``contacts`` (candidates inside their margin), ``limits``
+    (limited joints out of their range), ``between_links`` (contacts
+    between two moving links), one entry per contact kind, and
+    ``facets_1``, ``facets_4``, ``facets_6``: the contact rows with that
+    many pyramid facets (condim 1, 3, 4)."""
     ensure_solver_params(model)
-    pos, quat = soa._fk(model, q)
-    held = torch.zeros(q.shape[1], dtype=torch.int64, device=q.device)
-    for c in soa._contact_candidates(model, pos, quat):
-        if c.lj >= 0 or not between_links:
-            margin = soa_newton.contact_params(model, c.gi, c.gj, c.mu)[2]
-            held += (-c.depth - float(np.float32(margin)) < 0.0)[0]
-    return held
+    cands = soa._contact_candidates(model, *soa._fk(model, q, link_delta))
+    zero = torch.zeros(q.shape[1], dtype=torch.int64, device=q.device)
+    out = {k: zero.clone() for k in ("contacts", "limits", "between_links", "facets_1",
+                                     "facets_4", "facets_6")}
+    k = 0
+    for kind, tab in pair_groups(model).kinds:
+        out[kind] = zero.clone()
+        for c in cands[k : k + len(tab["gi"]) * points_per_pair(kind)]:
+            _, _, margin, _, condim = soa_newton.contact_params(model, c.gi, c.gj, c.mu)
+            held = (-c.depth - float(np.float32(margin)) < 0.0)[0].long()
+            nfacet = 1 if condim == 1 else (6 if condim >= 4 else 4)
+            for key in ("contacts", kind, f"facets_{nfacet}") + (("between_links",)
+                                                                  if c.lj >= 0 else ()):
+                out[key] += held
+        k += len(tab["gi"]) * points_per_pair(kind)
+    for i in range(model.nlink):
+        if model.link_jnt_type[i] in (HINGE, SLIDE) and model.jnt_limited[i] > 0:
+            lo, hi = model.jnt_range[i]
+            qi = q[model.link_qadr[i]]
+            out["limits"] += ((qi < float(np.float32(lo))) | (qi > float(np.float32(hi)))).long()
+    return out
 
 
 def overlapping_states(model: Model, n: int, rng: np.random.Generator):

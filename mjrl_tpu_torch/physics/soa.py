@@ -26,7 +26,7 @@ viscosity); ctrl-limited gear motors and affine gain/bias servos; joint
 springs; per-dof limit penalties; per-dof frictionloss (a tanh-regularised
 force with its implicit diagonal); fixed tendons (springs, dampers and limit
 penalties on ``Jq q``); per-env parent-frame link offsets (``link_delta``);
-the penalty solver, and the Newton solver on the locomotion feature set.
+the penalty solver and the Newton solver.
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ from mjrl_tpu_torch.physics.tables import (
 SUPPORTED_KINDS = ("sphere_plane", "capsule_plane", "box_plane", "sphere_sphere",
                    "sphere_capsule", "capsule_capsule", "sphere_box", "capsule_box", "box_box")
 _PLANE_KINDS = ("sphere_plane", "capsule_plane", "box_plane")
-# what the Newton path (physics/soa_newton.py, kernel K2) does not have yet
+# the box kinds: only the EXT builds (kernels K3 and K4) have them
 _BOX_KINDS = ("box_plane", "sphere_box", "capsule_box", "box_box")
 
 
@@ -57,8 +57,9 @@ def has_frictionloss(model: Model) -> bool:
 
 
 def needs_ext(model: Model) -> bool:
-    """True if the model uses a stage that only kernel K3's build has:
-    fixed tendons, frictionloss, gain/bias actuators or a box contact kind."""
+    """True if the model uses a stage that only kernel K3's and K4's builds
+    have: fixed tendons, frictionloss, gain/bias actuators or a box contact
+    kind."""
     return (model.tendon_Jq is not None or has_frictionloss(model)
             or model.act_gainprm is not None
             or any(kind in _BOX_KINDS for kind, _ in pair_groups(model).kinds))
@@ -78,10 +79,6 @@ def check_supported(model: Model) -> None:
             raise NotImplementedError(f"contact kind {kind!r} is not ported")
         if kind in _PLANE_KINDS and any(model.geom_link[int(g)] >= 0 for g in tab["gj"]):
             raise NotImplementedError("planes must be world geoms")
-    if model.constraint_solver == "newton" and needs_ext(model):
-        raise NotImplementedError(
-            "the Newton solver with tendons, frictionloss, gain/bias actuators or box "
-            "contacts is not ported (ROADMAP queue 2 item 3)")
     if model.dof_limit_stiffness is None and np.any(model.jnt_limited > 0):
         raise ValueError("limited joints need per-dof limit gains")
     if (model.tendon_Jq is not None and model.tendon_limit_stiffness is None
@@ -824,25 +821,29 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
     C = _bias_forces(model, tab, cdof, cvel, inert, qd, f_ext)
     tau = _applied_forces(model, q, qd, ctrl, include_limits=not newton)
     if model.tendon_Jq is not None:
+        # the full tendon force, limit penalty included, in both solver
+        # modes: the tendon limits stay penalties under Newton
         tau = tau + _tendon_forces(model, q, qd)
     damping = _c(model, model.dof_damping, q.device)
     rhs = tau - C - damping * qd
     f_fric, d_fric = friction_terms(model, qd)
+    fric_rows = None
     if f_fric is not None:
         rhs = rhs + f_fric
+        # the friction's implicit diagonal, dt-scaled like the dampers
+        dt32 = float(np.float32(dt))
+        fric_rows = [dt32 * d_fric[k : k + 1] for k in range(model.nv)]
     if newton:
         from mjrl_tpu_torch.physics import soa_newton
 
-        qdd0 = _ltdl_solve(model, tab, M, rhs, dt)
+        # the diagonal joins both the unconstrained solve and the metric
+        qdd0 = _ltdl_solve(model, tab, M, rhs, dt, fric_rows)
         qdd = soa_newton.constrained_qdd(model, pos, cdof, M, q, qd, qdd0, candidates, dt,
-                                         picks=picks)
+                                         fric_diag=fric_rows, picks=picks)
     else:
         diag = _limit_damping_rows(model, q, dt)
-        if d_fric is not None:
-            # the friction's implicit diagonal, dt-scaled like the dampers
-            dt32 = float(np.float32(dt))
-            diag = [dt32 * d_fric[k : k + 1] if l is None else l + dt32 * d_fric[k : k + 1]
-                    for k, l in enumerate(diag)]
+        if fric_rows is not None:
+            diag = [f if l is None else l + f for l, f in zip(diag, fric_rows)]
         qdd = _ltdl_solve(model, tab, M, rhs, dt, diag)
     return _integrate(model, q, qd, qdd, dt)
 

@@ -1,5 +1,5 @@
-"""Plain PyTorch batch-last Newton soft-constraint solve: kernel K2's
-reference.
+"""Plain PyTorch batch-last Newton soft-constraint solve: kernels K2's and
+K4's reference.
 
 Twin of ``mjrl_tpu/physics/soa_newton.py:44-330,338-514`` on its held-rows
 path. Contacts and joint limits are one-sided soft constraints with
@@ -14,6 +14,12 @@ in closed form. Every per-env scalar is a ``(1, B)`` row; a contact's 4
 (condim 3) or 6 (condim 4) pyramid facets share one ``(k, B)`` row set,
 whose J maps each dof of the contact's chain to a ``(k, B)`` tensor.
 All solver parameters are static per row and enter as f32 literals.
+
+Rows are built only for the contact candidates inside their margin in
+some env of the batch (``_in_margin_somewhere``): a row outside it in
+every env has D = 0 there and adds exactly nothing, so dropping it is
+exact, as the reference's ``prune_to_active_pairs`` argues, and Adroit's
+406-760 candidates shrink to the few the batch touches.
 """
 
 from __future__ import annotations
@@ -211,6 +217,19 @@ def _contact_rows(model: Model, pos, cdof, qd, candidates) -> List[_Row]:
     return rows
 
 
+def _in_margin_somewhere(model: Model, candidates) -> list:
+    """The candidates whose row is inside its margin (``pos < 0``) or
+    non-finite in some env: every other one has D = 0 in every env. One
+    read of a ``(n, 1)`` mask from the device per substep."""
+    if not candidates:
+        return candidates
+    margin = [_f32(contact_params(model, c.gi, c.gj, c.mu)[2]) for c in candidates]
+    depth = torch.cat([c.depth for c in candidates])
+    m = torch.tensor(margin, dtype=depth.dtype, device=depth.device)[:, None]
+    keep = (~(-depth - m >= 0.0)).any(dim=1).tolist()
+    return [c for c, k in zip(candidates, keep) if k]
+
+
 def _sum0(a: torch.Tensor) -> torch.Tensor:
     """A packed ``(k, B)`` row set's contribution as one ``(1, B)`` row."""
     return a if a.shape[0] == 1 else torch.sum(a, dim=0, keepdim=True)
@@ -254,19 +273,23 @@ def _chol_solve_rows(H, g: List[torch.Tensor], nv: int) -> List[torch.Tensor]:
 
 def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tensor],
                     q: torch.Tensor, qd: torch.Tensor, qdd0: torch.Tensor, candidates,
-                    dt: float, picks: Optional[list] = None) -> torch.Tensor:
+                    dt: float, fric_diag: Optional[list] = None,
+                    picks: Optional[list] = None) -> torch.Tensor:
     """Newton solve of the primal soft-constraint problem, batch-last.
 
     ``M`` is the sparse mass matrix of soa._mass_matrix_sparse; the metric
-    adds armature + dt * damping on its diagonal. ``qdd0`` is the
-    unconstrained acceleration (nv, B). The rows are built once from the
-    substep's entry state and held across the ``model.solver_iters``
-    iterations (no early exit). ``picks``, when a list, receives each
-    iteration's chosen fraction as an index into ``_ALPHAS`` (int (1, B)).
+    adds armature + dt * damping on its diagonal, and ``fric_diag`` (a
+    per-dof list of dt-scaled ``(1, B)`` frictionloss rows, or None) after
+    it. ``qdd0`` is the unconstrained acceleration (nv, B). The rows are
+    built once from the substep's entry state and held across the
+    ``model.solver_iters`` iterations (no early exit). ``picks``, when a
+    list, receives each iteration's chosen fraction as an index into
+    ``_ALPHAS`` (int (1, B)).
     """
     ensure_solver_params(model)
     nv = model.nv
-    rows = _limit_rows(model, q, qd) + _contact_rows(model, pos, cdof, qd, candidates)
+    rows = _limit_rows(model, q, qd) + _contact_rows(
+        model, pos, cdof, qd, _in_margin_somewhere(model, candidates))
     if not rows:
         return qdd0
     extra = np.asarray(model.dof_armature, np.float32) + np.float32(dt) * np.asarray(
@@ -277,6 +300,8 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
     for k in range(nv):
         if extra[k] != 0.0:
             Mfull[k][k] = Mfull[k][k] + float(extra[k])
+        if fric_diag is not None and fric_diag[k] is not None:
+            Mfull[k][k] = Mfull[k][k] + fric_diag[k]
 
     def mat_vec(xs: List[torch.Tensor]) -> List[torch.Tensor]:
         out: List[Optional[torch.Tensor]] = [None] * nv

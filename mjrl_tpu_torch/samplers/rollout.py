@@ -86,6 +86,7 @@ def run_episodes(env: Env, policy: GaussianMLP, noise: EpisodeNoise) -> Trajecto
         state = _select(finished, state, new_state)
         obs = torch.where(finished[:, None], obs, new_obs)
         finished = finished | term
+    env.check()
     return _to_batch(steps)
 
 
@@ -176,6 +177,7 @@ def run_autoreset(env: Env, policy: GaussianMLP, noise: AutoresetNoise,
         t_in_ep = torch.where(done, torch.zeros_like(t_in_ep), t_in_ep + 1)
         ep_ret = torch.where(done, zero, ret_acc)
         ep_suc = torch.where(done, zero, suc_acc)
+    env.check()
     return _to_batch(steps), SamplerCarry(state, obs, t_in_ep, ep_ret, ep_suc)
 
 

@@ -306,6 +306,9 @@ class _FakeEnv:
         success, term = _fake_success(st.u, t)
         return _FakeState(st.u, t), st.u[:, None], st.u + t, term, {"success": success}
 
+    def check(self):
+        pass
+
 
 def test_success_accumulator_and_rate_match_reference():
     """Samples mode: the reference's ``sample_autoreset`` and the port's

@@ -1,11 +1,11 @@
-"""Write ``mjrl_tpu_torch/envs/assets/adroit_pen.npz``: the Adroit pen
-model as the JAX package compiles it, for the PyTorch port.
+"""Write ``mjrl_tpu_torch/envs/assets/adroit_<task>.npz``: an Adroit model
+as the JAX package compiles it, for the PyTorch port.
 
-    JAX_PLATFORMS=cpu python tools/gen_adroit_model.py
+    JAX_PLATFORMS=cpu python tools/gen_adroit_model.py [TASK]   # pen (default), hammer
 
 The port loads no ``mujoco`` and no ``gymnasium_robotics``. This tool runs
 the JAX package's bridge once: ``physics/bridge.py::load_mj_model`` on the
-installed wheel's ``adroit_pen.xml``, the env's servo retuning
+installed wheel's ``adroit_<task>.xml``, the env's servo retuning
 (``AdroitEnv._apply_gain_overrides``) and ``model_from_mujoco``, and
 stores every field of the resulting ``Model`` as numpy arrays
 (``mjrl_tpu_torch/physics/model.py::load_model_npz`` reads them back). The
@@ -24,7 +24,11 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-OUT = os.path.join(ROOT, "mjrl_tpu_torch", "envs", "assets", "adroit_pen.npz")
+TASKS = ("pen", "hammer")
+
+
+def out_path(task: str) -> str:
+    return os.path.join(ROOT, "mjrl_tpu_torch", "envs", "assets", f"adroit_{task}.npz")
 
 
 def model_arrays(model) -> dict:
@@ -50,10 +54,14 @@ def main() -> None:
     from mjrl_tpu.envs.adroit import AdroitEnv, _adroit_asset
     from mjrl_tpu.physics.bridge import load_mj_model, model_from_mujoco
 
-    mj = load_mj_model(_adroit_asset("pen"))
+    task = sys.argv[1] if len(sys.argv) > 1 else "pen"
+    if task not in TASKS:
+        raise SystemExit(f"task must be one of {TASKS}")
+    mj = load_mj_model(_adroit_asset(task))
     AdroitEnv._apply_gain_overrides(mj)
-    np.savez_compressed(OUT, **model_arrays(model_from_mujoco(mj)))
-    print(f"wrote {OUT} ({os.path.getsize(OUT)} bytes)")
+    out = out_path(task)
+    np.savez_compressed(out, **model_arrays(model_from_mujoco(mj)))
+    print(f"wrote {out} ({os.path.getsize(out)} bytes)")
 
 
 if __name__ == "__main__":

@@ -14,7 +14,8 @@ sampler carry, kernel K2); or a config of ``examples/`` as
 256 x 1000, K1), ``walker2d_trpo`` (walker2d_trpo.json, 4096 x 1000, K1),
 ``humanoid_trpo`` (humanoid_trpo.json, 1024 x 1000, K1),
 ``humanoid_ppo`` (humanoid_ppo_v4.json, 4096 x 64-step windows in samples
-mode, K1) or ``adroit_pen`` (adroit_pen_npg.json, 512 x 100, K3). The
+mode, K1), ``adroit_pen`` (adroit_pen_npg.json, 512 x 100, K3) or
+``adroit_pen_newton`` (adroit_pen_npg_newton.json, 512 x 100, K4). The
 ``update`` phase is the agent's policy update: NPG's, TRPO's with its
 line-search probes, or PPO's minibatch Adam epochs.
 Warms it for 2 iterations, then times one iteration
@@ -39,7 +40,7 @@ sys.path.insert(0, str(ROOT))
 CONFIG_ROWS = {"hopper": "hopper_npg.json", "hopper_newton": "hopper_npg_newton.json",
                "swimmer": "swimmer_npg.json", "walker2d_trpo": "walker2d_trpo.json",
                "humanoid_trpo": "humanoid_trpo.json", "humanoid_ppo": "humanoid_ppo_v4.json",
-               "adroit_pen": "adroit_pen_npg.json"}
+               "adroit_pen": "adroit_pen_npg.json", "adroit_pen_newton": "adroit_pen_npg_newton.json"}
 
 
 def main() -> int:
@@ -50,8 +51,7 @@ def main() -> int:
     from mjrl_tpu_torch.algos import NPG
     from mjrl_tpu_torch.envs import make
     from mjrl_tpu_torch.models import GaussianMLP, MLPBaseline
-    from mjrl_tpu_torch.physics import soa
-    from mjrl_tpu_torch.physics.pkernel import K1, K2, K3
+    from mjrl_tpu_torch.physics.dispatch import kernel_for
     from mjrl_tpu_torch.samplers import (
         draw_autoreset_noise,
         draw_episode_noise,
@@ -88,8 +88,7 @@ def main() -> int:
         agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=num_envs, **kw)
     samples = agent.sample_mode == "samples"
     window = -(-agent.num_samples // num_envs) if samples else horizon  # steps per iteration
-    kernel = (K2 if env.model.constraint_solver == "newton"
-              else K3 if soa.needs_ext(env.model) else K1)
+    kernel = kernel_for(env.model)
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
         agent.train_step(gen)

@@ -6,8 +6,9 @@ Compiles every ``*.cu`` in each directory (default: the port's
 ``mjrl_tpu_torch/csrc``) with the kernels' own nvcc flags plus
 ``-Xptxas -v`` into ``mjrl_tpu_torch/_build/ptxas/`` and prints, per
 kernel and size class (K1, ``mj_kernel.cu``, in the two classes its
-models use; K2 in the small one; K3, ``mj_ext_kernel.cu``, in the Adroit
-class), ptxas's registers, stack frame, spill stores and loads. Give it a
+models use; K2 in the small one; K3, ``mj_ext_kernel.cu``, and K4,
+``mj_ext_newton_kernel.cu``, in the Adroit class), ptxas's registers,
+stack frame, spill stores and loads. Give it a
 second directory, such as an older checkout's ``csrc``, to compare two
 versions in one run. Needs nvcc (the CUDA toolkit); no card.
 """
@@ -33,7 +34,7 @@ from mjrl_tpu_torch.physics.pkernel import (  # noqa: E402
 )
 
 # the size classes each source is built in (pkernel.SIZE_CLASSES)
-_CLASSES = {"mj_kernel.cu": (0, 1), "mj_ext_kernel.cu": (2,)}
+_CLASSES = {"mj_kernel.cu": (0, 1), "mj_ext_kernel.cu": (2,), "mj_ext_newton_kernel.cu": (2,)}
 _FUNC = re.compile(r"Compiling entry function '(\w+)'")
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
