@@ -74,7 +74,12 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    env-steps that hold a row of each contact kind, of each facet count (1,
    4, 6) and of a joint limit, and fails if any is 0; the rows held per
    env-step (mean, max), the line-search flips, and K4's overflow counter,
-   which must stay 0 (its check raises otherwise).
+   which must stay 0 (its check raises otherwise). Then one control step
+   at B=512 from ``pen_train_states`` (50 steps of the training path's
+   policy at init) to the same tolerance. On both state sets, K4's q, qd
+   and picks bit for bit the same over two launches and with 1 and 4 warps
+   per block (the check for a missing __syncwarp(), which no sanitizer
+   reads on that machine); both times at B=512 on both.
 13. Eight paths through the entry point at full width, ``run_job`` of
    mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
    examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
@@ -381,6 +386,38 @@ def pen_states(env, full, n_chain, warm_steps=10):
     return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
 
 
+def pen_train_states(env, full, n_chain, steps=50):
+    """As ``pen_states``, from the training path: the states after
+    ``steps`` control steps from reset under a (64, 64) GaussianMLP policy
+    at its seeded init (torch seed 0; its actions drawn with numpy seed 0),
+    their link offsets (the env's own, zeros for pen), and as the controls
+    of ``n_chain`` chained steps the env's scaled actions drawn at the last
+    state."""
+    import numpy as np
+    import torch
+
+    from mjrl_tpu_torch.models import GaussianMLP
+
+    dev = env.device
+    rng = np.random.default_rng(0)
+    policy = GaussianMLP(env.spec, hidden_sizes=(64, 64),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+
+    @torch.no_grad()
+    def action(obs):
+        mean, log_std = policy(obs)
+        noise = torch.as_tensor(rng.standard_normal(tuple(mean.shape)), dtype=torch.float32,
+                                device=dev)
+        return mean + torch.exp(log_std) * noise
+
+    state, obs = env.reset(full, torch.Generator(device=dev).manual_seed(0))
+    for _ in range(steps):
+        state, obs, *_ = env.step(state, action(obs))
+    delta = state.link_delta.reshape(full, -1).T.contiguous()
+    ctrls = [env._scaled_ctrl(action(obs)).T.contiguous() for _ in range(n_chain)]
+    return state.q.T.contiguous(), state.qd.T.contiguous(), delta, ctrls
+
+
 def phase_k3_pen(tag, env, kernel, n_chain, batches, tol):
     """Holds K3 against the plain version on Adroit pen over ``n_chain``
     chained control steps at each batch size of ``batches`` (the first the
@@ -458,8 +495,14 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
     facet count (condim 1, 3, 4: 1, 4, 6 facets) and of a joint limit, and
     fails if any is 0; the rows held per env (mean, max); the envs whose
     line search picked another fraction than the plain version's; and K4's
-    overflow counter, which must stay 0. Both times and the bound at the
-    full batch."""
+    overflow counter, which must stay 0. Then the same for one control step
+    at the full batch from ``pen_train_states`` (the training path's
+    states), without the counts that need every kind. On both state sets:
+    K4's results bit for bit the same over two launches and with 1 and 4
+    warps (envs) per block (a missing __syncwarp() would let a lane read
+    what another has not yet written, which shows as results that change
+    from run to run or with the block's shape); both times and the bound
+    at the full batch."""
     import torch
 
     from mjrl_tpu_torch.physics import probe, soa
@@ -468,85 +511,109 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
     model, dev, frames = env.model, env.device, env.frame_skip
     n_sub, iters = frames * model.n_substeps, int(model.solver_iters)
     full = batches[0]
-    q0, qd0, d0, ctrls = pen_states(env, full, n_chain)
     kernel.check()
-    max_err, quantile_err, flips, held_all, lim_all = 0.0, 0.0, 0, [], []
-    for B in batches:
-        q, qd, d = (x[:, :B].contiguous() for x in (q0, qd0, d0))
-        worst = {"q": 0.0, "qd": 0.0}
-        per_env = {"q": [], "qd": []}
-        counts = dict.fromkeys((*PEN_KINDS, *FACETS, "limits"), 0)
-        held = []
-        flipped = torch.zeros(B, dtype=torch.bool, device=dev)
-        flipped_first = torch.zeros(B, dtype=torch.bool, device=dev)
-        for step, ctrl in enumerate(ctrls):
-            ctrl = ctrl[:, :B].contiguous()
-            rows = probe.held_rows(model, q, d)
-            for k in counts:
-                counts[k] += int((rows[k] > 0).sum())
-            held.append(rows["contacts"].float())
-            lim_all.append(rows["limits"].float())
-            picks = torch.full((n_sub * iters, B), -1, dtype=torch.int32, device=dev)
-            plain_picks = []
-            kq, kqd = kernel(model, q, qd, ctrl, frames, link_delta=d, picks=picks)
-            pq, pqd = soa.multistep(model, q, qd, ctrl, frames, picks=plain_picks, link_delta=d)
-            torch.cuda.synchronize()
-            differ = picks != torch.cat(plain_picks)
-            flipped |= differ.any(dim=0)
-            flipped_first |= differ[::iters].any(dim=0)
-            for name, got, want in (("q", kq, pq), ("qd", kqd, pqd)):
-                if not bool(torch.isfinite(want).all()):
-                    raise RuntimeError(f"{tag}: plain {name} not finite at B={B}")
-                per_env[name].append((got - want).abs().amax(dim=0))
-                err = float(per_env[name][-1].max())
-                worst[name] = max(worst[name], err)
-                if step == 0:
-                    print(f"[{tag}] B={B} one control step {name}: max|err|={err:.3e} "
-                          f"tol={tol[name]:.0e}")
-            q, qd = kq, kqd
-        kernel.check()  # raises on an env-substep with more rows than MAX_HELD
-        for name in ("q", "qd"):
-            quant = float(torch.quantile(torch.cat(per_env[name]), HUMANOID_QUANTILE))
-            ok = worst[name] <= tol[name] and quant <= tol_quantile[name]
-            max_err = max(max_err, worst[name])
-            quantile_err = max(quantile_err, quant)
-            print(f"[{tag}] B={B} {n_chain} chained control steps {name}: max per-step "
-                  f"|err|={worst[name]:.3e} tol={tol[name]:.0e}, {HUMANOID_QUANTILE:.0%} quantile "
-                  f"of the per env-step |err|={quant:.3e} tol={tol_quantile[name]:.0e} "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise RuntimeError(f"{tag} disagrees with the plain version: {name} at B={B}")
-        for k, n in counts.items():
-            print(f"[{tag}] B={B} a held {k} row in {n} of {n_chain * B} env-steps")
-            if n == 0:
-                raise RuntimeError(f"{tag}: no held {k} row at B={B}")
-        held = torch.stack(held)
-        held_all.append(held.reshape(-1))
-        flips += int(flipped.sum())
-        print(f"[{tag}] B={B} contact rows inside their margin per env-step: mean "
-              f"{float(held.mean()):.3f}, max {int(held.max())} (the build holds "
-              f"{kernel._newton_layouts[size_class(model)]['MAX_HELD']}); overflow counter 0")
-        print(f"[{tag}] B={B} envs with another line-search fraction in some iteration: "
-              f"{int(flipped.sum())} of {B}; in a substep's first iteration: "
-              f"{int(flipped_first.sum())}")
-    ctrl = ctrls[0]
-    for _ in range(3):
-        kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
-    ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames, link_delta=d0), 20)
-    plain_ms = _cuda_ms(lambda: soa.multistep(model, q0, qd0, ctrl, frames, link_delta=d0), 1)
-    kernel.check()
-    held = torch.cat(held_all)
-    ops = _newton_op_count(model, q0, qd0, ctrl, float(held.mean()),
-                           float(torch.cat(lim_all).mean()), d0)
-    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev), full,
-                                   extra_rows=3 * model.nlink)
-    print(f"[{tag}] B={full} one control step ({n_sub} substeps): {kernel.name} {ms:.4f} ms, "
-          f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
-          f"({ops:.0f} f32 operations per env-substep)")
-    return dict(max_abs_err=max_err, quantile=HUMANOID_QUANTILE, quantile_abs_err=quantile_err,
-                env_steps=counts, held_rows_mean=float(held.mean()),
-                held_rows_max=int(held.max()), line_search_flips=flips, overflow=0, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    result = {"overflow": 0}
+    for states, chain, sizes in ((pen_states, n_chain, batches), (pen_train_states, 1, batches[:1])):
+        q0, qd0, d0, ctrls = states(env, full, chain)
+        max_err, quantile_err, flips, held_all, lim_all = 0.0, 0.0, 0, [], []
+        for B in sizes:
+            q, qd, d = (x[:, :B].contiguous() for x in (q0, qd0, d0))
+            worst = {"q": 0.0, "qd": 0.0}
+            per_env = {"q": [], "qd": []}
+            counts = dict.fromkeys((*PEN_KINDS, *FACETS, "limits"), 0)
+            held = []
+            flipped = torch.zeros(B, dtype=torch.bool, device=dev)
+            flipped_first = torch.zeros(B, dtype=torch.bool, device=dev)
+            for step, ctrl in enumerate(ctrls):
+                ctrl = ctrl[:, :B].contiguous()
+                rows = probe.held_rows(model, q, d)
+                for k in counts:
+                    counts[k] += int((rows[k] > 0).sum())
+                held.append(rows["contacts"].float())
+                lim_all.append(rows["limits"].float())
+                picks = torch.full((n_sub * iters, B), -1, dtype=torch.int32, device=dev)
+                plain_picks = []
+                kq, kqd = kernel(model, q, qd, ctrl, frames, link_delta=d, picks=picks)
+                pq, pqd = soa.multistep(model, q, qd, ctrl, frames, picks=plain_picks,
+                                        link_delta=d)
+                torch.cuda.synchronize()
+                differ = picks != torch.cat(plain_picks)
+                flipped |= differ.any(dim=0)
+                flipped_first |= differ[::iters].any(dim=0)
+                for name, got, want in (("q", kq, pq), ("qd", kqd, pqd)):
+                    if not bool(torch.isfinite(want).all()):
+                        raise RuntimeError(f"{tag}: plain {name} not finite at B={B}")
+                    per_env[name].append((got - want).abs().amax(dim=0))
+                    err = float(per_env[name][-1].max())
+                    worst[name] = max(worst[name], err)
+                    if step == 0:
+                        print(f"[{tag}] {states.__name__} B={B} one control step {name}: "
+                              f"max|err|={err:.3e} tol={tol[name]:.0e}")
+                q, qd = kq, kqd
+            kernel.check()  # raises on an env-substep with more rows than MAX_HELD
+            for name in ("q", "qd"):
+                quant = float(torch.quantile(torch.cat(per_env[name]), HUMANOID_QUANTILE))
+                ok = worst[name] <= tol[name] and quant <= tol_quantile[name]
+                max_err = max(max_err, worst[name])
+                quantile_err = max(quantile_err, quant)
+                print(f"[{tag}] {states.__name__} B={B} {len(ctrls)} chained control steps "
+                      f"{name}: max per-step |err|={worst[name]:.3e} tol={tol[name]:.0e}, "
+                      f"{HUMANOID_QUANTILE:.0%} quantile of the per env-step "
+                      f"|err|={quant:.3e} tol={tol_quantile[name]:.0e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"{tag} disagrees with the plain version: {name} at "
+                                       f"B={B} from {states.__name__}")
+            for k, n in counts.items():
+                print(f"[{tag}] {states.__name__} B={B} a held {k} row in {n} of "
+                      f"{len(ctrls) * B} env-steps")
+                if n == 0 and states is pen_states:
+                    raise RuntimeError(f"{tag}: no held {k} row at B={B}")
+            held = torch.stack(held)
+            held_all.append(held.reshape(-1))
+            flips += int(flipped.sum())
+            print(f"[{tag}] {states.__name__} B={B} contact rows inside their margin per "
+                  f"env-step: mean {float(held.mean()):.3f}, max {int(held.max())} (the build "
+                  f"holds {kernel._newton_layouts[size_class(model)]['MAX_HELD']}); overflow "
+                  f"counter 0")
+            print(f"[{tag}] {states.__name__} B={B} envs with another line-search fraction in "
+                  f"some iteration: {int(flipped.sum())} of {B}; in a substep's first "
+                  f"iteration: {int(flipped_first.sum())}")
+        ctrl = ctrls[0]
+        runs = {}
+        for label, warps in (("first", None), ("second", None), ("1 warp per block", 1),
+                             ("4 warps per block", 4)):
+            picks = torch.full((n_sub * iters, full), -1, dtype=torch.int32, device=dev)
+            runs[label] = (*kernel(model, q0, qd0, ctrl, frames, link_delta=d0, picks=picks,
+                                   warps_per_block=warps), picks)
+        torch.cuda.synchronize()
+        for label, out in runs.items():
+            same = all(torch.equal(a, b) for a, b in zip(out, runs["first"]))
+            print(f"[{tag}] {states.__name__} B={full} launch with {label}: q, qd and picks "
+                  f"{'bit for bit as the first launch' if same else 'DIFFER'}")
+            if not same:
+                raise RuntimeError(f"{tag}: K4's results change between launches ({label})")
+        for _ in range(3):
+            kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
+        ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames, link_delta=d0), 20)
+        plain_ms = _cuda_ms(lambda: soa.multistep(model, q0, qd0, ctrl, frames, link_delta=d0),
+                            1)
+        kernel.check()
+        held = torch.cat(held_all)
+        ops = _newton_op_count(model, q0, qd0, ctrl, float(held.mean()),
+                               float(torch.cat(lim_all).mean()), d0)
+        bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev), full,
+                                       extra_rows=3 * model.nlink)
+        print(f"[{tag}] {states.__name__} B={full} one control step ({n_sub} substeps): "
+              f"{kernel.name} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by "
+              f"{bound_by} ({ops:.0f} f32 operations per env-substep)")
+        r = dict(max_abs_err=max_err, quantile=HUMANOID_QUANTILE, quantile_abs_err=quantile_err,
+                 held_rows_mean=float(held.mean()), held_rows_max=int(held.max()), ms=ms,
+                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if states is pen_states:
+            result.update(r, env_steps=counts, line_search_flips=flips)
+        else:
+            result["train_states"] = dict(r, line_search_flips=flips)
+    return result
 
 
 def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, warm_scale=1.0,
@@ -946,7 +1013,7 @@ def main() -> int:
     kernels[2]["kind_env_steps"] = k3["kind_env_steps"]
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
                                           "held_rows_mean", "held_rows_max",
-                                          "line_search_flips", "overflow")})
+                                          "line_search_flips", "overflow", "train_states")})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

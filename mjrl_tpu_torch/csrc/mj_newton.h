@@ -1,15 +1,16 @@
 // Newton soft-constraint substep for one env, table-driven: the body of
-// kernels K2 (mj_newton_kernel.cu) and K4 (mj_ext_newton_kernel.cu).
+// kernel K2 (mj_newton_kernel.cu), and the row builders and layout that
+// kernel K4 (mj_ext_newton.h, one warp per env) shares with it.
 //
 // Replaces the TPU kernel mjrl_tpu/physics/pkernel.py::multistep_pallas run
 // with constraint_solver="newton" (soa_newton.constrained_qdd,
-// mjrl_tpu/physics/soa_newton.py:338): K2 its body _kernel_body, K4 its
-// body _kernel_body_ext (Adroit). It computes what
-// mjrl_tpu_torch/physics/soa.py::multistep computes for a Newton model, for
-// one env as scalar code: the pipeline of mj_substep.h without penalty
-// contacts or limit springs (fluid drag stays) gives the unconstrained
-// qdd0 by the sparse L^T D L solve; then solver_iters primal Newton
-// iterations on the soft contact and limit rows (physics/soa_newton.py):
+// mjrl_tpu/physics/soa_newton.py:338) on its body _kernel_body. It
+// computes what mjrl_tpu_torch/physics/soa.py::multistep computes for a
+// Newton model, for one env as scalar code: the pipeline of mj_substep.h
+// without penalty contacts or limit springs (fluid drag stays) gives the
+// unconstrained qdd0 by the sparse L^T D L solve; then solver_iters primal
+// Newton iterations on the soft contact and limit rows
+// (physics/soa_newton.py):
 //
 //   residuals jar = J x - aref, active weights w = D where jar < 0;
 //   gradient g = M (x - qdd0) + J^T (w jar);
@@ -34,17 +35,8 @@
 // chain) are packed on the host from the model after
 // ensure_solver_params; the offsets and maxima below are exported by
 // mj_newton_layout() so the packer reads them instead of repeating them.
-//
-// K4 (EXT = true) adds K3's stages (mj_substep.h): the link offsets in the
-// kinematics, the box kinds in the narrow phase, the servos, the tendons
-// and frictionloss, whose force joins qdd0's right-hand side and whose
-// dt-scaled diagonal joins both the L^T D L solve and the Newton metric
-// (soa.py:1056-1072 in the reference). Adroit's models have 364-760
-// contact points, of which a few are inside their margin at a time, so K4
-// holds up to MJ_MAX_HELD rows per env-substep, not one slot per point as
-// K2 does: an env-substep with more rows inside their margin than that
-// counts itself in a device-side counter that the wrapper checks and
-// raises on. K2's build (EXT = false) compiles none of this.
+// K2 has a row slot for every contact point of its models (MJ_MAX_CAND);
+// K4 holds at most MJ_MAX_HELD rows inside their margin per env-substep.
 #pragma once
 
 #include "mj_substep.h"
@@ -122,117 +114,128 @@ MJ_HD float mj_row_D(const float* p, float pos, float invw, float scale,
 }
 
 // The rows held for one substep: limit rows, then contact rows in
-// narrow-phase order, at most CAP of them (K2: MJ_MAX_CAND, K4:
-// MJ_MAX_HELD).
-template <int CAP>
+// narrow-phase order (K2: a slot for each contact point).
 struct MjRows {
   int nl;
   int lv[MJ_MAX_NV];
   float ls[MJ_MAX_NV], laref[MJ_MAX_NV], lD[MJ_MAX_NV];
   int nc;
-  int pair[CAP];
-  float D[CAP];
-  float aref[CAP][MJ_MAX_FACET];
-  float J[CAP][MJ_MAX_FACET][MJ_MAX_CHAIN];
+  int pair[MJ_MAX_CAND];
+  float D[MJ_MAX_CAND];
+  float aref[MJ_MAX_CAND][MJ_MAX_FACET];
+  float J[MJ_MAX_CAND][MJ_MAX_FACET][MJ_MAX_CHAIN];
 };
 
-template <int CAP>
+// Limit row l (a limited 1-dof joint against its nearer bound): false
+// inside the range (D = 0, not held); else its dof, sign, aref and D.
+MJ_HD bool mj_limit_row(const float* nf, const int* ni, const float* q,
+                        const float* qd, int l, int* lv, float* ls,
+                        float* laref, float* lD) {
+  const int* li = ni + MJ_N_I_LIM + MJ_LIM_I * l;
+  const float* lf = nf + MJ_N_F_LIM + MJ_LIM_F * l;
+  const float qi = q[li[0]];
+  const float d_lo = qi - lf[MJ_IMP_F];
+  const float d_hi = lf[MJ_IMP_F + 1] - qi;
+  const bool use_lo = d_lo <= d_hi;
+  const float dist = use_lo ? d_lo : d_hi;
+  if (dist >= 0.0f) return false;  // inside the range: D = 0
+  const float sign = use_lo ? 1.0f : -1.0f;
+  const float vel = sign * qd[li[1]];
+  float kdp;
+  const float D = mj_row_D(lf, dist, lf[MJ_IMP_F + 2], 1.0f, &kdp);
+  *lv = li[1];
+  *ls = sign;
+  *laref = -lf[1] * vel - kdp;
+  *lD = D;
+  return true;
+}
+
 MJ_HD void mj_limit_rows(const float* nf, const int* ni, const float* q,
-                         const float* qd, MjRows<CAP>& rows) {
+                         const float* qd, MjRows& rows) {
   rows.nl = 0;
   const int nlim = ni[MJ_N_I_NLIM];
   for (int l = 0; l < nlim; ++l) {
-    const int* li = ni + MJ_N_I_LIM + MJ_LIM_I * l;
-    const float* lf = nf + MJ_N_F_LIM + MJ_LIM_F * l;
-    const float qi = q[li[0]];
-    const float d_lo = qi - lf[MJ_IMP_F];
-    const float d_hi = lf[MJ_IMP_F + 1] - qi;
-    const bool use_lo = d_lo <= d_hi;
-    const float dist = use_lo ? d_lo : d_hi;
-    if (dist >= 0.0f) continue;  // inside the range: D = 0
-    const float sign = use_lo ? 1.0f : -1.0f;
-    const float vel = sign * qd[li[1]];
-    float kdp;
-    const float D = mj_row_D(lf, dist, lf[MJ_IMP_F + 2], 1.0f, &kdp);
-    const int r = rows.nl++;
-    rows.lv[r] = li[1];
-    rows.ls[r] = sign;
-    rows.laref[r] = -lf[1] * vel - kdp;
-    rows.lD[r] = D;
+    const int r = rows.nl;
+    if (mj_limit_row(nf, ni, q, qd, l, &rows.lv[r], &rows.ls[r], &rows.laref[r],
+                     &rows.lD[r]))
+      ++rows.nl;
   }
 }
 
-// One contact point's pyramid facet rows (the narrow phase's sink). K2
-// has a slot for every contact point of its models (the packer refuses
-// more); K4 (EXT) holds the first MJ_MAX_HELD rows inside their margin and
-// sets *overflow when another one finds no slot.
-template <bool EXT = false>
+// A contact point's row inside its margin (pos < 0 or non-finite), pair
+// pi: its pyramid facets' J over the pair's chain, aref and D.
+MJ_HD void mj_contact_row(const float* nf, const int* ni, const MjKin& k,
+                          const float* qd, int pi, float mu, float depth,
+                          float pos, const float* n, const float* pt,
+                          float (*J)[MJ_MAX_CHAIN], float* aref, float* D) {
+  const int* pi_ = ni + MJ_N_I_PAIR + MJ_NPAIR_I * pi;
+  const float* pf = nf + MJ_N_F_PAIR + MJ_NPAIR_F * pi;
+  const int nfacet = pi_[0], nchain = pi_[1];
+  const int* chain = pi_ + 2;
+  const int* sign = chain + MJ_MAX_CHAIN;
+  // the middle of the penetration interval, about the origin
+  const float half = 0.5f * mj_max(depth, 0.0f);
+  float r[3];
+  for (int a = 0; a < 3; ++a) r[a] = (pt[a] + half * n[a]) - k.origin[a];
+  // tangent frame from the normal
+  const bool near_z = fabsf(n[2]) < 0.99f;
+  const float ref[3] = {near_z ? 0.0f : 1.0f, 0.0f, near_z ? 1.0f : 0.0f};
+  float t1[3], t2[3];
+  mj_cross(ref, n, t1);
+  const float s = mj_rsqrt(mj_dot3(t1, t1) + 1e-12f);
+  for (int a = 0; a < 3; ++a) t1[a] = t1[a] * s;
+  mj_cross(n, t1, t2);
+  const float mu_tor = pf[MJ_IMP_F + 3];
+  float vel[MJ_MAX_FACET];
+  for (int f = 0; f < nfacet; ++f) vel[f] = 0.0f;
+  for (int b = 0; b < nchain; ++b) {
+    const float* cd = k.cdof[chain[b]];
+    const float sg = (float)sign[b];
+    float jp[3];
+    mj_cross(cd, r, jp);
+    for (int a = 0; a < 3; ++a) jp[a] = sg * (cd[3 + a] + jp[a]);
+    const float jn = mj_dot3(n, jp);
+    float* col[MJ_MAX_FACET];
+    for (int f = 0; f < nfacet; ++f) col[f] = &J[f][b];
+    if (nfacet == 1) {
+      *col[0] = jn;
+    } else {
+      const float jt1 = mj_dot3(t1, jp), jt2 = mj_dot3(t2, jp);
+      *col[0] = jn + mu * jt1;
+      *col[1] = jn - mu * jt1;
+      *col[2] = jn + mu * jt2;
+      *col[3] = jn - mu * jt2;
+      if (nfacet == 6) {
+        const float jt = sg * mj_dot3(n, cd);
+        *col[4] = jn + mu_tor * jt;
+        *col[5] = jn - mu_tor * jt;
+      }
+    }
+    for (int f = 0; f < nfacet; ++f) vel[f] += *col[f] * qd[chain[b]];
+  }
+  float kdp;
+  *D = mj_row_D(pf, pos, pf[MJ_IMP_F + 1], pf[MJ_IMP_F + 4], &kdp);
+  for (int f = 0; f < nfacet; ++f) aref[f] = -pf[1] * vel[f] - kdp;
+}
+
+// K2's narrow-phase sink: one contact point's row, in the slot after the
+// last (K2 has a slot for every contact point of its models; the packer
+// refuses more).
 struct MjNewtonSink {
-  static constexpr int CAP = EXT ? MJ_MAX_HELD : MJ_MAX_CAND;
   const float* nf;
   const int* ni;
   const MjKin* k;
   const float* qd;
-  MjRows<CAP>* rows;
-  int* overflow;
+  MjRows* rows;
   MJ_HD void operator()(int pi, int, int, float mu, float depth,
                         const float* n, const float* pt) {
-    const int* pi_ = ni + MJ_N_I_PAIR + MJ_NPAIR_I * pi;
-    const float* pf = nf + MJ_N_F_PAIR + MJ_NPAIR_F * pi;
-    const float pos = -depth - pf[MJ_IMP_F];
+    const float pos = -depth - nf[MJ_N_F_PAIR + MJ_NPAIR_F * pi + MJ_IMP_F];
     if (pos >= 0.0f) return;  // D = 0
-    if (rows->nc >= CAP) {
-      if (EXT) *overflow = 1;
-      return;
-    }
+    if (rows->nc >= MJ_MAX_CAND) return;
     const int c = rows->nc++;
-    const int nfacet = pi_[0], nchain = pi_[1];
-    const int* chain = pi_ + 2;
-    const int* sign = chain + MJ_MAX_CHAIN;
-    // the middle of the penetration interval, about the origin
-    const float half = 0.5f * mj_max(depth, 0.0f);
-    float r[3];
-    for (int a = 0; a < 3; ++a) r[a] = (pt[a] + half * n[a]) - k->origin[a];
-    // tangent frame from the normal
-    const bool near_z = fabsf(n[2]) < 0.99f;
-    const float ref[3] = {near_z ? 0.0f : 1.0f, 0.0f, near_z ? 1.0f : 0.0f};
-    float t1[3], t2[3];
-    mj_cross(ref, n, t1);
-    const float s = mj_rsqrt(mj_dot3(t1, t1) + 1e-12f);
-    for (int a = 0; a < 3; ++a) t1[a] = t1[a] * s;
-    mj_cross(n, t1, t2);
-    const float mu_tor = pf[MJ_IMP_F + 3];
-    float vel[MJ_MAX_FACET];
-    for (int f = 0; f < nfacet; ++f) vel[f] = 0.0f;
-    for (int b = 0; b < nchain; ++b) {
-      const float* cd = k->cdof[chain[b]];
-      const float sg = (float)sign[b];
-      float jp[3];
-      mj_cross(cd, r, jp);
-      for (int a = 0; a < 3; ++a) jp[a] = sg * (cd[3 + a] + jp[a]);
-      const float jn = mj_dot3(n, jp);
-      float* col[MJ_MAX_FACET];
-      for (int f = 0; f < nfacet; ++f) col[f] = &rows->J[c][f][b];
-      if (nfacet == 1) {
-        *col[0] = jn;
-      } else {
-        const float jt1 = mj_dot3(t1, jp), jt2 = mj_dot3(t2, jp);
-        *col[0] = jn + mu * jt1;
-        *col[1] = jn - mu * jt1;
-        *col[2] = jn + mu * jt2;
-        *col[3] = jn - mu * jt2;
-        if (nfacet == 6) {
-          const float jt = sg * mj_dot3(n, cd);
-          *col[4] = jn + mu_tor * jt;
-          *col[5] = jn - mu_tor * jt;
-        }
-      }
-      for (int f = 0; f < nfacet; ++f) vel[f] += *col[f] * qd[chain[b]];
-    }
-    float kdp;
     rows->pair[c] = pi;
-    rows->D[c] = mj_row_D(pf, pos, pf[MJ_IMP_F + 1], pf[MJ_IMP_F + 4], &kdp);
-    for (int f = 0; f < nfacet; ++f) rows->aref[c][f] = -pf[1] * vel[f] - kdp;
+    mj_contact_row(nf, ni, *k, qd, pi, mu, depth, pos, n, pt, rows->J[c],
+                   rows->aref[c], &rows->D[c]);
   }
 };
 
@@ -249,15 +252,14 @@ MJ_HD void mj_sym_mul(const float (*M)[MJ_MAX_NV], const float* x, float* out,
 
 // The Newton solve: x = qdd0 in, the constrained qdd out. picks (or null)
 // receives each iteration's fraction index at picks[it * stride].
-template <int CAP>
 MJ_HD void mj_newton_solve(const int* mi, const int* ni,
                            const float (*Mf)[MJ_MAX_NV], const float* qdd0,
-                           const MjRows<CAP>& rows, int iters, float* x, int* picks,
+                           const MjRows& rows, int iters, float* x, int* picks,
                            long stride) {
   const int nv = mi[MJ_I_NV];
   const float alphas[5] = {1.0f, 0.5f, 0.25f, 0.0625f, 0.0f};
   float jar_l[MJ_MAX_NV], jd_l[MJ_MAX_NV];
-  float jar[CAP][MJ_MAX_FACET], jd[CAP][MJ_MAX_FACET];
+  float jar[MJ_MAX_CAND][MJ_MAX_FACET], jd[MJ_MAX_CAND][MJ_MAX_FACET];
   for (int it = 0; it < iters; ++it) {
     float d0[MJ_MAX_NV], Md0[MJ_MAX_NV], g[MJ_MAX_NV];
     for (int j = 0; j < nv; ++j) d0[j] = x[j] - qdd0[j];
@@ -381,39 +383,22 @@ MJ_HD void mj_newton_solve(const int* mi, const int* ni,
   }
 }
 
-// One count on the device-side counter *c (K4's overflow).
-MJ_HD void mj_count(int* c) {
-#ifdef __CUDA_ARCH__
-  atomicAdd(c, 1);
-#else
-  ++*c;
-#endif
-}
-
 // Advances one env's q (nq), qd (nv) by one Newton substep of length dt.
-// EXT (kernel K4) adds the link offsets delta, the box kinds, the servos,
-// the tendons and frictionloss, and counts the substep in *overflow when
-// it has more contact rows inside their margin than MJ_MAX_HELD.
-template <bool EXT = false>
 MJ_HD void mj_newton_substep(const float* mf, const int* mi, const float* nf,
                              const int* ni, float* q, float* qd,
                              const float* ctrl, float dt, int iters,
-                             int* picks, long stride,
-                             const float* delta = nullptr,
-                             int* overflow = nullptr) {
+                             int* picks, long stride) {
   const int nv = mi[MJ_I_NV];
   const int* lam = mi + MJ_I_LAM;
   MjKin k;
-  mj_kinematics(mf, mi, q, qd, k, EXT ? delta : nullptr);
+  mj_kinematics(mf, mi, q, qd, k);
 
   // the rows, from the substep's entry state
-  MjRows<MjNewtonSink<EXT>::CAP> rows;
+  MjRows rows;
   mj_limit_rows(nf, ni, q, qd, rows);
   rows.nc = 0;
-  int over = 0;
-  MjNewtonSink<EXT> sink{nf, ni, &k, qd, &rows, &over};
-  mj_narrow_phase<EXT>(mf, mi, k, sink);
-  if (EXT && over) mj_count(overflow);
+  MjNewtonSink sink{nf, ni, &k, qd, &rows};
+  mj_narrow_phase(mf, mi, k, sink);
   // fluid drag, the only external wrench of a Newton substep
   const bool fluid = mi[MJ_I_HAS_FLUID] != 0;
   float f_ext[MJ_MAX_LINK][6];
@@ -434,25 +419,9 @@ MJ_HD void mj_newton_substep(const float* mf, const int* mi, const float* nf,
   }
   float bias[MJ_MAX_NV], qdd0[MJ_MAX_NV];
   mj_bias(mf, mi, k, qd, fluid ? f_ext : nullptr, bias);
-  mj_applied<false, EXT>(mf, mi, q, qd, ctrl, qdd0, nullptr);
-  if (EXT && mi[MJ_I_NTEN]) {
-    // the full tendon force, limit penalty included, as in penalty mode
-    float tau[MJ_MAX_NV];
-    for (int j = 0; j < nv; ++j) tau[j] = 0.0f;
-    mj_tendons(mf, mi, q, qd, tau);
-    for (int j = 0; j < nv; ++j) qdd0[j] = qdd0[j] + tau[j];
-  }
+  mj_applied<false>(mf, mi, q, qd, ctrl, qdd0, nullptr);
   for (int j = 0; j < nv; ++j) qdd0[j] = qdd0[j] - bias[j] - mf[MJ_F_DAMP + j] * qd[j];
-  // frictionloss: its force into qdd0's right-hand side, its dt-scaled
-  // diagonal into the L^T D L solve and onto the Newton metric
-  const bool fric = EXT && mi[MJ_I_HAS_FRIC];
-  float fdiag[MJ_MAX_NV];
-  if (fric) {
-    for (int j = 0; j < nv; ++j) fdiag[j] = 0.0f;
-    mj_friction(mf, mi, qd, dt, qdd0, fdiag);
-    for (int j = 0; j < nv; ++j) Mf[j][j] = Mf[j][j] + fdiag[j];
-  }
-  mj_ltdl_solve(mf, mi, H, fric ? fdiag : nullptr, qdd0);
+  mj_ltdl_solve(mf, mi, H, nullptr, qdd0);
 
   float x[MJ_MAX_NV];
   for (int j = 0; j < nv; ++j) x[j] = qdd0[j];
@@ -476,32 +445,6 @@ MJ_HD void mj_newton_env_multistep(const float* mf, const int* mi,
   for (int s = 0; s < n_sub; ++s)
     mj_newton_substep(mf, mi, nf, ni, q, qd, ctrl, dt, iters,
                       picks ? picks + (long)s * iters * B + env : nullptr, B);
-  for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
-  for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
-}
-
-// Kernel K4's env: as mj_newton_env_multistep with the EXT substep and,
-// when delta_in (3 nlink, B) is given, this env's link offsets held in the
-// thread for the control step; overflow counts the env-substeps with more
-// contact rows inside their margin than MJ_MAX_HELD.
-MJ_HD void mj_ext_newton_env_multistep(const float* mf, const int* mi,
-                                       const float* nf, const int* ni, int env,
-                                       int B, const float* q_in,
-                                       const float* qd_in, const float* ctrl_in,
-                                       const float* delta_in, float* q_out,
-                                       float* qd_out, int* picks, int* overflow,
-                                       int n_sub, int iters, float dt) {
-  const int nq = mi[MJ_I_NQ], nv = mi[MJ_I_NV], nu = mi[MJ_I_NU];
-  const int nd = 3 * mi[MJ_I_NLINK];
-  float q[MJ_MAX_NQ], qd[MJ_MAX_NV], ctrl[MJ_MAX_NU], delta[3 * MJ_MAX_LINK];
-  for (int r = 0; r < nq; ++r) q[r] = q_in[(long)r * B + env];
-  for (int r = 0; r < nv; ++r) qd[r] = qd_in[(long)r * B + env];
-  for (int r = 0; r < nu; ++r) ctrl[r] = ctrl_in[(long)r * B + env];
-  for (int r = 0; r < nd; ++r) delta[r] = delta_in ? delta_in[(long)r * B + env] : 0.0f;
-  for (int s = 0; s < n_sub; ++s)
-    mj_newton_substep<true>(mf, mi, nf, ni, q, qd, ctrl, dt, iters,
-                            picks ? picks + (long)s * iters * B + env : nullptr, B,
-                            delta_in ? delta : nullptr, overflow);
   for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
   for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
 }

@@ -656,56 +656,61 @@ MJ_HD void mj_box_kinds(const MjKin& k, int kind, int pi, int li, int lj,
   }
 }
 
+// The contact points of pair pi, in the reference's sub-point order,
+// handed to sink(pair, li, lj, mu, depth, n, pt). EXT adds the box kinds.
+template <bool EXT = false, class Sink>
+MJ_HD void mj_narrow_pair(const float* mf, const int* mi, const MjKin& k,
+                          int pi, Sink& sink) {
+  const int* pt_i = mi + MJ_I_PAIR + MJ_PAIR_I * pi;
+  const float* pt_f = mf + MJ_F_PAIR + MJ_PAIR_F * pi;
+  const int kind = pt_i[0], li = pt_i[1], lj = pt_i[2];
+  const float mu = pt_f[0], r = pt_f[1], hl = pt_f[2];
+  const float* gj = pt_f + MJ_PAIR_GJ;
+  const float* n = gj;
+  const float* pp = gj + 3;
+  float gp[3], gq[4];
+  mj_geom_pose(k, li, pt_f + 4, pt_f + 7, gp, gq);
+  if (EXT && kind >= MJ_KIND_BOX_PLANE) {
+    mj_box_kinds(k, kind, pi, li, lj, mu, gp, gq, pt_f + 1, gj, sink);
+  } else if (kind >= MJ_KIND_CAPSULE_CAPSULE) {  // geom j on a link
+    float gp2[3], gq2[4];
+    mj_geom_pose(k, lj, gj + 3, gj + 6, gp2, gq2);
+    if (kind == MJ_KIND_CAPSULE_CAPSULE)
+      mj_capsule_capsule(pi, li, lj, mu, gp, gq, r, hl, gp2, gq2, gj[0],
+                         gj[1], sink);
+    else if (kind == MJ_KIND_SPHERE_SPHERE)
+      mj_sphere_sphere(pi, li, lj, mu, gp, r, gp2, gj[0], sink);
+    else
+      mj_sphere_capsule(pi, li, lj, mu, gp, r, gp2, gq2, gj[0], gj[1], sink);
+  } else if (kind == MJ_KIND_SPHERE_PLANE) {
+    float d[3], pt[3];
+    for (int c = 0; c < 3; ++c) d[c] = gp[c] - pp[c];
+    const float depth = -(mj_dot3(d, n) - r);
+    for (int c = 0; c < 3; ++c) pt[c] = gp[c] - n[c] * r;
+    sink(pi, li, lj, mu, depth, n, pt);
+  } else {  // MJ_KIND_CAPSULE_PLANE: both segment ends
+    const float z[3] = {0.0f, 0.0f, 1.0f};
+    float axis[3];
+    mj_qrot(gq, z, axis);
+    for (int e = 0; e < 2; ++e) {
+      const float off = e == 0 ? -hl : hl;
+      float end[3], d[3], pt[3];
+      for (int c = 0; c < 3; ++c) end[c] = gp[c] + off * axis[c];
+      for (int c = 0; c < 3; ++c) d[c] = end[c] - pp[c];
+      const float depth = -(mj_dot3(d, n) - r);
+      for (int c = 0; c < 3; ++c) pt[c] = end[c] - n[c] * r;
+      sink(pi, li, lj, mu, depth, n, pt);
+    }
+  }
+}
+
 // Narrow phase: every contact point of every pair, in the reference's
-// pair / sub-point order, handed to sink(pair, li, lj, mu, depth, n, pt).
-// EXT adds the box kinds.
+// pair / sub-point order (mj_narrow_pair).
 template <bool EXT = false, class Sink>
 MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
                            Sink& sink) {
   const int npair = mi[MJ_I_NPAIR];
-  for (int pi = 0; pi < npair; ++pi) {
-    const int* pt_i = mi + MJ_I_PAIR + MJ_PAIR_I * pi;
-    const float* pt_f = mf + MJ_F_PAIR + MJ_PAIR_F * pi;
-    const int kind = pt_i[0], li = pt_i[1], lj = pt_i[2];
-    const float mu = pt_f[0], r = pt_f[1], hl = pt_f[2];
-    const float* gj = pt_f + MJ_PAIR_GJ;
-    const float* n = gj;
-    const float* pp = gj + 3;
-    float gp[3], gq[4];
-    mj_geom_pose(k, li, pt_f + 4, pt_f + 7, gp, gq);
-    if (EXT && kind >= MJ_KIND_BOX_PLANE) {
-      mj_box_kinds(k, kind, pi, li, lj, mu, gp, gq, pt_f + 1, gj, sink);
-    } else if (kind >= MJ_KIND_CAPSULE_CAPSULE) {  // geom j on a link
-      float gp2[3], gq2[4];
-      mj_geom_pose(k, lj, gj + 3, gj + 6, gp2, gq2);
-      if (kind == MJ_KIND_CAPSULE_CAPSULE)
-        mj_capsule_capsule(pi, li, lj, mu, gp, gq, r, hl, gp2, gq2, gj[0],
-                           gj[1], sink);
-      else if (kind == MJ_KIND_SPHERE_SPHERE)
-        mj_sphere_sphere(pi, li, lj, mu, gp, r, gp2, gj[0], sink);
-      else
-        mj_sphere_capsule(pi, li, lj, mu, gp, r, gp2, gq2, gj[0], gj[1], sink);
-    } else if (kind == MJ_KIND_SPHERE_PLANE) {
-      float d[3], pt[3];
-      for (int c = 0; c < 3; ++c) d[c] = gp[c] - pp[c];
-      const float depth = -(mj_dot3(d, n) - r);
-      for (int c = 0; c < 3; ++c) pt[c] = gp[c] - n[c] * r;
-      sink(pi, li, lj, mu, depth, n, pt);
-    } else {  // MJ_KIND_CAPSULE_PLANE: both segment ends
-      const float z[3] = {0.0f, 0.0f, 1.0f};
-      float axis[3];
-      mj_qrot(gq, z, axis);
-      for (int e = 0; e < 2; ++e) {
-        const float off = e == 0 ? -hl : hl;
-        float end[3], d[3], pt[3];
-        for (int c = 0; c < 3; ++c) end[c] = gp[c] + off * axis[c];
-        for (int c = 0; c < 3; ++c) d[c] = end[c] - pp[c];
-        const float depth = -(mj_dot3(d, n) - r);
-        for (int c = 0; c < 3; ++c) pt[c] = end[c] - n[c] * r;
-        sink(pi, li, lj, mu, depth, n, pt);
-      }
-    }
-  }
+  for (int pi = 0; pi < npair; ++pi) mj_narrow_pair<EXT>(mf, mi, k, pi, sink);
 }
 
 // MuJoCo's legacy inertia-box fluid model (soa.py _fluid_forces): the
@@ -905,9 +910,10 @@ MJ_HD void mj_friction(const float* mf, const int* mi, const float* qd,
 
 // Sparse L^T D L factorization (Featherstone RBDA 6.5) of
 // M + diag(armature + dt*damping [+ lim_diag]) and solve, x in place (rhs
-// in, solution out); L overwrites the strict lower part of H, D stays on
-// its diagonal.
-MJ_HD void mj_ltdl_solve(const float* mf, const int* mi, float (*H)[MJ_MAX_NV],
+// in, solution out); L overwrites the strict lower part of H (rows of LD
+// floats), D stays on its diagonal.
+template <int LD>
+MJ_HD void mj_ltdl_solve(const float* mf, const int* mi, float (*H)[LD],
                          const float* lim_diag, float* x) {
   const int nv = mi[MJ_I_NV];
   const int* lam = mi + MJ_I_LAM;

@@ -8,20 +8,22 @@ models with fixed tendons and per-env scene offsets (``_kernel_body_ext``,
 every Adroit env), K4 that body with the Newton solver. The sources are in
 ``mjrl_tpu_torch/csrc/``: ``mj_substep.h`` holds the table-driven pipeline
 and the penalty substep (K3's stages as its ``EXT`` branches),
-``mj_newton.h`` the Newton constraint stage and substep (K4's as its
-``EXT`` branches), and ``mj_kernel.cu`` / ``mj_newton_kernel.cu`` /
-``mj_ext_kernel.cu`` / ``mj_ext_newton_kernel.cu`` the one-thread-per-env
-``__global__`` wrappers with plain C launch functions. Each is built with
+``mj_newton.h`` K2's Newton constraint stage and substep, ``mj_warp.h`` and
+``mj_ext_newton.h`` K4's substep spread over the 32 lanes of a warp, and
+``mj_kernel.cu`` / ``mj_newton_kernel.cu`` / ``mj_ext_kernel.cu`` (one
+thread per env) and ``mj_ext_newton_kernel.cu`` (one warp per env, its
+state in shared memory) the ``__global__`` wrappers with plain C launch
+functions. Each is built with
 ``nvcc`` for ``sm_90a`` at first use into ``mjrl_tpu_torch/_build/`` (keyed
 by a hash of the sources) and bound with ``ctypes``.
 
-What bounds them on an H100: per-thread latency. A control step moves ~260
-bytes per env and runs tens of thousands (K2: hundreds of thousands) of
-dependent f32 operations over per-thread arrays in local memory; at 1024
-envs one thread per env fills 8 blocks of 128 threads on 132 SMs. The
-design keeps the state in one thread for the whole control step (one
-launch per control step, no intermediate in device memory) and leaves
-occupancy to later work.
+What bounds them on an H100: latency. A control step moves ~260 bytes per
+env and runs tens of thousands (K2: hundreds of thousands) of dependent f32
+operations; K1-K3 keep one env's state in one thread's arrays in local
+memory (at 1024 envs, 8 blocks of 128 threads on 132 SMs), K4 in a warp's
+shared memory with the work spread over its lanes. Each keeps the state on
+chip for the whole control step (one launch per control step, no
+intermediate in device memory).
 
 :class:`MultistepKernel` (K1), :class:`NewtonKernel` (K2),
 :class:`ExtKernel` (K3) and :class:`ExtNewtonKernel` (K4) are the
@@ -82,6 +84,10 @@ NEWTON_LAYOUT_NAMES = (
     "NPAIR_I", "NPAIR_F", "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM",
     "N_F_PAIR", "MAX_HELD",
 )
+# Names of the values mj_warp_layout() writes, in its order (mj_ext_newton.h).
+WARP_LAYOUT_NAMES = ("BYTES", "MAX_TEN", "MAX_WARPS", "N_STAGES")
+# Shared memory a block may use on Hopper (227 KB).
+SHARED_BYTES_PER_BLOCK = 232448
 _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphere_sphere": 3,
               "sphere_capsule": 4, "box_plane": 5, "sphere_box": 6, "capsule_box": 7,
               "box_box": 8}
@@ -164,6 +170,10 @@ def read_layout(lib: ctypes.CDLL, fn: str = "mj_layout",
 
 def read_newton_layout(lib: ctypes.CDLL) -> Dict[str, int]:
     return read_layout(lib, "mj_newton_layout", NEWTON_LAYOUT_NAMES)
+
+
+def read_warp_layout(lib: ctypes.CDLL) -> Dict[str, int]:
+    return read_layout(lib, "mj_warp_layout", WARP_LAYOUT_NAMES)
 
 
 def pack_tables(model: Model, L: Dict[str, int], ext: bool = False
@@ -614,7 +624,9 @@ class ExtNewtonKernel(MultistepKernel):
     ``picks`` as K2's. An env-substep with more contact rows inside their
     margin than the build holds (``MAX_HELD``) adds one to a counter on the
     device; :meth:`check` reads it and raises, and the env calls it at the
-    end of each rollout."""
+    end of each rollout. One warp per env, ``warps_per_block`` envs per
+    block (default: as many as the build's shared memory per warp lets a
+    block hold, at most its ``MAX_WARPS``)."""
 
     name = "mj_ext_newton"
     source = "mjrl_tpu_torch/csrc/mj_ext_newton_kernel.cu"
@@ -623,6 +635,7 @@ class ExtNewtonKernel(MultistepKernel):
     def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
         super().__init__(csrc, build_dir)
         self._overflow: Dict[str, torch.Tensor] = {}
+        self._warp_layouts: Dict[int, Dict[str, int]] = {}
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library of size class ``size``."""
@@ -632,12 +645,25 @@ class ExtNewtonKernel(MultistepKernel):
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
             lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * 12 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
             lib.mj_ext_newton_launch.restype = ctypes.c_int
             self._layouts[size] = read_layout(lib)
             self._newton_layouts[size] = read_newton_layout(lib)
+            self._warp_layouts[size] = read_warp_layout(lib)
             self._libs[size] = lib
         return self._libs[size]
+
+    def warps_per_block(self, size: int) -> int:
+        """The most envs (warps) a block of size class ``size``'s build
+        holds in shared memory; raises if not even one fits."""
+        wl = self._warp_layouts[size]
+        warps = min(wl["MAX_WARPS"], SHARED_BYTES_PER_BLOCK // wl["BYTES"])
+        if warps < 1:
+            raise NotImplementedError(f"K4's env state in size class {SIZE_CLASSES[size]} takes "
+                                      f"{wl['BYTES']} bytes of shared memory, more than a block's "
+                                      f"{SHARED_BYTES_PER_BLOCK}")
+        return warps
 
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k4_tables", {})
@@ -645,6 +671,10 @@ class ExtNewtonKernel(MultistepKernel):
         if key not in cache:
             size = size_class(model)
             L = self._layouts[size]
+            n_ten = 0 if model.tendon_Jq is None else len(model.tendon_Jq)
+            if n_ten > self._warp_layouts[size]["MAX_TEN"]:
+                raise NotImplementedError(f"{n_ten} tendons exceed the kernel's "
+                                          f"{self._warp_layouts[size]['MAX_TEN']}")
             packed = (*pack_tables(model, L, ext=True),
                       *pack_newton_tables(model, L, self._newton_layouts[size], ext=True))
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
@@ -671,7 +701,8 @@ class ExtNewtonKernel(MultistepKernel):
 
     def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
                  ctrl: torch.Tensor, n_frames: int = 1,
-                 link_delta: Optional[torch.Tensor] = None, picks: Optional[torch.Tensor] = None):
+                 link_delta: Optional[torch.Tensor] = None, picks: Optional[torch.Tensor] = None,
+                 warps_per_block: Optional[int] = None):
         B = check_inputs(model, q, qd, ctrl)
         if model.constraint_solver != "newton":
             raise ValueError("K4 runs models with constraint_solver='newton'")
@@ -680,7 +711,12 @@ class ExtNewtonKernel(MultistepKernel):
             return soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta)
         if q.device.type != "cuda":
             raise ValueError(f"no K4 path for device {q.device}")
-        lib = self.build(size_class(model))
+        size = size_class(model)
+        lib = self.build(size)
+        most = self.warps_per_block(size)
+        warps = most if warps_per_block is None else int(warps_per_block)
+        if not 1 <= warps <= most:
+            raise ValueError(f"warps_per_block must be in 1..{most}, got {warps_per_block}")
         mf, mi, nf, ni = self._tables(model, q.device)
         n_sub = n_frames * model.n_substeps
         iters = int(model.solver_iters)
@@ -693,7 +729,7 @@ class ExtNewtonKernel(MultistepKernel):
                 mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
                 qd.data_ptr(), ctrl.data_ptr(), 0 if link_delta is None else link_delta.data_ptr(),
                 q_out.data_ptr(), qd_out.data_ptr(), 0 if picks is None else picks.data_ptr(),
-                self.overflow(q.device).data_ptr(), B, n_sub, iters, dt, stream)
+                self.overflow(q.device).data_ptr(), B, n_sub, iters, dt, warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1

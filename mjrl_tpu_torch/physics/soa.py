@@ -800,11 +800,12 @@ def _integrate(model: Model, q, qd, qdd, dt: float):
 
 
 def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, dt: float,
-            picks: Optional[list] = None, link_delta: Optional[torch.Tensor] = None):
+            picks: Optional[list] = None, link_delta: Optional[torch.Tensor] = None,
+            costs: Optional[list] = None):
     """One physics substep, batch-last: q (nq, B), qd (nv, B), ctrl (nu, B),
     ``link_delta`` (3 nlink, B) or None. With the Newton solver, ``picks``
-    (a list) collects each iteration's line-search fraction index (see
-    ``soa_newton.constrained_qdd``)."""
+    and ``costs`` (lists) collect each iteration's line-search fraction
+    index and its five costs (see ``soa_newton.constrained_qdd``)."""
     newton = model.constraint_solver == "newton"
     tab = soa_tables(model)
     pos, quat = _fk(model, q, link_delta)
@@ -839,7 +840,7 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
         # the diagonal joins both the unconstrained solve and the metric
         qdd0 = _ltdl_solve(model, tab, M, rhs, dt, fric_rows)
         qdd = soa_newton.constrained_qdd(model, pos, cdof, M, q, qd, qdd0, candidates, dt,
-                                         fric_diag=fric_rows, picks=picks)
+                                         fric_diag=fric_rows, picks=picks, costs=costs)
     else:
         diag = _limit_damping_rows(model, q, dt)
         if fric_rows is not None:
@@ -850,12 +851,12 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
 
 def multistep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
               n_frames: int = 1, picks: Optional[list] = None,
-              link_delta: Optional[torch.Tensor] = None):
+              link_delta: Optional[torch.Tensor] = None, costs: Optional[list] = None):
     """``n_frames`` control frames = ``n_frames * model.n_substeps`` substeps
     with ``ctrl`` (and ``link_delta``) held."""
     dt = model.dt / model.n_substeps
     for _ in range(n_frames * model.n_substeps):
-        q, qd = substep(model, q, qd, ctrl, dt, picks, link_delta)
+        q, qd = substep(model, q, qd, ctrl, dt, picks, link_delta, costs)
     return q, qd
 
 

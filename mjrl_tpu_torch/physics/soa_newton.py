@@ -274,7 +274,7 @@ def _chol_solve_rows(H, g: List[torch.Tensor], nv: int) -> List[torch.Tensor]:
 def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tensor],
                     q: torch.Tensor, qd: torch.Tensor, qdd0: torch.Tensor, candidates,
                     dt: float, fric_diag: Optional[list] = None,
-                    picks: Optional[list] = None) -> torch.Tensor:
+                    picks: Optional[list] = None, costs: Optional[list] = None) -> torch.Tensor:
     """Newton solve of the primal soft-constraint problem, batch-last.
 
     ``M`` is the sparse mass matrix of soa._mass_matrix_sparse; the metric
@@ -284,7 +284,8 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
     built once from the substep's entry state and held across the
     ``model.solver_iters`` iterations (no early exit). ``picks``, when a
     list, receives each iteration's chosen fraction as an index into
-    ``_ALPHAS`` (int (1, B)).
+    ``_ALPHAS`` (int (1, B)), and ``costs`` each iteration's cost at the
+    five fractions ((5, B)).
     """
     ensure_solver_params(model)
     nv = model.nv
@@ -376,16 +377,19 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
                 c = c + _sum0(0.5 * torch.where(ja < 0.0, row.D, torch.zeros_like(ja)) * ja * ja)
             return c
 
-        best_c = cost(_ALPHAS[0])
+        all_c = [cost(a) for a in _ALPHAS]
+        best_c = all_c[0]
         best_a = torch.full_like(best_c, _ALPHAS[0])
         best_k = torch.zeros(best_c.shape, dtype=torch.int32, device=best_c.device)
         for k, a in enumerate(_ALPHAS[1:], start=1):
-            ca = cost(a)
+            ca = all_c[k]
             pick = ca < best_c
             best_c = torch.where(pick, ca, best_c)
             best_a = torch.where(pick, torch.full_like(best_a, a), best_a)
             best_k = torch.where(pick, torch.full_like(best_k, k), best_k)
         if picks is not None:
             picks.append(best_k)
+        if costs is not None:
+            costs.append(torch.cat(all_c))
         x = x + best_a * torch.cat(dx, dim=0)
     return x

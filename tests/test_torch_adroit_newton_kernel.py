@@ -1,10 +1,11 @@
 """Kernel K4's arithmetic on the CPU, and its wrapper's contract.
 
-``mjrl_tpu_torch/csrc/mj_newton.h``'s Newton substep with Adroit's stages
-(the ``EXT`` branches: per-env link offsets, the box contact kinds,
-gain/bias servos, fixed tendons, frictionloss, and at most ``MJ_MAX_HELD``
-contact rows held per env-substep) is compiled with g++ (no CUDA) into a
-ctypes library through ``mj_host.cpp``'s ``mj_ext_newton_host``, in the
+``mjrl_tpu_torch/csrc/mj_ext_newton.h``'s Newton substep with Adroit's
+stages (per-env link offsets, the box contact kinds, gain/bias servos,
+fixed tendons, frictionloss, and at most ``MJ_MAX_HELD`` contact rows held
+per env-substep), written over the lanes of a warp, is compiled with g++
+(no CUDA) into a ctypes library through ``mj_host.cpp``'s
+``mj_ext_newton_host``, which runs it under the emulated warp, in the
 Adroit size class (``pkernel.size_flags(2)``), and its control steps are
 held against the plain PyTorch version (physics/soa.py and
 physics/soa_newton.py) on Adroit pen, from warmed states with link offsets

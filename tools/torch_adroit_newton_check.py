@@ -61,7 +61,7 @@ from mjrl_tpu_torch.physics.model import BOX  # noqa: E402
 
 SCALE = 1.02
 QUANTILE = 0.99
-_FRIC_METRIC = "for (int j = 0; j < nv; ++j) Mf[j][j] = Mf[j][j] + fdiag[j];"
+_FRIC_METRIC = "S.Mf[i][i] = S.Mf[i][i] + S.fdiag[i];"  # in mj_ext_newton.h
 
 
 def faulty_model(model, edit):
@@ -120,9 +120,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         csrc = Path(tmp) / "csrc"
         shutil.copytree(pkernel.CSRC, csrc)
-        header = (csrc / "mj_newton.h").read_text()
+        header = (csrc / "mj_ext_newton.h").read_text()
         assert header.count(_FRIC_METRIC) == 1
-        (csrc / "mj_newton.h").write_text(header.replace(_FRIC_METRIC, ""))
+        (csrc / "mj_ext_newton.h").write_text(header.replace(_FRIC_METRIC, ""))
         no_fric = pkernel.ExtNewtonKernel(csrc=csrc, build_dir=Path(tmp) / "build")
         no_fric.build(size)
 

@@ -8,13 +8,16 @@ Compiles every ``*.cu`` in each directory (default: the port's
 kernel and size class (K1, ``mj_kernel.cu``, in the two classes its
 models use; K2 in the small one; K3, ``mj_ext_kernel.cu``, and K4,
 ``mj_ext_newton_kernel.cu``, in the Adroit class), ptxas's registers,
-stack frame, spill stores and loads. Give it a
+stack frame, spill stores and loads, and for a build that exports
+``mj_warp_layout()`` (K4 since it runs one warp per env) the dynamic
+shared memory per warp and the warps per block at most. Give it a
 second directory, such as an older checkout's ``csrc``, to compare two
 versions in one run. Needs nvcc (the CUDA toolkit); no card.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 import subprocess
 import sys
@@ -30,34 +33,54 @@ from mjrl_tpu_torch.physics.pkernel import (  # noqa: E402
     NVCC_FLAGS,
     SIZE_CLASSES,
     nvcc_path,
+    read_warp_layout,
     size_flags,
 )
 
 # the size classes each source is built in (pkernel.SIZE_CLASSES)
 _CLASSES = {"mj_kernel.cu": (0, 1), "mj_ext_kernel.cu": (2,), "mj_ext_newton_kernel.cu": (2,)}
 _FUNC = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"Function properties for (\w+)")
 _STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 
 
 def ptxas_report(source: Path, out_dir: Path, size: int = 0) -> str:
     out_dir.mkdir(parents=True, exist_ok=True)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *size_flags(size), "-Xptxas", "-v",
-           "-o", str(out_dir / f"{source.stem}_{size}.so"), str(source)]
+    lib = out_dir / f"{source.stem}_{size}.so"
+    cmd = [nvcc_path(), *NVCC_FLAGS, *size_flags(size), "-Xptxas", "-v", "-o", str(lib),
+           str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"build failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lines, func, stack = [], None, None
+    # each function's stack line follows its "Function properties" line (or
+    # the entry's "Compiling entry function" line); the registers line ends
+    # the entry's block
+    lines, entries, entry, props, stacks = [], set(), None, None, {}
     for line in (proc.stdout + proc.stderr).splitlines():
         if m := _FUNC.search(line):
-            func = m.group(1)
+            entry = props = m.group(1)
+            entries.add(entry)
+        elif m := _PROPS.search(line):
+            props = m.group(1)
         elif m := _STACK.search(line):
-            stack = m.groups()
-        elif (m := _REGS.search(line)) and func:
-            lines.append(f"{source} (size class {SIZE_CLASSES[size]}): {func}: {m.group(1)} "
+            stacks[props] = m.groups()
+        elif (m := _REGS.search(line)) and entry:
+            stack = stacks[entry]
+            lines.append(f"{source} (size class {SIZE_CLASSES[size]}): {entry}: {m.group(1)} "
                          f"registers, {stack[0]} bytes stack frame, "
                          f"{stack[1]} bytes spill stores, {stack[2]} bytes spill loads")
-            func = None
+            entry = None
+    for func, stack in stacks.items():  # the functions the entries call, not inlined
+        if func not in entries:
+            lines.append(f"{source} (size class {SIZE_CLASSES[size]}): device function {func}: "
+                         f"{stack[0]} bytes stack frame, {stack[1]} bytes spill stores, "
+                         f"{stack[2]} bytes spill loads")
+    loaded = ctypes.CDLL(str(lib))
+    if hasattr(loaded, "mj_warp_layout"):
+        wl = read_warp_layout(loaded)
+        lines.append(f"{source} (size class {SIZE_CLASSES[size]}): {wl['BYTES']} bytes of dynamic "
+                     f"shared memory per warp, at most {wl['MAX_WARPS']} warps per block")
     return "\n".join(lines)
 
 
