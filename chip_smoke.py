@@ -5,10 +5,11 @@
 Runs from the root of a checkout and needs one CUDA card; without one it
 exits non-zero and prints no result. Phases, any failure exits non-zero:
 
-1. Build: kernel K1 (mjrl_tpu_torch/csrc/mj_kernel.cu, penalty solver) in
-   the first two size classes (physics/pkernel.py SIZE_CLASSES: the small
-   models and humanoid), K2 (csrc/mj_newton_kernel.cu, Newton solver) in
-   the first, K3 (csrc/mj_ext_kernel.cu, Adroit's stages) and K4
+1. Build: kernel K1 (mjrl_tpu_torch/csrc/mj_kernel.cu, penalty solver, one
+   warp per env) in the first two size classes (physics/pkernel.py
+   SIZE_CLASSES: the small models and humanoid), K2
+   (csrc/mj_newton_kernel.cu, Newton solver, one warp per env) in the
+   first, K3 (csrc/mj_ext_kernel.cu, Adroit's stages) and K4
    (csrc/mj_ext_newton_kernel.cu, Adroit's stages under the Newton solver)
    in the third, with nvcc for sm_90a from the checkout's sources, the five
    builds side by side.
@@ -17,14 +18,18 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    B=1000, one control step (5 frames x 4 substeps) and 6 chained control
    steps from warmed states, each step held against the plain version from
    the same state; prints max |err| of q and qd against the tolerances
-   below and both times (CUDA events).
+   below and both times (CUDA events). Every K1 and K2 phase (2-5, 8-10)
+   also launches the kernel at its full batch twice with the default warps
+   per block and once each with 1 and with the most, and fails unless q,
+   qd (and K2's picks) are bit for bit the same (the check for a missing
+   __syncwarp(), which no sanitizer reads on that machine).
 3. K2 against plain: the same for K2 and the plain Newton version
    (physics/soa.py + physics/soa_newton.py) on ant with the Newton solver,
    n_substeps=1, 10 iterations (5 substeps per control step), from states
    settled on the floor, one control step and 3 chained ones at B=1024 and
    B=1000; also counts the envs whose line search picked another fraction
    than the plain version's in any iteration, and in the first (full-size)
-   iteration of a substep.
+   iteration of a substep; K2's held-row overflow counter must stay 0.
 4. K1 on hopper against plain (slide joints, capsule-capsule contacts
    between links): B=256 and a ragged B=250, one control step (4 frames x
    1 substep) and 6 chained ones, from states warmed by random actions and,
@@ -53,6 +58,9 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    batch, folded so a capsule-capsule pair lies inside its margin; counts
    the env-steps that hold a row between two moving links and fails if
    there is none; line-search flips as in phase 3; both times at B=256.
+   Then K2 on hopper with every geom forced to condim 1 (one row per
+   contact) and to condim 4 (six facets, torsional friction): one control
+   step at B=250, half folded, half warmed, to K2's tolerance.
 9. K1 on swimmer against plain (the fluid stage), to swimmer's own
    tolerance: B=256 and a ragged B=250, one control step (4 frames x 1
    substep) and 6 chained ones from states warmed by random actions; both
@@ -106,7 +114,8 @@ Each kernel's launch count in the JSON line is its count over the slice
 that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper``,
 ``swimmer``, ``walker2d_trpo``, ``humanoid_trpo`` and ``humanoid_ppo``
 entries, K2's ``hopper`` entry, K3 and K4: their path in phase 13, the
-obs_norm rollout included), reset to 0 just before. ``bound_ms`` is the least
+obs_norm rollout included), reset to 0 just before. Each K1 and K2 entry
+holds the warps per block its default launch took. ``bound_ms`` is the least
 time the card could take for one control step at the check's batch: the
 larger of the bytes the kernel must move (state in and out, its tables)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
@@ -616,6 +625,47 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
     return result
 
 
+def _bits(x):
+    """A float32 tensor's bits (so that equal NaNs compare equal), or the
+    tensor."""
+    import torch
+
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def check_repeatable(tag, kernel, model, q, qd, ctrl, frames):
+    """Launches ``kernel`` (K1 or K2) from the same inputs twice with its
+    default warps per block and once each with 1 and with the most a block
+    holds, and fails unless q, qd and, for K2, the picks are bit for bit the
+    same: a missing __syncwarp() would let a lane read what another has not
+    yet written, which shows as results that change from run to run or
+    with the block's shape. Returns the default warps per block."""
+    import torch
+
+    from mjrl_tpu_torch.physics.pkernel import size_class
+
+    size, B = size_class(model), q.shape[1]
+    most, default = kernel.warps_per_block(size), kernel.launch_warps(size, B, q.device)
+    runs = {}
+    for label, warps in (("first", None), ("second", None), ("1 warp per block", 1),
+                         (f"{most} warps per block", most)):
+        kw = {}
+        if model.constraint_solver == "newton":
+            kw["picks"] = torch.full((frames * model.n_substeps * model.solver_iters, B), -1,
+                                     dtype=torch.int32, device=q.device)
+        runs[label] = (*kernel(model, q, qd, ctrl, frames, warps_per_block=warps, **kw),
+                       *kw.values())
+    torch.cuda.synchronize()
+    for label, out in runs.items():
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(out, runs["first"]))
+        what = "q, qd and picks" if len(out) > 2 else "q and qd"
+        print(f"[{tag}] B={B} launch with {label} (default {default} warps per block): {what} "
+              f"{'bit for bit as the first launch' if same else 'DIFFER'}")
+        if not same:
+            raise RuntimeError(f"{tag}: {kernel.name}'s results change between launches ({label})")
+    return default
+
+
 def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, warm_scale=1.0,
                           fold=False, timed=True, tol=None, kinds=(), quantile=None):
     """Holds ``kernel`` against the plain version over ``n_chain`` chained
@@ -747,7 +797,13 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
                   f"{int(flipped.sum())} of {B}; in a substep's first iteration: "
                   f"{int(flipped_first.sum())}")
     result = dict(max_abs_err=max_err, line_search_flips=flips, link_pair_env_steps=held_pairs,
-                  kind_env_steps=kind_steps)
+                  kind_env_steps=kind_steps,
+                  warps_per_block=check_repeatable(tag, kernel, model, q0, qd0, ctrls[0], frames))
+    if newton:
+        kernel.check()  # raises on an env-substep with more rows than MAX_HELD
+        result["overflow"] = 0
+        print(f"[{tag}] held-row overflow counter 0 (the build holds "
+              f"{kernel._newton_layouts[0]['MAX_HELD']} rows)")
     if quantile is not None:
         result["quantile"], result["quantile_abs_err"] = quantile, quantile_err
     if not timed:
@@ -769,6 +825,52 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
           f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
           f"({ops:.0f} f32 operations per env-substep)")
     return dict(result, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_k2_condims(tag, env, kernel, batch):
+    """K2 on ``env``'s model with every geom forced to condim 1 (one row per
+    contact) and to condim 4 (six facets, torsional friction): one control
+    step at ``batch``, the first half folded so a row between two moving
+    links is held, the second from warmed states, against the plain
+    version to K2's tolerance; the launches bit for bit the same. Returns
+    the max |err| over both."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mjrl_tpu_torch.physics import probe, soa
+
+    frames, dev, half = env.frame_skip, env.device, batch // 2
+    rng = np.random.default_rng(0)
+    fq, fqd = probe.overlapping_states(env.model, half, rng)
+    wq, wqd, ctrls = start_states(env, batch - half, 1)
+    q = torch.cat([torch.as_tensor(fq, device=dev), wq], dim=1).contiguous()
+    qd = torch.cat([torch.as_tensor(fqd, device=dev), wqd], dim=1).contiguous()
+    ctrl = torch.as_tensor(rng.uniform(-1, 1, (env.model.nu, batch)), dtype=torch.float32,
+                           device=dev)
+    max_err = 0.0
+    for condim in (1, 4):
+        model = copy.copy(env.model)
+        model.__dict__.pop("_k2_tables", None)
+        model.geom_condim = np.full(model.ngeom, condim, np.int32)
+        held = int((probe.held_contact_rows(model, q) > 0).sum())
+        kq, kqd = kernel(model, q, qd, ctrl, frames)
+        pq, pqd = soa.multistep(model, q, qd, ctrl, frames)
+        torch.cuda.synchronize()
+        for name, got, want in (("q", kq, pq), ("qd", kqd, pqd)):
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            ok = err <= TOL["K2"][name]
+            print(f"[{tag}] condim {condim} B={batch} one control step {name}: max|err|={err:.3e} "
+                  f"tol={TOL['K2'][name]:.0e} {'ok' if ok else 'FAIL'} ({held} envs hold a "
+                  f"contact row)")
+            if not ok:
+                raise RuntimeError(f"{tag} disagrees with the plain version at condim {condim}: "
+                                   f"{name}")
+        check_repeatable(f"{tag} condim {condim}", kernel, model, q, qd, ctrl, frames)
+    kernel.check()
+    return max_err
 
 
 def _agent(env, **kw):
@@ -960,6 +1062,8 @@ def main() -> int:
     swimmer = make("swimmer", horizon=HOPPER_HORIZON)
     k2_hopper = phase_kernel_vs_plain("K2 hopper", hopper_newton, K2, 3,
                                       (HOPPER_ENVS, HOPPER_ENVS - 6), fold=True)
+    k2_hopper["condims_max_abs_err"] = phase_k2_condims("K2 hopper", hopper_newton, K2,
+                                                        HOPPER_ENVS - 6)
     k1_swimmer = phase_kernel_vs_plain("K1 swimmer", swimmer, K1, 6, (HOPPER_ENVS, HOPPER_ENVS - 6),
                                        tol=TOL["K1 swimmer"])
     humanoid = make("humanoid", horizon=HOPPER_HORIZON)
@@ -994,10 +1098,13 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
         })
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launches", "max_abs_err")
+    kernels[0]["warps_per_block"] = k1["warps_per_block"]
+    kernels[1].update(warps_per_block=k2["warps_per_block"], overflow=k2["overflow"])
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launches", "max_abs_err", "warps_per_block")
     kernels[0]["hopper"] = {k: k1_hopper[k] for k in keys}
     for name, r in k1_walkers.items():
-        kernels[0][name] = {"max_abs_err": r["max_abs_err"]}
+        kernels[0][name] = {"max_abs_err": r["max_abs_err"],
+                            "warps_per_block": r["warps_per_block"]}
     kernels[0]["swimmer"] = {k: k1_swimmer[k] for k in keys if k != "launches"}
     kernels[0]["swimmer"]["launches"] = entry["swimmer"]
     kernels[0]["walker2d_trpo"] = {k: k1_walker_trpo[k] for k in keys if k != "launches"}
@@ -1009,7 +1116,9 @@ def main() -> int:
     kernels[1]["hopper"] = {k: k2_hopper[k] for k in keys if k != "launches"}
     kernels[1]["hopper"].update(launches=entry["hopper_newton"],
                                 line_search_flips=k2_hopper["line_search_flips"],
-                                link_pair_env_steps=k2_hopper["link_pair_env_steps"])
+                                link_pair_env_steps=k2_hopper["link_pair_env_steps"],
+                                overflow=k2_hopper["overflow"],
+                                condims_max_abs_err=k2_hopper["condims_max_abs_err"])
     kernels[2]["kind_env_steps"] = k3["kind_env_steps"]
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
                                           "held_rows_mean", "held_rows_max",

@@ -7,8 +7,8 @@
 // with fric_diag, mjrl_tpu/physics/soa.py:1056-1072). Each warp takes one
 // env: its lanes load the env's column of the batch-last (rows, B) state
 // and link offsets into the warp's MjWarpEnv in shared memory, run n_sub
-// substeps of mj_ext_newton.h with ctrl held, the work of each stage
-// spread over the lanes, and store once.
+// substeps of mj_warp_newton.h with EXT on and ctrl held, the work of each
+// stage spread over the lanes, and store once.
 //
 // What bounds it on an H100: the latency of one warp's dependent
 // operations and phases, not bytes (~0.8 KB per env per control step).
@@ -25,13 +25,13 @@
 // an SM's four schedulers. With no other warp to hide it, each phase's
 // latency (a shared round trip, the reconvergence of its lanes, the sync)
 // is what a stage costs; a build with -DMJ_STAGE_CLOCKS
-// (tools/torch_k4_stages.py) adds a clocks output (MJ_N_STAGES, B) of
+// (tools/torch_warp_stages.py) adds a clocks output (MJ_N_STAGES, B) of
 // cycles per stage.
 //
 // Build: as K3 (mj_ext_kernel.cu), in the size class the model fits.
 #include <cuda_runtime.h>
 
-#include "mj_ext_newton.h"
+#include "mj_warp_newton.h"
 
 static_assert(MJ_MAX_WARPS * sizeof(MjWarpEnv) <= 232448,
               "a block's warps must fit the 227 KB of shared memory a block may use");
@@ -65,8 +65,8 @@ __global__ void __launch_bounds__(MJ_WARP * MJ_MAX_WARPS, 1)
   for (int s = 0; s < MJ_MAX_STAGES; ++s) w.clocks[s] = 0;
   w.last = clock64();
 #endif
-  mj_warp_env_multistep(w, S, mf, mi, nf, ni, env, B, q, qd, ctrl, delta, q_out, qd_out,
-                        picks, overflow, n_sub, iters, dt);
+  mj_warp_env_multistep<true>(w, S, mf, mi, nf, ni, env, B, q, qd, ctrl, delta, q_out,
+                              qd_out, picks, overflow, n_sub, iters, dt);
 #ifdef MJ_STAGE_CLOCKS
   if (w.lane == 0)
     for (int s = 0; s < MJ_N_STAGES; ++s) clocks[(long)s * B + env] = w.clocks[s];
@@ -88,7 +88,7 @@ int mj_newton_layout(int* out) {
 }
 
 int mj_warp_layout(int* out) {
-  const int values[MJ_WARP_LAYOUT_LEN] = {MJ_WARP_LAYOUT_VALUES};
+  const int values[MJ_WARP_LAYOUT_LEN] = {MJ_NEWTON_WARP_LAYOUT_VALUES(MJ_MAX_WARPS)};
   for (int k = 0; k < MJ_WARP_LAYOUT_LEN; ++k) out[k] = values[k];
   return MJ_WARP_LAYOUT_LEN;
 }

@@ -1,21 +1,40 @@
-// Host build of the K1, K2, K3 and K4 bodies (mj_substep.h, mj_newton.h,
-// mj_ext_newton.h) for the CPU tests: the same arithmetic as the CUDA
-// kernels, one env after another; K4's warp-decomposed body runs under the
-// emulated warp (mj_warp.h's MjWarpHost).
+// Host build of the K1, K2, K3 and K4 bodies (mj_warp_penalty.h,
+// mj_warp_newton.h, mj_substep.h) for the CPU tests: the same arithmetic
+// as the CUDA kernels, one env after another; the warp-decomposed bodies
+// of K1, K2 and K4 run under the emulated warp (mj_warp.h's MjWarpHost).
 #include <string.h>
 
-#include "mj_ext_newton.h"
+#include "mj_warp_newton.h"
+#include "mj_warp_penalty.h"
 
 namespace {
 
-// A fresh env state for K4's host body: every float NaN and every int -1,
-// so that a stage that reads what no earlier phase wrote shows in the
-// result.
-MjWarpEnv* mj_fresh_env() {
-  static MjWarpEnv S;
+// A fresh env state for a warp body: every float NaN and every int -1, so
+// that a stage that reads what no earlier phase wrote shows in the result.
+template <class Env>
+Env* mj_fresh_env() {
+  static Env S;
   memset(&S, 0xff, sizeof S);
   return &S;
 }
+
+// Records every contact point's penalty wrench and links, in narrow-phase
+// order.
+struct MjRecordSink {
+  const float* mf;
+  const MjKin* k;
+  int has_fcap;
+  float* f;
+  int* links;
+  int n;
+  void operator()(int, int li, int lj, float mu, float depth, const float* nrm,
+                  const float* pt) {
+    mj_point_wrench(mf, li, lj, mu, depth, nrm, pt, *k, has_fcap, f + 6 * n);
+    links[2 * n] = li;
+    links[2 * n + 1] = lj;
+    ++n;
+  }
+};
 
 }  // namespace
 
@@ -33,20 +52,32 @@ int mj_newton_layout(int* out) {
   return MJ_NEWTON_LAYOUT_LEN;
 }
 
+// The Newton bodies' warp layout (K4's warps per block).
 int mj_warp_layout(int* out) {
-  const int values[MJ_WARP_LAYOUT_LEN] = {MJ_WARP_LAYOUT_VALUES};
+  const int values[MJ_WARP_LAYOUT_LEN] = {MJ_NEWTON_WARP_LAYOUT_VALUES(MJ_MAX_WARPS)};
   for (int k = 0; k < MJ_WARP_LAYOUT_LEN; ++k) out[k] = values[k];
   return MJ_WARP_LAYOUT_LEN;
 }
 
+// K1's warp layout.
+int mj_penalty_warp_layout(int* out) {
+  const int values[MJ_WARP_LAYOUT_LEN] = {MJ_PENALTY_WARP_LAYOUT_VALUES};
+  for (int k = 0; k < MJ_WARP_LAYOUT_LEN; ++k) out[k] = values[k];
+  return MJ_WARP_LAYOUT_LEN;
+}
+
+// K1's body.
 int mj_multistep_host(const float* mf, const int* mi, const float* q,
                       const float* qd, const float* ctrl, float* q_out,
                       float* qd_out, int B, int n_sub, float dt) {
+  MjWarpHost w;
   for (int env = 0; env < B; ++env)
-    mj_env_multistep(mf, mi, env, B, q, qd, ctrl, q_out, qd_out, n_sub, dt);
+    mj_warp_penalty_multistep(w, *mj_fresh_env<MjPenaltyEnv>(), mf, mi, env, B, q, qd, ctrl,
+                              q_out, qd_out, n_sub, dt);
   return 0;
 }
 
+// K3's body.
 int mj_ext_host(const float* mf, const int* mi, const float* q, const float* qd,
                 const float* ctrl, const float* delta, float* q_out,
                 float* qd_out, int B, int n_sub, float dt) {
@@ -56,14 +87,19 @@ int mj_ext_host(const float* mf, const int* mi, const float* q, const float* qd,
   return 0;
 }
 
+// K2's body; returns the env-substeps with more contact rows inside their
+// margin than MJ_MAX_HELD (0: every row held).
 int mj_newton_host(const float* mf, const int* mi, const float* nf,
                    const int* ni, const float* q, const float* qd,
                    const float* ctrl, float* q_out, float* qd_out, int* picks,
                    int B, int n_sub, int iters, float dt) {
+  MjWarpHost w;
+  int overflow = 0;
   for (int env = 0; env < B; ++env)
-    mj_newton_env_multistep(mf, mi, nf, ni, env, B, q, qd, ctrl, q_out, qd_out,
-                            picks, n_sub, iters, dt);
-  return 0;
+    mj_warp_env_multistep<false>(w, *mj_fresh_env<MjWarpEnv>(), mf, mi, nf, ni, env, B, q,
+                                 qd, ctrl, nullptr, q_out, qd_out, picks, &overflow, n_sub,
+                                 iters, dt);
+  return overflow;
 }
 
 // K4's body; *overflow counts the env-substeps with more contact rows
@@ -75,8 +111,9 @@ int mj_ext_newton_host(const float* mf, const int* mi, const float* nf,
                        int iters, float dt) {
   MjWarpHost w;
   for (int env = 0; env < B; ++env)
-    mj_warp_env_multistep(w, *mj_fresh_env(), mf, mi, nf, ni, env, B, q, qd, ctrl,
-                          delta, q_out, qd_out, picks, overflow, n_sub, iters, dt);
+    mj_warp_env_multistep<true>(w, *mj_fresh_env<MjWarpEnv>(), mf, mi, nf, ni, env, B, q,
+                                qd, ctrl, delta, q_out, qd_out, picks, overflow, n_sub,
+                                iters, dt);
   return 0;
 }
 
@@ -90,19 +127,41 @@ int mj_ext_newton_rows_host(const float* mf, const int* mi, const float* nf,
                             const float* delta, int B, int env, int* pair, float* D,
                             float* aref, float* J) {
   MjWarpHost w;
-  MjWarpEnv& S = *mj_fresh_env();
+  MjWarpEnv& S = *mj_fresh_env<MjWarpEnv>();
   for (int r = 0; r < mi[MJ_I_NQ]; ++r) S.q[r] = q[(long)r * B + env];
   for (int r = 0; r < mi[MJ_I_NV]; ++r) S.qd[r] = qd[(long)r * B + env];
   for (int r = 0; delta && r < 3 * mi[MJ_I_NLINK]; ++r) S.delta[r] = delta[(long)r * B + env];
   mj_kinematics(mf, mi, S.q, S.qd, S.k, delta ? S.delta : nullptr);
   int nl;
-  const int n = mj_warp_rows(w, S, mf, mi, nf, ni, nl);
+  const int n = mj_warp_rows<true>(w, S, mf, mi, nf, ni, nl);
   const int held = n < MJ_MAX_HELD ? n : MJ_MAX_HELD;
   memcpy(pair, S.pair, held * sizeof(int));
   memcpy(D, S.D, held * sizeof(float));
   memcpy(aref, S.aref, held * sizeof S.aref[0]);
   memcpy(J, S.J, held * sizeof S.J[0]);
   return n;
+}
+
+// K1's contact stage for env's substep from the batch-last state (q, qd):
+// every contact point's penalty wrench (points, 6) and links li, lj
+// (points, 2) in narrow-phase order, computed alone; and f_ext (nlink, 6),
+// each link's wrench after the warp body's contact stage. *slots receives
+// the slots that stage filled (the points with a non-zero wrench). Returns
+// the number of points.
+int mj_penalty_contacts_host(const float* mf, const int* mi, const float* q,
+                             const float* qd, int B, int env, float* points, int* links,
+                             float* f_ext, int* slots) {
+  MjWarpHost w;
+  MjPenaltyEnv& S = *mj_fresh_env<MjPenaltyEnv>();
+  for (int r = 0; r < mi[MJ_I_NQ]; ++r) S.q[r] = q[(long)r * B + env];
+  for (int r = 0; r < mi[MJ_I_NV]; ++r) S.qd[r] = qd[(long)r * B + env];
+  const int maxd = mj_warp_depths(w, S, mi);
+  mj_warp_kinematics(w, S, mf, mi, nullptr, maxd);
+  MjRecordSink sink{mf, &S.k, mi[MJ_I_HAS_FCAP], points, links, 0};
+  mj_narrow_phase(mf, mi, S.k, sink);
+  *slots = mj_warp_contacts(w, S, mf, mi);
+  memcpy(f_ext, S.s.rne.f_ext, mi[MJ_I_NLINK] * sizeof S.s.rne.f_ext[0]);
+  return sink.n;
 }
 
 // The emulated warp's primitives on n items: visits[i] counts each's

@@ -1,21 +1,21 @@
 // Penalty-contact rigid-body substep for one env, table-driven.
 //
-// The body of kernel K1 (mj_kernel.cu), which replaces the TPU kernel
-// mjrl_tpu/physics/pkernel.py::multistep_pallas. It computes what
-// mjrl_tpu_torch/physics/soa.py::multistep computes for one env, as scalar
-// code: kinematics -> cdof/cvel -> penalty contacts -> fluid drag ->
-// composite inertias -> sparse mass matrix -> RNE bias -> applied forces ->
-// sparse L^T D L solve -> semi-implicit Euler, n_sub times with ctrl held.
+// The layout, the scalar helpers and the stages of the table-driven
+// pipeline, and the penalty substep of kernel K3 (mj_ext_kernel.cu), which
+// replaces the TPU kernel mjrl_tpu/physics/pkernel.py::_kernel_body_ext. It
+// computes what mjrl_tpu_torch/physics/soa.py::multistep computes for one
+// env, as scalar code: kinematics -> cdof/cvel -> penalty contacts -> fluid
+// drag -> composite inertias -> sparse mass matrix -> RNE bias -> applied
+// forces -> sparse L^T D L solve -> semi-implicit Euler, n_sub times with
+// ctrl held.
 //
-// The stages are separate functions so that kernel K2 (mj_newton.h) runs
-// the same pipeline around its constraint solve; K1's substep calls them
-// in the order above and holds none of K2's state.
-//
-// Kernel K3 (mj_ext_kernel.cu) runs the same substep with EXT = true: the
-// stages Adroit adds (per-env link offsets in the kinematics, the box
-// contact kinds, gain/bias servos, fixed tendons, frictionloss). They are
-// template branches, so the builds of K1 and K2 (EXT = false) hold none of
-// their code and keep their registers and stack.
+// K3 runs the substep with EXT = true: the stages Adroit adds (per-env link
+// offsets in the kinematics, the box contact kinds, gain/bias servos, fixed
+// tendons, frictionloss) are template branches. Kernels K1, K2 and K4 run
+// one env per warp (mj_warp_stages.h, mj_warp_penalty.h,
+// mj_warp_newton.h): they take the helpers, the narrow phase and the
+// one-lane stages (mj_ltdl_solve, mj_integrate) from here and spread the
+// rest of the pipeline over lanes in the same order of operations.
 //
 // Every function is MJ_HD: __host__ __device__ under nvcc, plain inline
 // under a host compiler, so the same source builds into the CUDA library
@@ -309,7 +309,7 @@ MJ_HD void mj_contact_point(const float* mf, int li, int lj, float mu,
     for (int k = 0; k < 6; ++k) f_ext[lj][k] -= f[k];
 }
 
-// ---- pipeline stages shared with kernel K2 -------------------------------
+// ---- pipeline stages ------------------------------------------------------
 
 // Kinematic state of one env in one substep: world link poses, the origin
 // (link 0's position), motion subspaces and velocities about it, and the
@@ -972,7 +972,7 @@ MJ_HD void mj_integrate(const int* mi, float* q, float* qd, const float* qdd,
   }
 }
 
-// ---- the penalty substep (kernel K1) -----------------------------------
+// ---- the penalty substep (kernel K3) -----------------------------------
 
 // Penalty contacts, streamed: each point's wrench goes straight to f_ext.
 struct MjPenaltySink {
@@ -1023,26 +1023,10 @@ MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
   mj_integrate(mi, q, qd, rhs, dt);
 }
 
-// One env of a batch-last (rows, B) launch: loads its columns, runs n_sub
-// substeps with ctrl held, stores. The state stays in per-thread arrays
-// for the whole control step.
-MJ_HD void mj_env_multistep(const float* mf, const int* mi, int env, int B,
-                            const float* q_in, const float* qd_in,
-                            const float* ctrl_in, float* q_out, float* qd_out,
-                            int n_sub, float dt) {
-  const int nq = mi[MJ_I_NQ], nv = mi[MJ_I_NV], nu = mi[MJ_I_NU];
-  float q[MJ_MAX_NQ], qd[MJ_MAX_NV], ctrl[MJ_MAX_NU];
-  for (int r = 0; r < nq; ++r) q[r] = q_in[(long)r * B + env];
-  for (int r = 0; r < nv; ++r) qd[r] = qd_in[(long)r * B + env];
-  for (int r = 0; r < nu; ++r) ctrl[r] = ctrl_in[(long)r * B + env];
-  for (int s = 0; s < n_sub; ++s) mj_substep(mf, mi, q, qd, ctrl, dt);
-  for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
-  for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
-}
-
-// Kernel K3's env: as mj_env_multistep with the EXT substep and, when
-// delta_in (3 nlink, B) is given, this env's link offsets held in the
-// thread for the control step.
+// Kernel K3's env of a batch-last (rows, B) launch: loads its columns,
+// runs n_sub EXT substeps with ctrl and, when delta_in (3 nlink, B) is
+// given, this env's link offsets held in the thread, and stores. The state
+// stays in per-thread arrays for the whole control step.
 MJ_HD void mj_ext_env_multistep(const float* mf, const int* mi, int env, int B,
                                 const float* q_in, const float* qd_in,
                                 const float* ctrl_in, const float* delta_in,

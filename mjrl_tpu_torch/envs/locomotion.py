@@ -94,6 +94,11 @@ class LocomotionEnv(Env):
             qvel = torch.clamp(qvel, -self.clip_qvel_obs, self.clip_qvel_obs)
         return torch.cat([state.q[:, self.exclude_positions :], qvel], dim=-1)
 
+    def check(self) -> None:
+        """Raise if the kernel flagged a fault (K2: an env-substep with more
+        contact rows inside their margin than its build holds)."""
+        self._frame_step.check()
+
     def _healthy(self, state: EnvState) -> torch.Tensor:
         return torch.ones(state.q.shape[0], dtype=torch.bool, device=state.q.device)
 

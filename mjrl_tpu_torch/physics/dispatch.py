@@ -42,8 +42,8 @@ def make_frame_stepper(model: Model, frame_skip: int, with_link_delta: bool = Fa
     adds the per-env link offsets and sends the model to K3 (penalty) or
     K4 (Newton), as does a model with tendons or another stage only their
     builds have. The stepper's ``check()`` raises if its kernel flagged a
-    fault in the steps so far (K4's held-row overflow; the others flag
-    none)."""
+    fault in the steps so far (K2's and K4's held-row overflow; the others
+    flag none)."""
     kernel = kernel_for(model, with_link_delta)
     if model.constraint_solver == "newton":
         # the rows' static constants (invweight0 and the solver defaults)

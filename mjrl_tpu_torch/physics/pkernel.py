@@ -6,24 +6,26 @@ TPU mega-kernel: K1 its penalty body (``_kernel_body``), K2 the same with
 the Newton solver (``soa_newton.constrained_qdd``), K3 its body for
 models with fixed tendons and per-env scene offsets (``_kernel_body_ext``,
 every Adroit env), K4 that body with the Newton solver. The sources are in
-``mjrl_tpu_torch/csrc/``: ``mj_substep.h`` holds the table-driven pipeline
-and the penalty substep (K3's stages as its ``EXT`` branches),
-``mj_newton.h`` K2's Newton constraint stage and substep, ``mj_warp.h`` and
-``mj_ext_newton.h`` K4's substep spread over the 32 lanes of a warp, and
-``mj_kernel.cu`` / ``mj_newton_kernel.cu`` / ``mj_ext_kernel.cu`` (one
-thread per env) and ``mj_ext_newton_kernel.cu`` (one warp per env, its
-state in shared memory) the ``__global__`` wrappers with plain C launch
-functions. Each is built with
-``nvcc`` for ``sm_90a`` at first use into ``mjrl_tpu_torch/_build/`` (keyed
-by a hash of the sources) and bound with ``ctypes``.
+``mjrl_tpu_torch/csrc/``: ``mj_substep.h`` holds the table-driven layout,
+helpers and scalar stages and K3's penalty substep (Adroit's stages as its
+``EXT`` branches), ``mj_newton.h`` the Newton row builders,
+``mj_warp.h`` the warp primitives, ``mj_warp_stages.h`` the pipeline's
+stages spread over the 32 lanes of a warp, ``mj_warp_penalty.h`` K1's
+substep on them and ``mj_warp_newton.h`` K2's and K4's; ``mj_kernel.cu``,
+``mj_newton_kernel.cu`` and ``mj_ext_newton_kernel.cu`` (one warp per env,
+its state in shared memory) and ``mj_ext_kernel.cu`` (one thread per env)
+hold the ``__global__`` wrappers with plain C launch functions. Each is
+built with ``nvcc`` for ``sm_90a`` at first use into
+``mjrl_tpu_torch/_build/`` (keyed by a hash of the sources) and bound with
+``ctypes``.
 
 What bounds them on an H100: latency. A control step moves ~260 bytes per
 env and runs tens of thousands (K2: hundreds of thousands) of dependent f32
-operations; K1-K3 keep one env's state in one thread's arrays in local
-memory (at 1024 envs, 8 blocks of 128 threads on 132 SMs), K4 in a warp's
-shared memory with the work spread over its lanes. Each keeps the state on
-chip for the whole control step (one launch per control step, no
-intermediate in device memory).
+operations; K1, K2 and K4 keep one env's state in a warp's shared memory
+with each stage's work spread over its lanes (the wrappers spread B envs
+over the SMs: :meth:`MultistepKernel.launch_warps`), K3 in one thread's
+arrays in local memory. Each keeps the state on chip for the whole control
+step (one launch per control step, no intermediate in device memory).
 
 :class:`MultistepKernel` (K1), :class:`NewtonKernel` (K2),
 :class:`ExtKernel` (K3) and :class:`ExtNewtonKernel` (K4) are the
@@ -80,12 +82,14 @@ LAYOUT_NAMES = (
 )
 # Names of the values mj_newton_layout() writes, in its order (mj_newton.h).
 NEWTON_LAYOUT_NAMES = (
-    "MAX_CAND", "MAX_FACET", "MAX_CHAIN", "IMP_F", "LIM_I", "LIM_F",
-    "NPAIR_I", "NPAIR_F", "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM",
-    "N_F_PAIR", "MAX_HELD",
+    "MAX_FACET", "MAX_CHAIN", "IMP_F", "LIM_I", "LIM_F", "NPAIR_I", "NPAIR_F",
+    "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM", "N_F_PAIR", "MAX_HELD",
 )
-# Names of the values mj_warp_layout() writes, in its order (mj_ext_newton.h).
-WARP_LAYOUT_NAMES = ("BYTES", "MAX_TEN", "MAX_WARPS", "N_STAGES")
+# Names of the values mj_warp_layout() writes, in its order (a warp body's
+# .cu file: mj_warp_penalty.h's or mj_warp_newton.h's values): shared
+# bytes per warp (env), tendons, warps per block and stages at most, and
+# K1's contact points at most (0 in a Newton body).
+WARP_LAYOUT_NAMES = ("BYTES", "MAX_TEN", "MAX_WARPS", "N_STAGES", "MAX_POINTS")
 # Shared memory a block may use on Hopper (227 KB).
 SHARED_BYTES_PER_BLOCK = 232448
 _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphere_sphere": 3,
@@ -99,16 +103,19 @@ _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphe
 # model runs in the smallest class it fits, so the larger per-thread
 # arrays cost the small models nothing. CHAIN_CLASSES: each class's dofs
 # on a Newton contact pair's chain (mj_newton.h; pen's pairs reach 13,
-# hammer's 15, relocate's 19).
+# hammer's 15, relocate's 19). POINT_CLASSES: each class's contact points
+# of a model in K1's warp body (mj_warp_penalty.h; ant 25, humanoid 140).
 SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24), (38, 36, 36, 30))
 CHAIN_CLASSES = (8, 8, 19)
+POINT_CLASSES = (32, 160, 512)
 
 
 def size_flags(size_class: int) -> Tuple[str, ...]:
     """The compiler defines of one size class."""
     return tuple(f"-DMJ_MAX_{name}={n}" for name, n in
-                 zip(("LINK", "NV", "NQ", "NU", "CHAIN"),
-                     (*SIZE_CLASSES[size_class], CHAIN_CLASSES[size_class])))
+                 zip(("LINK", "NV", "NQ", "NU", "CHAIN", "POINTS"),
+                     (*SIZE_CLASSES[size_class], CHAIN_CLASSES[size_class],
+                      POINT_CLASSES[size_class])))
 
 
 def size_class(model: Model) -> int:
@@ -176,13 +183,18 @@ def read_warp_layout(lib: ctypes.CDLL) -> Dict[str, int]:
     return read_layout(lib, "mj_warp_layout", WARP_LAYOUT_NAMES)
 
 
-def pack_tables(model: Model, L: Dict[str, int], ext: bool = False
-                ) -> Tuple[np.ndarray, np.ndarray]:
+def pack_tables(model: Model, L: Dict[str, int], ext: bool = False,
+                max_points: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
     """The model as the kernel reads it: (f32 table, i32 table) in the
     layout ``L``; ``ext`` adds the stages of K3's build (servos,
     frictionloss, the tendon block after the pairs). Raises for a model
-    outside the kernel's feature set or its compile-time maxima."""
+    outside the kernel's feature set or its compile-time maxima;
+    ``max_points``: K1's slots for contact points (``MAX_POINTS`` of its
+    warp layout), which a model's points must not exceed."""
     soa.check_supported(model)
+    if max_points is not None and num_contact_candidates(model) > max_points:
+        raise NotImplementedError(f"{num_contact_candidates(model)} contact points exceed the "
+                                  f"kernel's {max_points}")
     if not ext and soa.needs_ext(model):
         raise NotImplementedError("tendons, frictionloss, gain/bias actuators and box contacts "
                                   "run in kernel K3's and K4's builds")
@@ -331,10 +343,11 @@ def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int],
     reads them: (f32 table, i32 table) in the layout ``NL``, per limited
     1-dof joint and per contact pair in K1's pair order. Fills the model's
     solver parameters first; raises for a model beyond the kernel's maxima.
-    K2 has a row slot for each contact point, so its models have at most
-    ``MAX_CAND``; K4 holds the rows inside their margin, at most
-    ``MAX_HELD`` per env-substep, and counts a substep that has more (its
-    wrapper raises), so any number of contact points is packed.
+    Both kernels hold the contact rows inside their margin, at most
+    ``MAX_HELD`` per env-substep, and count a substep that has more (the
+    wrappers raise). K2's models must hold all of theirs: their contact
+    points plus their limited joints may not exceed ``MAX_HELD``. K4's
+    may have any number of contact points (pen: 406).
 
     A pair's Jacobian spans the dofs of ``li``'s chain that are not on
     ``lj``'s and those of ``lj``'s that are not on ``li``'s, each with its
@@ -345,13 +358,14 @@ def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int],
     (physics/soa_newton.py ``_contact_rows``) are exactly zero there and
     add exactly nothing to the rows, the gradient, H or the cost."""
     ensure_solver_params(model)
-    n_cand = num_contact_candidates(model)
-    if not ext and n_cand > NL["MAX_CAND"]:
-        raise NotImplementedError(f"{n_cand} contact points exceed the kernel's {NL['MAX_CAND']}")
     tables = tree_tables(model)
     lim = [(int(l), int(qa), int(va)) for l, qa, va in
            zip(tables.hinge_slide_link, tables.hinge_slide_q, tables.hinge_slide_v)
            if model.jnt_limited[l] > 0]
+    n_cand = num_contact_candidates(model)
+    if not ext and n_cand + len(lim) > NL["MAX_HELD"]:
+        raise NotImplementedError(f"{n_cand} contact points and {len(lim)} limited joints exceed "
+                                  f"the kernel's {NL['MAX_HELD']} held rows")
     pairs = [(tab_k, p) for _, tab_k in pair_groups(model).kinds for p in range(len(tab_k["gi"]))]
     ni = np.zeros(NL["N_I_PAIR"] + NL["NPAIR_I"] * len(pairs), np.int32)
     nf = np.zeros(NL["N_F_PAIR"] + NL["NPAIR_F"] * len(pairs), np.float32)
@@ -418,8 +432,9 @@ class MultistepKernel:
     """Wrapper of kernel K1: ``(q (nq,B), qd (nv,B), ctrl (nu,B)) -> (q, qd)``
     after ``n_frames * model.n_substeps`` substeps. One library per size
     class (``SIZE_CLASSES``), each built at first use; a model runs in the
-    smallest class it fits. ``csrc`` and ``build_dir``: where its sources
-    are read and its libraries are built."""
+    smallest class it fits. One warp per env, ``warps_per_block`` envs per
+    block (default: :meth:`launch_warps`). ``csrc`` and ``build_dir``:
+    where its sources are read and its libraries are built."""
 
     name = "mj_multistep"
     source = "mjrl_tpu_torch/csrc/mj_kernel.cu"
@@ -431,6 +446,7 @@ class MultistepKernel:
         self._libs: Dict[int, ctypes.CDLL] = {}
         self._layouts: Dict[int, Dict[str, int]] = {}
         self._newton_layouts: Dict[int, Dict[str, int]] = {}
+        self._warp_layouts: Dict[int, Dict[str, int]] = {}
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library of size class ``size``."""
@@ -439,26 +455,54 @@ class MultistepKernel:
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
             lib.mj_multistep_launch.argtypes = [ctypes.c_void_p] * 7 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             lib.mj_multistep_launch.restype = ctypes.c_int
             self._layouts[size] = read_layout(lib)
+            self._warp_layouts[size] = read_warp_layout(lib)
             self._libs[size] = lib
         return self._libs[size]
 
     def check(self) -> None:
-        """Raise if a launch so far flagged a fault; K1's, K2's and K3's
-        flag none."""
+        """Raise if a launch so far flagged a fault; K1's and K3's flag
+        none."""
+
+    def warps_per_block(self, size: int) -> int:
+        """The most envs (warps) a block of size class ``size``'s build
+        holds in shared memory; raises if not even one fits."""
+        wl = self._warp_layouts[size]
+        warps = min(wl["MAX_WARPS"], SHARED_BYTES_PER_BLOCK // wl["BYTES"])
+        if warps < 1:
+            raise NotImplementedError(f"{self.name}'s env state in size class {SIZE_CLASSES[size]} "
+                                      f"takes {wl['BYTES']} bytes of shared memory, more than a "
+                                      f"block's {SHARED_BYTES_PER_BLOCK}")
+        return warps
+
+    def launch_warps(self, size: int, batch: int, device: torch.device,
+                     warps_per_block: Optional[int] = None) -> int:
+        """Warps (envs) per block of a launch of ``batch`` envs: the fewest
+        that spread them over the card's SMs in one wave, within what a
+        block holds (:meth:`warps_per_block`); or ``warps_per_block``,
+        which must be in 1 to that."""
+        most = self.warps_per_block(size)
+        if warps_per_block is not None:
+            if not 1 <= int(warps_per_block) <= most:
+                raise ValueError(f"warps_per_block must be in 1..{most}, got {warps_per_block}")
+            return int(warps_per_block)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        return min(most, -(-batch // sms))
 
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k1_tables", {})
         key = str(device)
         if key not in cache:
-            mf, mi = pack_tables(model, self._layouts[size_class(model)])
+            size = size_class(model)
+            mf, mi = pack_tables(model, self._layouts[size],
+                                 max_points=self._warp_layouts[size]["MAX_POINTS"])
             cache[key] = (torch.from_numpy(mf).to(device), torch.from_numpy(mi).to(device))
         return cache[key]
 
     def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
-                 ctrl: torch.Tensor, n_frames: int = 1):
+                 ctrl: torch.Tensor, n_frames: int = 1, warps_per_block: Optional[int] = None):
         B = check_inputs(model, q, qd, ctrl)
         if model.constraint_solver != "penalty":
             raise ValueError("K1 runs models with constraint_solver='penalty'")
@@ -469,7 +513,9 @@ class MultistepKernel:
             return soa.multistep(model, q, qd, ctrl, n_frames)
         if q.device.type != "cuda":
             raise ValueError(f"no K1 path for device {q.device}")
-        lib = self.build(size_class(model))
+        size = size_class(model)
+        lib = self.build(size)
+        warps = self.launch_warps(size, B, q.device, warps_per_block)
         mf, mi = self._tables(model, q.device)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         n_sub = n_frames * model.n_substeps
@@ -478,7 +524,7 @@ class MultistepKernel:
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.mj_multistep_launch(
                 mf.data_ptr(), mi.data_ptr(), q.data_ptr(), qd.data_ptr(),
-                ctrl.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(), B, n_sub, dt,
+                ctrl.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(), B, n_sub, dt, warps,
                 stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
@@ -491,11 +537,20 @@ class NewtonKernel(MultistepKernel):
     after ``n_frames * model.n_substeps`` Newton substeps of
     ``model.solver_iters`` iterations each. ``picks``, an int32
     ``(n_sub * solver_iters, B)`` tensor on the device of ``q``, receives
-    each iteration's line-search fraction index (CUDA only)."""
+    each iteration's line-search fraction index (CUDA only). One warp per
+    env, ``warps_per_block`` as K1's. An env-substep with more contact rows
+    inside their margin than the build holds (``MAX_HELD``) adds one to a
+    counter on the device; :meth:`check` reads it and raises, and the env
+    calls it at the end of each rollout (the packer refuses a K2 model
+    that could have more)."""
 
     name = "mj_newton"
     source = "mjrl_tpu_torch/csrc/mj_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:79 (soa_newton.py:338)"
+
+    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
+        super().__init__(csrc, build_dir)
+        self._overflow: Dict[str, torch.Tensor] = {}
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library. K2 has the small size
@@ -507,11 +562,13 @@ class NewtonKernel(MultistepKernel):
             path = build_library("mj_newton_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(0)),
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
-            lib.mj_newton_launch.argtypes = [ctypes.c_void_p] * 10 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            lib.mj_newton_launch.argtypes = [ctypes.c_void_p] * 11 + [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
             lib.mj_newton_launch.restype = ctypes.c_int
             self._layouts[0] = read_layout(lib)
             self._newton_layouts[0] = read_newton_layout(lib)
+            self._warp_layouts[0] = read_warp_layout(lib)
             self._libs[0] = lib
         return self._libs[0]
 
@@ -524,8 +581,28 @@ class NewtonKernel(MultistepKernel):
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
         return cache[key]
 
+    def overflow(self, device: torch.device) -> torch.Tensor:
+        """The device's counter of env-substeps that held too many rows."""
+        key = str(device)
+        if key not in self._overflow:
+            self._overflow[key] = torch.zeros(1, dtype=torch.int32, device=device)
+        return self._overflow[key]
+
+    def check(self) -> None:
+        """Raise ``RuntimeError`` if any launch so far had an env-substep
+        with more contact rows inside their margin than the build holds
+        (synchronises with the device)."""
+        for key, counter in self._overflow.items():
+            n = int(counter.item())
+            if n:
+                counter.zero_()
+                raise RuntimeError(
+                    f"{self.name}: {n} env-substeps on {key} held more contact rows inside "
+                    f"their margin than the build's MAX_HELD; those substeps are wrong")
+
     def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
-                 ctrl: torch.Tensor, n_frames: int = 1, picks: Optional[torch.Tensor] = None):
+                 ctrl: torch.Tensor, n_frames: int = 1, picks: Optional[torch.Tensor] = None,
+                 warps_per_block: Optional[int] = None):
         B = check_inputs(model, q, qd, ctrl)
         if model.constraint_solver != "newton":
             raise ValueError("K2 runs models with constraint_solver='newton'")
@@ -537,6 +614,7 @@ class NewtonKernel(MultistepKernel):
         if q.device.type != "cuda":
             raise ValueError(f"no K2 path for device {q.device}")
         lib = self.build()
+        warps = self.launch_warps(0, B, q.device, warps_per_block)
         mf, mi, nf, ni = self._tables(model, q.device)
         n_sub = n_frames * model.n_substeps
         iters = int(model.solver_iters)
@@ -548,7 +626,8 @@ class NewtonKernel(MultistepKernel):
             err = lib.mj_newton_launch(
                 mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
                 qd.data_ptr(), ctrl.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(),
-                0 if picks is None else picks.data_ptr(), B, n_sub, iters, dt, stream)
+                0 if picks is None else picks.data_ptr(), self.overflow(q.device).data_ptr(), B,
+                n_sub, iters, dt, warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
@@ -560,7 +639,7 @@ class ExtKernel(MultistepKernel):
     link_delta (3 nlink, B)]) -> (q, qd)`` after ``n_frames *
     model.n_substeps`` penalty substeps with Adroit's stages (link offsets,
     box contacts, servos, tendons, frictionloss). Built in every size class
-    a model needs, like K1."""
+    a model needs, like K1; one thread per env."""
 
     name = "mj_ext"
     source = "mjrl_tpu_torch/csrc/mj_ext_kernel.cu"
@@ -615,27 +694,20 @@ class ExtKernel(MultistepKernel):
         return q_out, qd_out
 
 
-class ExtNewtonKernel(MultistepKernel):
+class ExtNewtonKernel(NewtonKernel):
     """Wrapper of kernel K4: ``(q (nq,B), qd (nv,B), ctrl (nu,B)[,
     link_delta (3 nlink, B)]) -> (q, qd)`` after ``n_frames *
     model.n_substeps`` Newton substeps of ``model.solver_iters`` iterations
     with Adroit's stages (link offsets, box contacts, servos, tendons,
     frictionloss). Built in every size class a model needs, like K3;
-    ``picks`` as K2's. An env-substep with more contact rows inside their
-    margin than the build holds (``MAX_HELD``) adds one to a counter on the
-    device; :meth:`check` reads it and raises, and the env calls it at the
-    end of each rollout. One warp per env, ``warps_per_block`` envs per
-    block (default: as many as the build's shared memory per warp lets a
-    block hold, at most its ``MAX_WARPS``)."""
+    ``picks``, the held-row overflow counter and :meth:`check` as K2's. One
+    warp per env, ``warps_per_block`` envs per block (default: as many as
+    the build's shared memory per warp lets a block hold, at most its
+    ``MAX_WARPS``)."""
 
     name = "mj_ext_newton"
     source = "mjrl_tpu_torch/csrc/mj_ext_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext; soa_newton.py:338)"
-
-    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
-        super().__init__(csrc, build_dir)
-        self._overflow: Dict[str, torch.Tensor] = {}
-        self._warp_layouts: Dict[int, Dict[str, int]] = {}
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library of size class ``size``."""
@@ -654,17 +726,6 @@ class ExtNewtonKernel(MultistepKernel):
             self._libs[size] = lib
         return self._libs[size]
 
-    def warps_per_block(self, size: int) -> int:
-        """The most envs (warps) a block of size class ``size``'s build
-        holds in shared memory; raises if not even one fits."""
-        wl = self._warp_layouts[size]
-        warps = min(wl["MAX_WARPS"], SHARED_BYTES_PER_BLOCK // wl["BYTES"])
-        if warps < 1:
-            raise NotImplementedError(f"K4's env state in size class {SIZE_CLASSES[size]} takes "
-                                      f"{wl['BYTES']} bytes of shared memory, more than a block's "
-                                      f"{SHARED_BYTES_PER_BLOCK}")
-        return warps
-
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k4_tables", {})
         key = str(device)
@@ -680,25 +741,6 @@ class ExtNewtonKernel(MultistepKernel):
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
         return cache[key]
 
-    def overflow(self, device: torch.device) -> torch.Tensor:
-        """The device's counter of env-substeps that held too many rows."""
-        key = str(device)
-        if key not in self._overflow:
-            self._overflow[key] = torch.zeros(1, dtype=torch.int32, device=device)
-        return self._overflow[key]
-
-    def check(self) -> None:
-        """Raise ``RuntimeError`` if any launch so far had an env-substep
-        with more contact rows inside their margin than the build holds
-        (synchronises with the device)."""
-        for key, counter in self._overflow.items():
-            n = int(counter.item())
-            if n:
-                counter.zero_()
-                raise RuntimeError(
-                    f"{self.name}: {n} env-substeps on {key} held more contact rows inside "
-                    f"their margin than the build's MAX_HELD; those substeps are wrong")
-
     def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
                  ctrl: torch.Tensor, n_frames: int = 1,
                  link_delta: Optional[torch.Tensor] = None, picks: Optional[torch.Tensor] = None,
@@ -713,10 +755,8 @@ class ExtNewtonKernel(MultistepKernel):
             raise ValueError(f"no K4 path for device {q.device}")
         size = size_class(model)
         lib = self.build(size)
-        most = self.warps_per_block(size)
-        warps = most if warps_per_block is None else int(warps_per_block)
-        if not 1 <= warps <= most:
-            raise ValueError(f"warps_per_block must be in 1..{most}, got {warps_per_block}")
+        warps = (self.warps_per_block(size) if warps_per_block is None
+                 else self.launch_warps(size, B, q.device, warps_per_block))
         mf, mi, nf, ni = self._tables(model, q.device)
         n_sub = n_frames * model.n_substeps
         iters = int(model.solver_iters)

@@ -1,7 +1,9 @@
 """Kernel K1's arithmetic on the CPU, and the wrapper's contract.
 
-``mjrl_tpu_torch/csrc/mj_substep.h`` is compiled with g++ (no CUDA, no
-torch headers) into a ctypes library, and its control steps are held
+K1's warp body (``mjrl_tpu_torch/csrc/mj_warp_penalty.h`` on
+``mj_warp_stages.h``) is compiled with g++ (no CUDA, no torch headers)
+into a ctypes library through ``mj_host.cpp``, which runs it under the
+emulated warp, and its control steps are held
 against the plain PyTorch version (physics/soa.py) on the same inputs:
 ant, the planar walkers (slide joints; hopper's capsule-capsule contacts
 between links) and humanoid (sphere-sphere and sphere-capsule contacts,

@@ -1,7 +1,8 @@
 """Kernel K2's arithmetic on the CPU, and its wrapper's contract.
 
-``mjrl_tpu_torch/csrc/mj_newton.h`` (with ``mj_substep.h``) is compiled
-with g++ into a ctypes library, and its Newton control steps are held
+K2's warp body (``mjrl_tpu_torch/csrc/mj_warp_newton.h`` with EXT off) is
+compiled with g++ into a ctypes library through ``mj_host.cpp``, which
+runs it under the emulated warp, and its Newton control steps are held
 against the plain PyTorch version (physics/soa.py with
 physics/soa_newton.py) on the same inputs, at the bench row's settings:
 ant, Newton solver, ``n_substeps=1``, 10 iterations. The test marked
@@ -111,7 +112,7 @@ def _check_picks(env, got, want):
 
 def test_newton_layout_is_the_packers(env, lib):
     L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
-    assert NL["MAX_FACET"] == 6 and NL["MAX_CHAIN"] >= 8 and NL["MAX_CAND"] >= 25
+    assert NL["MAX_FACET"] == 6 and NL["MAX_CHAIN"] >= 8 and NL["MAX_HELD"] >= 25 + 8
     for prefix in ("N_F_", "N_I_"):
         offsets = sorted(v for k, v in NL.items() if k.startswith(prefix))
         assert len(set(offsets)) == len(offsets)
@@ -179,9 +180,12 @@ def test_newton_kernel_body_keeps_nonfinite_states(env, host, warm):
 
 
 def test_pack_newton_tables_refuses_beyond_maxima(env, lib):
+    """K2 holds every row its model can have: ant's 25 contact points and 8
+    limited joints need 33 held rows."""
     L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
-    with pytest.raises(NotImplementedError):
-        pkernel.pack_newton_tables(env.model, L, {**NL, "MAX_CAND": 24})
+    pkernel.pack_newton_tables(env.model, L, {**NL, "MAX_HELD": 33})
+    with pytest.raises(NotImplementedError, match="held rows"):
+        pkernel.pack_newton_tables(env.model, L, {**NL, "MAX_HELD": 32})
     with pytest.raises(NotImplementedError):
         pkernel.pack_newton_tables(env.model, L, {**NL, "MAX_CHAIN": 7})
 

@@ -1,7 +1,7 @@
 """Where one training iteration of the PyTorch port spends its time, on a
 GPU.
 
-    python3 tools/torch_npg_breakdown.py [--row ROW]
+    python3 tools/torch_npg_breakdown.py [--row ROW] [--no-profile]
 
 Builds the agent of one row: the bench's ant rows at their width (1024
 envs x 100 steps, policy (64, 64), MLPBaseline(epochs=2, batch_size=1024),
@@ -23,7 +23,8 @@ phase by phase on the host clock (each phase ends in
 ``torch.cuda.synchronize()``), and traces a second one with
 ``torch.profiler`` for the device's busy share (device time over the
 profiled wall time, which the profiler inflates) and the kernel's share.
-Prints one JSON line.
+``--no-profile`` skips the traced iteration (humanoid TRPO's takes ~27 min:
+the profiler's post-processing of ~2.3M ops). Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -63,7 +64,9 @@ def main() -> int:
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--row", choices=("penalty", "newton", *CONFIG_ROWS), default="penalty")
-    row = p.parse_args().row
+    p.add_argument("--no-profile", action="store_true")
+    args = p.parse_args()
+    row = args.row
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
@@ -123,6 +126,14 @@ def main() -> int:
 
     plain_wall = iteration()
     plain_phases = dict(phases)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.no_profile:
+        print(json.dumps({"card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,
+                          "kernel": kernel.name, "kernel_launches": kernel.launches,
+                          "num_envs": num_envs, "horizon": horizon,
+                          "steps_per_iteration": window}))
+        return 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = iteration()
 
@@ -136,8 +147,6 @@ def main() -> int:
               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy = sum(device_us(e) for e in events) / 1e3
     kernel_ms = sum(device_us(e) for e in events if kernel.name in e.key) / 1e3
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     top = sorted(events, key=device_us, reverse=True)[:8]
     print(json.dumps({
         "card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,

@@ -9,7 +9,7 @@ kernel and size class (K1, ``mj_kernel.cu``, in the two classes its
 models use; K2 in the small one; K3, ``mj_ext_kernel.cu``, and K4,
 ``mj_ext_newton_kernel.cu``, in the Adroit class), ptxas's registers,
 stack frame, spill stores and loads, and for a build that exports
-``mj_warp_layout()`` (K4 since it runs one warp per env) the dynamic
+``mj_warp_layout()`` (the kernels that run one warp per env) the dynamic
 shared memory per warp and the warps per block at most. Give it a
 second directory, such as an older checkout's ``csrc``, to compare two
 versions in one run. Needs nvcc (the CUDA toolkit); no card.
@@ -33,7 +33,6 @@ from mjrl_tpu_torch.physics.pkernel import (  # noqa: E402
     NVCC_FLAGS,
     SIZE_CLASSES,
     nvcc_path,
-    read_warp_layout,
     size_flags,
 )
 
@@ -78,9 +77,11 @@ def ptxas_report(source: Path, out_dir: Path, size: int = 0) -> str:
                          f"{stack[2]} bytes spill loads")
     loaded = ctypes.CDLL(str(lib))
     if hasattr(loaded, "mj_warp_layout"):
-        wl = read_warp_layout(loaded)
-        lines.append(f"{source} (size class {SIZE_CLASSES[size]}): {wl['BYTES']} bytes of dynamic "
-                     f"shared memory per warp, at most {wl['MAX_WARPS']} warps per block")
+        # bytes per warp and warps per block lead the layout in every version
+        buf = (ctypes.c_int * 16)()
+        loaded.mj_warp_layout(buf)
+        lines.append(f"{source} (size class {SIZE_CLASSES[size]}): {buf[0]} bytes of dynamic "
+                     f"shared memory per warp, at most {buf[2]} warps per block")
     return "\n".join(lines)
 
 
