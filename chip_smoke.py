@@ -9,9 +9,9 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    warp per env) in the first two size classes (physics/pkernel.py
    SIZE_CLASSES: the small models and humanoid), K2
    (csrc/mj_newton_kernel.cu, Newton solver, one warp per env) in the
-   first, K3 (csrc/mj_ext_kernel.cu, Adroit's stages) and K4
-   (csrc/mj_ext_newton_kernel.cu, Adroit's stages under the Newton solver)
-   in the third, with nvcc for sm_90a from the checkout's sources, the five
+   first, K3 (csrc/mj_ext_kernel.cu, Adroit's stages, one warp per env)
+   and K4 (csrc/mj_ext_newton_kernel.cu, Adroit's stages under the Newton
+   solver, one warp per env) in the third, with nvcc for sm_90a from the checkout's sources, the five
    builds side by side.
 2. K1 against plain: K1 against its plain PyTorch version (physics/soa.py)
    on the card, ant (penalty, 4 substeps per frame) at B=1024 and a ragged
@@ -76,7 +76,14 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
 11. K3 on Adroit pen against plain (link offsets, box kinds, servos,
    tendons, frictionloss), to its own tolerance: B=512 and a ragged B=506,
    one control step and 3 chained ones from ``pen_states``; every one of
-   pen's five contact kinds must touch; both times at B=512.
+   pen's five contact kinds must touch; K3's q and qd bit for bit the same
+   over two launches and with 1 and with the most warps per block (the
+   check for a missing __syncwarp()); both times at B=512. Then K3 on
+   Adroit hammer (671 contact points in 229 pairs, 8 rounds of 32; more
+   than K1's 512 slots) against plain, to hammer's own tolerance: one
+   control step at B=512 from ``hammer_states`` (warmed by K3, with link
+   offsets), every one of hammer's five contact kinds touching, the
+   launches bit for bit as on pen; both times at B=512.
 12. K4 on Adroit pen with the Newton solver against plain, to its own
    tolerance: the same, from ``pen_states`` warmed by K4; counts the
    env-steps that hold a row of each contact kind, of each facet count (1,
@@ -114,8 +121,9 @@ Each kernel's launch count in the JSON line is its count over the slice
 that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper``,
 ``swimmer``, ``walker2d_trpo``, ``humanoid_trpo`` and ``humanoid_ppo``
 entries, K2's ``hopper`` entry, K3 and K4: their path in phase 13, the
-obs_norm rollout included), reset to 0 just before. Each K1 and K2 entry
-holds the warps per block its default launch took. ``bound_ms`` is the least
+obs_norm rollout included), reset to 0 just before. Each K1, K2 and K3
+entry holds the warps per block its default launch took; K3's ``hammer``
+entry its hammer check. ``bound_ms`` is the least
 time the card could take for one control step at the check's batch: the
 larger of the bytes the kernel must move (state in and out, its tables)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
@@ -174,7 +182,12 @@ from pathlib import Path
 # in qd over pen_states' 512 and 506 envs x 3 chained steps), rounded up
 # to a power of ten; every box's half-sizes 2% too large read 3.2e-3 / 0.34
 # there and every tendon's limit stiffness 2% too large 1.9e-3 / 0.28, and
-# both fail it (tools/torch_adroit_check.py, PERF.md).
+# both fail it (tools/torch_adroit_check.py, PERF.md). K3 on hammer by the
+# same rule: the plain version on the card and on the CPU differ by up to
+# 1.3e-6 in q and 8.4e-4 in qd over hammer_states' 512 and 506 envs x 3
+# chained steps, so 1e-4 / 1e-2; every box's half-sizes 2% too large read
+# 1.3e-2 / 2.3 there and every tendon's limit stiffness 2% too large
+# 3.6e-3 / 0.54, and both fail it.
 # K4 on pen by the same rule: the plain version on the card and on the CPU
 # differ by up to 2.0e-5 in q and 4.7e-3 in qd (over pen_states' 512 and
 # 506 envs x 3 chained steps: a converged Newton iteration's line-search
@@ -188,7 +201,8 @@ from pathlib import Path
 # off 4.7e-4 / 6.7e-2 (tools/torch_adroit_newton_check.py, PERF.md).
 TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2},
        "K1 swimmer": {"q": 1e-5, "qd": 1e-3}, "K1 humanoid": {"q": 1e-4, "qd": 5e-2},
-       "K3 pen": {"q": 1e-4, "qd": 1e-2}, "K4 pen": {"q": 1e-3, "qd": 1e-1},
+       "K3 pen": {"q": 1e-4, "qd": 1e-2}, "K3 hammer": {"q": 1e-4, "qd": 1e-2},
+       "K4 pen": {"q": 1e-3, "qd": 1e-1},
        "K4 pen quantile": {"q": 1e-5, "qd": 1e-3}}
 HUMANOID_QUANTILE = 0.99
 NUM_ENVS, HORIZON, ITERS = 1024, 100, 3
@@ -371,8 +385,6 @@ def pen_states(env, full, n_chain, warm_steps=10):
     import numpy as np
     import torch
 
-    from mjrl_tpu_torch.physics import probe
-
     model, dev = env.model, env.device
     rng = np.random.default_rng(0)
 
@@ -383,16 +395,32 @@ def pen_states(env, full, n_chain, warm_steps=10):
     for _ in range(warm_steps):
         state, *_ = env.step(state, rand_ctrl().T)
     q0, qd0 = state.q.T.contiguous(), state.qd.T.contiguous()
+    delta = _offsets_and_kind_states(model, q0, qd0, rng)
+    return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
+
+
+def _offsets_and_kind_states(model, q0, qd0, rng):
+    """The link offsets of ``pen_states`` and ``hammer_states``: the first
+    half of the batch keeps its states and has every link offset by a draw
+    uniform in +-5 mm; the second half's states (written into ``q0`` and
+    ``qd0``) and offsets come from ``probe.kind_states``, equal shares per
+    contact kind of the model."""
+    import torch
+
+    from mjrl_tpu_torch.physics import probe
+    from mjrl_tpu_torch.physics.tables import pair_groups
+
+    full, dev = q0.shape[1], q0.device
     half = full // 2
     delta = torch.zeros(3 * model.nlink, full, device=dev)
     delta[:, :half] = torch.as_tensor(rng.uniform(-0.005, 0.005, (3 * model.nlink, half)),
                                       dtype=torch.float32, device=dev)
-    n_kind = -(-(full - half) // len(PEN_KINDS))
+    n_kind = -(-(full - half) // len(pair_groups(model).kinds))
     kq, kqd, kd = probe.kind_states(model, n_kind, rng)
     q0[:, half:] = torch.as_tensor(kq[:, : full - half], device=dev)
     qd0[:, half:] = torch.as_tensor(kqd[:, : full - half], device=dev)
     delta[:, half:] = torch.as_tensor(kd[:, : full - half], device=dev)
-    return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
+    return delta
 
 
 def pen_train_states(env, full, n_chain, steps=50):
@@ -427,29 +455,56 @@ def pen_train_states(env, full, n_chain, steps=50):
     return state.q.T.contiguous(), state.qd.T.contiguous(), delta, ctrls
 
 
-def phase_k3_pen(tag, env, kernel, n_chain, batches, tol):
-    """Holds K3 against the plain version on Adroit pen over ``n_chain``
-    chained control steps at each batch size of ``batches`` (the first the
-    full one), from ``pen_states`` with their link offsets; ``tol`` bounds
-    each step's max |err| of q and qd; each of pen's five contact kinds
-    must touch (a point at depth > 0) in some env-step. Both times and the
-    bound at the full batch."""
+def hammer_states(model, kernel, full, n_chain, warm_steps=10):
+    """As ``pen_states``, for Adroit hammer (no env: the model and K3
+    alone): the first half from the default pose after ``warm_steps``
+    control steps of K3 under random controls (uniform in +-1, which the
+    servos clamp to their ranges), each link then offset by a draw uniform
+    in +-5 mm; the second half from ``probe.kind_states``, equal shares in
+    which each of hammer's five contact kinds touches; and the controls of
+    ``n_chain`` chained steps (numpy seed 0), all on the card."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    frames = 5  # the Adroit envs' frame_skip
+
+    def rand_ctrl():
+        return torch.as_tensor(rng.uniform(-1, 1, (model.nu, full)), dtype=torch.float32, device=dev)
+
+    q0 = torch.as_tensor(np.asarray(model.default_qpos, np.float32), device=dev)[:, None]
+    q0, qd0 = q0.repeat(1, full).contiguous(), torch.zeros(model.nv, full, device=dev)
+    for _ in range(warm_steps):
+        q0, qd0 = kernel(model, q0, qd0, rand_ctrl(), frames)
+    delta = _offsets_and_kind_states(model, q0, qd0, rng)
+    return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
+
+
+def phase_k3(tag, model, frames, kernel, states, batches, tol):
+    """Holds K3 against the plain version on an Adroit model over the
+    chained control steps of ``states`` (``(q, qd, link_delta, ctrls)`` at
+    the full batch, ``pen_states``' or ``hammer_states``') at each batch
+    size of ``batches`` (the first the full one), with their link offsets;
+    ``tol`` bounds each step's max |err| of q and qd; each of the model's
+    contact kinds must touch (a point at depth > 0) in some env-step.
+    Checks that K3's launches are repeatable (``check_repeatable``); both
+    times and the bound at the full batch."""
     import torch
 
     from mjrl_tpu_torch.physics import probe, soa
 
-    model, frames = env.model, env.frame_skip
-    full = batches[0]
-    q0, qd0, d0, ctrls = pen_states(env, full, n_chain)
+    q0, qd0, d0, ctrls = states
+    full, n_chain = batches[0], len(ctrls)
     max_err, kind_steps = 0.0, {}
     for B in batches:
         q, qd, d = (x[:, :B].contiguous() for x in (q0, qd0, d0))
         worst = {"q": 0.0, "qd": 0.0}
-        kind_steps = dict.fromkeys(PEN_KINDS, 0)
+        kind_steps = {}
         for step, ctrl in enumerate(ctrls):
             ctrl = ctrl[:, :B].contiguous()
             for k, depth in probe.kind_depth(model, q, d).items():
-                kind_steps[k] += int((depth > 0).sum())
+                kind_steps[k] = kind_steps.get(k, 0) + int((depth > 0).sum())
             kq, kqd = kernel(model, q, qd, ctrl, frames, link_delta=d)
             pq, pqd = soa.multistep(model, q, qd, ctrl, frames, link_delta=d)
             torch.cuda.synchronize()
@@ -474,6 +529,7 @@ def phase_k3_pen(tag, env, kernel, n_chain, batches, tol):
             if n == 0:
                 raise RuntimeError(f"{tag}: no {k} contact at B={B}")
     ctrl = ctrls[0]
+    warps = check_repeatable(tag, kernel, model, q0, qd0, ctrl, frames, link_delta=d0)
     for _ in range(3):
         kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
     ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames, link_delta=d0), 20)
@@ -486,8 +542,8 @@ def phase_k3_pen(tag, env, kernel, n_chain, batches, tol):
     print(f"[{tag}] B={full} one control step ({n_sub} substeps): {kernel.name} {ms:.4f} ms, "
           f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
           f"({ops:.0f} f32 operations per env-substep)")
-    return dict(max_abs_err=max_err, kind_env_steps=kind_steps, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=max_err, kind_env_steps=kind_steps, warps_per_block=warps, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 FACETS = ("facets_1", "facets_4", "facets_6")
@@ -633,13 +689,14 @@ def _bits(x):
     return x.view(torch.int32) if x.is_floating_point() else x
 
 
-def check_repeatable(tag, kernel, model, q, qd, ctrl, frames):
-    """Launches ``kernel`` (K1 or K2) from the same inputs twice with its
-    default warps per block and once each with 1 and with the most a block
-    holds, and fails unless q, qd and, for K2, the picks are bit for bit the
-    same: a missing __syncwarp() would let a lane read what another has not
-    yet written, which shows as results that change from run to run or
-    with the block's shape. Returns the default warps per block."""
+def check_repeatable(tag, kernel, model, q, qd, ctrl, frames, link_delta=None):
+    """Launches ``kernel`` (K1, K2 or K3, with K3's ``link_delta``) from the
+    same inputs twice with its default warps per block and once each with 1
+    and with the most a block holds, and fails unless q, qd and, for K2,
+    the picks are bit for bit the same: a missing __syncwarp() would let a
+    lane read what another has not yet written, which shows as results
+    that change from run to run or with the block's shape. Returns the
+    default warps per block."""
     import torch
 
     from mjrl_tpu_torch.physics.pkernel import size_class
@@ -653,7 +710,8 @@ def check_repeatable(tag, kernel, model, q, qd, ctrl, frames):
         if model.constraint_solver == "newton":
             kw["picks"] = torch.full((frames * model.n_substeps * model.solver_iters, B), -1,
                                      dtype=torch.int32, device=q.device)
-        runs[label] = (*kernel(model, q, qd, ctrl, frames, warps_per_block=warps, **kw),
+        delta = {} if link_delta is None else {"link_delta": link_delta}
+        runs[label] = (*kernel(model, q, qd, ctrl, frames, warps_per_block=warps, **kw, **delta),
                        *kw.values())
     torch.cuda.synchronize()
     for label, out in runs.items():
@@ -1027,6 +1085,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from mjrl_tpu_torch.envs import make
+    from mjrl_tpu_torch.envs.adroit import adroit_model
     from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4, SIZE_CLASSES
 
     t0 = time.perf_counter()
@@ -1076,7 +1135,11 @@ def main() -> int:
             tol=TOL["K1 humanoid"], kinds=SPHERE_KINDS, quantile=HUMANOID_QUANTILE),
     }
     pen = make("adroit_pen", horizon=PEN_HORIZON)
-    k3 = phase_k3_pen("K3 pen", pen, K3, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K3 pen"])
+    k3 = phase_k3("K3 pen", pen.model, pen.frame_skip, K3, pen_states(pen, PEN_ENVS, 3),
+                  (PEN_ENVS, PEN_ENVS - 6), TOL["K3 pen"])
+    hammer = adroit_model("hammer")
+    k3_hammer = phase_k3("K3 hammer", hammer, pen.frame_skip, K3,
+                         hammer_states(hammer, K3, PEN_ENVS, 1), (PEN_ENVS,), TOL["K3 hammer"])
     pen_newton = make("adroit_pen", horizon=PEN_HORIZON, constraint_solver="newton")
     k4 = phase_k4_pen("K4 pen", pen_newton, K4, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K4 pen"],
                       TOL["K4 pen quantile"])
@@ -1119,7 +1182,9 @@ def main() -> int:
                                 link_pair_env_steps=k2_hopper["link_pair_env_steps"],
                                 overflow=k2_hopper["overflow"],
                                 condims_max_abs_err=k2_hopper["condims_max_abs_err"])
-    kernels[2]["kind_env_steps"] = k3["kind_env_steps"]
+    kernels[2].update(kind_env_steps=k3["kind_env_steps"], warps_per_block=k3["warps_per_block"])
+    kernels[2]["hammer"] = {k: k3_hammer[k] for k in keys if k != "launches"}
+    kernels[2]["hammer"]["kind_env_steps"] = k3_hammer["kind_env_steps"]
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
                                           "held_rows_mean", "held_rows_max",
                                           "line_search_flips", "overflow", "train_states")})

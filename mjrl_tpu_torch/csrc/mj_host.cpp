@@ -1,7 +1,7 @@
-// Host build of the K1, K2, K3 and K4 bodies (mj_warp_penalty.h,
-// mj_warp_newton.h, mj_substep.h) for the CPU tests: the same arithmetic
-// as the CUDA kernels, one env after another; the warp-decomposed bodies
-// of K1, K2 and K4 run under the emulated warp (mj_warp.h's MjWarpHost).
+// Host build of the K1, K2, K3 and K4 bodies (mj_warp_penalty.h with EXT
+// off and on, mj_warp_newton.h with EXT off and on) for the CPU tests: the
+// same warp-decomposed code as the CUDA kernels under the emulated warp
+// (mj_warp.h's MjWarpHost), one env after another, each on a fresh state.
 #include <string.h>
 
 #include "mj_warp_newton.h"
@@ -66,24 +66,32 @@ int mj_penalty_warp_layout(int* out) {
   return MJ_WARP_LAYOUT_LEN;
 }
 
+// K3's warp layout.
+int mj_penalty_ext_warp_layout(int* out) {
+  const int values[MJ_WARP_LAYOUT_LEN] = {MJ_PENALTY_EXT_WARP_LAYOUT_VALUES};
+  for (int k = 0; k < MJ_WARP_LAYOUT_LEN; ++k) out[k] = values[k];
+  return MJ_WARP_LAYOUT_LEN;
+}
+
 // K1's body.
 int mj_multistep_host(const float* mf, const int* mi, const float* q,
                       const float* qd, const float* ctrl, float* q_out,
                       float* qd_out, int B, int n_sub, float dt) {
   MjWarpHost w;
   for (int env = 0; env < B; ++env)
-    mj_warp_penalty_multistep(w, *mj_fresh_env<MjPenaltyEnv>(), mf, mi, env, B, q, qd, ctrl,
-                              q_out, qd_out, n_sub, dt);
+    mj_warp_penalty_multistep<false>(w, *mj_fresh_env<MjPenaltyEnv>(), mf, mi, env, B, q, qd,
+                                     ctrl, nullptr, q_out, qd_out, n_sub, dt);
   return 0;
 }
 
-// K3's body.
+// K3's body; delta may be null (no link offsets).
 int mj_ext_host(const float* mf, const int* mi, const float* q, const float* qd,
                 const float* ctrl, const float* delta, float* q_out,
                 float* qd_out, int B, int n_sub, float dt) {
+  MjWarpHost w;
   for (int env = 0; env < B; ++env)
-    mj_ext_env_multistep(mf, mi, env, B, q, qd, ctrl, delta, q_out, qd_out,
-                         n_sub, dt);
+    mj_warp_penalty_multistep<true>(w, *mj_fresh_env<MjPenaltyExtEnv>(), mf, mi, env, B, q, qd,
+                                    ctrl, delta, q_out, qd_out, n_sub, dt);
   return 0;
 }
 
@@ -160,6 +168,29 @@ int mj_penalty_contacts_host(const float* mf, const int* mi, const float* q,
   MjRecordSink sink{mf, &S.k, mi[MJ_I_HAS_FCAP], points, links, 0};
   mj_narrow_phase(mf, mi, S.k, sink);
   *slots = mj_warp_contacts(w, S, mf, mi);
+  memcpy(f_ext, S.s.rne.f_ext, mi[MJ_I_NLINK] * sizeof S.s.rne.f_ext[0]);
+  return sink.n;
+}
+
+// K3's contact stage for env's substep from the batch-last state (q, qd,
+// delta or null), as mj_penalty_contacts_host for K1: every contact
+// point's penalty wrench (points, 6) and links (points, 2) in narrow-phase
+// order with the box kinds, computed alone; f_ext (nlink, 6) after the
+// warp body's rounds; *slots the slots they filled over all rounds.
+// Returns the number of points.
+int mj_ext_contacts_host(const float* mf, const int* mi, const float* q, const float* qd,
+                         const float* delta, int B, int env, float* points, int* links,
+                         float* f_ext, int* slots) {
+  MjWarpHost w;
+  MjPenaltyExtEnv& S = *mj_fresh_env<MjPenaltyExtEnv>();
+  for (int r = 0; r < mi[MJ_I_NQ]; ++r) S.q[r] = q[(long)r * B + env];
+  for (int r = 0; r < mi[MJ_I_NV]; ++r) S.qd[r] = qd[(long)r * B + env];
+  for (int r = 0; delta && r < 3 * mi[MJ_I_NLINK]; ++r) S.delta[r] = delta[(long)r * B + env];
+  const int maxd = mj_warp_depths(w, S, mi);
+  mj_warp_kinematics(w, S, mf, mi, delta ? S.delta : nullptr, maxd);
+  MjRecordSink sink{mf, &S.k, mi[MJ_I_HAS_FCAP], points, links, 0};
+  mj_narrow_phase<true>(mf, mi, S.k, sink);
+  *slots = mj_warp_contacts_ext(w, S, mf, mi);
   memcpy(f_ext, S.s.rne.f_ext, mi[MJ_I_NLINK] * sizeof S.s.rne.f_ext[0]);
   return sink.n;
 }

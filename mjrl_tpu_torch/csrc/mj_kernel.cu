@@ -35,7 +35,7 @@
 
 #include "mj_warp_penalty.h"
 
-static_assert(MJ_PENALTY_WARPS * sizeof(MjPenaltyEnv) <= 232448,
+static_assert(MJ_PENALTY_WARPS * sizeof(MjPenaltyEnv) <= MJ_SHARED_PER_BLOCK,
               "a block's warps must fit the 227 KB of shared memory a block may use");
 
 #ifdef MJ_STAGE_CLOCKS
@@ -64,7 +64,8 @@ __global__ void __launch_bounds__(MJ_WARP * MJ_PENALTY_WARPS)
   for (int s = 0; s < MJ_MAX_STAGES; ++s) w.clocks[s] = 0;
   w.last = clock64();
 #endif
-  mj_warp_penalty_multistep(w, S, mf, mi, env, B, q, qd, ctrl, q_out, qd_out, n_sub, dt);
+  mj_warp_penalty_multistep<false>(w, S, mf, mi, env, B, q, qd, ctrl, nullptr, q_out, qd_out,
+                                   n_sub, dt);
 #ifdef MJ_STAGE_CLOCKS
   if (w.lane == 0)
     for (int s = 0; s < MJ_N_STAGES; ++s) clocks[(long)s * B + env] = w.clocks[s];

@@ -1,32 +1,24 @@
-// Penalty-contact rigid-body substep for one env, table-driven.
+// The table-driven layout, helpers and scalar stages every kernel body
+// builds on.
 //
-// The layout, the scalar helpers and the stages of the table-driven
-// pipeline, and the penalty substep of kernel K3 (mj_ext_kernel.cu), which
-// replaces the TPU kernel mjrl_tpu/physics/pkernel.py::_kernel_body_ext. It
-// computes what mjrl_tpu_torch/physics/soa.py::multistep computes for one
-// env, as scalar code: kinematics -> cdof/cvel -> penalty contacts -> fluid
-// drag -> composite inertias -> sparse mass matrix -> RNE bias -> applied
-// forces -> sparse L^T D L solve -> semi-implicit Euler, n_sub times with
-// ctrl held.
-//
-// K3 runs the substep with EXT = true: the stages Adroit adds (per-env link
-// offsets in the kinematics, the box contact kinds, gain/bias servos, fixed
-// tendons, frictionloss) are template branches. Kernels K1, K2 and K4 run
-// one env per warp (mj_warp_stages.h, mj_warp_penalty.h,
-// mj_warp_newton.h): they take the helpers, the narrow phase and the
-// one-lane stages (mj_ltdl_solve, mj_integrate) from here and spread the
-// rest of the pipeline over lanes in the same order of operations.
+// Kernels K1 and K3 (mj_warp_penalty.h), K2 and K4 (mj_warp_newton.h) run
+// one env per warp on mj_warp_stages.h's stages. They take from here the
+// model's packed layout, the scalar helpers, the narrow phase (per pair,
+// with the box kinds as its EXT branch), and the one-lane stages
+// mj_ltdl_solve (K2's and K4's unconstrained solve) and mj_integrate;
+// mj_kinematics (the whole tree on one thread, the order of operations the
+// warp bodies keep link by link) serves the host exports (mj_host.cpp).
 //
 // Every function is MJ_HD: __host__ __device__ under nvcc, plain inline
 // under a host compiler, so the same source builds into the CUDA library
 // and into a host library that the CPU tests check against the plain
-// PyTorch version.
+// PyTorch version (mjrl_tpu_torch/physics/soa.py).
 //
 // The model arrives as two packed buffers (mf: f32, mi: i32) that
 // physics/pkernel.py fills; the offsets below are the layout, exported by
 // mj_layout() so the packer reads them instead of repeating them. Per-env
 // arrays are sized by the compile-time maxima; the packer refuses a model
-// that exceeds them or uses a feature this body does not have.
+// that exceeds them or uses a feature a body does not have.
 #pragma once
 
 #include <math.h>
@@ -76,7 +68,7 @@
 #define MJ_I_NU 3
 #define MJ_I_NPAIR 4
 #define MJ_I_HAS_FCAP 5
-#define MJ_I_HAS_FLUID 6  // density or viscosity != 0: run mj_fluid
+#define MJ_I_HAS_FLUID 6  // density or viscosity != 0: the fluid drag
 // EXT: affine gain/bias actuators, frictionloss, and the fixed tendons,
 // whose block starts at mi[MJ_I_TEN_I] and mf[MJ_I_TEN_F] (after the pairs)
 #define MJ_I_HAS_GAINBIAS 7
@@ -273,40 +265,6 @@ MJ_HD void mj_crf(const float* v, const float* f, float* out) {
 MJ_HD float mj_limit_viol(const float* mf, int i, float qi) {
   return mj_min(qi - mf[MJ_F_RANGE + 2 * i], 0.0f) +
          mj_max(qi - mf[MJ_F_RANGE + 2 * i + 1], 0.0f);
-}
-
-// One contact point: the penalty wrench about the origin, added to f_ext.
-MJ_HD void mj_contact_point(const float* mf, int li, int lj, float mu,
-                            float depth, const float* n, const float* pt,
-                            const float* origin, const float (*cvel)[6],
-                            float (*f_ext)[6], int has_fcap) {
-  float p_rel[3], v_rel[3] = {0.0f, 0.0f, 0.0f};
-  for (int k = 0; k < 3; ++k) p_rel[k] = pt[k] - origin[k];
-  if (li >= 0) {
-    float c[3];
-    mj_cross(cvel[li], p_rel, c);
-    for (int k = 0; k < 3; ++k) v_rel[k] = cvel[li][3 + k] + c[k];
-  }
-  if (lj >= 0) {
-    float c[3];
-    mj_cross(cvel[lj], p_rel, c);
-    for (int k = 0; k < 3; ++k) v_rel[k] -= cvel[lj][3 + k] + c[k];
-  }
-  float v_n = mj_dot3(v_rel, n);
-  float v_t[3];
-  for (int k = 0; k < 3; ++k) v_t[k] = v_rel[k] - v_n * n[k];
-  float fn = mj_max(mf[MJ_F_KS] * mj_min(depth, mf[MJ_F_CAP]) - mf[MJ_F_KD] * v_n,
-                    0.0f);
-  fn = depth > 0.0f ? fn : 0.0f;
-  if (has_fcap) fn = mj_min(fn, mf[MJ_F_FCAP]);
-  float denom = sqrtf(mj_dot3(v_t, v_t)) + mf[MJ_F_VREG];
-  float f[6];
-  for (int k = 0; k < 3; ++k) f[3 + k] = fn * n[k] - mu * fn * v_t[k] / denom;
-  mj_cross(p_rel, f + 3, f);
-  if (li >= 0)
-    for (int k = 0; k < 6; ++k) f_ext[li][k] += f[k];
-  if (lj >= 0)
-    for (int k = 0; k < 6; ++k) f_ext[lj][k] -= f[k];
 }
 
 // ---- pipeline stages ------------------------------------------------------
@@ -713,201 +671,6 @@ MJ_HD void mj_narrow_phase(const float* mf, const int* mi, const MjKin& k,
   for (int pi = 0; pi < npair; ++pi) mj_narrow_pair<EXT>(mf, mi, k, pi, sink);
 }
 
-// MuJoCo's legacy inertia-box fluid model (soa.py _fluid_forces): the
-// drag of each link with mass > 0, from its centre of mass velocity and its
-// angular velocity in the principal inertia frame, added to f_ext[l] as a
-// world wrench about the origin.
-MJ_HD void mj_fluid(const float* mf, const int* mi, const MjKin& k,
-                    float (*f_ext)[6]) {
-  const int nlink = mi[MJ_I_NLINK];
-  for (int i = 0; i < nlink; ++i) {
-    if (mf[MJ_F_MASS + i] <= 0.0f) continue;
-    const float* cf = mf + MJ_F_FLUID + MJ_FLUID_F * i;
-    float q_wp[4], com_w[3], r[3];
-    mj_qmul(k.quat[i], mf + MJ_F_IQUAT + 4 * i, q_wp);
-    mj_qrot(k.quat[i], mf + MJ_F_COM + 3 * i, r);
-    for (int c = 0; c < 3; ++c) com_w[c] = k.pos[i][c] - k.origin[c] + r[c];
-    const float* omega = k.cvel[i];
-    float v_com[3], w_p[3], v_p[3];
-    mj_cross(omega, com_w, r);
-    for (int c = 0; c < 3; ++c) v_com[c] = k.cvel[i][3 + c] + r[c];
-    mj_qrot_inv(q_wp, omega, w_p);
-    mj_qrot_inv(q_wp, v_com, v_p);
-    float force[3], torque[3], f_w[3], t_w[3];
-    for (int c = 0; c < 3; ++c) {
-      force[c] = cf[0] * v_p[c] - cf[2 + c] * fabsf(v_p[c]) * v_p[c];
-      torque[c] = cf[1] * w_p[c] - cf[5 + c] * fabsf(w_p[c]) * w_p[c];
-    }
-    mj_qrot(q_wp, force, f_w);
-    mj_qrot(q_wp, torque, t_w);
-    mj_cross(com_w, f_w, r);
-    for (int c = 0; c < 3; ++c) {
-      f_ext[i][c] += r[c] + t_w[c];
-      f_ext[i][3 + c] += f_w[c];
-    }
-  }
-}
-
-// Tree-sparse mass matrix: H[i][j] for j on the ancestor chain of i, from
-// the composite rigid-body inertias (reverse tree walk).
-MJ_HD void mj_mass_matrix(const float* mf, const int* mi, const MjKin& k,
-                          float (*H)[MJ_MAX_NV]) {
-  const int nlink = mi[MJ_I_NLINK];
-  const int nv = mi[MJ_I_NV];
-  const int* parent = mi + MJ_I_PARENT;
-  const int* dof_link = mi + MJ_I_DOFLINK;
-  const int* lam = mi + MJ_I_LAM;
-  float ch[MJ_MAX_LINK][3], cI[MJ_MAX_LINK][6];
-  for (int i = 0; i < nlink; ++i) {
-    for (int c = 0; c < 3; ++c) ch[i][c] = k.ih[i][c];
-    for (int c = 0; c < 6; ++c) cI[i][c] = k.iI[i][c];
-  }
-  for (int i = nlink - 1; i >= 0; --i) {
-    const int p = parent[i];
-    if (p < 0) continue;
-    for (int c = 0; c < 3; ++c) ch[p][c] += ch[i][c];
-    for (int c = 0; c < 6; ++c) cI[p][c] += cI[i][c];
-  }
-  float F[MJ_MAX_NV][6];
-  for (int j = 0; j < nv; ++j) {
-    const int l = dof_link[j];
-    mj_inertia_mul(mf[MJ_F_CMASS + l], ch[l], cI[l], k.cdof[j], F[j]);
-  }
-  for (int i = 0; i < nv; ++i)
-    for (int j = i; j >= 0; j = lam[j]) H[i][j] = mj_dot6(F[i], k.cdof[j]);
-}
-
-// RNE bias forces with gravity and, when f_ext is given, the external
-// link wrenches.
-MJ_HD void mj_bias(const float* mf, const int* mi, const MjKin& k,
-                   const float* qd, const float (*f_ext)[6], float* bias) {
-  const int nlink = mi[MJ_I_NLINK];
-  const int nv = mi[MJ_I_NV];
-  const int* parent = mi + MJ_I_PARENT;
-  const int* type = mi + MJ_I_TYPE;
-  const int* vadr = mi + MJ_I_VADR;
-  const int* dof_link = mi + MJ_I_DOFLINK;
-  float facc[MJ_MAX_LINK][6];
-  {
-    float cacc[MJ_MAX_LINK][6];
-    for (int i = 0; i < nlink; ++i) {
-      const int p = parent[i];
-      for (int c = 0; c < 6; ++c)
-        cacc[i][c] = p >= 0 ? cacc[p][c] : (c < 3 ? 0.0f : -mf[MJ_F_GRAV + c - 3]);
-      const int nd = mj_jnt_nv(type[i]);
-      for (int d = 0; d < nd; ++d) {
-        float cr[6];
-        mj_crm(k.cvel[i], k.cdof[vadr[i] + d], cr);
-        for (int c = 0; c < 6; ++c) cacc[i][c] += cr[c] * qd[vadr[i] + d];
-      }
-    }
-    for (int i = 0; i < nlink; ++i) {
-      const float m = mf[MJ_F_MASS + i];
-      float Iv[6], Ia[6], cr[6];
-      mj_inertia_mul(m, k.ih[i], k.iI[i], k.cvel[i], Iv);
-      mj_inertia_mul(m, k.ih[i], k.iI[i], cacc[i], Ia);
-      mj_crf(k.cvel[i], Iv, cr);
-      if (f_ext)
-        for (int c = 0; c < 6; ++c) facc[i][c] = Ia[c] + cr[c] - f_ext[i][c];
-      else
-        for (int c = 0; c < 6; ++c) facc[i][c] = Ia[c] + cr[c];
-    }
-  }
-  for (int i = nlink - 1; i >= 0; --i) {
-    const int p = parent[i];
-    if (p >= 0)
-      for (int c = 0; c < 6; ++c) facc[p][c] += facc[i][c];
-  }
-  for (int j = 0; j < nv; ++j) bias[j] = mj_dot6(facc[dof_link[j]], k.cdof[j]);
-}
-
-// Applied forces: motors, joint springs and, with LIMITS, the limit
-// penalties, whose implicit damper half goes to lim_diag. EXT adds the
-// affine servos: force = g0 ctrl + b0 + b1 (gear q) + b2 (gear qd).
-template <bool LIMITS, bool EXT = false>
-MJ_HD void mj_applied(const float* mf, const int* mi, const float* q,
-                      const float* qd, const float* ctrl, float* rhs,
-                      float* lim_diag) {
-  const int nlink = mi[MJ_I_NLINK];
-  const int nv = mi[MJ_I_NV];
-  const int nu = mi[MJ_I_NU];
-  const int* type = mi + MJ_I_TYPE;
-  const int* qadr = mi + MJ_I_QADR;
-  const int* vadr = mi + MJ_I_VADR;
-  for (int j = 0; j < nv; ++j) {
-    rhs[j] = 0.0f;
-    if (LIMITS) lim_diag[j] = 0.0f;
-  }
-  for (int u = 0; u < nu; ++u) {
-    float cu = ctrl[u];
-    if (mi[MJ_I_ACTLIM + u])
-      cu = mj_min(mj_max(cu, mf[MJ_F_CLO + u]), mf[MJ_F_CHI + u]);
-    const int v = mi[MJ_I_ACTV + u];
-    const float gear = mf[MJ_F_GEAR + u];
-    if (EXT && mi[MJ_I_HAS_GAINBIAS]) {
-      const float* b = mf + MJ_F_BIAS + 3 * u;
-      cu = mf[MJ_F_GAIN + u] * cu + b[0] + b[1] * (gear * q[mi[MJ_I_ACTQ + u]]) +
-           b[2] * (gear * qd[v]);
-    }
-    rhs[v] += gear * cu;
-  }
-  for (int i = 0; i < nlink; ++i) {
-    if (type[i] != MJ_HINGE && type[i] != MJ_SLIDE) continue;
-    const int v = vadr[i];
-    const float qi = q[qadr[i]];
-    const float stiff = mf[MJ_F_STIFF + i];
-    if (stiff != 0.0f) rhs[v] += -stiff * (qi - mf[MJ_F_SPRINGREF + i]);
-    if (LIMITS && mi[MJ_I_LIMITED + i]) {
-      const float viol = mj_limit_viol(mf, i, qi);
-      const bool active = fabsf(viol) > 0.0f;
-      rhs[v] += -mf[MJ_F_LIMK + v] * viol - (active ? mf[MJ_F_LIMC + v] * qd[v] : 0.0f);
-      if (active) lim_diag[v] = mf[MJ_F_LIMDTC + v];
-    }
-  }
-}
-
-// Fixed tendons (EXT): a spring and damper on each tendon's length Jq q
-// and velocity Jv qd, plus its limit penalty where limited, added to tau
-// through Jv^T (soa.py _tendon_forces). Jq and Jv are compressed rows.
-MJ_HD void mj_tendons(const float* mf, const int* mi, const float* q,
-                      const float* qd, float* tau) {
-  const int nt = mi[MJ_I_NTEN];
-  const int* ti = mi + mi[MJ_I_TEN_I];
-  const float* tf = mf + mi[MJ_I_TEN_F];
-  const int* qptr = ti + 1;
-  const int* qidx = qptr + nt + 1;
-  const int* vptr = qidx + qptr[nt];
-  const int* vidx = vptr + nt + 1;
-  const float* qval = tf + 8 * nt;
-  const float* vval = qval + qptr[nt];
-  for (int t = 0; t < nt; ++t) {
-    const float* P = tf + 8 * t;
-    float len = 0.0f, vel = 0.0f;
-    for (int e = qptr[t]; e < qptr[t + 1]; ++e) len += qval[e] * q[qidx[e]];
-    for (int e = vptr[t]; e < vptr[t + 1]; ++e) vel += vval[e] * qd[vidx[e]];
-    float f = -P[0] * (len - P[1]) - P[2] * vel;
-    const float viol = mj_min(len - P[3], 0.0f) + mj_max(len - P[4], 0.0f);
-    const float f_lim = -P[5] * viol - (fabsf(viol) > 0.0f ? P[6] * vel : 0.0f);
-    f = f + P[7] * f_lim;
-    for (int e = vptr[t]; e < vptr[t + 1]; ++e) tau[vidx[e]] += vval[e] * f;
-  }
-}
-
-// Frictionloss (EXT): -fl tanh(qd / v_eps) into rhs, and the dt-scaled
-// Jacobian fl / v_eps (1 - tanh^2) into the implicit diagonal
-// (engine.py friction_terms).
-MJ_HD void mj_friction(const float* mf, const int* mi, const float* qd,
-                       float dt, float* rhs, float* lim_diag) {
-  const int nv = mi[MJ_I_NV];
-  const float v_eps = mf[MJ_F_FVEPS];
-  for (int j = 0; j < nv; ++j) {
-    const float fl = mf[MJ_F_FRIC + j];
-    const float t = tanhf(qd[j] / v_eps);
-    rhs[j] = rhs[j] + -fl * t;
-    lim_diag[j] = lim_diag[j] + dt * ((fl / v_eps) * (1.0f - t * t));
-  }
-}
-
 // Sparse L^T D L factorization (Featherstone RBDA 6.5) of
 // M + diag(armature + dt*damping [+ lim_diag]) and solve, x in place (rhs
 // in, solution out); L overwrites the strict lower part of H (rows of LD
@@ -970,77 +733,4 @@ MJ_HD void mj_integrate(const int* mi, float* q, float* qd, const float* qdd,
       for (int c = 0; c < 4; ++c) qu[c] = nq[c];
     }
   }
-}
-
-// ---- the penalty substep (kernel K3) -----------------------------------
-
-// Penalty contacts, streamed: each point's wrench goes straight to f_ext.
-struct MjPenaltySink {
-  const float* mf;
-  const MjKin* k;
-  float (*f_ext)[6];
-  int has_fcap;
-  MJ_HD void operator()(int, int li, int lj, float mu, float depth,
-                        const float* n, const float* pt) {
-    mj_contact_point(mf, li, lj, mu, depth, n, pt, k->origin, k->cvel, f_ext,
-                     has_fcap);
-  }
-};
-
-// Advances one env's q (nq), qd (nv) by one substep of length dt. EXT
-// (kernel K3) adds the link offsets delta, the box kinds, the servos, the
-// tendons and frictionloss.
-template <bool EXT = false>
-MJ_HD void mj_substep(const float* mf, const int* mi, float* q, float* qd,
-                      const float* ctrl, float dt, const float* delta = nullptr) {
-  const int nlink = mi[MJ_I_NLINK];
-  const int nv = mi[MJ_I_NV];
-  MjKin k;
-  mj_kinematics(mf, mi, q, qd, k, EXT ? delta : nullptr);
-
-  float f_ext[MJ_MAX_LINK][6];
-  for (int i = 0; i < nlink; ++i)
-    for (int c = 0; c < 6; ++c) f_ext[i][c] = 0.0f;
-  MjPenaltySink sink{mf, &k, f_ext, mi[MJ_I_HAS_FCAP]};
-  mj_narrow_phase<EXT>(mf, mi, k, sink);
-  if (mi[MJ_I_HAS_FLUID]) mj_fluid(mf, mi, k, f_ext);
-
-  float H[MJ_MAX_NV][MJ_MAX_NV];
-  mj_mass_matrix(mf, mi, k, H);
-  float bias[MJ_MAX_NV];
-  mj_bias(mf, mi, k, qd, f_ext, bias);
-  float rhs[MJ_MAX_NV], lim_diag[MJ_MAX_NV];
-  mj_applied<true, EXT>(mf, mi, q, qd, ctrl, rhs, lim_diag);
-  if (EXT && mi[MJ_I_NTEN]) {
-    float tau[MJ_MAX_NV];
-    for (int j = 0; j < nv; ++j) tau[j] = 0.0f;
-    mj_tendons(mf, mi, q, qd, tau);
-    for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] + tau[j];
-  }
-  for (int j = 0; j < nv; ++j) rhs[j] = rhs[j] - bias[j] - mf[MJ_F_DAMP + j] * qd[j];
-  if (EXT && mi[MJ_I_HAS_FRIC]) mj_friction(mf, mi, qd, dt, rhs, lim_diag);
-  mj_ltdl_solve(mf, mi, H, lim_diag, rhs);
-  mj_integrate(mi, q, qd, rhs, dt);
-}
-
-// Kernel K3's env of a batch-last (rows, B) launch: loads its columns,
-// runs n_sub EXT substeps with ctrl and, when delta_in (3 nlink, B) is
-// given, this env's link offsets held in the thread, and stores. The state
-// stays in per-thread arrays for the whole control step.
-MJ_HD void mj_ext_env_multistep(const float* mf, const int* mi, int env, int B,
-                                const float* q_in, const float* qd_in,
-                                const float* ctrl_in, const float* delta_in,
-                                float* q_out, float* qd_out, int n_sub,
-                                float dt) {
-  const int nq = mi[MJ_I_NQ], nv = mi[MJ_I_NV], nu = mi[MJ_I_NU];
-  const int nd = 3 * mi[MJ_I_NLINK];
-  float q[MJ_MAX_NQ], qd[MJ_MAX_NV], ctrl[MJ_MAX_NU], delta[3 * MJ_MAX_LINK];
-  for (int r = 0; r < nq; ++r) q[r] = q_in[(long)r * B + env];
-  for (int r = 0; r < nv; ++r) qd[r] = qd_in[(long)r * B + env];
-  for (int r = 0; r < nu; ++r) ctrl[r] = ctrl_in[(long)r * B + env];
-  for (int r = 0; r < nd; ++r) delta[r] = delta_in ? delta_in[(long)r * B + env] : 0.0f;
-  for (int s = 0; s < n_sub; ++s)
-    mj_substep<true>(mf, mi, q, qd, ctrl, dt, delta_in ? delta : nullptr);
-  for (int r = 0; r < nq; ++r) q_out[(long)r * B + env] = q[r];
-  for (int r = 0; r < nv; ++r) qd_out[(long)r * B + env] = qd[r];
 }

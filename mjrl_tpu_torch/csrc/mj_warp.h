@@ -47,6 +47,16 @@
 #define MJ_WD inline
 #endif
 
+// Not inlined on the card: the narrow phase's passes and the writers of
+// their points, whose inlined copies (one per contact point of every kind)
+// would multiply the kernel's code, which the card's warps fetch as they
+// go.
+#ifdef __CUDACC__
+#define MJ_NOINLINE __host__ __device__ __noinline__
+#else
+#define MJ_NOINLINE inline
+#endif
+
 // A few floats summed together (the line search's five costs).
 template <int N>
 struct MjVec {

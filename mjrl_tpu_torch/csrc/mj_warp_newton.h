@@ -57,9 +57,6 @@
 #include "mj_newton.h"
 #include "mj_warp_stages.h"
 
-#ifndef MJ_MAX_TEN
-#define MJ_MAX_TEN 64  // fixed tendons (Adroit's models: 44)
-#endif
 #define MJ_MAX_WARPS 4  // K4's warps (envs) per block at most
 
 static_assert(MJ_MAX_NV <= 2 * MJ_WARP, "a lane holds two rows of a triangular solve");
@@ -130,15 +127,6 @@ MJ_HD void mj_tri(int e, int& a, int& b) {
 MJ_HD float mj_alpha(int a) {
   return a == 0 ? 1.0f : (a == 1 ? 0.5f : (a == 2 ? 0.25f : (a == 3 ? 0.0625f : 0.0f)));
 }
-
-// Not inlined on the card: the narrow phase's passes and the row writer,
-// whose inlined copies (one per contact point of every kind) would
-// multiply the kernel's code, which the card's warps fetch as they go.
-#ifdef __CUDACC__
-#define MJ_NOINLINE __host__ __device__ __noinline__
-#else
-#define MJ_NOINLINE inline
-#endif
 
 // Counts a pair's points inside their margin (the narrow phase's first
 // pass).

@@ -2,22 +2,22 @@
 // over the 32 lanes of a warp (mj_warp.h), the env's state in memory the
 // lanes share (shared memory on the card).
 //
-// Kernels K1 (mj_warp_penalty.h), K2 and K4 (mj_warp_newton.h) run one
-// env per warp. Their substeps differ in the contact stage and the
-// constraint solve; the rest of the pipeline is here, each stage a
-// template on the warp type W and on the env's state type Env, whose
-// members carry the same names in every body (q, qd, ctrl, k, depth, M,
-// qdd0, bias and the scratch union s; the Newton bodies add Mf, fdiag and
-// the tendons' scratch, K1 its limit diagonal ldiag):
+// Kernels K1 and K3 (mj_warp_penalty.h, EXT off and on), K2 and K4
+// (mj_warp_newton.h, EXT off and on) run one env per warp. Their substeps
+// differ in the contact stage and the constraint solve; the rest of the
+// pipeline is here, each stage a template on the warp type W and on the
+// env's state type Env, whose members carry the same names in every body
+// (q, qd, ctrl, k, depth, M, qdd0, bias and the scratch union s; the
+// Newton bodies add Mf and fdiag, the penalty bodies the limit diagonal
+// ldiag, the EXT bodies delta and the tendons' scratch s.ften):
 //
 // - loads and stores of the env's column of the batch-last (rows, B)
 //   state;
 // - each link's depth in the tree, and f(i) over the links level by level;
 // - the kinematics: each link's relative pose, motion subspaces and
 //   inertia over lanes, world poses and velocities down the tree level by
-//   level (mj_substep.h's mj_kinematics, link by link: K1's thread body and
-//   K3 keep their own loops, and so their code);
-// - the fluid drag of a link (mj_fluid's, link by link);
+//   level (mj_substep.h's mj_kinematics, link by link);
+// - the fluid drag of a link (the plain version's, link by link);
 // - the RNE bias: accelerations down the tree level by level, link forces
 //   over lanes, the backward sum on one lane, the bias over dofs;
 // - the applied forces per dof: motors (EXT: the affine servos) in
@@ -25,23 +25,28 @@
 //   damper half into ldiag), EXT the tendon forces in tendon order, minus
 //   the bias and the damping;
 // - the composite inertias (backward sum on one lane) and the tree-sparse
-//   mass matrix over dofs; with METRIC the Newton metric beside it, with
-//   EXT frictionloss;
+//   mass matrix over dofs; with METRIC the Newton metric beside it; with
+//   EXT frictionloss (its diagonal onto the metric, or without METRIC onto
+//   ldiag);
 // - the sparse L^T D L factorization and solve (mj_ltdl_solve) over lanes:
 //   per column k, lanes over k's ancestors, each updating its row of the
 //   factor; the back substitution dof by dof, lanes over its ancestors;
-//   the forward one level by level of the dof tree (K1; K2 and K4 keep
-//   mj_ltdl_solve on one lane).
+//   the forward one level by level of the dof tree (K1 and K3; K2 and K4
+//   keep mj_ltdl_solve on one lane).
 //
 // Each output has one lane at a time, and its terms are added in the order
-// of mj_substep.h's scalar stages, so the host build (mj_host.cpp, under
-// the emulated warp) reproduces their arithmetic bit for bit. The
+// of the scalar pipeline (the plain version's, which the thread bodies of
+// the first port ran as scalar code), so the host build (mj_host.cpp,
+// under the emulated warp) reproduces their arithmetic bit for bit. The
 // integration stays on one lane (mj_integrate).
 #pragma once
 
 #include "mj_warp.h"
 
 #define MJ_LD (MJ_MAX_NV + 1)  // a shared matrix's row, padded by one float
+#ifndef MJ_MAX_TEN
+#define MJ_MAX_TEN 64  // fixed tendons (Adroit's models: 44)
+#endif
 
 // Stages of a substep, for the cycle counts of a MJ_STAGE_CLOCKS build
 // (K1 has no Newton stages: its contact wrenches count as its rows).
@@ -202,8 +207,10 @@ MJ_HD void mj_link_inertia(const float* mf, MjKin& k, int i) {
   for (int c = 0; c < 3; ++c) k.ih[i][c] = m * com_w[c];
 }
 
-// Link i's fluid drag added to f_ext[i] (mj_fluid's operations for one
-// link; nothing for a link without mass).
+// Link i's fluid drag added to f_ext[i]: MuJoCo's legacy inertia-box
+// model (soa.py _fluid_forces), from its centre of mass velocity and its
+// angular velocity in its principal inertia frame, as a world wrench about
+// the origin; nothing for a link without mass.
 MJ_HD void mj_link_fluid(const float* mf, const MjKin& k, int i, float (*f_ext)[6]) {
   if (mf[MJ_F_MASS + i] <= 0.0f) return;
   const float* cf = mf + MJ_F_FLUID + MJ_FLUID_F * i;
@@ -311,8 +318,8 @@ MJ_WD void mj_warp_kinematics(W& w, Env& S, const float* mf, const int* mi,
   mj_warp_levels(w, S, nlink, maxd, [&](int i) { mj_link_cvel(mi, S.k, S.qd, i, parent[i]); });
 }
 
-// The RNE bias with gravity into S.bias (mj_bias); with fext, minus the
-// external link wrenches in S.s.rne.f_ext.
+// The RNE bias with gravity into S.bias (soa.py _bias_forces); with fext,
+// minus the external link wrenches in S.s.rne.f_ext.
 template <class W, class Env>
 MJ_WD void mj_warp_bias(W& w, Env& S, const float* mf, const int* mi, int maxd, bool fext) {
   const int nlink = mi[MJ_I_NLINK], nv = mi[MJ_I_NV];
@@ -354,11 +361,13 @@ MJ_WD void mj_warp_bias(W& w, Env& S, const float* mf, const int* mi, int maxd, 
   w.each(nv, [&](int j) { S.bias[j] = mj_dot6(R.facc[dof_link[j]], k.cdof[j]); });
 }
 
-// Per dof, into S.qdd0: its motors (EXT: the affine servos) in actuator
-// order and its joint's spring and, with LIMITS, its limit penalty
-// (mj_applied<LIMITS, EXT>; the penalty's damper half into S.ldiag), the
-// tendon forces in tendon order (EXT: mj_tendons), minus the bias and the
-// damping.
+// Per dof, into S.qdd0: its motors (EXT: the affine servos, force = g0
+// ctrl + b0 + b1 (gear q) + b2 (gear qd)) in actuator order and its
+// joint's spring and, with LIMITS, its limit penalty (the penalty's damper
+// half into S.ldiag), then (EXT) the fixed tendons' forces Jv^T f summed
+// in tendon order from 0 (soa.py _tendon_forces: a spring and damper on
+// each tendon's length Jq q and velocity Jv qd, plus its limit penalty),
+// minus the bias and the damping.
 template <bool LIMITS, bool EXT, class W, class Env>
 MJ_WD void mj_warp_forces(W& w, Env& S, const float* mf, const int* mi) {
   const int nlink = mi[MJ_I_NLINK], nv = mi[MJ_I_NV], nu = mi[MJ_I_NU];
@@ -430,10 +439,12 @@ MJ_WD void mj_warp_forces(W& w, Env& S, const float* mf, const int* mi) {
   });
 }
 
-// The tree-sparse mass matrix S.M from the composite inertias
-// (mj_mass_matrix); with METRIC the Newton metric M + diag(armature + dt
-// damping) in S.Mf; with EXT frictionloss (mj_friction): its force into
-// S.qdd0, its dt-scaled diagonal into S.fdiag and onto the metric.
+// The tree-sparse mass matrix S.M from the composite inertias; with
+// METRIC the Newton metric M + diag(armature + dt damping) in S.Mf; with
+// EXT frictionloss (engine.py friction_terms): its force -fl tanh(qd /
+// v_eps) into S.qdd0 and its dt-scaled Jacobian dt (fl / v_eps) (1 -
+// tanh^2), with METRIC into S.fdiag and onto the metric, without it onto
+// the implicit diagonal S.ldiag (after the limit damper).
 template <bool METRIC, bool EXT, class W, class Env>
 MJ_WD void mj_warp_crb(W& w, Env& S, const float* mf, const int* mi, float dt) {
   const int nlink = mi[MJ_I_NLINK], nv = mi[MJ_I_NV];
@@ -470,6 +481,13 @@ MJ_WD void mj_warp_crb(W& w, Env& S, const float* mf, const int* mi, float dt) {
         S.qdd0[i] = S.qdd0[i] + -fl * t;
         S.fdiag[i] = dt * ((fl / v_eps) * (1.0f - t * t));
         S.Mf[i][i] = S.Mf[i][i] + S.fdiag[i];
+      }
+    } else if constexpr (EXT) {
+      if (mi[MJ_I_HAS_FRIC] != 0) {
+        const float fl = mf[MJ_F_FRIC + i], v_eps = mf[MJ_F_FVEPS];
+        const float t = tanhf(S.qd[i] / v_eps);
+        S.qdd0[i] = S.qdd0[i] + -fl * t;
+        S.ldiag[i] = S.ldiag[i] + dt * ((fl / v_eps) * (1.0f - t * t));
       }
     }
   });

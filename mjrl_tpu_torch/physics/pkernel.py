@@ -7,25 +7,25 @@ the Newton solver (``soa_newton.constrained_qdd``), K3 its body for
 models with fixed tendons and per-env scene offsets (``_kernel_body_ext``,
 every Adroit env), K4 that body with the Newton solver. The sources are in
 ``mjrl_tpu_torch/csrc/``: ``mj_substep.h`` holds the table-driven layout,
-helpers and scalar stages and K3's penalty substep (Adroit's stages as its
-``EXT`` branches), ``mj_newton.h`` the Newton row builders,
+helpers, the narrow phase (Adroit's box kinds as its ``EXT`` branch) and
+the one-lane stages, ``mj_newton.h`` the Newton row builders,
 ``mj_warp.h`` the warp primitives, ``mj_warp_stages.h`` the pipeline's
-stages spread over the 32 lanes of a warp, ``mj_warp_penalty.h`` K1's
-substep on them and ``mj_warp_newton.h`` K2's and K4's; ``mj_kernel.cu``,
-``mj_newton_kernel.cu`` and ``mj_ext_newton_kernel.cu`` (one warp per env,
-its state in shared memory) and ``mj_ext_kernel.cu`` (one thread per env)
-hold the ``__global__`` wrappers with plain C launch functions. Each is
-built with ``nvcc`` for ``sm_90a`` at first use into
+stages spread over the 32 lanes of a warp, ``mj_warp_penalty.h`` K1's and
+K3's substeps on them (``EXT`` off and on) and ``mj_warp_newton.h`` K2's
+and K4's; ``mj_kernel.cu``, ``mj_newton_kernel.cu``, ``mj_ext_kernel.cu``
+and ``mj_ext_newton_kernel.cu`` (one warp per env, its state in shared
+memory) hold the ``__global__`` wrappers with plain C launch functions.
+Each is built with ``nvcc`` for ``sm_90a`` at first use into
 ``mjrl_tpu_torch/_build/`` (keyed by a hash of the sources) and bound with
 ``ctypes``.
 
 What bounds them on an H100: latency. A control step moves ~260 bytes per
-env and runs tens of thousands (K2: hundreds of thousands) of dependent f32
-operations; K1, K2 and K4 keep one env's state in a warp's shared memory
-with each stage's work spread over its lanes (the wrappers spread B envs
-over the SMs: :meth:`MultistepKernel.launch_warps`), K3 in one thread's
-arrays in local memory. Each keeps the state on chip for the whole control
-step (one launch per control step, no intermediate in device memory).
+env (pen ~0.8 KB) and runs tens of thousands (K2, K3, K4: hundreds of
+thousands) of dependent f32 operations; each kernel keeps one env's state
+in a warp's shared memory with each stage's work spread over its lanes
+(the wrappers spread B envs over the SMs: :meth:`MultistepKernel.launch_warps`),
+for the whole control step (one launch per control step, no intermediate
+in device memory).
 
 :class:`MultistepKernel` (K1), :class:`NewtonKernel` (K2),
 :class:`ExtKernel` (K3) and :class:`ExtNewtonKernel` (K4) are the
@@ -88,7 +88,8 @@ NEWTON_LAYOUT_NAMES = (
 # Names of the values mj_warp_layout() writes, in its order (a warp body's
 # .cu file: mj_warp_penalty.h's or mj_warp_newton.h's values): shared
 # bytes per warp (env), tendons, warps per block and stages at most, and
-# K1's contact points at most (0 in a Newton body).
+# K1's contact points at most (0 in a Newton body and in K3, which has no
+# cap).
 WARP_LAYOUT_NAMES = ("BYTES", "MAX_TEN", "MAX_WARPS", "N_STAGES", "MAX_POINTS")
 # Shared memory a block may use on Hopper (227 KB).
 SHARED_BYTES_PER_BLOCK = 232448
@@ -104,7 +105,8 @@ _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphe
 # arrays cost the small models nothing. CHAIN_CLASSES: each class's dofs
 # on a Newton contact pair's chain (mj_newton.h; pen's pairs reach 13,
 # hammer's 15, relocate's 19). POINT_CLASSES: each class's contact points
-# of a model in K1's warp body (mj_warp_penalty.h; ant 25, humanoid 140).
+# of a model in K1's warp body (mj_warp_penalty.h; ant 25, humanoid 140);
+# K3 takes the pairs in rounds of 32 and has no such cap.
 SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24), (38, 36, 36, 30))
 CHAIN_CLASSES = (8, 8, 19)
 POINT_CLASSES = (32, 160, 512)
@@ -190,7 +192,8 @@ def pack_tables(model: Model, L: Dict[str, int], ext: bool = False,
     frictionloss, the tendon block after the pairs). Raises for a model
     outside the kernel's feature set or its compile-time maxima;
     ``max_points``: K1's slots for contact points (``MAX_POINTS`` of its
-    warp layout), which a model's points must not exceed."""
+    warp layout), which a model's points must not exceed (K3's packs take
+    none: any number of points)."""
     soa.check_supported(model)
     if max_points is not None and num_contact_candidates(model) > max_points:
         raise NotImplementedError(f"{num_contact_candidates(model)} contact points exceed the "
@@ -398,6 +401,14 @@ def pack_newton_tables(model: Model, L: Dict[str, int], NL: Dict[str, int],
         o = NL["N_F_PAIR"] + NL["NPAIR_F"] * k
         nf[o : o + NL["NPAIR_F"]] = row
     return nf, ni
+
+
+def check_tendons(model: Model, warp_layout: Dict[str, int]) -> None:
+    """Raise if ``model`` has more fixed tendons than an ``EXT`` warp body's
+    scratch holds (``MAX_TEN`` of its warp layout)."""
+    n_ten = 0 if model.tendon_Jq is None else len(model.tendon_Jq)
+    if n_ten > warp_layout["MAX_TEN"]:
+        raise NotImplementedError(f"{n_ten} tendons exceed the kernel's {warp_layout['MAX_TEN']}")
 
 
 def check_optional(name: str, x: Optional[torch.Tensor], dtype: torch.dtype, shape: tuple,
@@ -639,7 +650,9 @@ class ExtKernel(MultistepKernel):
     link_delta (3 nlink, B)]) -> (q, qd)`` after ``n_frames *
     model.n_substeps`` penalty substeps with Adroit's stages (link offsets,
     box contacts, servos, tendons, frictionloss). Built in every size class
-    a model needs, like K1; one thread per env."""
+    a model needs, like K1; one warp per env, ``warps_per_block`` envs per
+    block (default: :meth:`launch_warps`). No cap on a model's contact
+    points: the body takes the pairs in rounds of 32."""
 
     name = "mj_ext"
     source = "mjrl_tpu_torch/csrc/mj_ext_kernel.cu"
@@ -652,9 +665,10 @@ class ExtKernel(MultistepKernel):
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
             lib.mj_ext_launch.argtypes = [ctypes.c_void_p] * 8 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             lib.mj_ext_launch.restype = ctypes.c_int
             self._layouts[size] = read_layout(lib)
+            self._warp_layouts[size] = read_warp_layout(lib)
             self._libs[size] = lib
         return self._libs[size]
 
@@ -662,13 +676,16 @@ class ExtKernel(MultistepKernel):
         cache = model.__dict__.setdefault("_k3_tables", {})
         key = str(device)
         if key not in cache:
-            mf, mi = pack_tables(model, self._layouts[size_class(model)], ext=True)
+            size = size_class(model)
+            check_tendons(model, self._warp_layouts[size])
+            mf, mi = pack_tables(model, self._layouts[size], ext=True)
             cache[key] = (torch.from_numpy(mf).to(device), torch.from_numpy(mi).to(device))
         return cache[key]
 
     def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
                  ctrl: torch.Tensor, n_frames: int = 1,
-                 link_delta: Optional[torch.Tensor] = None):
+                 link_delta: Optional[torch.Tensor] = None,
+                 warps_per_block: Optional[int] = None):
         B = check_inputs(model, q, qd, ctrl)
         if model.constraint_solver != "penalty":
             raise ValueError("K3 runs models with constraint_solver='penalty'")
@@ -677,7 +694,9 @@ class ExtKernel(MultistepKernel):
             return soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta)
         if q.device.type != "cuda":
             raise ValueError(f"no K3 path for device {q.device}")
-        lib = self.build(size_class(model))
+        size = size_class(model)
+        lib = self.build(size)
+        warps = self.launch_warps(size, B, q.device, warps_per_block)
         mf, mi = self._tables(model, q.device)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         n_sub = n_frames * model.n_substeps
@@ -687,7 +706,7 @@ class ExtKernel(MultistepKernel):
             err = lib.mj_ext_launch(
                 mf.data_ptr(), mi.data_ptr(), q.data_ptr(), qd.data_ptr(), ctrl.data_ptr(),
                 0 if link_delta is None else link_delta.data_ptr(), q_out.data_ptr(),
-                qd_out.data_ptr(), B, n_sub, dt, stream)
+                qd_out.data_ptr(), B, n_sub, dt, warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
@@ -732,10 +751,7 @@ class ExtNewtonKernel(NewtonKernel):
         if key not in cache:
             size = size_class(model)
             L = self._layouts[size]
-            n_ten = 0 if model.tendon_Jq is None else len(model.tendon_Jq)
-            if n_ten > self._warp_layouts[size]["MAX_TEN"]:
-                raise NotImplementedError(f"{n_ten} tendons exceed the kernel's "
-                                          f"{self._warp_layouts[size]['MAX_TEN']}")
+            check_tendons(model, self._warp_layouts[size])
             packed = (*pack_tables(model, L, ext=True),
                       *pack_newton_tables(model, L, self._newton_layouts[size], ext=True))
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)

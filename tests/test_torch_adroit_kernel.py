@@ -1,15 +1,16 @@
 """Kernel K3's arithmetic on the CPU, and its wrapper's contract.
 
-``mjrl_tpu_torch/csrc/mj_substep.h``'s substep with Adroit's stages (the
-``EXT`` branches: per-env link offsets, the box contact kinds, gain/bias
-servos, fixed tendons, frictionloss) is compiled with g++ (no CUDA) into a
-ctypes library through ``mj_host.cpp``'s ``mj_ext_host``, and its control
-steps are held against the plain PyTorch version (physics/soa.py): on
-Adroit pen in the Adroit size class (``pkernel.size_flags(2)``), from
-warmed states with link offsets and from states where each of pen's five
-contact kinds touches; and in the small class on small models that
-exercise one stage each (a box on a hinge with frictionloss over the
-floor, a ball over a block, the box with a servo and a limited tendon).
+K3's warp body (``mjrl_tpu_torch/csrc/mj_warp_penalty.h`` with ``EXT`` on:
+per-env link offsets, the box contact kinds, gain/bias servos, fixed
+tendons, frictionloss) is compiled with g++ (no CUDA) into a ctypes
+library through ``mj_host.cpp``'s ``mj_ext_host``, which runs it under the
+emulated warp, and its control steps are held against the plain PyTorch
+version (physics/soa.py): on Adroit pen in the Adroit size class
+(``pkernel.size_flags(2)``), from warmed states with link offsets and from
+states where each of pen's five contact kinds touches; and in the small
+class on small models that exercise one stage each (a box on a hinge with
+frictionloss over the floor, a ball over a block, the box with a servo and
+a limited tendon).
 The test marked ``cuda`` launches the real kernel and runs only where a
 card is present.
 """

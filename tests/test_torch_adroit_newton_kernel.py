@@ -1,6 +1,6 @@
 """Kernel K4's arithmetic on the CPU, and its wrapper's contract.
 
-``mjrl_tpu_torch/csrc/mj_ext_newton.h``'s Newton substep with Adroit's
+``mjrl_tpu_torch/csrc/mj_warp_newton.h``'s Newton substep with Adroit's
 stages (per-env link offsets, the box contact kinds, gain/bias servos,
 fixed tendons, frictionloss, and at most ``MJ_MAX_HELD`` contact rows held
 per env-substep), written over the lanes of a warp, is compiled with g++

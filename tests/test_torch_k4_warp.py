@@ -1,7 +1,7 @@
 """Kernel K4's warp design on the CPU: the emulated warp and the rows and
 line-search picks of its warp-decomposed body.
 
-``mjrl_tpu_torch/csrc/mj_ext_newton.h`` spreads one env's Newton substep
+``mjrl_tpu_torch/csrc/mj_warp_newton.h`` spreads one env's Newton substep
 over the 32 lanes of a warp (``mj_warp.h``). ``mj_host.cpp`` builds that
 same code with g++ under the emulated warp, in the Adroit size class
 (``pkernel.size_flags(2)``), and these tests hold it: the emulated warp's

@@ -1,6 +1,6 @@
 """Swimmer in the port: the inertia-box fluid model in the plain physics
 (``physics/soa.py``) and in the kernels' shared pipeline
-(``csrc/mj_substep.h``), ``SwimmerEnv``, and swimmer NPG through the entry
+(``csrc/mj_warp_stages.h``), ``SwimmerEnv``, and swimmer NPG through the entry
 point on the CPU.
 
 The plain substep and control step are held against ``mjrl_tpu.physics.soa``

@@ -1,14 +1,15 @@
-"""K3 on Adroit pen on one NVIDIA GPU: the spread that sets its tolerance,
-and two faulty tables that must fail that tolerance.
+"""K3 on Adroit pen and hammer on one NVIDIA GPU: the spread that sets its
+tolerance, and two faulty tables that must fail that tolerance.
 
-    python3 tools/torch_adroit_check.py
+    python3 tools/torch_adroit_check.py [pen|hammer ...]
 
 Needs one CUDA card and nvcc; run it from the root of a checkout. On pen
 (chip_smoke.py's ``pen_states``: 512 envs, half after 10 control steps of
 random actions from reset with every link offset by up to 5 mm, half drawn
 so that each of pen's five contact kinds touches, then 3 chained control
-steps; and the first 506 of them) it reads, per env-step, the max |err| of
-q and of qd of:
+steps; and the first 506 of them) and on hammer (``hammer_states``, the
+same from the default pose warmed by K3: 671 contact points), each by
+default, it reads, per env-step, the max |err| of q and of qd of:
 
 1. spread: the plain version (physics/soa.py) on the card against the
    plain version on the CPU;
@@ -16,16 +17,16 @@ q and of qd of:
 3. box_halfsize_x1.02: K3 with every box's half-sizes 2% too large in its
    pair rows;
 4. tendon_limit_stiffness_x1.02: K3 with every tendon's limit stiffness 2%
-   too large in its tendon block (pen's tendons are limit-only: their
+   too large in its tendon block (the Adroit tendons are limit-only: their
    spring stiffness is 0, so a 2% error there changes nothing);
 
 all from the same state and link offsets at every step, the kernel's own
 (the chain follows K3), as chip_smoke.py holds it. It prints, for q and qd
 and each variant, the max, the 99% quantile and how many env-steps exceed
-each power of ten, and the tolerance chip_smoke.py takes: ten times the
-spread's max, rounded up to a power of ten. The last lines: one JSON
-object with every reading, and the card's name and power limit from
-nvidia-smi.
+each power of ten, and the tolerance chip_smoke.py takes for the model:
+ten times the spread's max, rounded up to a power of ten. The last lines:
+one JSON object with every reading, per model, and the card's name and
+power limit from nvidia-smi.
 """
 
 from __future__ import annotations
@@ -43,9 +44,11 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import PEN_KINDS, pen_states  # noqa: E402
+from chip_smoke import hammer_states, pen_states  # noqa: E402
 from mjrl_tpu_torch.envs import make  # noqa: E402
+from mjrl_tpu_torch.envs.adroit import adroit_model  # noqa: E402
 from mjrl_tpu_torch.physics import pkernel, probe, soa  # noqa: E402
+from mjrl_tpu_torch.physics.tables import pair_groups  # noqa: E402
 
 SCALE = 1.02
 QUANTILE = 0.99
@@ -93,15 +96,17 @@ def per_env(variants, q, qd, delta, ctrls):
     return {name: tuple(torch.stack(e) for e in pair) for name, pair in errs.items()}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("torch_adroit_check: no CUDA device", file=sys.stderr)
-        return 2
-    kernel = pkernel.ExtKernel()
-    env = make("adroit_pen")
-    model, frames = env.model, env.frame_skip
-    kernel.build(pkernel.size_class(model))
-    q0, qd0, d0, ctrls = pen_states(env, 512, 3)
+def check(task, kernel):
+    """Every reading on ``task`` (pen or hammer), and its tolerance."""
+    if task == "pen":
+        env = make("adroit_pen")
+        model, frames = env.model, env.frame_skip
+        kernel.build(pkernel.size_class(model))
+        q0, qd0, d0, ctrls = pen_states(env, 512, 3)
+    else:
+        model, frames = adroit_model(task), 5
+        kernel.build(pkernel.size_class(model))
+        q0, qd0, d0, ctrls = hammer_states(model, kernel, 512, 3)
     cut = lambda x: x[:, :506].contiguous()  # noqa: E731
     cases = {"512": (q0, qd0, d0, ctrls),
              "506": (cut(q0), cut(qd0), cut(d0), [cut(c) for c in ctrls])}
@@ -123,8 +128,8 @@ def main() -> int:
                 "tendon_limit_stiffness_x1.02": (
                     k3(faulty_tables(model, kernel, dev, stiffer_tendon_limits)), on_card)}
     out = {"contacts": {k: int((v > 0).sum()) for k, v in probe.kind_depth(model, q0, d0).items()}}
-    print(f"[pen] 512: envs with a point at depth > 0 (first state): {out['contacts']}")
-    assert set(out["contacts"]) == set(PEN_KINDS)
+    print(f"[{task}] 512: envs with a point at depth > 0 (first state): {out['contacts']}")
+    assert set(out["contacts"]) == {k for k, _ in pair_groups(model).kinds}
     for case in cases:
         errs = per_env(variants, *cases[case])
         entry = {}
@@ -136,19 +141,31 @@ def main() -> int:
                     "env_steps": e.numel(),
                     "above": {f"1e{p}": int((e > 10.0 ** p).sum()) for p in range(-8, 2)}}
         out[case] = entry
-        print(f"[pen] {case}: {json.dumps(entry)}", flush=True)
+        print(f"[{task}] {case}: {json.dumps(entry)}", flush=True)
     tol = {}
     for name in ("q", "qd"):
         s = max(out[c][f"spread_{name}"]["max"] for c in cases)
         tol[name] = 10.0 ** math.ceil(math.log10(10 * s)) if s > 0 else 1e-6
     out["tolerance"] = tol
-    print(f"[pen] tolerance (10 x the spread's max, up to a power of ten): {tol}")
+    print(f"[{task}] tolerance (10 x the spread's max, up to a power of ten): {tol}")
     for case in cases:
         for variant in variants:
             held = {n: out[case][f"{variant}_{n}"]["max"] for n in ("q", "qd")}
             verdict = "passes" if all(held[n] <= tol[n] for n in tol) else "fails"
-            print(f"[pen] {case} {variant}: max q {held['q']:.3e} qd {held['qd']:.3e}: "
+            print(f"[{task}] {case} {variant}: max q {held['q']:.3e} qd {held['qd']:.3e}: "
                   f"{verdict} the tolerance")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_adroit_check: no CUDA device", file=sys.stderr)
+        return 2
+    tasks = sys.argv[1:] or ["pen", "hammer"]
+    if set(tasks) - {"pen", "hammer"}:
+        raise SystemExit(f"unknown tasks {tasks}; choose from pen, hammer")
+    kernel = pkernel.ExtKernel()
+    out = {task: check(task, kernel) for task in tasks}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     out["card"] = smi

@@ -84,7 +84,7 @@ def swapped_kernel(tmp: Path) -> pkernel.MultistepKernel:
     """K1 built from a copy of csrc/ with ``quat (x) iquat`` swapped."""
     src = tmp / "csrc"
     shutil.copytree(pkernel.CSRC, src)
-    header = src / "mj_substep.h"
+    header = src / "mj_warp_stages.h"
     text = header.read_text()
     if text.count(QMUL) != 1:
         raise RuntimeError("the fluid stage's quaternion product was not found")

@@ -1,7 +1,7 @@
 """Times of the port's kernels, to compare two versions on one card.
 
     python3 tools/torch_kernel_times.py LABEL [--smoke PATH] [--inputs FILE]
-        [--save FILE] [--compare FILE ...] [--memory K1|K2|K4]
+        [--save FILE] [--compare FILE ...] [--memory K1|K2|K3|K4]
 
 Run from the root of a checkout (it imports that checkout's
 ``mjrl_tpu_torch``), with one CUDA card. First, in the fresh process, the
@@ -18,7 +18,8 @@ Newton solver (B=1024, 5 x 1, states settled on the floor); K1 and K2 on
 hopper (B=256, 4 x 1, half the batch folded); K1 on swimmer (B=256); K1
 on walker2d (B=4096, the walker2d TRPO path's); K1 on humanoid (B=1024,
 half the batch folded); and K3 on Adroit pen (B=512, 5 x 1, ``pen_states``
-with their link offsets). The states come from ``chip_smoke.py``: the
+with their link offsets) and on Adroit hammer (B=512, ``hammer_states``,
+with theirs). The states come from ``chip_smoke.py``: the
 checkout's, or the one at PATH; ``--inputs FILE`` loads them from FILE if
 it exists and else saves them there, so that every run of a comparison
 steps the same inputs. ``--save FILE`` keeps each kernel's outputs of one
@@ -39,13 +40,14 @@ import json
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 ROOT = Path.cwd()
 sys.path.insert(0, str(ROOT))
 
 
-def _rows(smoke, make, saved=None):
+def _rows(smoke, make, adroit_model, saved=None):
     """name -> (env, kernel name, inputs: dict of tensors) of every timed
     row, the inputs from ``saved`` (name -> dict of CPU tensors) or else
     made by ``chip_smoke.py``'s state functions."""
@@ -64,7 +66,10 @@ def _rows(smoke, make, saved=None):
              ("walker2d_K1", make("walker2d", horizon=1000), "K1", 4096, {}),
              ("humanoid_K1", make("humanoid", horizon=1000), "K1", 1024, dict(fold=True)))
     envs.update({name: (env, k) for name, env, k, _, _ in kinds})
+    # Adroit hammer's model with the Adroit envs' frame skip (no hammer env yet)
+    hammer = types.SimpleNamespace(model=adroit_model("hammer"), frame_skip=5)
     envs["pen_K3"] = (pen, "K3")
+    envs["hammer_K3"] = (hammer, "K3")
     if saved is not None:
         dev = torch.device("cuda")
         return {name: (env, k, {a: t.to(dev) for a, t in saved[name].items()})
@@ -79,6 +84,10 @@ def _rows(smoke, make, saved=None):
         rows[name] = (env, kernel, dict(q=q, qd=qd, ctrl=ctrls[0]))
     q, qd, d, ctrls = smoke.pen_states(pen, 512, 1)
     rows["pen_K3"] = (pen, "K3", dict(q=q, qd=qd, ctrl=ctrls[0], link_delta=d))
+    from mjrl_tpu_torch.physics.pkernel import K3
+
+    q, qd, d, ctrls = smoke.hammer_states(hammer.model, K3, 512, 1)
+    rows["hammer_K3"] = (hammer, "K3", dict(q=q, qd=qd, ctrl=ctrls[0], link_delta=d))
     return rows
 
 
@@ -91,14 +100,16 @@ def _first_launch_bytes(make, kernels, which: str) -> dict:
 
     env = {"K1": lambda: make("ant", horizon=100),
            "K2": lambda: make("ant", horizon=100, constraint_solver="newton", n_substeps=1),
+           "K3": lambda: make("adroit_pen", horizon=100),
            "K4": lambda: make("adroit_pen", horizon=100, constraint_solver="newton")}[which]()
-    kernel, m, dev, B = kernels[which], env.model, env.device, 512 if which == "K4" else 1024
+    adroit = which in ("K3", "K4")
+    kernel, m, dev, B = kernels[which], env.model, env.device, 512 if adroit else 1024
     kernel.build(size_class(m))
     kernel._tables(m, dev)
     state, _ = env.reset(B, torch.Generator(device=dev).manual_seed(0))
     q, qd = state.q.T.contiguous(), state.qd.T.contiguous()
     kw = {}
-    if which == "K4":
+    if adroit:
         kw["link_delta"] = state.link_delta.reshape(B, -1).T.contiguous()
     ctrl = torch.zeros(m.nu, B, device=dev)
     torch.cuda.synchronize()
@@ -119,7 +130,7 @@ def main() -> int:
     p.add_argument("--inputs", default=None)
     p.add_argument("--save", default=None)
     p.add_argument("--compare", nargs="*", default=[])
-    p.add_argument("--memory", choices=("K1", "K2", "K4"), default=None)
+    p.add_argument("--memory", choices=("K1", "K2", "K3", "K4"), default=None)
     args = p.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_times: no CUDA device", file=sys.stderr)
@@ -128,6 +139,7 @@ def main() -> int:
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     from mjrl_tpu_torch.envs import make
+    from mjrl_tpu_torch.envs.adroit import adroit_model
     from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4
 
     kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
@@ -135,7 +147,7 @@ def main() -> int:
     out.update(_first_launch_bytes(make, kernels, args.memory or "K4"))
     if args.memory is None:
         have = bool(args.inputs) and os.path.exists(args.inputs)
-        rows = _rows(smoke, make, torch.load(args.inputs) if have else None)
+        rows = _rows(smoke, make, adroit_model, torch.load(args.inputs) if have else None)
         if args.inputs and not have:
             torch.save({n: {a: t.cpu() for a, t in x.items()} for n, (_, _, x) in rows.items()},
                        args.inputs)

@@ -3,13 +3,15 @@
     python3 tools/torch_warp_stages.py [ROW ...]
 
 Builds kernels K1 (``mjrl_tpu_torch/csrc/mj_kernel.cu``), K2
-(``mj_newton_kernel.cu``) and K4 (``mj_ext_newton_kernel.cu``) with
+(``mj_newton_kernel.cu``), K3 (``mj_ext_kernel.cu``) and K4
+(``mj_ext_newton_kernel.cu``) with
 ``-DMJ_STAGE_CLOCKS``, a build only this tool makes: lane 0 of each warp
 reads ``clock64()`` at the end of each stage of a substep
 (``mj_warp_stages.h``'s ``MJ_ST_*``: kinematics, rows (K1: its contact
-wrenches and fluid drag), RNE, forces, mass matrix, L^T D L, gradient, H,
-Cholesky, triangular solves, line search, integration; K1 has no Newton
-stages) and the launch writes each env's cycles per stage, summed over the
+wrenches and fluid drag; K3: its rounds of contact wrenches), RNE,
+forces, mass matrix, L^T D L, gradient, H, Cholesky, triangular solves,
+line search, integration; K1 and K3 have no Newton stages) and the
+launch writes each env's cycles per stage, summed over the
 control step, into a ``(stages, B)`` output. Runs one control step of each
 row (default: all) from ``chip_smoke.py``'s states, at the launch's
 default warps per block:
@@ -17,6 +19,8 @@ default warps per block:
 - ``ant_K1``: ant, B=1024 (``start_states``);
 - ``humanoid_K1``: humanoid, B=1024, half the batch folded;
 - ``ant_K2``: ant with the Newton solver, B=1024, settled on the floor;
+- ``pen_K3``: Adroit pen, B=512 (``pen_states``, with their link
+  offsets);
 - ``pen_states_K4``, ``pen_train_states_K4``: Adroit pen with the Newton
   solver, B=512.
 
@@ -38,13 +42,13 @@ sys.path.insert(0, str(ROOT))
 
 STAGES = ("kinematics", "rows", "rne", "forces", "mass_matrix", "ltdl", "gradient", "hessian",
           "cholesky", "triangular", "line_search", "integrate")
-ROWS = ("ant_K1", "humanoid_K1", "ant_K2", "pen_states_K4", "pen_train_states_K4")
+ROWS = ("ant_K1", "humanoid_K1", "ant_K2", "pen_K3", "pen_states_K4", "pen_train_states_K4")
 
 
-def _clocked(source: str, size: int, launch_fn: str, n_ptr: int):
+def _clocked(source: str, size: int, launch_fn: str, n_ptr: int, ints: int = 2):
     """The MJ_STAGE_CLOCKS build of ``source`` in size class ``size``, its
-    launch function (``n_ptr`` pointers, then B, n_sub[, iters], dt,
-    warps, stream, clocks) and its layouts."""
+    launch function (``n_ptr`` pointers, then ``ints`` ints: B, n_sub[,
+    iters], then dt, warps, stream, clocks) and its layouts."""
     from mjrl_tpu_torch.physics import pkernel
 
     path = pkernel.build_library(source, (pkernel.nvcc_path(), *pkernel.NVCC_FLAGS,
@@ -52,7 +56,6 @@ def _clocked(source: str, size: int, launch_fn: str, n_ptr: int):
                                  pkernel.BUILD_DIR / "stages")
     lib = ctypes.CDLL(str(path))
     launch = getattr(lib, launch_fn)
-    ints = 3 if n_ptr > 7 else 2  # B, n_sub[, iters]
     launch.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * ints + [
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     launch.restype = ctypes.c_int
@@ -82,6 +85,8 @@ def main() -> int:
         kname = row.rsplit("_", 1)[1]
         if kname == "K1":
             env = make(row.split("_")[0], horizon=1000)
+        elif kname == "K3":
+            env = make("adroit_pen", horizon=100)
         elif kname == "K2":
             env = make("ant", horizon=100, constraint_solver="newton", n_substeps=1)
         else:
@@ -104,6 +109,17 @@ def main() -> int:
             warps = pkernel.K1.launch_warps(size, B, dev)
             ptrs = lambda: (*tables, q, qd, ctrls[0], q_out, qd_out)  # noqa: E731
             tail = lambda clocks: (B, n_sub, dt, warps, stream, clocks.data_ptr())  # noqa: E731
+        elif kname == "K3":
+            B = 512
+            lib, launch, wl = _clocked("mj_ext_kernel.cu", size, "mj_ext_launch", 8)
+            pkernel.K3.build(size)
+            pkernel.check_tendons(m, wl)
+            tables = [torch.from_numpy(a).to(dev) for a in
+                      pkernel.pack_tables(m, pkernel.read_layout(lib), ext=True)]
+            q, qd, d, ctrls = pen_states(env, B, 1)
+            warps = pkernel.K3.launch_warps(size, B, dev)
+            ptrs = lambda: (*tables, q, qd, ctrls[0], d, q_out, qd_out)  # noqa: E731
+            tail = lambda clocks: (B, n_sub, dt, warps, stream, clocks.data_ptr())  # noqa: E731
         else:
             if kname == "K2":
                 B = 1024
@@ -119,7 +135,7 @@ def main() -> int:
                 q, qd, d, ctrls = states(env, B, 1)
                 pkernel.K4.build(size)
                 warps = pkernel.K4.warps_per_block(size)
-            lib, launch, wl = _clocked(source, size, fn, n_ptr)
+            lib, launch, wl = _clocked(source, size, fn, n_ptr, ints=3)
             L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
             tables = [torch.from_numpy(a).to(dev) for a in
                       (*pkernel.pack_tables(m, L, ext=ext),
