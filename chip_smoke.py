@@ -75,17 +75,21 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    at B=4096.
 11. K3 on Adroit pen against plain (link offsets, box kinds, servos,
    tendons, frictionloss), to its own tolerance: B=512 and a ragged B=506,
-   one control step and 3 chained ones from ``pen_states``; every one of
-   pen's five contact kinds must touch; K3's q and qd bit for bit the same
-   over two launches and with 1 and with the most warps per block (the
+   one control step and 3 chained ones from ``adroit_states``; every one
+   of pen's five contact kinds must touch; K3's q and qd bit for bit the
+   same over two launches and with 1 and with the most warps per block (the
    check for a missing __syncwarp()); both times at B=512. Then K3 on
    Adroit hammer (671 contact points in 229 pairs, 8 rounds of 32; more
-   than K1's 512 slots) against plain, to hammer's own tolerance: one
-   control step at B=512 from ``hammer_states`` (warmed by K3, with link
-   offsets), every one of hammer's five contact kinds touching, the
-   launches bit for bit as on pen; both times at B=512.
+   than K1's 512 slots), door (760 points in 278 pairs, 9 rounds) and
+   relocate (the sphere kinds, the fullest size class) against plain, each
+   to its own tolerance: one control step at B=512 from ``adroit_states``
+   of the ported env (half from its reset, the board, the door's frame or
+   the ball moved, warmed by random actions through K3), every one of the
+   model's contact kinds touching, the launches bit for bit as on pen;
+   both times at B=512, and K3's on hammer and relocate at their paths'
+   B=2048 (B=512's states four times over).
 12. K4 on Adroit pen with the Newton solver against plain, to its own
-   tolerance: the same, from ``pen_states`` warmed by K4; counts the
+   tolerance: the same, from ``adroit_states`` warmed by K4; counts the
    env-steps that hold a row of each contact kind, of each facet count (1,
    4, 6) and of a joint limit, and fails if any is 0; the rows held per
    env-step (mean, max), the line-search flips, and K4's overflow counter,
@@ -95,7 +99,7 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    and picks bit for bit the same over two launches and with 1 and 4 warps
    per block (the check for a missing __syncwarp(), which no sanitizer
    reads on that machine); both times at B=512 on both.
-13. Eight paths through the entry point at full width, ``run_job`` of
+13. Eleven paths through the entry point at full width, ``run_job`` of
    mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
    examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
    then niter=2, the second call resuming from the first one's checkpoint;
@@ -108,8 +112,12 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    sampler carry from the checkpoint; examples/humanoid_trpo.json (TRPO,
    obs_norm, 1024 x 1000, K1) with niter=1; examples/adroit_pen_npg.json
    (512 x 100, K3) and examples/adroit_pen_npg_newton.json (512 x 100, K4)
-   with niter=1 and then niter=2, resumed. Exactly the path's launches
-   of its kernel per iteration (1000, 100, or humanoid PPO's 64) and 0 of
+   with niter=1 and then niter=2, resumed; examples/adroit_door_npg.json
+   (512 x 200, K3), examples/adroit_hammer_npg.json at hammer's
+   fixed-physics width (num_traj=2048: 2048 x 200, K3, the nail's sensor
+   in every observation) and examples/adroit_relocate_scratch.json (2048 x
+   200, K3) with niter=1. Exactly the path's launches of its kernel per
+   iteration (1000, 200, 100, or humanoid PPO's 64) and 0 of
    the others, the obs_norm rollout's counted apart (one more window or
    episode), every logged value finite, the agent's state on the card,
    log.csv and the checkpoints written; prints each iteration's ms, valid
@@ -122,8 +130,8 @@ that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper``,
 ``swimmer``, ``walker2d_trpo``, ``humanoid_trpo`` and ``humanoid_ppo``
 entries, K2's ``hopper`` entry, K3 and K4: their path in phase 13, the
 obs_norm rollout included), reset to 0 just before. Each K1, K2 and K3
-entry holds the warps per block its default launch took; K3's ``hammer``
-entry its hammer check. ``bound_ms`` is the least
+entry holds the warps per block its default launch took; K3's ``hammer``,
+``door`` and ``relocate`` entries their check and their path's launches. ``bound_ms`` is the least
 time the card could take for one control step at the check's batch: the
 larger of the bytes the kernel must move (state in and out, its tables)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
@@ -179,7 +187,7 @@ from pathlib import Path
 # 2% off reads 2e-2 / 2.7 there and fails it.
 # K3 on pen has its own by swimmer's rule: ten times the largest spread
 # between the plain version on the card and on the CPU (1.0e-6 in q, 1.9e-4
-# in qd over pen_states' 512 and 506 envs x 3 chained steps), rounded up
+# in qd over adroit_states' 512 and 506 pen envs x 3 chained steps), rounded up
 # to a power of ten; every box's half-sizes 2% too large read 3.2e-3 / 0.34
 # there and every tendon's limit stiffness 2% too large 1.9e-3 / 0.28, and
 # both fail it (tools/torch_adroit_check.py, PERF.md). K3 on hammer by the
@@ -187,9 +195,11 @@ from pathlib import Path
 # 1.3e-6 in q and 8.4e-4 in qd over hammer_states' 512 and 506 envs x 3
 # chained steps, so 1e-4 / 1e-2; every box's half-sizes 2% too large read
 # 1.3e-2 / 2.3 there and every tendon's limit stiffness 2% too large
-# 3.6e-3 / 0.54, and both fail it.
+# 3.6e-3 / 0.54, and both fail it. K3 on door and on relocate by the same
+# rule, each from its own spread over adroit_states' 512 and 506 envs x 3
+# chained steps (tools/torch_adroit_check.py door relocate, PERF.md).
 # K4 on pen by the same rule: the plain version on the card and on the CPU
-# differ by up to 2.0e-5 in q and 4.7e-3 in qd (over pen_states' 512 and
+# differ by up to 2.0e-5 in q and 4.7e-3 in qd (over adroit_states' 512 and
 # 506 envs x 3 chained steps: a converged Newton iteration's line-search
 # ties flip on round-off at a few env-steps), so 1e-3 / 1e-1; K4 reads
 # 4.8e-5 / 1.15e-2. Frictionloss's diagonal left out of the Newton metric
@@ -202,6 +212,7 @@ from pathlib import Path
 TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2},
        "K1 swimmer": {"q": 1e-5, "qd": 1e-3}, "K1 humanoid": {"q": 1e-4, "qd": 5e-2},
        "K3 pen": {"q": 1e-4, "qd": 1e-2}, "K3 hammer": {"q": 1e-4, "qd": 1e-2},
+       "K3 door": {"q": 1e-4, "qd": 1e-2}, "K3 relocate": {"q": 1e-4, "qd": 1e-2},
        "K4 pen": {"q": 1e-3, "qd": 1e-1},
        "K4 pen quantile": {"q": 1e-5, "qd": 1e-3}}
 HUMANOID_QUANTILE = 0.99
@@ -210,20 +221,26 @@ HOPPER_ENVS, HOPPER_HORIZON = 256, 1000  # examples/hopper_npg.json
 TRPO_ENVS = 4096  # examples/walker2d_trpo.json
 HUMANOID_TRPO_ENVS, HUMANOID_PPO_ENVS, PPO_WINDOW = 1024, 4096, 64  # examples/humanoid_*.json
 PEN_ENVS, PEN_HORIZON = 512, 100  # examples/adroit_pen_npg.json
-# the paths through the entry point (phase 11): config, kernel, envs, steps
+ADROIT_HORIZON, ADROIT_WIDE = 200, 2048  # door, hammer and relocate; hammer's fixed width
+# the paths through the entry point (phase 13): config, kernel, envs, steps
 # per iteration (the episode or the samples-mode window), run_job's niter
-# per call
-ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, HOPPER_HORIZON, (1, 2)),
-               ("hopper_newton", "hopper_npg_newton.json", "K2", 256, HOPPER_HORIZON, (1,)),
-               ("swimmer", "swimmer_npg.json", "K1", 256, HOPPER_HORIZON, (1,)),
-               ("walker2d_trpo", "walker2d_trpo.json", "K1", TRPO_ENVS, HOPPER_HORIZON, (1,)),
+# per call, and overrides of the config
+ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, HOPPER_HORIZON, (1, 2), ()),
+               ("hopper_newton", "hopper_npg_newton.json", "K2", 256, HOPPER_HORIZON, (1,), ()),
+               ("swimmer", "swimmer_npg.json", "K1", 256, HOPPER_HORIZON, (1,), ()),
+               ("walker2d_trpo", "walker2d_trpo.json", "K1", TRPO_ENVS, HOPPER_HORIZON, (1,), ()),
                ("humanoid_ppo", "humanoid_ppo_v4.json", "K1", HUMANOID_PPO_ENVS, PPO_WINDOW,
-                (1, 2)),
+                (1, 2), ()),
                ("humanoid_trpo", "humanoid_trpo.json", "K1", HUMANOID_TRPO_ENVS, HOPPER_HORIZON,
-                (1,)),
-               ("adroit_pen", "adroit_pen_npg.json", "K3", PEN_ENVS, PEN_HORIZON, (1, 2)),
+                (1,), ()),
+               ("adroit_pen", "adroit_pen_npg.json", "K3", PEN_ENVS, PEN_HORIZON, (1, 2), ()),
                ("adroit_pen_newton", "adroit_pen_npg_newton.json", "K4", PEN_ENVS, PEN_HORIZON,
-                (1, 2)))
+                (1, 2), ()),
+               ("adroit_door", "adroit_door_npg.json", "K3", PEN_ENVS, ADROIT_HORIZON, (1,), ()),
+               ("adroit_hammer", "adroit_hammer_npg.json", "K3", ADROIT_WIDE, ADROIT_HORIZON, (1,),
+                (f"num_traj={ADROIT_WIDE}",)),
+               ("adroit_relocate", "adroit_relocate_scratch.json", "K3", ADROIT_WIDE,
+                ADROIT_HORIZON, (1,), ()))
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 ROOT = Path(__file__).resolve().parent
 
@@ -373,15 +390,18 @@ def start_states(env, full, n_chain, warm_steps=10, warm_scale=1.0, fold=False):
 PEN_KINDS = ("box_plane", "capsule_plane", "capsule_box", "box_box", "capsule_capsule")
 
 
-def pen_states(env, full, n_chain, warm_steps=10):
+def adroit_states(env, full, n_chain, warm_steps=10):
     """``(q (nq, full), qd (nv, full), link_delta (3 nlink, full), [ctrl (nu,
-    full)] * n_chain)`` on the env's device for Adroit pen: the first half
-    after ``warm_steps`` control steps of random actions from reset (K3 on
-    the card), each of their links offset by a draw uniform in +-5 mm; the
-    second half from ``probe.kind_states``, equal shares in which each of
-    pen's five contact kinds touches (some through a link offset that
-    lowers the hand or the pen onto the table or the floor); and the
-    controls of ``n_chain`` chained steps (numpy seed 0, torch seed 0)."""
+    full)] * n_chain)`` on the env's device for an Adroit env: the first
+    half after ``warm_steps`` control steps of random actions from reset
+    (K3 on the card), their links offset by the env's own scene offsets
+    (hammer's board, door's frame, relocate's ball; none for pen) plus a
+    draw uniform in +-5 mm each; the second half from
+    ``probe.kind_states``, equal shares in which each of the model's
+    contact kinds touches (some through a link offset that lowers the hand
+    or the object onto the table or the floor, or carries relocate's ball
+    onto the hand); and the controls of ``n_chain`` chained steps (numpy
+    seed 0, torch seed 0)."""
     import numpy as np
     import torch
 
@@ -395,16 +415,18 @@ def pen_states(env, full, n_chain, warm_steps=10):
     for _ in range(warm_steps):
         state, *_ = env.step(state, rand_ctrl().T)
     q0, qd0 = state.q.T.contiguous(), state.qd.T.contiguous()
-    delta = _offsets_and_kind_states(model, q0, qd0, rng)
+    delta = _offsets_and_kind_states(model, q0, qd0, rng,
+                                     state.link_delta.reshape(full, -1).T)
     return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
 
 
-def _offsets_and_kind_states(model, q0, qd0, rng):
-    """The link offsets of ``pen_states`` and ``hammer_states``: the first
-    half of the batch keeps its states and has every link offset by a draw
-    uniform in +-5 mm; the second half's states (written into ``q0`` and
-    ``qd0``) and offsets come from ``probe.kind_states``, equal shares per
-    contact kind of the model."""
+def _offsets_and_kind_states(model, q0, qd0, rng, scene=None):
+    """The link offsets of ``adroit_states`` and ``hammer_states``: the
+    first half of the batch keeps its states and has every link offset by
+    its ``scene`` offset (``(3 nlink, full)``, or none) plus a draw uniform
+    in +-5 mm; the second half's states (written into ``q0`` and ``qd0``)
+    and offsets come from ``probe.kind_states``, equal shares per contact
+    kind of the model."""
     import torch
 
     from mjrl_tpu_torch.physics import probe
@@ -415,6 +437,8 @@ def _offsets_and_kind_states(model, q0, qd0, rng):
     delta = torch.zeros(3 * model.nlink, full, device=dev)
     delta[:, :half] = torch.as_tensor(rng.uniform(-0.005, 0.005, (3 * model.nlink, half)),
                                       dtype=torch.float32, device=dev)
+    if scene is not None:
+        delta[:, :half] = scene[:, :half] + delta[:, :half]
     n_kind = -(-(full - half) // len(pair_groups(model).kinds))
     kq, kqd, kd = probe.kind_states(model, n_kind, rng)
     q0[:, half:] = torch.as_tensor(kq[:, : full - half], device=dev)
@@ -424,7 +448,7 @@ def _offsets_and_kind_states(model, q0, qd0, rng):
 
 
 def pen_train_states(env, full, n_chain, steps=50):
-    """As ``pen_states``, from the training path: the states after
+    """As ``adroit_states``, from the training path: the states after
     ``steps`` control steps from reset under a (64, 64) GaussianMLP policy
     at its seeded init (torch seed 0; its actions drawn with numpy seed 0),
     their link offsets (the env's own, zeros for pen), and as the controls
@@ -456,8 +480,10 @@ def pen_train_states(env, full, n_chain, steps=50):
 
 
 def hammer_states(model, kernel, full, n_chain, warm_steps=10):
-    """As ``pen_states``, for Adroit hammer (no env: the model and K3
-    alone): the first half from the default pose after ``warm_steps``
+    """As ``adroit_states``, for an Adroit model without its env (the model
+    and K3 alone; tools/torch_kernel_times.py times K3 on it against a
+    checkout that has no hammer env): the first half from the default pose
+    after ``warm_steps``
     control steps of K3 under random controls (uniform in +-1, which the
     servos clamp to their ranges), each link then offset by a draw uniform
     in +-5 mm; the second half from ``probe.kind_states``, equal shares in
@@ -481,18 +507,21 @@ def hammer_states(model, kernel, full, n_chain, warm_steps=10):
     return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
 
 
-def phase_k3(tag, model, frames, kernel, states, batches, tol):
+def phase_k3(tag, model, frames, kernel, states, batches, tol, wide=None):
     """Holds K3 against the plain version on an Adroit model over the
     chained control steps of ``states`` (``(q, qd, link_delta, ctrls)`` at
-    the full batch, ``pen_states``' or ``hammer_states``') at each batch
+    the full batch, ``adroit_states``') at each batch
     size of ``batches`` (the first the full one), with their link offsets;
     ``tol`` bounds each step's max |err| of q and qd; each of the model's
     contact kinds must touch (a point at depth > 0) in some env-step.
     Checks that K3's launches are repeatable (``check_repeatable``); both
-    times and the bound at the full batch."""
+    times and the bound at the full batch, and with ``wide`` (a multiple of
+    it) K3 at that batch on the full batch's states repeated: its results
+    bit for bit the full batch's repeated, its time and bound."""
     import torch
 
     from mjrl_tpu_torch.physics import probe, soa
+    from mjrl_tpu_torch.physics.pkernel import size_class
 
     q0, qd0, d0, ctrls = states
     full, n_chain = batches[0], len(ctrls)
@@ -542,8 +571,32 @@ def phase_k3(tag, model, frames, kernel, states, batches, tol):
     print(f"[{tag}] B={full} one control step ({n_sub} substeps): {kernel.name} {ms:.4f} ms, "
           f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
           f"({ops:.0f} f32 operations per env-substep)")
-    return dict(max_abs_err=max_err, kind_env_steps=kind_steps, warps_per_block=warps, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    out = dict(max_abs_err=max_err, kind_env_steps=kind_steps, warps_per_block=warps, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    if wide:
+        reps = wide // full
+        want = kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
+        q, qd, d, c = (x.repeat(1, reps).contiguous() for x in (q0, qd0, d0, ctrl))
+        got = kernel(model, q, qd, c, frames, link_delta=d)
+        torch.cuda.synchronize()
+        # each env is one warp on its own inputs, so the B=full results
+        # (held against plain above) repeated are what the wide launch owes
+        same = all(torch.equal(_bits(g), _bits(w.repeat(1, reps))) for g, w in zip(got, want))
+        w_warps = kernel.launch_warps(size_class(model), wide, q.device)
+        print(f"[{tag}] B={wide} ({w_warps} warps per block) one control step from B={full}'s "
+              f"states repeated: q and qd {'bit for bit' if same else 'DIFFER from'} B={full}'s "
+              f"repeated")
+        if not same:
+            raise RuntimeError(f"{tag}: {kernel.name} at B={wide} disagrees with its B={full} "
+                               f"results on the same states")
+        w_ms = _cuda_ms(lambda: kernel(model, q, qd, c, frames, link_delta=d), 20)
+        w_bound, w_by = _bound_ms(model, n_sub, ops, kernel._tables(model, q.device), wide,
+                                  extra_rows=3 * model.nlink)
+        print(f"[{tag}] B={wide} (B={full}'s states repeated) one control step: {kernel.name} "
+              f"{w_ms:.4f} ms, bound {w_bound:.5f} ms by {w_by}")
+        out["wide"] = dict(batch=wide, ms=w_ms, bound_ms=w_bound, bound_by=w_by,
+                           warps_per_block=w_warps, bit_for_bit_as_full_batch=same)
+    return out
 
 
 FACETS = ("facets_1", "facets_4", "facets_6")
@@ -552,7 +605,7 @@ FACETS = ("facets_1", "facets_4", "facets_6")
 def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
     """Holds K4 against the plain version on Adroit pen with the Newton
     solver over ``n_chain`` chained control steps at each batch size of
-    ``batches`` (the first the full one), from ``pen_states`` (half the
+    ``batches`` (the first the full one), from ``adroit_states`` (half the
     batch warmed by K4) with their link offsets; ``tol`` bounds each step's
     max |err| of q and qd, ``tol_quantile`` the HUMANOID_QUANTILE quantile
     of the per env-step max |err|. At each step's entry state it counts the
@@ -578,7 +631,8 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
     full = batches[0]
     kernel.check()
     result = {"overflow": 0}
-    for states, chain, sizes in ((pen_states, n_chain, batches), (pen_train_states, 1, batches[:1])):
+    for label, states, chain, sizes in (("pen_states", adroit_states, n_chain, batches),
+                                        ("pen_train_states", pen_train_states, 1, batches[:1])):
         q0, qd0, d0, ctrls = states(env, full, chain)
         max_err, quantile_err, flips, held_all, lim_all = 0.0, 0.0, 0, [], []
         for B in sizes:
@@ -612,7 +666,7 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
                     err = float(per_env[name][-1].max())
                     worst[name] = max(worst[name], err)
                     if step == 0:
-                        print(f"[{tag}] {states.__name__} B={B} one control step {name}: "
+                        print(f"[{tag}] {label} B={B} one control step {name}: "
                               f"max|err|={err:.3e} tol={tol[name]:.0e}")
                 q, qd = kq, kqd
             kernel.check()  # raises on an env-substep with more rows than MAX_HELD
@@ -621,42 +675,42 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
                 ok = worst[name] <= tol[name] and quant <= tol_quantile[name]
                 max_err = max(max_err, worst[name])
                 quantile_err = max(quantile_err, quant)
-                print(f"[{tag}] {states.__name__} B={B} {len(ctrls)} chained control steps "
+                print(f"[{tag}] {label} B={B} {len(ctrls)} chained control steps "
                       f"{name}: max per-step |err|={worst[name]:.3e} tol={tol[name]:.0e}, "
                       f"{HUMANOID_QUANTILE:.0%} quantile of the per env-step "
                       f"|err|={quant:.3e} tol={tol_quantile[name]:.0e} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise RuntimeError(f"{tag} disagrees with the plain version: {name} at "
-                                       f"B={B} from {states.__name__}")
+                                       f"B={B} from {label}")
             for k, n in counts.items():
-                print(f"[{tag}] {states.__name__} B={B} a held {k} row in {n} of "
+                print(f"[{tag}] {label} B={B} a held {k} row in {n} of "
                       f"{len(ctrls) * B} env-steps")
-                if n == 0 and states is pen_states:
+                if n == 0 and states is adroit_states:
                     raise RuntimeError(f"{tag}: no held {k} row at B={B}")
             held = torch.stack(held)
             held_all.append(held.reshape(-1))
             flips += int(flipped.sum())
-            print(f"[{tag}] {states.__name__} B={B} contact rows inside their margin per "
+            print(f"[{tag}] {label} B={B} contact rows inside their margin per "
                   f"env-step: mean {float(held.mean()):.3f}, max {int(held.max())} (the build "
                   f"holds {kernel._newton_layouts[size_class(model)]['MAX_HELD']}); overflow "
                   f"counter 0")
-            print(f"[{tag}] {states.__name__} B={B} envs with another line-search fraction in "
+            print(f"[{tag}] {label} B={B} envs with another line-search fraction in "
                   f"some iteration: {int(flipped.sum())} of {B}; in a substep's first "
                   f"iteration: {int(flipped_first.sum())}")
         ctrl = ctrls[0]
         runs = {}
-        for label, warps in (("first", None), ("second", None), ("1 warp per block", 1),
-                             ("4 warps per block", 4)):
+        for run, warps in (("first", None), ("second", None), ("1 warp per block", 1),
+                           ("4 warps per block", 4)):
             picks = torch.full((n_sub * iters, full), -1, dtype=torch.int32, device=dev)
-            runs[label] = (*kernel(model, q0, qd0, ctrl, frames, link_delta=d0, picks=picks,
-                                   warps_per_block=warps), picks)
+            runs[run] = (*kernel(model, q0, qd0, ctrl, frames, link_delta=d0, picks=picks,
+                                 warps_per_block=warps), picks)
         torch.cuda.synchronize()
-        for label, out in runs.items():
+        for run, out in runs.items():
             same = all(torch.equal(a, b) for a, b in zip(out, runs["first"]))
-            print(f"[{tag}] {states.__name__} B={full} launch with {label}: q, qd and picks "
+            print(f"[{tag}] {label} B={full} launch with {run}: q, qd and picks "
                   f"{'bit for bit as the first launch' if same else 'DIFFER'}")
             if not same:
-                raise RuntimeError(f"{tag}: K4's results change between launches ({label})")
+                raise RuntimeError(f"{tag}: K4's results change between launches ({run})")
         for _ in range(3):
             kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
         ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames, link_delta=d0), 20)
@@ -668,13 +722,13 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
                                float(torch.cat(lim_all).mean()), d0)
         bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev), full,
                                        extra_rows=3 * model.nlink)
-        print(f"[{tag}] {states.__name__} B={full} one control step ({n_sub} substeps): "
+        print(f"[{tag}] {label} B={full} one control step ({n_sub} substeps): "
               f"{kernel.name} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by "
               f"{bound_by} ({ops:.0f} f32 operations per env-substep)")
         r = dict(max_abs_err=max_err, quantile=HUMANOID_QUANTILE, quantile_abs_err=quantile_err,
                  held_rows_mean=float(held.mean()), held_rows_max=int(held.max()), ms=ms,
                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        if states is pen_states:
+        if states is adroit_states:
             result.update(r, env_steps=counts, line_search_flips=flips)
         else:
             result["train_states"] = dict(r, line_search_flips=flips)
@@ -991,9 +1045,9 @@ def phase_slice(tag, env, agent, kernel, other):
     return kernel.launches
 
 
-def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,)):
-    """Full-width iterations of ``examples/<config>`` through
-    ``mjrl_tpu_torch.train.run_job``: one call per entry of ``niters``, all
+def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overrides=()):
+    """Full-width iterations of ``examples/<config>`` (with ``overrides``)
+    through ``mjrl_tpu_torch.train.run_job``: one call per entry of ``niters``, all
     into one temporary directory, each call after the first resuming from
     the checkpoint of the one before. Each iteration must launch ``kernel``
     ``steps`` times and none of ``others``; a config with ``obs_norm`` adds
@@ -1017,7 +1071,8 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,)):
         with tempfile.TemporaryDirectory() as out:
             for i, niter in enumerate(niters):
                 before = kernel.launches
-                cfg = load_config(ROOT / "examples" / config, [f"niter={niter}", "save_freq=1"])
+                cfg = load_config(ROOT / "examples" / config,
+                                  [*overrides, f"niter={niter}", "save_freq=1"])
                 agent = run_job(cfg, out)
                 per_call.append(kernel.launches - before - (sum(obs_norm) if i == 0 else 0))
                 if agent.sample_mode == "samples":
@@ -1085,7 +1140,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from mjrl_tpu_torch.envs import make
-    from mjrl_tpu_torch.envs.adroit import adroit_model
     from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4, SIZE_CLASSES
 
     t0 = time.perf_counter()
@@ -1135,18 +1189,23 @@ def main() -> int:
             tol=TOL["K1 humanoid"], kinds=SPHERE_KINDS, quantile=HUMANOID_QUANTILE),
     }
     pen = make("adroit_pen", horizon=PEN_HORIZON)
-    k3 = phase_k3("K3 pen", pen.model, pen.frame_skip, K3, pen_states(pen, PEN_ENVS, 3),
+    k3 = phase_k3("K3 pen", pen.model, pen.frame_skip, K3, adroit_states(pen, PEN_ENVS, 3),
                   (PEN_ENVS, PEN_ENVS - 6), TOL["K3 pen"])
-    hammer = adroit_model("hammer")
-    k3_hammer = phase_k3("K3 hammer", hammer, pen.frame_skip, K3,
-                         hammer_states(hammer, K3, PEN_ENVS, 1), (PEN_ENVS,), TOL["K3 hammer"])
+    k3_tasks = {}
+    for task in ("hammer", "door", "relocate"):
+        env = make(f"adroit_{task}")
+        if env.device.type != "cuda":
+            raise RuntimeError("envs must default to the card")
+        k3_tasks[task] = phase_k3(f"K3 {task}", env.model, env.frame_skip, K3,
+                                  adroit_states(env, PEN_ENVS, 1), (PEN_ENVS,), TOL[f"K3 {task}"],
+                                  wide=ADROIT_WIDE if task != "door" else None)
     pen_newton = make("adroit_pen", horizon=PEN_HORIZON, constraint_solver="newton")
     k4 = phase_k4_pen("K4 pen", pen_newton, K4, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K4 pen"],
                       TOL["K4 pen quantile"])
     every = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
     entry = {tag: phase_entry(tag, config, every[k], [v for n, v in every.items() if n != k],
-                              n, steps, niters)
-             for tag, config, k, n, steps, niters in ENTRY_PATHS}
+                              n, steps, niters, overrides)
+             for tag, config, k, n, steps, niters, overrides in ENTRY_PATHS}
     k1_hopper["launches"] = entry["hopper"]
     k3["launches"] = entry["adroit_pen"]
     k4["launches"] = entry["adroit_pen_newton"]
@@ -1183,8 +1242,11 @@ def main() -> int:
                                 overflow=k2_hopper["overflow"],
                                 condims_max_abs_err=k2_hopper["condims_max_abs_err"])
     kernels[2].update(kind_env_steps=k3["kind_env_steps"], warps_per_block=k3["warps_per_block"])
-    kernels[2]["hammer"] = {k: k3_hammer[k] for k in keys if k != "launches"}
-    kernels[2]["hammer"]["kind_env_steps"] = k3_hammer["kind_env_steps"]
+    for task, r in k3_tasks.items():
+        kernels[2][task] = {k: r[k] for k in keys if k != "launches"}
+        kernels[2][task].update(launches=entry[f"adroit_{task}"], kind_env_steps=r["kind_env_steps"])
+        if "wide" in r:
+            kernels[2][task]["wide"] = r["wide"]
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
                                           "held_rows_mean", "held_rows_max",
                                           "line_search_flips", "overflow", "train_states")})

@@ -17,7 +17,7 @@ step by ``learn_rate * clip(1 - iteration / lr_anneal_iters, 0, 1)``,
 
 The Adam state persists across iterations and in the checkpoint. The
 sharded path of the reference (per-device shuffles under ``shard_map``)
-is not ported (ROADMAP queue 1 item 15).
+is not ported (ROADMAP queue 1, "Env-axis data parallel").
 """
 
 from __future__ import annotations

@@ -6,15 +6,19 @@ Twin of ``contact_forces``, ``_collide_kind``, ``_geom_world_batch``,
 set of ops over ``(B, P, ...)`` tensors, as the reference's are, not one
 per contact point. Kernel K1 computes the same forces inside its substep
 (physics/soa.py is its plain version); this module serves the observation
-outside it: humanoid's ``cfrc_ext`` (physics/comfeat.py).
+outside it: humanoid's ``cfrc_ext`` (physics/comfeat.py) and Adroit
+hammer's nail sensor (envs/adroit.py), which asks for one link's wrench:
+``contact_forces(..., links=...)`` then collides only the pairs that touch
+those links, so their rows come out as the whole model's call gives them.
 
 Force model, per contact point (depth > 0 only):
 
     f_n = max(0, k_n * min(depth, cap) - c_n * v_n)   [capped if set]
     f_t = -mu * f_n * v_t / (|v_t| + v_reg)
 
-Kinds: sphere-plane, capsule-plane, sphere-sphere, sphere-capsule and
-capsule-capsule (the kinds ``soa.check_supported`` admits).
+Kinds: sphere-plane, capsule-plane, sphere-sphere, sphere-capsule,
+capsule-capsule, sphere-box and capsule-box (three spheres along the
+capsule's axis). Box-plane and box-box raise: no observation needs them.
 """
 
 from __future__ import annotations
@@ -79,18 +83,43 @@ def _sphere_sphere(c1, r1, c2, r2):
     return depth, nrm, pts
 
 
-def _collide_kind(model: Model, kin: Kinematics, kind: str, tab):
+def _sphere_box(c, r, pb, qb, sb):
+    """Sphere centres ``c (B, P, 3)`` with radii ``r (P,)`` against boxes at
+    ``pb (B, P, 3)``, ``qb (B, P, 4)`` with half-sizes ``sb (P, 3)``:
+    depth, world normal from the box, world point (on the box). A centre
+    inside its box leaves through the nearest face."""
+    R = m3.quat_to_mat(qb)  # box -> world
+    p = torch.einsum("bpji,bpj->bpi", R, c - pb)  # the centre in the box's frame
+    clamped = torch.minimum(torch.maximum(p, -sb), sb)
+    delta = p - clamped
+    d_out = torch.linalg.vector_norm(delta, dim=-1)
+    inside = d_out < 1e-9
+    n_out = delta / (d_out[..., None] + 1e-12)
+    gap = sb - p.abs()  # per-face distance when inside
+    ax = torch.argmin(gap, dim=-1, keepdim=True)
+    sgn = torch.where(torch.gather(p, -1, ax) >= 0, 1.0, -1.0)
+    n_in = torch.nn.functional.one_hot(ax[..., 0], 3).to(p.dtype) * sgn
+    depth_in = r + torch.gather(gap, -1, ax)[..., 0]
+    nrm_b = torch.where(inside[..., None], n_in, n_out)
+    depth = torch.where(inside, depth_in, r - d_out)
+    nrm_w = torch.einsum("bpij,bpj->bpi", R, nrm_b)
+    return depth, nrm_w, pb + torch.einsum("bpij,bpj->bpi", R, clamped)
+
+
+def _collide_kind(model: Model, kin: Kinematics, kind: str, tab, tag: str = ""):
     """One kind's narrow phase: per contact point ``depth (B, P)``,
     ``normal (B, P, 3)`` from j to i, world ``points (B, P, 3)``, and the
     links ``li, lj`` (numpy, -1 for the world) and frictions ``mu`` of each
-    point."""
+    point. ``tag`` names ``tab``'s device constants when it is a subset of
+    the kind's pairs."""
     dev = kin.pos.device
     gi, gj, li, lj = tab["gi"], tab["gj"], tab["li"], tab["lj"]
-    mu = const(model, f"mu_{kind}", tab["mu"], dev)
-    pi, qi = _geom_world_batch(model, kin, gi, f"{kind}_i")
-    pj, qj = _geom_world_batch(model, kin, gj, f"{kind}_j")
-    si = const(model, f"size_{kind}_i", np.asarray(model.geom_size)[gi], dev)
-    sj = const(model, f"size_{kind}_j", np.asarray(model.geom_size)[gj], dev)
+    tag = kind + tag
+    mu = const(model, f"mu_{tag}", tab["mu"], dev)
+    pi, qi = _geom_world_batch(model, kin, gi, f"{tag}_i")
+    pj, qj = _geom_world_batch(model, kin, gj, f"{tag}_j")
+    si = const(model, f"size_{tag}_i", np.asarray(model.geom_size)[gi], dev)
+    sj = const(model, f"size_{tag}_j", np.asarray(model.geom_size)[gj], dev)
     z = const(model, "z_axis", [0.0, 0.0, 1.0], dev)
 
     if kind == "sphere_plane":
@@ -136,18 +165,53 @@ def _collide_kind(model: Model, kin: Kinematics, kind: str, tab):
         s = torch.clamp((b * t - c) / a, 0.0, 1.0)
         return (*_sphere_sphere(p1 + s[..., None] * d1, si[:, 0], p2 + t[..., None] * d2,
                                 sj[:, 0]), li, lj, mu)
+    if kind == "sphere_box":
+        return (*_sphere_box(pi, si[:, 0], pj, qj, sj), li, lj, mu)
+    if kind == "capsule_box":
+        # three spheres along the capsule's axis, each against the box
+        axis = m3.quat_rotate(qi, z)
+        ts = const(model, "capsule_box_ts", [-1.0, 0.0, 1.0], dev)
+        B, P = pi.shape[:2]
+        centres = pi[:, :, None, :] + ts[None, None, :, None] * si[None, :, 1:2, None] * axis[
+            :, :, None, :]  # (B, P, 3 spheres, 3)
+        three = lambda x: x[:, :, None].expand(B, P, 3, x.shape[-1]).reshape(B, 3 * P, -1)  # noqa: E731
+        return (*_sphere_box(centres.reshape(B, 3 * P, 3), torch.repeat_interleave(si[:, 0], 3),
+                             three(pj), three(qj), torch.repeat_interleave(sj, 3, dim=0)),
+                np.repeat(li, 3), np.repeat(lj, 3), torch.repeat_interleave(mu, 3))
     raise NotImplementedError(f"contact kind {kind!r} is not ported")
 
 
-def contact_forces(model: Model, kin: Kinematics) -> torch.Tensor:
-    """``(B, nlink, 6)`` world wrenches about ``kin.origin``."""
+def _pairs_touching(model: Model, links: tuple):
+    """``pair_groups(model)``'s kinds cut to the pairs with a geom on one
+    of ``links`` (kinds left with none dropped), cached on the model."""
+    cache = model.__dict__.setdefault("_pairs_touching", {})
+    if links not in cache:
+        kinds = []
+        for kind, tab in pair_groups(model).kinds:
+            keep = np.isin(tab["li"], links) | np.isin(tab["lj"], links)
+            if keep.any():
+                kinds.append((kind, {k: v[keep] for k, v in tab.items()}))
+        cache[links] = tuple(kinds)
+    return cache[links]
+
+
+def contact_forces(model: Model, kin: Kinematics, links=None) -> torch.Tensor:
+    """``(B, nlink, 6)`` world wrenches about ``kin.origin``. With
+    ``links`` (link indices), only the pairs that touch one of them are
+    collided: the rows of ``links`` are the whole model's, the other rows
+    hold only those pairs' share."""
     B = kin.pos.shape[0]
     f_ext = kin.pos.new_zeros(B, model.nlink + 1, 6)  # + a dump row for world geoms
-    for kind, tab in pair_groups(model).kinds:
-        depth, n, pts, li, lj, mu = _collide_kind(model, kin, kind, tab)
+    if links is None:
+        kinds, tag = pair_groups(model).kinds, ""
+    else:
+        links = tuple(sorted(int(i) for i in links))
+        kinds, tag = _pairs_touching(model, links), f"@{links}"
+    for kind, tab in kinds:
+        depth, n, pts, li, lj, mu = _collide_kind(model, kin, kind, tab, tag)
         dev = pts.device
-        li = const(model, f"li_{kind}", np.where(li < 0, model.nlink, li), dev, torch.int64)
-        lj = const(model, f"lj_{kind}", np.where(lj < 0, model.nlink, lj), dev, torch.int64)
+        li = const(model, f"li_{kind}{tag}", np.where(li < 0, model.nlink, li), dev, torch.int64)
+        lj = const(model, f"lj_{kind}{tag}", np.where(lj < 0, model.nlink, lj), dev, torch.int64)
         pts_rel = pts - kin.origin[:, None]
         v_rel = _point_velocity(kin, li, pts_rel) - _point_velocity(kin, lj, pts_rel)
         f = _penalty_forces(model, depth, n, v_rel, mu)

@@ -1,7 +1,7 @@
 """Quaternion helpers, batch-first: the last dim holds the components.
 
 Twin of the parts of ``mjrl_tpu/physics/math3d.py`` that the observation
-pipeline needs (physics/engine.py, contact.py, comfeat.py). Quaternions
+pipeline needs (physics/engine.py, contact.py, comfeat.py, envs/adroit.py). Quaternions
 are ``(..., 4)`` as ``[w, x, y, z]``; vectors ``(..., 3)``; leading dims
 broadcast.
 """
@@ -54,3 +54,17 @@ def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tenso
     """``axis (..., 3)`` unit, ``angle (...)`` -> ``(..., 4)``."""
     half = 0.5 * angle
     return torch.cat([torch.cos(half)[..., None], torch.sin(half)[..., None] * axis], dim=-1)
+
+
+def quat_to_euler(q: torch.Tensor) -> torch.Tensor:
+    """``(..., 4)`` -> XYZ-extrinsic euler angles ``(..., 3)`` (Gymnasium-
+    Robotics' ``rotations.quat2euler``, which hammer's observation reads);
+    near gimbal lock (``cy <= 1e-6``) z is 0 and x takes the rest."""
+    m = quat_to_mat(q)
+    cy = torch.sqrt(m[..., 2, 2] ** 2 + m[..., 1, 2] ** 2)
+    safe = cy > 1e-6
+    x = torch.where(safe, torch.atan2(-m[..., 1, 2], m[..., 2, 2]),
+                    torch.atan2(m[..., 1, 0], m[..., 1, 1]))
+    y = torch.atan2(m[..., 0, 2], cy)
+    z = torch.where(safe, torch.atan2(-m[..., 0, 1], m[..., 0, 0]), torch.zeros_like(cy))
+    return torch.stack([x, y, z], dim=-1)

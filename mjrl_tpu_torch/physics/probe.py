@@ -139,6 +139,39 @@ def _random_hinges(model: Model, draws: int, rng: np.random.Generator) -> np.nda
     return q
 
 
+def _carried_onto(model: Model, tab, q: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Link offsets ``(3 nlink, draws)`` that carry, in each draw of ``q``,
+    the tree of geom i of a random pair of ``tab`` between two trees so
+    that geom i's centre lies 1 to 9 mm closer to geom j's than the sum of
+    their radii, in a random direction."""
+    pairs = [p for p in range(len(tab["gi"]))
+             if min(tab["li"][p], tab["lj"][p]) >= 0
+             and _root(model, int(tab["li"][p])) != _root(model, int(tab["lj"][p]))]
+    if not pairs:
+        raise ValueError("no pair between two trees to carry together")
+    pos, quat = soa._fk(model, torch.as_tensor(q))
+    centres = {}
+
+    def centre(g):
+        if g not in centres:
+            l = model.geom_link[g]
+            gp = torch.as_tensor(np.asarray(model.geom_pos[g], np.float32))[:, None]
+            centres[g] = (pos[l] + soa._qrot(quat[l], gp)).numpy()
+        return centres[g]
+
+    draws = q.shape[1]
+    delta = np.zeros((3 * model.nlink, draws), np.float32)
+    size = np.asarray(model.geom_size, np.float32)
+    for e, p in enumerate(rng.choice(pairs, draws)):
+        gi, gj = int(tab["gi"][p]), int(tab["gj"][p])
+        v = rng.normal(size=3)
+        reach = size[gi, 0] + size[gj, 0] - rng.uniform(0.001, 0.009)
+        root = _root(model, int(tab["li"][p]))
+        delta[3 * root : 3 * root + 3, e] = (centre(gj)[:, e] + reach * v / np.linalg.norm(v)
+                                             - centre(gi)[:, e])
+    return delta
+
+
 def kind_states(model: Model, n: int, rng: np.random.Generator):
     """``(q (nq, N), qd (nv, N), link_delta (3 nlink, N))`` float32 numpy
     with ``n`` states per contact kind, in which that kind touches 0 to 1 cm
@@ -146,8 +179,10 @@ def kind_states(model: Model, n: int, rng: np.random.Generator):
     random limited hinges where some touch; where none does, the root link
     of the moving geom of the kind's pairs against a static geom (the world,
     or a body with no joint on its chain) is lowered (its offset in the
-    world z) so that those pairs' deepest point lands 1 to 9 mm deep.
-    Raises if a kind can be reached neither way."""
+    world z) so that those pairs' deepest point lands 1 to 9 mm deep; where
+    every pair of the kind is between two moving trees, one tree is carried
+    onto the other (``_carried_onto``). Raises if a kind can be reached in
+    none of these ways."""
     draws = max(256, 4 * n)
     qs, deltas = [], []
     cands_per_kind = []
@@ -170,7 +205,16 @@ def kind_states(model: Model, n: int, rng: np.random.Generator):
                     if fixed < 0 or _root(model, fixed) != root:  # not carried along
                         roots.setdefault(root, []).append(p)
             if not roots:
-                raise ValueError(f"{kind}: no pair against a static geom to lower onto")
+                # every pair is between two moving trees (relocate's ball
+                # against the hand): carry geom i's tree onto geom j
+                delta = _carried_onto(model, tab, q, rng)
+                d = kind_depth(model, torch.as_tensor(q), torch.as_tensor(delta))[kind].numpy()
+                keep = (d > 0) & (d < 0.01)
+                if keep.sum() < n:
+                    raise ValueError(f"{kind}: {keep.sum()} of {draws} carried states touch")
+                qs.append(q[:, keep][:, :n])
+                deltas.append(delta[:, keep][:, :n])
+                continue
             root, pairs = max(roots.items(), key=lambda kv: len(kv[1]))
             pts = points_per_pair(kind)
             first = sum(len(t["gi"]) * points_per_pair(k) for k, t in cands_per_kind[

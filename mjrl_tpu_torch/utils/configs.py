@@ -6,8 +6,8 @@ fields, names and defaults, so every ``examples/*.json`` parses and a run's
 makes what the port has: NPG, TRPO or PPO with a ``GaussianMLP`` policy and
 an ``MLPBaseline``, on the env's device; ``obs_norm_init`` sets the
 policy's input normalization for ``obs_norm``. Every other choice raises
-``NotImplementedError`` naming the ROADMAP item that ports it; none is
-ignored.
+``NotImplementedError`` naming, by its title, the ROADMAP item that ports
+it; none is ignored.
 """
 
 from __future__ import annotations
@@ -90,23 +90,29 @@ class RunConfig:
 
 AGENTS = {"npg": NPG, "trpo": TRPO, "ppo": PPO}
 
+# the titles of ROADMAP.md's queue 1 items that port what the port lacks
+BC_DAPG = "BC, DAPG, demos, warm starts and evaluation rollouts"
+BREADTH = "Breadth without kernels"
+MODEL_NPG = "Model-based NPG"
+DATA_PARALLEL = "Env-axis data parallel"
+_ALGORITHM_ITEMS = {"bc": BC_DAPG, "dapg": BC_DAPG, "model_npg": MODEL_NPG}
+
 
 def check_ported(cfg: RunConfig) -> None:
     """Raise ``NotImplementedError`` for a setting the port does not have."""
     unported = [
-        (cfg.algorithm not in AGENTS, f"algorithm {cfg.algorithm!r}", "queue 1 item 12"),
-        (cfg.policy != "mlp", f"policy {cfg.policy!r}", "queue 1 item 3"),
-        (cfg.baseline != "mlp", f"baseline {cfg.baseline!r}", "queue 1 item 3"),
-        (cfg.demo_file is not None or cfg.bc_init, "demo_file / bc_init (BC, DAPG)",
-         "queue 1 item 12"),
-        (cfg.init_policy_from is not None, "init_policy_from", "queue 1 item 9, warm starts"),
-        (cfg.mesh_devices > 1, "mesh_devices > 1", "queue 1 item 15"),
-        (cfg.evaluation_rollouts > 0, "evaluation_rollouts > 0",
-         "queue 1 item 9, evaluation rollouts"),
+        (cfg.algorithm not in AGENTS, f"algorithm {cfg.algorithm!r}",
+         _ALGORITHM_ITEMS.get(cfg.algorithm, BREADTH)),
+        (cfg.policy != "mlp", f"policy {cfg.policy!r}", BREADTH),
+        (cfg.baseline != "mlp", f"baseline {cfg.baseline!r}", BREADTH),
+        (cfg.demo_file is not None or cfg.bc_init, "demo_file / bc_init (BC, DAPG)", BC_DAPG),
+        (cfg.init_policy_from is not None, "init_policy_from", BC_DAPG),
+        (cfg.mesh_devices > 1, "mesh_devices > 1", DATA_PARALLEL),
+        (cfg.evaluation_rollouts > 0, "evaluation_rollouts > 0", BC_DAPG),
     ]
-    for bad, what, item in unported:
+    for bad, what, title in unported:
         if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+            raise NotImplementedError(f'{what} is not ported yet (ROADMAP queue 1, "{title}")')
 
 
 def build(cfg: RunConfig, device="cuda"):

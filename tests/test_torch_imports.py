@@ -5,7 +5,9 @@ and PPO among them), the ant env steps on the CPU with either solver and
 the hopper, swimmer and humanoid envs (its 376-dim observation from
 physics/engine.py, contact.py and comfeat.py) with their shipped assets,
 and Adroit pen (envs/adroit.py, kernel K3's plain version) with its
-shipped model. (The card's machine has none of those packages.)"""
+shipped model, and the door, hammer (its nail sensor: physics/contact.py's
+box kinds) and relocate envs reset with theirs. (The card's machine has
+none of those packages.)"""
 
 import os
 import subprocess
@@ -57,6 +59,10 @@ env = make("adroit_pen", device="cpu")
 state, obs = env.reset(2, torch.Generator().manual_seed(0))
 state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
 assert obs.shape == (2, 45) and torch.isfinite(reward).all() and "success" in info
+for name, obs_dim in (("adroit_door", 39), ("adroit_hammer", 46), ("adroit_relocate", 39)):
+    env = make(name, device="cpu")
+    state, obs = env.reset(2, torch.Generator().manual_seed(0))
+    assert obs.shape == (2, obs_dim) and torch.isfinite(obs).all() and state.link_delta.any()
 for name in ("algos.trpo", "algos.ppo", "physics.engine", "physics.contact", "physics.comfeat",
              "physics.math3d", "envs.adroit", "physics.probe", "physics.dispatch"):
     assert "mjrl_tpu_torch." + name in names, name

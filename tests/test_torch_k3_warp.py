@@ -15,13 +15,15 @@ wrench computed alone, on pen with no point in contact, fewer than 32
 (``probe.kind_states``: link offsets lower the hand or the pen onto the
 table or the floor so that box_plane and box_box touch) and more than 32
 (the hand pressed into the table), and on hammer (671 points, more than
-K1's 512 slots); one control step of the body (``mj_ext_host``) against
-the plain version (physics/soa.py) on pen and hammer with link offsets;
-and the packers: K3's takes hammer and a door-sized model, K1's still
-refuses a model over its slots.
+K1's 512 slots), door (760 points in 278 pairs, 9 rounds) and relocate
+(the sphere kinds against the hand and the table, the fullest size class);
+one control step of the body (``mj_ext_host``) against the plain version
+(physics/soa.py) on all four with link offsets; and the packers: K3's
+takes hammer and door, K1's still refuses a model over its slots. The test
+marked ``cuda`` holds the kernel itself against the plain version on door
+and relocate, where a card is present.
 """
 
-import copy
 import ctypes
 import shutil
 
@@ -61,7 +63,7 @@ def lib(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def models():
-    return {task: adroit_model(task) for task in ("pen", "hammer")}
+    return {task: adroit_model(task) for task in ("pen", "hammer", "door", "relocate")}
 
 
 def _layout(lib, fn):
@@ -108,13 +110,14 @@ def _states(models, case, rng):
     """``(model, q, qd, delta, (lo, hi, most))``: pens at their default pose with
     no point in contact (``none``); pens from ``probe.kind_states``, a few
     points of one kind in contact each (``under_32``); pens pressed into
-    the table (``over_32``); hammers from ``probe.kind_states``
-    (``hammer``); the bounds on each env's slots filled (its points with a
-    non-zero wrench), and the fewest the most filled env must reach."""
-    if case == "hammer":
-        m = models["hammer"]
+    the table (``over_32``); hammers, doors and relocates from
+    ``probe.kind_states`` (each kind in contact in one env); the bounds on
+    each env's slots filled (its points with a non-zero wrench), and the
+    fewest the most filled env must reach."""
+    if case in ("hammer", "door", "relocate"):
+        m = models[case]
         q, qd, d = probe.kind_states(m, 1, rng)
-        return m, q, qd, d, (0, num_contact_candidates(m), 33)
+        return m, q, qd, d, (0, num_contact_candidates(m), 33 if case == "hammer" else 1)
     m = models["pen"]
     if case == "over_32":
         return (m, *_pressed_pens(m, B, rng, 40, 1000), (33, 1000, 33))
@@ -126,7 +129,7 @@ def _states(models, case, rng):
     return m, q, qd, np.zeros((3 * m.nlink, B), np.float32), (0, 0, 0)
 
 
-@pytest.mark.parametrize("case", ["none", "under_32", "over_32", "hammer"])
+@pytest.mark.parametrize("case", ["none", "under_32", "over_32", "hammer", "door", "relocate"])
 def test_contact_stage_sums_point_wrenches_in_order(lib, models, case):
     """Each link's wrench after K3's contact stage is, bit for bit, the
     sequential f32 sum in narrow-phase order of every contact point's
@@ -161,7 +164,7 @@ def test_contact_stage_sums_point_wrenches_in_order(lib, models, case):
     assert max(filled) >= most, filled
 
 
-@pytest.mark.parametrize("task", ["pen", "hammer"])
+@pytest.mark.parametrize("task", ["pen", "hammer", "door", "relocate"])
 def test_warp_body_matches_plain_one_control_step(lib, models, task):
     """One control step (5 substeps) of K3's warp body against the plain
     version from the same state, with every link offset: states from
@@ -189,18 +192,21 @@ def test_warp_body_matches_plain_one_control_step(lib, models, task):
 def test_packers_take_any_points_for_k3_and_cap_k1(lib, models):
     """K3's warp layout has no point cap (``MAX_POINTS`` 0), holds the
     Adroit models' 44 tendons and fits a block; its packer takes hammer
-    (671 contact points) and a door-sized model (pen's pairs twice: 812
-    points), more than K1's 512 slots in the class, which K1's packer
-    refuses; a model with more tendons than the scratch holds is refused."""
+    (671 contact points) and door (760), more than K1's 512 slots in the
+    class, which K1's packer refuses, and relocate, which fills the class's
+    sizes exactly; a model with more tendons than the scratch holds is
+    refused."""
     wl = _layout(lib, "mj_penalty_ext_warp_layout")
     assert wl["MAX_POINTS"] == 0 and wl["MAX_TEN"] >= 44
     assert 1 <= wl["MAX_WARPS"] and wl["BYTES"] * wl["MAX_WARPS"] <= pkernel.SHARED_BYTES_PER_BLOCK
     k1 = _layout(lib, "mj_penalty_warp_layout")
     assert k1["MAX_POINTS"] == pkernel.POINT_CLASSES[2]
-    door = copy.copy(models["pen"])
-    door.contact_pairs, door._pair_groups = door.contact_pairs * 2, None
     L = pkernel.read_layout(lib)
-    for m, points in ((models["hammer"], 671), (door, 812)):
+    relocate = models["relocate"]
+    assert (relocate.nlink, relocate.nq, relocate.nv, relocate.nu) == pkernel.SIZE_CLASSES[2]
+    mf, mi = pkernel.pack_tables(relocate, L, ext=True)
+    assert mi[L["I_NPAIR"]] == len(relocate.contact_pairs) and pkernel.size_class(relocate) == 2
+    for m, points in ((models["hammer"], 671), (models["door"], 760)):
         assert num_contact_candidates(m) == points > k1["MAX_POINTS"]
         mf, mi = pkernel.pack_tables(m, L, ext=True)
         assert mi[L["I_NPAIR"]] == len(m.contact_pairs)
@@ -209,3 +215,30 @@ def test_packers_take_any_points_for_k3_and_cap_k1(lib, models):
             pkernel.pack_tables(m, L, ext=True, max_points=k1["MAX_POINTS"])
     with pytest.raises(NotImplementedError, match="tendons exceed"):
         pkernel.check_tendons(models["pen"], {**wl, "MAX_TEN": 43})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["door", "relocate"])
+def test_cuda_k3_matches_plain(models, task):
+    """K3 on the card against the plain version on door and relocate: one
+    control step from ``probe.kind_states`` (each kind in contact in some
+    env) with a draw uniform in +-5 mm added to every link offset, to
+    chip_smoke.py's tolerance for the model."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import chip_smoke
+
+    m, rng, dev = models[task], np.random.default_rng(2), torch.device("cuda")
+    q, qd, d = probe.kind_states(m, 8, rng)
+    d = d + rng.uniform(-0.005, 0.005, d.shape).astype(np.float32)
+    q, qd, d = (torch.as_tensor(x, device=dev).contiguous() for x in (q, qd, d))
+    lo, hi = np.asarray(m.act_ctrlrange, np.float32).T
+    ctrl = torch.as_tensor(rng.uniform(lo[:, None], hi[:, None], (m.nu, q.shape[1])),
+                           dtype=torch.float32, device=dev)
+    kernel = pkernel.ExtKernel()
+    got_q, got_qd = kernel(m, q, qd, ctrl, 5, link_delta=d)
+    want_q, want_qd = soa.multistep(m, q, qd, ctrl, 5, link_delta=d)
+    assert kernel.launches == 1
+    tol = chip_smoke.TOL[f"K3 {task}"]
+    torch.testing.assert_close(got_q, want_q, rtol=0, atol=tol["q"])
+    torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=tol["qd"])

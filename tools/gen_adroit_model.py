@@ -1,7 +1,7 @@
 """Write ``mjrl_tpu_torch/envs/assets/adroit_<task>.npz``: an Adroit model
 as the JAX package compiles it, for the PyTorch port.
 
-    JAX_PLATFORMS=cpu python tools/gen_adroit_model.py [TASK]   # pen (default), hammer
+    JAX_PLATFORMS=cpu python tools/gen_adroit_model.py [TASK]   # pen (default), hammer, door, relocate
 
 The port loads no ``mujoco`` and no ``gymnasium_robotics``. This tool runs
 the JAX package's bridge once: ``physics/bridge.py::load_mj_model`` on the
@@ -24,7 +24,7 @@ import numpy as np
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-TASKS = ("pen", "hammer")
+TASKS = ("pen", "hammer", "door", "relocate")
 
 
 def out_path(task: str) -> str:

@@ -1,15 +1,15 @@
-"""K3 on Adroit pen and hammer on one NVIDIA GPU: the spread that sets its
-tolerance, and two faulty tables that must fail that tolerance.
+"""K3 on the Adroit models on one NVIDIA GPU: the spread that sets its
+tolerance on each, and two faulty tables that must fail that tolerance.
 
-    python3 tools/torch_adroit_check.py [pen|hammer ...]
+    python3 tools/torch_adroit_check.py [pen|hammer|door|relocate ...]
 
-Needs one CUDA card and nvcc; run it from the root of a checkout. On pen
-(chip_smoke.py's ``pen_states``: 512 envs, half after 10 control steps of
-random actions from reset with every link offset by up to 5 mm, half drawn
-so that each of pen's five contact kinds touches, then 3 chained control
-steps; and the first 506 of them) and on hammer (``hammer_states``, the
-same from the default pose warmed by K3: 671 contact points), each by
-default, it reads, per env-step, the max |err| of q and of qd of:
+Needs one CUDA card and nvcc; run it from the root of a checkout. On each
+task's env (all four by default; chip_smoke.py's ``adroit_states``: 512
+envs, half after 10 control steps of random actions from the env's reset,
+with its scene offsets, hammer's board, door's frame or relocate's ball,
+and every link offset by up to 5 mm more, half drawn so that each of the
+model's contact kinds touches, then 3 chained control steps; and the first
+506 of them) it reads, per env-step, the max |err| of q and of qd of:
 
 1. spread: the plain version (physics/soa.py) on the card against the
    plain version on the CPU;
@@ -44,12 +44,12 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import hammer_states, pen_states  # noqa: E402
+from chip_smoke import adroit_states  # noqa: E402
 from mjrl_tpu_torch.envs import make  # noqa: E402
-from mjrl_tpu_torch.envs.adroit import adroit_model  # noqa: E402
 from mjrl_tpu_torch.physics import pkernel, probe, soa  # noqa: E402
 from mjrl_tpu_torch.physics.tables import pair_groups  # noqa: E402
 
+TASKS = ("pen", "hammer", "door", "relocate")
 SCALE = 1.02
 QUANTILE = 0.99
 _BOX_KINDS = {5: (1,), 7: (11,), 8: (1, 11)}  # mj_substep.h kind -> box size slots
@@ -86,9 +86,15 @@ def per_env(variants, q, qd, delta, ctrls):
     from the kernel's state (the first variant's ``step``)."""
     errs = {name: ([], []) for name in variants}
     for ctrl in ctrls:
-        outs = {}
+        outs, ran = {}, {}
+
+        def run(fn):  # each function once per step: the plain version is slow
+            if fn not in ran:
+                ran[fn] = fn(q, qd, ctrl, delta)
+            return ran[fn]
+
         for name, (step, against) in variants.items():
-            got, want = step(q, qd, ctrl, delta), against(q, qd, ctrl, delta)
+            got, want = run(step), run(against)
             for k in range(2):
                 errs[name][k].append((got[k].cpu() - want[k].cpu()).abs().amax(dim=0))
             outs[name] = got
@@ -97,16 +103,11 @@ def per_env(variants, q, qd, delta, ctrls):
 
 
 def check(task, kernel):
-    """Every reading on ``task`` (pen or hammer), and its tolerance."""
-    if task == "pen":
-        env = make("adroit_pen")
-        model, frames = env.model, env.frame_skip
-        kernel.build(pkernel.size_class(model))
-        q0, qd0, d0, ctrls = pen_states(env, 512, 3)
-    else:
-        model, frames = adroit_model(task), 5
-        kernel.build(pkernel.size_class(model))
-        q0, qd0, d0, ctrls = hammer_states(model, kernel, 512, 3)
+    """Every reading on ``task``, and its tolerance."""
+    env = make(f"adroit_{task}")
+    model, frames = env.model, env.frame_skip
+    kernel.build(pkernel.size_class(model))
+    q0, qd0, d0, ctrls = adroit_states(env, 512, 3)
     cut = lambda x: x[:, :506].contiguous()  # noqa: E731
     cases = {"512": (q0, qd0, d0, ctrls),
              "506": (cut(q0), cut(qd0), cut(d0), [cut(c) for c in ctrls])}
@@ -161,9 +162,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_adroit_check: no CUDA device", file=sys.stderr)
         return 2
-    tasks = sys.argv[1:] or ["pen", "hammer"]
-    if set(tasks) - {"pen", "hammer"}:
-        raise SystemExit(f"unknown tasks {tasks}; choose from pen, hammer")
+    tasks = sys.argv[1:] or list(TASKS)
+    if set(tasks) - set(TASKS):
+        raise SystemExit(f"unknown tasks {tasks}; choose from {', '.join(TASKS)}")
     kernel = pkernel.ExtKernel()
     out = {task: check(task, kernel) for task in tasks}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

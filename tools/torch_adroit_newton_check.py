@@ -4,7 +4,7 @@ sets its tolerance, and three faulty stages that must fail that tolerance.
     python3 tools/torch_adroit_newton_check.py [--batch 512]
 
 Needs one CUDA card and nvcc; run it from the root of a checkout. On pen
-with ``constraint_solver="newton"`` (chip_smoke.py's ``pen_states``: BATCH
+with ``constraint_solver="newton"`` (chip_smoke.py's ``adroit_states``: BATCH
 envs, half after 10 control steps of random actions from reset on the
 card with every link offset by up to 5 mm, half drawn so that each of
 pen's five contact kinds touches, then 3 chained control steps; and the
@@ -54,14 +54,16 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import PEN_KINDS, pen_states  # noqa: E402
+from chip_smoke import PEN_KINDS, adroit_states  # noqa: E402
 from mjrl_tpu_torch.envs import make  # noqa: E402
 from mjrl_tpu_torch.physics import pkernel, probe, soa  # noqa: E402
 from mjrl_tpu_torch.physics.model import BOX  # noqa: E402
 
 SCALE = 1.02
 QUANTILE = 0.99
-_FRIC_METRIC = "S.Mf[i][i] = S.Mf[i][i] + S.fdiag[i];"  # in mj_ext_newton.h
+# in mj_warp_stages.h (mj_warp_crb's METRIC branch), which K4 builds on
+_FRIC_METRIC = "S.Mf[i][i] = S.Mf[i][i] + S.fdiag[i];"
+_FRIC_HEADER = "mj_warp_stages.h"
 
 
 def faulty_model(model, edit):
@@ -120,13 +122,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         csrc = Path(tmp) / "csrc"
         shutil.copytree(pkernel.CSRC, csrc)
-        header = (csrc / "mj_ext_newton.h").read_text()
+        header = (csrc / _FRIC_HEADER).read_text()
         assert header.count(_FRIC_METRIC) == 1
-        (csrc / "mj_ext_newton.h").write_text(header.replace(_FRIC_METRIC, ""))
+        (csrc / _FRIC_HEADER).write_text(header.replace(_FRIC_METRIC, ""))
         no_fric = pkernel.ExtNewtonKernel(csrc=csrc, build_dir=Path(tmp) / "build")
         no_fric.build(size)
 
-        q0, qd0, d0, ctrls = pen_states(env, full, 3)
+        q0, qd0, d0, ctrls = adroit_states(env, full, 3)
         pkernel.K4.check()  # the warm-up's launches
         cut = lambda x: x[:, : full - 6].contiguous()  # noqa: E731
         cases = {str(full): (q0, qd0, d0, ctrls),

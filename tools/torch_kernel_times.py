@@ -12,12 +12,12 @@ what the CUDA driver sets aside for that launch (local memory for every
 resident thread, as a kernel's stack needs). With ``--memory`` it stops
 there. Then times one control step, CUDA events over 20 launches after 3,
 of: K4 on Adroit pen with the Newton solver (B=512, 5 x 1) from
-``pen_states`` and from ``pen_train_states`` (the training path's
+``adroit_states`` and from ``pen_train_states`` (the training path's
 states); K1 on ant (B=1024, 5 frames x 4 substeps); K2 on ant with the
 Newton solver (B=1024, 5 x 1, states settled on the floor); K1 and K2 on
 hopper (B=256, 4 x 1, half the batch folded); K1 on swimmer (B=256); K1
 on walker2d (B=4096, the walker2d TRPO path's); K1 on humanoid (B=1024,
-half the batch folded); and K3 on Adroit pen (B=512, 5 x 1, ``pen_states``
+half the batch folded); and K3 on Adroit pen (B=512, 5 x 1, ``adroit_states``
 with their link offsets) and on Adroit hammer (B=512, ``hammer_states``,
 with theirs). The states come from ``chip_smoke.py``: the
 checkout's, or the one at PATH; ``--inputs FILE`` loads them from FILE if
@@ -66,7 +66,8 @@ def _rows(smoke, make, adroit_model, saved=None):
              ("walker2d_K1", make("walker2d", horizon=1000), "K1", 4096, {}),
              ("humanoid_K1", make("humanoid", horizon=1000), "K1", 1024, dict(fold=True)))
     envs.update({name: (env, k) for name, env, k, _, _ in kinds})
-    # Adroit hammer's model with the Adroit envs' frame skip (no hammer env yet)
+    # Adroit hammer's model with the Adroit envs' frame skip, not the env:
+    # checkouts from before the hammer env have only the model
     hammer = types.SimpleNamespace(model=adroit_model("hammer"), frame_skip=5)
     envs["pen_K3"] = (pen, "K3")
     envs["hammer_K3"] = (hammer, "K3")
@@ -75,14 +76,14 @@ def _rows(smoke, make, adroit_model, saved=None):
         return {name: (env, k, {a: t.to(dev) for a, t in saved[name].items()})
                 for name, (env, k) in envs.items()}
     rows = {}
-    for name, states in (("pen_states_K4", smoke.pen_states),
+    for name, states in (("pen_states_K4", smoke.adroit_states),
                          ("pen_train_states_K4", smoke.pen_train_states)):
         q, qd, d, ctrls = states(pen_newton, 512, 1)
         rows[name] = (pen_newton, "K4", dict(q=q, qd=qd, ctrl=ctrls[0], link_delta=d))
     for name, env, kernel, batch, kw in kinds:
         q, qd, ctrls = smoke.start_states(env, batch, 1, **kw)
         rows[name] = (env, kernel, dict(q=q, qd=qd, ctrl=ctrls[0]))
-    q, qd, d, ctrls = smoke.pen_states(pen, 512, 1)
+    q, qd, d, ctrls = smoke.adroit_states(pen, 512, 1)
     rows["pen_K3"] = (pen, "K3", dict(q=q, qd=qd, ctrl=ctrls[0], link_delta=d))
     from mjrl_tpu_torch.physics.pkernel import K3
 

@@ -14,8 +14,12 @@ sampler carry, kernel K2); or a config of ``examples/`` as
 256 x 1000, K1), ``walker2d_trpo`` (walker2d_trpo.json, 4096 x 1000, K1),
 ``humanoid_trpo`` (humanoid_trpo.json, 1024 x 1000, K1),
 ``humanoid_ppo`` (humanoid_ppo_v4.json, 4096 x 64-step windows in samples
-mode, K1), ``adroit_pen`` (adroit_pen_npg.json, 512 x 100, K3) or
-``adroit_pen_newton`` (adroit_pen_npg_newton.json, 512 x 100, K4). The
+mode, K1), ``adroit_pen`` (adroit_pen_npg.json, 512 x 100, K3),
+``adroit_pen_newton`` (adroit_pen_npg_newton.json, 512 x 100, K4),
+``adroit_door`` (adroit_door_npg.json, 512 x 200, K3), ``adroit_hammer``
+(adroit_hammer_npg.json at the fixed hammer run's settings: 2048 x 200,
+min_log_std -2, baseline batch 4096; K3 and the nail's sensor) or
+``adroit_relocate`` (adroit_relocate_scratch.json, 2048 x 200, K3). The
 ``update`` phase is the agent's policy update: NPG's, TRPO's with its
 line-search probes, or PPO's minibatch Adam epochs.
 Warms it for 2 iterations, then times one iteration
@@ -41,7 +45,12 @@ sys.path.insert(0, str(ROOT))
 CONFIG_ROWS = {"hopper": "hopper_npg.json", "hopper_newton": "hopper_npg_newton.json",
                "swimmer": "swimmer_npg.json", "walker2d_trpo": "walker2d_trpo.json",
                "humanoid_trpo": "humanoid_trpo.json", "humanoid_ppo": "humanoid_ppo_v4.json",
-               "adroit_pen": "adroit_pen_npg.json", "adroit_pen_newton": "adroit_pen_npg_newton.json"}
+               "adroit_pen": "adroit_pen_npg.json", "adroit_pen_newton": "adroit_pen_npg_newton.json",
+               "adroit_door": "adroit_door_npg.json", "adroit_hammer": "adroit_hammer_npg.json",
+               "adroit_relocate": "adroit_relocate_scratch.json"}
+# --set overrides of a row's config
+ROW_OVERRIDES = {"adroit_hammer": ["num_traj=2048", "min_log_std=-2.0",
+                                   'baseline_kwargs={"epochs": 2, "batch_size": 4096}']}
 
 
 def main() -> int:
@@ -60,7 +69,8 @@ def main() -> int:
         run_autoreset,
         run_episodes,
     )
-    from mjrl_tpu_torch.utils.configs import RunConfig, build, obs_norm_init
+    from mjrl_tpu_torch.train import load_config
+    from mjrl_tpu_torch.utils.configs import build, obs_norm_init
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--row", choices=("penalty", "newton", *CONFIG_ROWS), default="penalty")
@@ -72,7 +82,7 @@ def main() -> int:
         return 2
     dev = torch.device("cuda")
     if row in CONFIG_ROWS:
-        cfg = RunConfig.from_json(str(ROOT / "examples" / CONFIG_ROWS[row]))
+        cfg = load_config(ROOT / "examples" / CONFIG_ROWS[row], ROW_OVERRIDES.get(row, []))
         env, policy, baseline, agent = build(cfg, device=dev)
         if cfg.obs_norm:
             obs_norm_init(agent, torch.Generator(device=dev).manual_seed(2))

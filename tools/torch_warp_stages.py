@@ -19,7 +19,7 @@ default warps per block:
 - ``ant_K1``: ant, B=1024 (``start_states``);
 - ``humanoid_K1``: humanoid, B=1024, half the batch folded;
 - ``ant_K2``: ant with the Newton solver, B=1024, settled on the floor;
-- ``pen_K3``: Adroit pen, B=512 (``pen_states``, with their link
+- ``pen_K3``: Adroit pen, B=512 (``adroit_states``, with their link
   offsets);
 - ``pen_states_K4``, ``pen_train_states_K4``: Adroit pen with the Newton
   solver, B=512.
@@ -72,7 +72,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_warp_stages: no CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import _cuda_ms, pen_states, pen_train_states, start_states
+    from chip_smoke import _cuda_ms, adroit_states, pen_train_states, start_states
     from mjrl_tpu_torch.envs import make
     from mjrl_tpu_torch.physics import pkernel, probe
 
@@ -116,7 +116,7 @@ def main() -> int:
             pkernel.check_tendons(m, wl)
             tables = [torch.from_numpy(a).to(dev) for a in
                       pkernel.pack_tables(m, pkernel.read_layout(lib), ext=True)]
-            q, qd, d, ctrls = pen_states(env, B, 1)
+            q, qd, d, ctrls = adroit_states(env, B, 1)
             warps = pkernel.K3.launch_warps(size, B, dev)
             ptrs = lambda: (*tables, q, qd, ctrls[0], d, q_out, qd_out)  # noqa: E731
             tail = lambda clocks: (B, n_sub, dt, warps, stream, clocks.data_ptr())  # noqa: E731
@@ -131,7 +131,7 @@ def main() -> int:
             else:
                 B = 512
                 source, fn, n_ptr, ext = "mj_ext_newton_kernel.cu", "mj_ext_newton_launch", 12, True
-                states = pen_states if row.startswith("pen_states") else pen_train_states
+                states = adroit_states if row.startswith("pen_states") else pen_train_states
                 q, qd, d, ctrls = states(env, B, 1)
                 pkernel.K4.build(size)
                 warps = pkernel.K4.warps_per_block(size)
