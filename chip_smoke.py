@@ -99,7 +99,7 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    and picks bit for bit the same over two launches and with 1 and 4 warps
    per block (the check for a missing __syncwarp(), which no sanitizer
    reads on that machine); both times at B=512 on both.
-13. Eleven paths through the entry point at full width, ``run_job`` of
+13. Seventeen paths through the entry point at full width, ``run_job`` of
    mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
    examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
    then niter=2, the second call resuming from the first one's checkpoint;
@@ -123,6 +123,22 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    log.csv and the checkpoints written; prints each iteration's ms, valid
    and computed env-steps/s, score and, for TRPO, backtrack_iters and
    step_accepted, for PPO alpha, kl_dist and log_std_mean.
+   Then the five DAPG configs (BC warm start, then DAPG):
+   examples/adroit_pen_dapg.json (64 x 100, K3) with niter=1 and then
+   niter=2, resumed; examples/adroit_door_dapg.json and
+   adroit_hammer_dapg.json (64 x 200, K3), adroit_relocate_dapg.json
+   (2048 x 200, K3) and hopper_dapg.json (64 x 1000, K1) with niter=1.
+   The card's copy has no ``demos/``, so each first makes its demos there:
+   25 eval-mode episodes (the policy mean) of the config's initial policy
+   at its horizon, through ``batch_to_paths`` into a pickle that
+   ``demo_file`` names, their launches counted apart. BC runs once, in
+   the first call, and its loss must fall (both printed); the logged
+   ``demo_coef`` of each iteration must be ``lam_0 * lam_1**i``. Then one
+   more pen DAPG call starts a run with ``init_policy_from`` the first
+   run's directory and ``bc_init=false``: its first policy must equal that
+   checkpoint's, on the card. Last examples/point_mass_npg.json (64 x 25,
+   the quadratic baseline, 16 evaluation episodes after the step): no
+   kernel launch at all, ``eval_score`` logged and finite.
 14. The card's name and power limit from nvidia-smi.
 
 Each kernel's launch count in the JSON line is its count over the slice
@@ -131,7 +147,10 @@ that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper``,
 entries, K2's ``hopper`` entry, K3 and K4: their path in phase 13, the
 obs_norm rollout included), reset to 0 just before. Each K1, K2 and K3
 entry holds the warps per block its default launch took; K3's ``hammer``,
-``door`` and ``relocate`` entries their check and their path's launches. ``bound_ms`` is the least
+``door`` and ``relocate`` entries their check and their path's launches;
+K1's ``hopper_dapg`` and K3's ``pen_dapg``, ``door_dapg``, ``hammer_dapg``
+and ``relocate_dapg`` entries their DAPG path's launches (the warm-started
+call's included, the demos' not). ``bound_ms`` is the least
 time the card could take for one control step at the check's batch: the
 larger of the bytes the kernel must move (state in and out, its tables)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
@@ -222,6 +241,7 @@ TRPO_ENVS = 4096  # examples/walker2d_trpo.json
 HUMANOID_TRPO_ENVS, HUMANOID_PPO_ENVS, PPO_WINDOW = 1024, 4096, 64  # examples/humanoid_*.json
 PEN_ENVS, PEN_HORIZON = 512, 100  # examples/adroit_pen_npg.json
 ADROIT_HORIZON, ADROIT_WIDE = 200, 2048  # door, hammer and relocate; hammer's fixed width
+DAPG_ENVS, POINT_MASS_HORIZON = 64, 25  # examples/*_dapg.json but relocate; point_mass_npg.json
 # the paths through the entry point (phase 13): config, kernel, envs, steps
 # per iteration (the episode or the samples-mode window), run_job's niter
 # per call, and overrides of the config
@@ -240,7 +260,20 @@ ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, HOPPER_HORIZON, (1, 2), 
                ("adroit_hammer", "adroit_hammer_npg.json", "K3", ADROIT_WIDE, ADROIT_HORIZON, (1,),
                 (f"num_traj={ADROIT_WIDE}",)),
                ("adroit_relocate", "adroit_relocate_scratch.json", "K3", ADROIT_WIDE,
-                ADROIT_HORIZON, (1,), ()))
+                ADROIT_HORIZON, (1,), ()),
+               ("adroit_pen_dapg", "adroit_pen_dapg.json", "K3", DAPG_ENVS, PEN_HORIZON, (1, 2),
+                ()),
+               ("adroit_door_dapg", "adroit_door_dapg.json", "K3", DAPG_ENVS, ADROIT_HORIZON, (1,),
+                ()),
+               ("adroit_hammer_dapg", "adroit_hammer_dapg.json", "K3", DAPG_ENVS, ADROIT_HORIZON,
+                (1,), ()),
+               ("adroit_relocate_dapg", "adroit_relocate_dapg.json", "K3", ADROIT_WIDE,
+                ADROIT_HORIZON, (1,), ()),
+               ("hopper_dapg", "hopper_dapg.json", "K1", DAPG_ENVS, HOPPER_HORIZON, (1,), ()),
+               ("point_mass", "point_mass_npg.json", None, DAPG_ENVS, POINT_MASS_HORIZON, (1,), ()))
+# the DAPG paths: the demos each makes on the card, and the path that also
+# warm starts a run from its checkpoint (init_policy_from)
+DEMO_PATHS, WARM_START_PATH = 25, "adroit_pen_dapg"
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 ROOT = Path(__file__).resolve().parent
 
@@ -1045,51 +1078,121 @@ def phase_slice(tag, env, agent, kernel, other):
     return kernel.launches
 
 
+def _make_demos(config, overrides, out):
+    """25 eval-mode episodes of ``config``'s initial policy (its seed's
+    weights, the policy mean), at its horizon, on the card, pickled as mjrl
+    path dicts into ``out``; returns the pickle's path. The card's copy of
+    the repo has no ``demos/``."""
+    import pickle
+
+    import torch
+
+    from mjrl_tpu_torch.samplers import sample_episodes
+    from mjrl_tpu_torch.train import load_config
+    from mjrl_tpu_torch.utils.configs import build
+    from mjrl_tpu_torch.utils.demos import batch_to_paths
+
+    cfg = load_config(ROOT / "examples" / config, [*overrides, "demo_file=null",
+                                                   "algorithm=\"npg\"", "agent_kwargs={}"])
+    env, policy, _, agent = build(cfg)
+    gen = torch.Generator(device=env.device).manual_seed(cfg.seed)
+    batch = sample_episodes(env, policy, DEMO_PATHS, agent.horizon, gen, eval_mode=True)
+    path = os.path.join(out, "demos.pickle")
+    with open(path, "wb") as f:
+        pickle.dump(batch_to_paths(batch), f)
+    return path
+
+
 def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overrides=()):
     """Full-width iterations of ``examples/<config>`` (with ``overrides``)
     through ``mjrl_tpu_torch.train.run_job``: one call per entry of ``niters``, all
     into one temporary directory, each call after the first resuming from
     the checkpoint of the one before. Each iteration must launch ``kernel``
-    ``steps`` times and none of ``others``; a config with ``obs_norm`` adds
-    its rollout to the first call, counted apart. Returns the kernel's
-    launches over the phase."""
+    ``steps`` times (``kernel`` None: point_mass, no kernel) and none of
+    ``others``; a config with ``obs_norm`` adds its rollout to the first
+    call, counted apart. A DAPG config first makes its demos on the card
+    (``_make_demos``, counted apart); its first call runs BC, whose loss
+    must fall, and no later call reruns it; its logged ``demo_coef`` must
+    be ``lam_0 * lam_1**i``. On ``WARM_START_PATH`` one more call starts a
+    run with ``init_policy_from`` the first directory and no BC: its first
+    policy must be that checkpoint's. A config with evaluation rollouts must
+    log a finite ``eval_score``. Returns the kernel's launches over the
+    phase (the demos' aside)."""
+    import torch
+
     from mjrl_tpu_torch import train
     from mjrl_tpu_torch.train import load_config, run_job
 
+    def launches():
+        return kernel.launches if kernel is not None else 0
+
+    per_iter = steps if kernel is not None else 0
+
     for k in (kernel, *others):
-        k.launches = 0
-    per_call, obs_norm, carried = [], [], []
-    obs_norm_init = train.obs_norm_init
+        if k is not None:
+            k.launches = 0
+    per_call, obs_norm, carried, bc, starts = [], [], [], [], []
+    obs_norm_init, warm_start = train.obs_norm_init, train.warm_start
+    train_agent = train.train_agent
 
     def counted_obs_norm_init(*args, **kwargs):
-        before = kernel.launches
+        before = launches()
         obs_norm_init(*args, **kwargs)
-        obs_norm.append(kernel.launches - before)
+        obs_norm.append(launches() - before)
 
-    train.obs_norm_init = counted_obs_norm_init
+    def counted_warm_start(*args, **kwargs):
+        before = launches()
+        metrics = warm_start(*args, **kwargs)
+        bc.append((float(metrics["loss_before"]), float(metrics["loss_after"]),
+                   launches() - before))
+        return metrics
+
+    def recorded_train_agent(job, agent, **kwargs):
+        starts.append({k: v.clone() for k, v in agent.policy.state_dict().items()})
+        return train_agent(job, agent, **kwargs)
+
+    demo_launches = None
+    train.obs_norm_init, train.warm_start = counted_obs_norm_init, counted_warm_start
+    train.train_agent = recorded_train_agent
     try:
-        with tempfile.TemporaryDirectory() as out:
+        with tempfile.TemporaryDirectory() as out, tempfile.TemporaryDirectory() as side:
+            dapg = load_config(ROOT / "examples" / config, overrides).algorithm == "dapg"
+            if dapg:
+                before = launches()
+                demo_file = _make_demos(config, overrides, side)
+                demo_launches = launches() - before
+                overrides = (*overrides, f"demo_file=\"{demo_file}\"")
             for i, niter in enumerate(niters):
-                before = kernel.launches
+                before = launches()
                 cfg = load_config(ROOT / "examples" / config,
                                   [*overrides, f"niter={niter}", "save_freq=1"])
                 agent = run_job(cfg, out)
-                per_call.append(kernel.launches - before - (sum(obs_norm) if i == 0 else 0))
+                per_call.append(launches() - before - (sum(obs_norm) if i == 0 else 0))
                 if agent.sample_mode == "samples":
                     # rows mid-episode at the window's end go on into the next
                     carried.append(int((agent.sampler_carry.t_in_ep > 0).sum()))
             done = [n - p for n, p in zip(niters, (0, *niters[:-1]))]
             want_norm = [steps] if cfg.obs_norm else []
-            stray = {k.name: k.launches for k in others if k.launches}
-            if per_call != [steps * d for d in done] or obs_norm != want_norm or stray:
-                raise RuntimeError(f"{tag}: {per_call} {kernel.name} launches per call, obs_norm "
-                                   f"rollout {obs_norm}, other kernels {stray}; expected "
-                                   f"{steps} per iteration, {want_norm} and none")
-            kernel.check()
+            stray = {k.name: k.launches for k in others if k is not None and k.launches}
+            if per_call != [per_iter * d for d in done] or \
+                    obs_norm != want_norm or stray or demo_launches not in (None, per_iter):
+                raise RuntimeError(f"{tag}: {per_call} {kernel and kernel.name} launches per call, "
+                                   f"obs_norm rollout {obs_norm}, demos {demo_launches}, other "
+                                   f"kernels {stray}; expected {per_iter} per iteration, "
+                                   f"{want_norm} and none")
+            if kernel is not None:
+                kernel.check()
             if obs_norm:
                 print(f"[{tag}] obs_norm rollout: {obs_norm[0]} launches, policy in_scale in "
                       f"[{float(agent.policy.mlp.in_scale.min()):.4f}, "
                       f"{float(agent.policy.mlp.in_scale.max()):.4f}]")
+            if dapg:
+                if len(bc) != 1 or bc[0][2] or not bc[0][1] < bc[0][0]:
+                    raise RuntimeError(f"{tag}: BC runs (loss before, after, launches) {bc}; "
+                                       f"expected one, in the first call, its loss falling")
+                print(f"[{tag}] demos: {DEMO_PATHS} eval-mode episodes of the initial policy, "
+                      f"{demo_launches} launches; BC warm start: loss {bc[0][0]:.6g} -> "
+                      f"{bc[0][1]:.6g}, {len(bc)} run over {len(niters)} calls")
             with open(os.path.join(out, "logs", "log.csv"), newline="") as f:
                 rows = [{k: float(v) for k, v in row.items()} for row in csv.DictReader(f)]
             if len(rows) != niters[-1]:
@@ -1103,13 +1206,25 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
                          f"{row['step_accepted']:.0f}" if "backtrack_iters" in row else "")
                 if "log_std_mean" in row:
                     extra += f", log_std_mean {row['log_std_mean']:.5f}"
+                if dapg:
+                    extra += f", demo_coef {row['demo_coef']:.6f}"
+                if cfg.evaluation_rollouts:
+                    extra += f", eval_score {row['eval_score']:.3f}"
                 print(f"[{tag}] iter {int(row['iteration'])}: {dt * 1e3:.1f} ms, valid "
                       f"{row['steps_per_sec']:.1f} env-steps/s ({row['num_samples']:.0f} valid "
                       f"samples), computed {num_envs * steps / dt:.1f} env-steps/s, launches "
-                      f"{steps}, score {row['stoc_pol_mean']:.3f}, running score "
-                      f"{row['running_score']:.3f}, success {row['success_rate']:.2f}%, kl "
+                      f"{per_iter}, score {row['stoc_pol_mean']:.3f}, running "
+                      f"score {row['running_score']:.3f}, success {row['success_rate']:.2f}%, kl "
                       f"{row['kl_dist']:.5f}, alpha {row['alpha']:.6f}, VF "
                       f"{row['VF_error_before']:.3f}->{row['VF_error_after']:.3f}{extra}")
+            if dapg:
+                lam_0, lam_1 = cfg.agent_kwargs["lam_0"], cfg.agent_kwargs["lam_1"]
+                want = [lam_0 * lam_1**i for i in range(len(rows))]
+                got = [row["demo_coef"] for row in rows]
+                if any(abs(g - w) > 1e-6 * w for g, w in zip(got, want)):
+                    raise RuntimeError(f"{tag}: demo_coef {got}, expected {want}")
+            if cfg.evaluation_rollouts and "eval_score" not in rows[0]:
+                raise RuntimeError(f"{tag}: no eval_score logged")
             if agent.sample_mode == "samples":
                 lr = [row["alpha"] for row in rows]
                 if len(lr) > 1 and not lr[1] < lr[0]:
@@ -1124,13 +1239,32 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
                 raise RuntimeError(f"{tag}: checkpoints missing")
             state, obs = agent.env.reset(2)
             tensors = [*agent.policy.parameters(), *agent.policy.buffers(),
-                       *agent.baseline.parameters(), agent.running_score, agent.env.qpos0, state.q,
-                       state.qd, obs]
+                       *agent.baseline.parameters(), *agent.baseline.buffers(),
+                       agent.running_score, obs, *state]
+            if dapg:
+                tensors.append(agent.demo_batch.observations)
             if not all(t.is_cuda for t in tensors):
                 raise RuntimeError(f"{tag}: state or parameters off the card")
+            if tag == WARM_START_PATH:
+                before = launches()
+                warm = load_config(ROOT / "examples" / config, [
+                    *overrides, f"init_policy_from=\"{out}\"", "bc_init=false", "niter=1",
+                    "save_freq=1"])
+                run_job(warm, os.path.join(side, "warm"))
+                src = torch.load(os.path.join(out, "iterations", f"{niters[-1]}.pt"),
+                                 weights_only=True)["policy"]
+                first = starts[-1]
+                same = all(first[k].is_cuda and torch.equal(first[k], v) for k, v in src.items())
+                if not same or len(bc) != 1 or launches() - before != per_iter:
+                    raise RuntimeError(f"{tag}: the warm-started run's first policy equals the "
+                                       f"checkpoint's: {same}; BC runs {len(bc)}; launches "
+                                       f"{launches() - before}, expected {per_iter}")
+                print(f"[{tag}] init_policy_from the run above (iteration {niters[-1]}), no BC: "
+                      f"first policy equal to the checkpoint's on the card, {per_iter} launches")
     finally:
-        train.obs_norm_init = obs_norm_init
-    return kernel.launches
+        train.obs_norm_init, train.warm_start = obs_norm_init, warm_start
+        train.train_agent = train_agent
+    return launches() - (demo_launches or 0)
 
 
 def main() -> int:
@@ -1203,7 +1337,7 @@ def main() -> int:
     k4 = phase_k4_pen("K4 pen", pen_newton, K4, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K4 pen"],
                       TOL["K4 pen quantile"])
     every = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
-    entry = {tag: phase_entry(tag, config, every[k], [v for n, v in every.items() if n != k],
+    entry = {tag: phase_entry(tag, config, every.get(k), [v for n, v in every.items() if n != k],
                               n, steps, niters, overrides)
              for tag, config, k, n, steps, niters, overrides in ENTRY_PATHS}
     k1_hopper["launches"] = entry["hopper"]
@@ -1247,6 +1381,10 @@ def main() -> int:
         kernels[2][task].update(launches=entry[f"adroit_{task}"], kind_env_steps=r["kind_env_steps"])
         if "wide" in r:
             kernels[2][task]["wide"] = r["wide"]
+    # the DAPG paths run K1's and K3's checked builds; their launches
+    kernels[0]["hopper_dapg"] = {"launches": entry["hopper_dapg"]}
+    for task in ("pen", "door", "hammer", "relocate"):
+        kernels[2][f"{task}_dapg"] = {"launches": entry[f"adroit_{task}_dapg"]}
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
                                           "held_rows_mean", "held_rows_max",
                                           "line_search_flips", "overflow", "train_states")})

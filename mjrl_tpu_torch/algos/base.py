@@ -92,14 +92,16 @@ class BatchREINFORCE:
 
     # -- the train state -----------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
-        """The full train state: policy, baseline and its optimizer,
-        iteration, running score and the sampler carry (None until samples
-        mode makes one). Its tensors are the live ones, not copies."""
+        """The full train state: policy, baseline and its optimizer (None
+        for a baseline without one: the least-squares fits), iteration,
+        running score and the sampler carry (None until samples mode makes
+        one). Its tensors are the live ones, not copies."""
         carry = self.sampler_carry
+        optimizer = getattr(self.baseline, "optimizer", None)
         return {
             "policy": self.policy.state_dict(),
             "baseline": self.baseline.state_dict(),
-            "baseline_optimizer": self.baseline.optimizer.state_dict(),
+            "baseline_optimizer": None if optimizer is None else optimizer.state_dict(),
             "iteration": self.iteration,
             "running_score": self.running_score,
             "sampler_carry": None if carry is None else dict(
@@ -108,9 +110,7 @@ class BatchREINFORCE:
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.policy.load_state_dict(state["policy"])
-        self.baseline.load_state_dict(state["baseline"])
-        self.baseline.optimizer.load_state_dict(state["baseline_optimizer"])
+        self.load_policy_and_baseline(state)
         self.iteration = int(state["iteration"])
         self.running_score = state["running_score"].to(self.env.device)
         c = state["sampler_carry"]
@@ -118,6 +118,14 @@ class BatchREINFORCE:
         self.sampler_carry = None if c is None else SamplerCarry(
             state_type(*(c[f] for f in state_type._fields)), c["obs"], c["t_in_ep"],
             c["ep_return"], c.get("ep_success"))
+
+    def load_policy_and_baseline(self, state: Dict[str, Any]) -> None:
+        """The policy's parameters and buffers, the baseline's state and its
+        optimizer's from a :meth:`state_dict`."""
+        self.policy.load_state_dict(state["policy"])
+        self.baseline.load_state_dict(state["baseline"])
+        if state["baseline_optimizer"] is not None:
+            self.baseline.optimizer.load_state_dict(state["baseline_optimizer"])
 
     # -- parameters as dicts ---------------------------------------------
     def params(self) -> Params:

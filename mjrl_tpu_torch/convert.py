@@ -16,7 +16,13 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from mjrl_tpu_torch.models.baselines import MLPBaseline
+from mjrl_tpu_torch.models.baselines import (
+    Baseline,
+    LinearBaseline,
+    MLPBaseline,
+    QuadraticBaseline,
+    ZeroBaseline,
+)
 from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
 from mjrl_tpu_torch.models.mlp import MLP
 from mjrl_tpu_torch.types import EnvSpec
@@ -45,10 +51,21 @@ def policy_from_jax(params_np: Dict[str, Any], spec: EnvSpec, min_log_std: float
     return policy
 
 
-def baseline_from_jax(state_np: Dict[str, Any], spec: EnvSpec, **kwargs: Any) -> MLPBaseline:
-    """An :class:`MLPBaseline` holding a fresh JAX baseline's weights and
-    transforms. A state whose Adam has taken steps is refused: its moments
-    are not carried across."""
+def baseline_from_jax(state_np: Any, spec: EnvSpec, **kwargs: Any) -> Baseline:
+    """The port's twin of a JAX baseline state: ``()`` is the zero
+    baseline; ``{"coef"}`` the linear or the quadratic one, told apart by
+    the coefficients' count; any other an :class:`MLPBaseline` holding a
+    fresh JAX baseline's weights and transforms. An MLP state whose Adam
+    has taken steps is refused: its moments are not carried across."""
+    if isinstance(state_np, tuple) and not state_np:
+        return ZeroBaseline(spec)
+    if set(state_np) == {"coef"}:
+        coef = torch.as_tensor(np.asarray(state_np["coef"]))
+        do = spec.observation_dim
+        cls = LinearBaseline if coef.numel() == 2 * do + 4 else QuadraticBaseline
+        baseline = cls(spec, **kwargs)
+        baseline.coef.copy_(coef)
+        return baseline
     if int(np.asarray(state_np["opt_state"][0].count)) > 0:
         raise NotImplementedError("Adam moments are not converted")
     baseline = MLPBaseline(spec, hidden_sizes=_hidden(state_np["mlp"]), **kwargs)

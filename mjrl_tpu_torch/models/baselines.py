@@ -1,11 +1,14 @@
-"""Value-function baseline: the MLP baseline of the main path.
+"""Value-function baselines: zero, linear, quadratic and MLP.
 
-Twin of ``mjrl_tpu/models/baselines.py`` (``Baseline``, ``_base_features``,
-``MLPBaseline``). Features are the reference's ``[o, o^2, al, al^2, al^3,
-1]`` with ``o = clip(obs, -10, 10) / 10`` and ``al = t / 1000``; the fit is
-minibatch Adam over shuffled fixed-size minibatches against the in-episode
-returns, with padded steps weighted 0, reporting
-``VF_error_before/after = sum((y - yhat)^2) / sum(y^2)``. Two options,
+Twin of ``mjrl_tpu/models/baselines.py``. Features are the reference's
+``[o, o^2, al, al^2, al^3, 1]`` with ``o = clip(obs, -10, 10) / 10`` and
+``al = t / 1000``; the quadratic baseline appends the products ``o_i o_j``
+(``i <= j``, in ``triu_indices`` order). Every fit regresses the in-episode
+returns with padded steps weighted 0 and reports ``VF_error_before/after
+= sum((y - yhat)^2) / sum(y^2)``. The linear and quadratic baselines solve
+the ridge normal equations (``ops/lstsq.py``); they have no optimizer.
+The MLP baseline's fit is minibatch Adam over shuffled fixed-size
+minibatches. Two options of the MLP baseline,
 off by default as in the reference: ``reg_coef`` adds an L2 penalty on the
 weights, and ``vf_clip_coef`` clips the value loss PPO-style around the
 pre-fit prediction.
@@ -20,6 +23,7 @@ import torch
 from torch import nn
 
 from mjrl_tpu_torch.models.mlp import MLP
+from mjrl_tpu_torch.ops.lstsq import ridge_solve
 from mjrl_tpu_torch.types import EnvSpec, TrajectoryBatch
 
 
@@ -28,6 +32,13 @@ def base_features(obs: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     o = torch.clamp(obs, -10.0, 10.0) / 10.0
     al = time.to(o.dtype)[..., None] / 1000.0
     return torch.cat([o, torch.square(o), al, al**2, al**3, torch.ones_like(al)], dim=-1)
+
+
+def quadratic_features(obs: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+    """Base features plus the upper-triangle products of the scaled obs."""
+    o = torch.clamp(obs, -10.0, 10.0) / 10.0
+    iu, ju = torch.triu_indices(o.shape[-1], o.shape[-1], device=o.device)
+    return torch.cat([base_features(obs, time), o[..., iu] * o[..., ju]], dim=-1)
 
 
 def relative_error(pred, target, w) -> torch.Tensor:
@@ -49,6 +60,53 @@ class Baseline(nn.Module, abc.ABC):
     def fit(self, batch: TrajectoryBatch, generator: Optional[torch.Generator] = None,
             perms: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Fit against ``batch.returns``; returns the error metrics."""
+
+
+def _flat_fit_data(batch: TrajectoryBatch, features):
+    m = batch.num_envs * batch.horizon
+    feats = features(batch.observations, batch.time).reshape(m, -1)
+    return feats, batch.returns.reshape(m), batch.valid.reshape(m).to(batch.returns.dtype)
+
+
+class ZeroBaseline(Baseline):
+    """Predicts 0 (an ablation)."""
+
+    def predict(self, obs, time):
+        return torch.zeros(obs.shape[:-1], dtype=obs.dtype, device=obs.device)
+
+    def fit(self, batch, generator=None, perms=None):
+        zero = torch.zeros((), device=batch.returns.device)
+        return {"VF_error_before": zero, "VF_error_after": zero}
+
+
+class LinearBaseline(Baseline):
+    """``V = features(s) @ coef``, ``coef`` the ridge solution over the
+    batch (reference default ``reg_coef=1e-5``)."""
+
+    features = staticmethod(base_features)
+
+    def __init__(self, spec: EnvSpec, reg_coef: float = 1e-5):
+        super().__init__(spec)
+        self.reg_coef = reg_coef
+        nf = self.features(torch.zeros(spec.observation_dim), torch.zeros((), dtype=torch.int32))
+        self.register_buffer("coef", torch.zeros(nf.shape[-1]))
+
+    def predict(self, obs, time):
+        return self.features(obs, time) @ self.coef
+
+    @torch.no_grad()
+    def fit(self, batch, generator=None, perms=None):
+        feats, target, w = _flat_fit_data(batch, self.features)
+        err_before = relative_error(feats @ self.coef, target, w)
+        self.coef.copy_(ridge_solve(feats, target, w, reg_coef=self.reg_coef))
+        err_after = relative_error(feats @ self.coef, target, w)
+        return {"VF_error_before": err_before, "VF_error_after": err_after}
+
+
+class QuadraticBaseline(LinearBaseline):
+    """The linear baseline on :func:`quadratic_features`."""
+
+    features = staticmethod(quadratic_features)
 
 
 class MLPBaseline(Baseline):
@@ -88,10 +146,8 @@ class MLPBaseline(Baseline):
         ]
 
     def fit(self, batch, generator=None, perms=None):
-        m = batch.num_envs * batch.horizon
-        feats = base_features(batch.observations, batch.time).reshape(m, -1)
-        target = batch.returns.reshape(m)
-        w = batch.valid.reshape(m).to(target.dtype)
+        feats, target, w = _flat_fit_data(batch, base_features)
+        m = target.shape[0]
         with torch.no_grad():
             pred0 = self.mlp(feats)[..., 0]
             err_before = relative_error(pred0, target, w)

@@ -1,4 +1,5 @@
-"""Math core: distributions, GAE, conjugate gradient, raveling."""
+"""Math core: distributions, GAE, conjugate gradient, raveling, ridge least
+squares."""
 
 from mjrl_tpu_torch.ops.distributions import DiagGaussian  # noqa: F401
 from mjrl_tpu_torch.ops.gae import (  # noqa: F401
@@ -8,4 +9,5 @@ from mjrl_tpu_torch.ops.gae import (  # noqa: F401
     masked_mean_std,
 )
 from mjrl_tpu_torch.ops.cg import cg_solve  # noqa: F401
+from mjrl_tpu_torch.ops.lstsq import ridge_solve  # noqa: F401
 from mjrl_tpu_torch.ops.ravel import ravel  # noqa: F401

@@ -2,7 +2,8 @@
 ``sample_episodes``, ``init_autoreset_carry``, ``sample_autoreset``,
 ``_to_batch``, ``rollout_statistics``).
 
-Two modes, as in the reference:
+Two modes, as in the reference (episodes mode also in ``eval_mode``, which
+acts with the policy mean and draws no action noise):
 
 - episodes (``sample_episodes``): every row is one episode started fresh
   and run for a fixed horizon; a row whose episode terminates is frozen
@@ -51,27 +52,33 @@ def _select(mask: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
 class EpisodeNoise:
     reset_q: torch.Tensor  # (N, nq): added to qpos0 (pen: (N, 2), the target angles)
     reset_qd: torch.Tensor  # (N, nv): the initial qd (pen: (N, 0))
-    action: torch.Tensor  # (T, N, da), standard normal
+    action: torch.Tensor  # (T, N, da), standard normal; (T, N, 0) in eval mode
 
 
 def draw_episode_noise(env: Env, num_envs: int, horizon: int,
-                       generator: Optional[torch.Generator] = None) -> EpisodeNoise:
+                       generator: Optional[torch.Generator] = None,
+                       eval_mode: bool = False) -> EpisodeNoise:
+    """The reset draws and, unless ``eval_mode``, the action noise."""
     reset_q, reset_qd = env.reset_noise(num_envs, generator)
-    action = torch.randn(horizon, num_envs, env.spec.action_dim, device=env.device,
-                         generator=generator)
+    shape = (horizon, num_envs, 0 if eval_mode else env.spec.action_dim)
+    action = (torch.empty(shape, device=env.device) if eval_mode
+              else torch.randn(shape, device=env.device, generator=generator))
     return EpisodeNoise(reset_q=reset_q, reset_qd=reset_qd, action=action)
 
 
 @torch.no_grad()
-def run_episodes(env: Env, policy: GaussianMLP, noise: EpisodeNoise) -> TrajectoryBatch:
-    """One fresh episode per row, with the given noise."""
+def run_episodes(env: Env, policy: GaussianMLP, noise: EpisodeNoise,
+                 eval_mode: bool = False) -> TrajectoryBatch:
+    """One fresh episode per row, with the given noise. ``eval_mode`` acts
+    with the policy mean (the reference's evaluation rollouts), its
+    ``log_prob`` taken at the mean."""
     T, N = noise.action.shape[:2]
     state, obs = env.reset_from_noise(noise.reset_q, noise.reset_qd)
     finished = torch.zeros(N, dtype=torch.bool, device=obs.device)
     steps: List[Dict[str, torch.Tensor]] = []
     for t in range(T):
         mean, log_std = policy(obs)
-        action = DiagGaussian.sample(mean, log_std, noise.action[t])
+        action = mean if eval_mode else DiagGaussian.sample(mean, log_std, noise.action[t])
         log_prob = DiagGaussian.log_prob(action, mean, log_std)
         new_state, new_obs, reward, term, info = env.step(state, action)
         valid = ~finished
@@ -91,8 +98,10 @@ def run_episodes(env: Env, policy: GaussianMLP, noise: EpisodeNoise) -> Trajecto
 
 
 def sample_episodes(env: Env, policy: GaussianMLP, num_envs: int, horizon: int,
-                    generator: Optional[torch.Generator] = None) -> TrajectoryBatch:
-    return run_episodes(env, policy, draw_episode_noise(env, num_envs, horizon, generator))
+                    generator: Optional[torch.Generator] = None,
+                    eval_mode: bool = False) -> TrajectoryBatch:
+    noise = draw_episode_noise(env, num_envs, horizon, generator, eval_mode)
+    return run_episodes(env, policy, noise, eval_mode)
 
 
 @dataclasses.dataclass(frozen=True)

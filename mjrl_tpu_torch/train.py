@@ -4,9 +4,12 @@ Twin of ``mjrl_tpu/train.py``: builds the env, policy, baseline and agent
 from a JSON config (the same ``examples/*.json``) and trains into
 ``--output``, resuming from its latest checkpoint. ``--set key=value``
 overrides a field (JSON-parsed; dotted keys reach into dict fields, e.g.
-``env_kwargs.n_substeps=1``). With ``obs_norm`` a fresh run first sets the
-policy's input normalization from one batch of the initial policy
-(``utils.configs.obs_norm_init``); a resumed run keeps its checkpoint's.
+``env_kwargs.n_substeps=1``). A fresh run first applies the warm starts
+of ``utils.configs`` in the reference's order: ``init_policy_from``
+(``policy_warm_start``), then ``bc_init`` (``warm_start``: BC on the
+demos), then ``obs_norm`` (``obs_norm_init``, which overwrites BC's input
+transforms as in the reference); a run that resumes from its own
+checkpoint skips all three and keeps its checkpoint's state.
 The run is on the card (``--device cuda``, the default) unless ``--device
 cpu`` is asked for; without a card a CUDA run fails and never falls back
 to the CPU.
@@ -25,8 +28,22 @@ import torch
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
-from mjrl_tpu_torch.utils.configs import RunConfig, build, obs_norm_init
+from mjrl_tpu_torch.utils.configs import (
+    RunConfig,
+    build,
+    obs_norm_init,
+    policy_warm_start,
+    warm_start,
+)
 from mjrl_tpu_torch.utils.train_agent import train_agent
+
+
+def side_generator(seed: int, key: int, device) -> torch.Generator:
+    """A generator of its own for a warm start, apart from the iterations'
+    (``train_agent``): the twin of the reference's ``fold_in(PRNGKey(seed),
+    key)`` (1: BC, 2: obs_norm)."""
+    state = np.random.SeedSequence(seed, spawn_key=(key,)).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def run_job(cfg: RunConfig, output: str, device="cuda") -> BatchREINFORCE:
@@ -36,11 +53,15 @@ def run_job(cfg: RunConfig, output: str, device="cuda") -> BatchREINFORCE:
         raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
     cfg.to_json(os.path.join(output, "config.json"))
     _, _, _, agent = build(cfg, device=device)
-    if cfg.obs_norm and CheckpointManager(output).latest_step() is None:
-        # a generator of its own, apart from the iterations' (train_agent)
-        seed = int(np.random.SeedSequence(cfg.seed, spawn_key=(2,)).generate_state(1)[0])
-        obs_norm_init(agent, torch.Generator(device=device).manual_seed(seed))
-    return train_agent(output, agent, seed=cfg.seed, niter=cfg.niter, save_freq=cfg.save_freq)
+    if CheckpointManager(output).latest_step() is None:
+        if cfg.init_policy_from:
+            policy_warm_start(cfg, agent)
+        if cfg.bc_init:
+            warm_start(cfg, agent, side_generator(cfg.seed, 1, device))
+        if cfg.obs_norm:
+            obs_norm_init(agent, side_generator(cfg.seed, 2, device))
+    return train_agent(output, agent, seed=cfg.seed, niter=cfg.niter, save_freq=cfg.save_freq,
+                       evaluation_rollouts=cfg.evaluation_rollouts)
 
 
 def load_config(config_path=None, overrides=()) -> RunConfig:

@@ -20,15 +20,21 @@ MAX_TO_KEEP = 5
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    """``create=False`` reads another run's checkpoints without making its
+    directories."""
+
+    def __init__(self, directory: str, create: bool = True):
         self._dir = os.path.abspath(directory)
         self._iters = os.path.join(self._dir, "iterations")
-        os.makedirs(self._iters, exist_ok=True)
+        if create:
+            os.makedirs(self._iters, exist_ok=True)
 
     def _path(self, step: int) -> str:
         return os.path.join(self._iters, f"{step}.pt")
 
     def _steps(self):
+        if not os.path.isdir(self._iters):
+            return []
         return sorted(int(n[:-3]) for n in os.listdir(self._iters)
                       if n.endswith(".pt") and n[:-3].isdigit())
 

@@ -3,9 +3,12 @@
 Twin of ``mjrl_tpu/utils/configs.py``. ``RunConfig`` has the reference's
 fields, names and defaults, so every ``examples/*.json`` parses and a run's
 ``config.json`` diffs field for field against the JAX package's. ``build``
-makes what the port has: NPG, TRPO or PPO with a ``GaussianMLP`` policy and
-an ``MLPBaseline``, on the env's device; ``obs_norm_init`` sets the
-policy's input normalization for ``obs_norm``. Every other choice raises
+makes NPG, TRPO, PPO or DAPG (with the demos of ``demo_file``) with a
+``GaussianMLP`` policy and any of the four baselines, on the env's device.
+The warm starts, applied by ``train.run_job`` in this order:
+``policy_warm_start`` (``init_policy_from``: another run's latest policy
+and baseline), ``warm_start`` (``bc_init``: BC on the demos) and
+``obs_norm_init`` (``obs_norm``). Every other choice raises
 ``NotImplementedError`` naming, by its title, the ROADMAP item that ports
 it; none is ignored.
 """
@@ -20,10 +23,18 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from mjrl_tpu_torch import envs
-from mjrl_tpu_torch.algos import NPG, PPO, TRPO
+from mjrl_tpu_torch.algos import BC, DAPG, NPG, PPO, TRPO
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
-from mjrl_tpu_torch.models import GaussianMLP, MLPBaseline
+from mjrl_tpu_torch.models import (
+    GaussianMLP,
+    LinearBaseline,
+    MLPBaseline,
+    QuadraticBaseline,
+    ZeroBaseline,
+)
 from mjrl_tpu_torch.samplers import init_autoreset_carry, sample_autoreset, sample_episodes
+from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
+from mjrl_tpu_torch.utils.demos import load_demo_pickle
 
 
 @dataclasses.dataclass
@@ -88,14 +99,16 @@ class RunConfig:
         return cfg
 
 
-AGENTS = {"npg": NPG, "trpo": TRPO, "ppo": PPO}
+AGENTS = {"npg": NPG, "trpo": TRPO, "ppo": PPO, "dapg": DAPG}
+BASELINES = {"zero": ZeroBaseline, "linear": LinearBaseline, "quadratic": QuadraticBaseline,
+             "mlp": MLPBaseline}
 
 # the titles of ROADMAP.md's queue 1 items that port what the port lacks
-BC_DAPG = "BC, DAPG, demos, warm starts and evaluation rollouts"
 BREADTH = "Breadth without kernels"
 MODEL_NPG = "Model-based NPG"
 DATA_PARALLEL = "Env-axis data parallel"
-_ALGORITHM_ITEMS = {"bc": BC_DAPG, "dapg": BC_DAPG, "model_npg": MODEL_NPG}
+_ALGORITHM_ITEMS = {"model_npg": MODEL_NPG}
+_UNPORTED_ENVS = ("pendulum", "cartpole")  # the reference's envs/classic.py
 
 
 def check_ported(cfg: RunConfig) -> None:
@@ -104,11 +117,9 @@ def check_ported(cfg: RunConfig) -> None:
         (cfg.algorithm not in AGENTS, f"algorithm {cfg.algorithm!r}",
          _ALGORITHM_ITEMS.get(cfg.algorithm, BREADTH)),
         (cfg.policy != "mlp", f"policy {cfg.policy!r}", BREADTH),
-        (cfg.baseline != "mlp", f"baseline {cfg.baseline!r}", BREADTH),
-        (cfg.demo_file is not None or cfg.bc_init, "demo_file / bc_init (BC, DAPG)", BC_DAPG),
-        (cfg.init_policy_from is not None, "init_policy_from", BC_DAPG),
+        (cfg.baseline not in BASELINES, f"baseline {cfg.baseline!r}", BREADTH),
+        (cfg.env_name in _UNPORTED_ENVS, f"env {cfg.env_name!r}", BREADTH),
         (cfg.mesh_devices > 1, "mesh_devices > 1", DATA_PARALLEL),
-        (cfg.evaluation_rollouts > 0, "evaluation_rollouts > 0", BC_DAPG),
     ]
     for bad, what, title in unported:
         if bad:
@@ -117,18 +128,56 @@ def check_ported(cfg: RunConfig) -> None:
 
 def build(cfg: RunConfig, device="cuda"):
     """``(env, policy, baseline, agent)`` from a config, on ``device``. The
-    policy's and baseline's initial weights come from ``cfg.seed``."""
+    policy's and the MLP baseline's initial weights come from ``cfg.seed``;
+    ``demo_file``'s demos are loaded onto the env's device."""
     check_ported(cfg)
     env = envs.make(cfg.env_name, device=device, **cfg.env_kwargs)
+    demo_batch = None
+    if cfg.demo_file is not None:
+        demo_batch = load_demo_pickle(cfg.demo_file, device=env.device)
     init = torch.Generator().manual_seed(cfg.seed)
     policy = GaussianMLP(env.spec, hidden_sizes=cfg.hidden_sizes, min_log_std=cfg.min_log_std,
                          init_log_std=cfg.init_log_std, generator=init).to(env.device)
-    baseline = MLPBaseline(env.spec, generator=init, **cfg.baseline_kwargs).to(env.device)
+    baseline_kwargs = dict(cfg.baseline_kwargs)
+    if cfg.baseline == "mlp":
+        baseline_kwargs["generator"] = init
+    baseline = BASELINES[cfg.baseline](env.spec, **baseline_kwargs).to(env.device)
+    agent_kwargs = dict(cfg.agent_kwargs)
+    if cfg.algorithm == "dapg":
+        if demo_batch is None:
+            raise ValueError("algorithm 'dapg' requires demo_file")
+        agent_kwargs["demo_batch"] = demo_batch
     agent = AGENTS[cfg.algorithm](
         env, policy, baseline, num_traj=cfg.num_traj, num_samples=cfg.num_samples,
         sample_mode=cfg.sample_mode, horizon=cfg.horizon, gamma=cfg.gamma,
-        gae_lambda=cfg.gae_lambda, **cfg.agent_kwargs)
+        gae_lambda=cfg.gae_lambda, **agent_kwargs)
     return env, policy, baseline, agent
+
+
+def policy_warm_start(cfg: RunConfig, agent: BatchREINFORCE) -> None:
+    """Load the policy (parameters and buffers) and the baseline (its state
+    and its optimizer's) of ``cfg.init_policy_from``'s latest checkpoint
+    into a fresh agent; the architectures must match. Iteration, running
+    score and sampler carry stay fresh, so the run's metrics are its own."""
+    src = CheckpointManager(cfg.init_policy_from, create=False)
+    restored = src.restore_latest(map_location=agent.env.device)
+    if restored is None:
+        raise FileNotFoundError(f"init_policy_from: no checkpoint under {cfg.init_policy_from}")
+    print(f"Policy warm start from {cfg.init_policy_from} iteration {int(restored['iteration'])}")
+    agent.load_policy_and_baseline(restored)
+
+
+def warm_start(cfg: RunConfig, agent: BatchREINFORCE,
+               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+    """BC on ``demo_file``'s demos (DAPG's stage 1), from the agent's
+    current policy; returns BC's ``loss_before`` and ``loss_after``."""
+    if cfg.demo_file is None:
+        raise ValueError("bc_init requires demo_file")
+    demos = load_demo_pickle(cfg.demo_file, device=agent.env.device)
+    metrics = BC(demos, agent.policy, **cfg.bc_kwargs).train(generator)
+    print(f"BC warm start: loss {float(metrics['loss_before']):.6g} -> "
+          f"{float(metrics['loss_after']):.6g}")
+    return metrics
 
 
 @torch.no_grad()

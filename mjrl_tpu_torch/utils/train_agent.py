@@ -7,16 +7,20 @@ Twin of ``mjrl_tpu/utils/train_agent.py``. Each iteration runs
 run would have drawn; reads the metrics back in one transfer; logs them
 with ``iteration``, ``time_step`` (seconds, ending in that read),
 ``steps_per_sec`` (valid env-steps per second) and ``total_env_steps``;
-keeps a snapshot of the best state by running score; and every
+with ``evaluation_rollouts`` runs that many full episodes in eval mode
+(the policy mean, at ``agent.horizon``) after each step, from a generator
+seeded by ``iteration_seed(seed, 10_000_000 + i)``, and logs their mean
+score as ``eval_score``; keeps a snapshot of the best state by
+``eval_score`` where there is one, else by running score; and every
 ``save_freq`` iterations (and at the last) writes a checkpoint, the best
 state and ``log.csv``. A run continues from the latest checkpoint in
 ``job_name``, with the log cut to match.
 
-Left out against the reference: evaluation rollouts (``build`` refuses
-them), the training-curve plots and the tabulate table (the card's machine
-has neither matplotlib nor tabulate; a plain line is printed), and the
-retry loop around a failed step: a CUDA error in PyTorch poisons the
-context, so a retry in the same process would hide it rather than recover.
+Left out against the reference: the training-curve plots and the
+tabulate table (the card's machine has neither matplotlib nor tabulate; a
+plain line is printed), and the retry loop around a failed step: a CUDA
+error in PyTorch poisons the context, so a retry in the same process
+would hide it rather than recover.
 A crashed run resumes from its latest checkpoint when started again.
 """
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
+from mjrl_tpu_torch.samplers.rollout import rollout_statistics, sample_episodes
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
 from mjrl_tpu_torch.utils.logger import DataLog
 
@@ -41,7 +46,7 @@ def iteration_seed(seed: int, iteration: int) -> int:
 
 
 def train_agent(job_name: str, agent: BatchREINFORCE, seed: int = 0, niter: int = 101,
-                save_freq: int = 10) -> BatchREINFORCE:
+                save_freq: int = 10, evaluation_rollouts: int = 0) -> BatchREINFORCE:
     os.makedirs(job_name, exist_ok=True)
     logdir = os.path.join(job_name, "logs")
     logger = DataLog(logdir)
@@ -80,10 +85,17 @@ def train_agent(job_name: str, agent: BatchREINFORCE, seed: int = 0, niter: int 
         row["steps_per_sec"] = row.get("num_samples", 0.0) / max(t_step, 1e-9)
         total_env_steps += row.get("num_samples", 0.0)
         row["total_env_steps"] = total_env_steps
+        if evaluation_rollouts > 0:
+            eval_gen = torch.Generator(device=device).manual_seed(
+                iteration_seed(seed, 10_000_000 + i))
+            batch = sample_episodes(agent.env, agent.policy, evaluation_rollouts, agent.horizon,
+                                    eval_gen, eval_mode=True)
+            row["eval_score"] = float(rollout_statistics(batch).mean)
         logger.log_dict(row)
 
-        if row["running_score"] > best_perf:
-            best_perf = row["running_score"]
+        perf = row.get("eval_score", row["running_score"])
+        if perf > best_perf:
+            best_perf = perf
             best_state = copy.deepcopy(agent.state_dict())  # stays on the device
 
         if i % save_freq == 0 or i == niter - 1:

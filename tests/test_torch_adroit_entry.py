@@ -3,8 +3,9 @@ which example configs the port builds.
 
 ``adroit_door_npg_small.json`` runs at 4 envs x 5 steps through
 ``run_job`` and resumes from its checkpoint. Every ``examples/*.json``
-either builds (``check_ported`` and ``envs.make``: 31 of the 39) or raises
-naming, by its title, the ROADMAP.md queue item that ports what it needs.
+either builds (``check_ported`` and ``envs.make``: 37 of the 39) or raises
+naming, by its title, the ROADMAP.md queue item that ports what it needs
+(the two model-based NPG configs).
 """
 
 import glob
@@ -41,9 +42,7 @@ def test_door_small_config_runs_and_resumes(tmp_path):
 
 ROADMAP = open(os.path.join(ROOT, "ROADMAP.md")).read()
 CONFIGS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "examples", "*.json")))
-REFUSED = {"adroit_pen_dapg.json", "adroit_door_dapg.json", "adroit_hammer_dapg.json",
-           "adroit_relocate_dapg.json", "hopper_dapg.json", "hopper_model_npg.json",
-           "point_mass_npg.json", "point_mass_model_npg.json"}
+REFUSED = {"hopper_model_npg.json", "point_mass_model_npg.json"}
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -67,4 +66,10 @@ def test_config_builds_or_names_a_roadmap_title(name):
 
 
 def test_port_builds_31_of_the_39_example_configs():
-    assert len(CONFIGS) == 39 and REFUSED <= set(CONFIGS) and len(CONFIGS) - len(REFUSED) == 31
+    """The count of example configs the port builds: 37 of 39 since BC,
+    DAPG and point_mass were ported (the name is kept from when it was 31);
+    the two refused are the model-based NPG configs."""
+    assert len(CONFIGS) == 39 and REFUSED <= set(CONFIGS) and len(CONFIGS) - len(REFUSED) == 37
+    for name in REFUSED:
+        with pytest.raises(NotImplementedError, match="Model-based NPG"):
+            build(load_config(os.path.join(ROOT, "examples", name), []), device="cpu")

@@ -6,8 +6,9 @@ the hopper, swimmer and humanoid envs (its 376-dim observation from
 physics/engine.py, contact.py and comfeat.py) with their shipped assets,
 and Adroit pen (envs/adroit.py, kernel K3's plain version) with its
 shipped model, and the door, hammer (its nail sensor: physics/contact.py's
-box kinds) and relocate envs reset with theirs. (The card's machine has
-none of those packages.)"""
+box kinds) and relocate envs reset with theirs; BC, DAPG, the demos, the
+ridge solve and the least-squares baselines import and point_mass steps.
+(The card's machine has none of those packages.)"""
 
 import os
 import subprocess
@@ -66,6 +67,14 @@ for name, obs_dim in (("adroit_door", 39), ("adroit_hammer", 46), ("adroit_reloc
 for name in ("algos.trpo", "algos.ppo", "physics.engine", "physics.contact", "physics.comfeat",
              "physics.math3d", "envs.adroit", "physics.probe", "physics.dispatch"):
     assert "mjrl_tpu_torch." + name in names, name
+for name in ("algos.bc", "algos.dapg", "utils.demos", "ops.lstsq", "envs.point_mass"):
+    assert "mjrl_tpu_torch." + name in names, name
+from mjrl_tpu_torch.models import LinearBaseline, QuadraticBaseline, ZeroBaseline
+env = make("point_mass", device="cpu")
+state, obs = env.reset(2, torch.Generator().manual_seed(0))
+state, obs, reward, term, info = env.step(state, torch.ones(2, 2))
+assert obs.shape == (2, 6) and torch.isfinite(reward).all() and "success" in info
+assert QuadraticBaseline(env.spec).coef.shape == (37,) and LinearBaseline(env.spec).coef.shape == (16,)
 print("imported", len(names), "modules")
 """
 

@@ -5,12 +5,13 @@ the CLI writes ``config.json``, a ``log.csv`` with every column of the JAX
 package's hopper run (``runs/hopper_npg_expert/logs/log.csv``) and
 checkpoints; a resumed run continues at the checkpoint's iteration with
 the log cut to match and ends with the policy of a straight run; settings
-the port does not have raise; every other config the port runs goes
-through the entry point at 2 envs x 2 steps; the humanoid PPO and TRPO
-configs run with their obs_norm at a small width and resume; and a run on
-the card never falls back to the CPU; the Adroit pen NPG configs run at 2
-envs x 2 steps and the Adroit DAPG configs raise naming their ROADMAP
-item.
+the port does not have raise, and those it had refused until BC, DAPG,
+the warm starts, the evaluation rollouts and the least-squares baselines
+were ported build; every other config the port runs goes through the
+entry point at 2 envs x 2 steps; the humanoid PPO and TRPO configs run
+with their obs_norm at a small width and resume; and a run on the card
+never falls back to the CPU; the Adroit pen NPG configs run at 2 envs x 2
+steps and the Adroit DAPG configs build a DAPG agent with their demos.
 """
 
 import csv
@@ -84,13 +85,34 @@ def test_resume_continues_a_run_exactly(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    "algorithm=\"dapg\"", "evaluation_rollouts=1", "policy=\"linear\"", "baseline=\"quadratic\"",
-    "bc_init=true", "init_policy_from=\"runs/x\"", "demo_file=\"demos/x.pickle\"",
-    "mesh_devices=2",
+    "policy=\"linear\"", "mesh_devices=2", "algorithm=\"reinforce\"", "algorithm=\"model_npg\"",
+    "env_name=\"pendulum\"",
 ])
 def test_unported_settings_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(load_config(HOPPER, [override]), device="cpu")
+
+
+DEMOS = "demo_file=\"demos/hopper_expert.pickle\""
+
+
+@pytest.mark.parametrize("overrides", [
+    ("algorithm=\"dapg\"", DEMOS), ("evaluation_rollouts=1",),
+    ("baseline=\"quadratic\"", "baseline_kwargs={}"), ("bc_init=true", DEMOS),
+    ("init_policy_from=\"runs/x\"",), (DEMOS,),
+])
+def test_formerly_refused_settings_build(overrides):
+    """The settings refused until BC, DAPG, the warm starts, the evaluation
+    rollouts and the least-squares baselines were ported now build (the
+    warm starts themselves run in ``run_job``); DAPG without demos raises
+    as in the reference."""
+    env, policy, baseline, agent = build(load_config(HOPPER, list(overrides)), device="cpu")
+    assert type(baseline).__name__ == ("QuadraticBaseline" if "quadratic" in overrides[0]
+                                       else "MLPBaseline")
+    if "dapg" in overrides[0]:
+        assert type(agent).__name__ == "DAPG" and agent.demo_batch.num_envs == 9
+        with pytest.raises(ValueError, match="demo_file"):
+            build(load_config(HOPPER, [overrides[0]]), device="cpu")
 
 
 # the example configs the port runs and no other test drives through the
@@ -133,10 +155,15 @@ OTHER_TASKS = ("adroit_door_npg.json", "adroit_door_npg_small.json",
     os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "examples", "adroit_*.json"))
     if os.path.basename(p) not in OTHER_CONFIGS + NEWTON_PEN + OTHER_TASKS))
 def test_other_adroit_configs_raise(name):
-    """DAPG is not ported yet: the Adroit DAPG configs raise naming the
-    ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(load_config(os.path.join(ROOT, "examples", name), []), device="cpu")
+    """The Adroit DAPG configs, which raised naming their ROADMAP item until
+    DAPG was ported (the name is kept from then), build a DAPG agent with
+    their 25 demos on the env's device and a BC warm start configured;
+    tests/test_torch_dapg.py drives each through the entry point."""
+    config = load_config(os.path.join(ROOT, "examples", name), [])
+    env, _, _, agent = build(config, device="cpu")
+    assert type(agent).__name__ == "DAPG" and config.bc_init
+    assert agent.demo_batch.num_envs == 25 and agent.demo_batch.observations.device == env.device
+    assert agent.demo_batch.observations.shape[-1] == env.spec.observation_dim
 
 
 @pytest.mark.parametrize("name", ["humanoid_ppo_v4.json", "humanoid_trpo.json"])

@@ -1,7 +1,7 @@
 """Where one training iteration of the PyTorch port spends its time, on a
 GPU.
 
-    python3 tools/torch_npg_breakdown.py [--row ROW] [--no-profile]
+    python3 tools/torch_npg_breakdown.py [--row ROW] [--no-profile] [--demos DIR]
 
 Builds the agent of one row: the bench's ant rows at their width (1024
 envs x 100 steps, policy (64, 64), MLPBaseline(epochs=2, batch_size=1024),
@@ -19,9 +19,17 @@ mode, K1), ``adroit_pen`` (adroit_pen_npg.json, 512 x 100, K3),
 ``adroit_door`` (adroit_door_npg.json, 512 x 200, K3), ``adroit_hammer``
 (adroit_hammer_npg.json at the fixed hammer run's settings: 2048 x 200,
 min_log_std -2, baseline batch 4096; K3 and the nail's sensor) or
-``adroit_relocate`` (adroit_relocate_scratch.json, 2048 x 200, K3). The
-``update`` phase is the agent's policy update: NPG's, TRPO's with its
-line-search probes, or PPO's minibatch Adam epochs.
+``adroit_relocate`` (adroit_relocate_scratch.json, 2048 x 200, K3); the
+DAPG configs ``adroit_pen_dapg`` (64 x 100, K3), ``adroit_door_dapg`` and
+``adroit_hammer_dapg`` (64 x 200, K3), ``adroit_relocate_dapg`` (2048 x
+200, K3) and ``hopper_dapg`` (64 x 1000, K1), whose BC warm start on the
+config's demo pickle is timed once as ``bc_warm_start`` (``--demos DIR``
+reads the pickle of that name from DIR: the card's copy of the repo has
+no ``demos/``); or ``point_mass`` (point_mass_npg.json, 64 x 25, no
+kernel), whose 16 evaluation episodes after the step are the
+``evaluation`` phase. The ``update`` phase is the agent's policy update:
+NPG's, TRPO's with its line-search probes, PPO's minibatch Adam epochs,
+or DAPG's with the demo surrogate in its gradient.
 Warms it for 2 iterations, then times one iteration
 phase by phase on the host clock (each phase ends in
 ``torch.cuda.synchronize()``), and traces a second one with
@@ -35,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -47,7 +56,10 @@ CONFIG_ROWS = {"hopper": "hopper_npg.json", "hopper_newton": "hopper_npg_newton.
                "humanoid_trpo": "humanoid_trpo.json", "humanoid_ppo": "humanoid_ppo_v4.json",
                "adroit_pen": "adroit_pen_npg.json", "adroit_pen_newton": "adroit_pen_npg_newton.json",
                "adroit_door": "adroit_door_npg.json", "adroit_hammer": "adroit_hammer_npg.json",
-               "adroit_relocate": "adroit_relocate_scratch.json"}
+               "adroit_relocate": "adroit_relocate_scratch.json",
+               **{f"{name}_dapg": f"{name}_dapg.json" for name in (
+                   "adroit_pen", "adroit_door", "adroit_hammer", "adroit_relocate", "hopper")},
+               "point_mass": "point_mass_npg.json"}
 # --set overrides of a row's config
 ROW_OVERRIDES = {"adroit_hammer": ["num_traj=2048", "min_log_std=-2.0",
                                    'baseline_kwargs={"epochs": 2, "batch_size": 4096}']}
@@ -68,25 +80,46 @@ def main() -> int:
         rollout_statistics,
         run_autoreset,
         run_episodes,
+        sample_episodes,
     )
-    from mjrl_tpu_torch.train import load_config
-    from mjrl_tpu_torch.utils.configs import build, obs_norm_init
+    from mjrl_tpu_torch.train import load_config, side_generator
+    from mjrl_tpu_torch.utils.configs import build, obs_norm_init, warm_start
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--row", choices=("penalty", "newton", *CONFIG_ROWS), default="penalty")
     p.add_argument("--no-profile", action="store_true")
+    p.add_argument("--demos", default=None, help="the directory of the DAPG rows' demo pickles")
     args = p.parse_args()
     row = args.row
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
+    phases = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        phases[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    evaluation = 0
     if row in CONFIG_ROWS:
-        cfg = load_config(ROOT / "examples" / CONFIG_ROWS[row], ROW_OVERRIDES.get(row, []))
+        overrides = ROW_OVERRIDES.get(row, [])
+        cfg = load_config(ROOT / "examples" / CONFIG_ROWS[row], overrides)
+        if cfg.demo_file and args.demos:
+            demo_file = os.path.join(args.demos, os.path.basename(cfg.demo_file))
+            cfg = load_config(ROOT / "examples" / CONFIG_ROWS[row],
+                              [*overrides, f'demo_file="{demo_file}"'])
         env, policy, baseline, agent = build(cfg, device=dev)
+        if cfg.bc_init:
+            timed("bc_warm_start", lambda: warm_start(cfg, agent, side_generator(cfg.seed, 1, dev)))
         if cfg.obs_norm:
             obs_norm_init(agent, torch.Generator(device=dev).manual_seed(2))
-        num_envs, horizon = cfg.num_traj, cfg.horizon
+        num_envs, horizon = cfg.num_traj, cfg.horizon or env.spec.horizon
+        evaluation = cfg.evaluation_rollouts
     else:
         num_envs, horizon = 1024, 100
         if row == "newton":  # the samples-mode row
@@ -101,20 +134,12 @@ def main() -> int:
         agent = NPG(env, policy, baseline, normalized_step_size=0.05, num_traj=num_envs, **kw)
     samples = agent.sample_mode == "samples"
     window = -(-agent.num_samples // num_envs) if samples else horizon  # steps per iteration
-    kernel = kernel_for(env.model)
+    kernel = kernel_for(env.model) if hasattr(env, "model") else None  # point_mass: none
+    kernel_name = kernel.name if kernel is not None else None
     gen = torch.Generator(device=dev).manual_seed(1)
     for _ in range(2):
         agent.train_step(gen)
-
-    phases = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        phases[name] = (time.perf_counter() - t0) * 1e3
-        return out
+    one_off = dict(phases)
 
     def rollout():
         if not samples:
@@ -132,15 +157,20 @@ def main() -> int:
         timed("update", lambda: agent.update(batch, generator=gen))
         timed("baseline_fit", lambda: baseline.fit(batch, generator=gen))
         timed("statistics", lambda: rollout_statistics(batch).mean.item())
+        if evaluation:
+            timed("evaluation", lambda: rollout_statistics(sample_episodes(
+                env, policy, evaluation, horizon, gen, eval_mode=True)).mean.item())
         return (time.perf_counter() - t0) * 1e3
 
+    phases.clear()
     plain_wall = iteration()
     plain_phases = dict(phases)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     if args.no_profile:
         print(json.dumps({"card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,
-                          "kernel": kernel.name, "kernel_launches": kernel.launches,
+                          "one_off_ms": one_off, "kernel": kernel_name,
+                          "kernel_launches": kernel and kernel.launches,
                           "num_envs": num_envs, "horizon": horizon,
                           "steps_per_iteration": window}))
         return 0
@@ -156,13 +186,14 @@ def main() -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     busy = sum(device_us(e) for e in events) / 1e3
-    kernel_ms = sum(device_us(e) for e in events if kernel.name in e.key) / 1e3
+    kernel_ms = sum(device_us(e) for e in events if kernel and kernel.name in e.key) / 1e3
     top = sorted(events, key=device_us, reverse=True)[:8]
     print(json.dumps({
         "card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,
-        "profiled_wall_ms": wall, "profiled_phases_ms": phases, "device_busy_ms": busy,
-        "device_busy_share": busy / wall, "kernel": kernel.name, "kernel_device_ms": kernel_ms,
-        "kernel_launches": kernel.launches, "num_envs": num_envs, "horizon": horizon,
+        "profiled_wall_ms": wall, "profiled_phases_ms": phases, "one_off_ms": one_off,
+        "device_busy_ms": busy, "device_busy_share": busy / wall, "kernel": kernel_name,
+        "kernel_device_ms": kernel_ms, "kernel_launches": kernel and kernel.launches,
+        "num_envs": num_envs, "horizon": horizon,
         "steps_per_iteration": window,
         "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top},
     }))
