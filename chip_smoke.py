@@ -99,7 +99,7 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    and picks bit for bit the same over two launches and with 1 and 4 warps
    per block (the check for a missing __syncwarp(), which no sanitizer
    reads on that machine); both times at B=512 on both.
-13. Seventeen paths through the entry point at full width, ``run_job`` of
+13. Nineteen paths through the entry point at full width, ``run_job`` of
    mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
    examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
    then niter=2, the second call resuming from the first one's checkpoint;
@@ -136,13 +136,35 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    ``demo_coef`` of each iteration must be ``lam_0 * lam_1**i``. Then one
    more pen DAPG call starts a run with ``init_policy_from`` the first
    run's directory and ``bc_init=false``: its first policy must equal that
-   checkpoint's, on the card. Last examples/point_mass_npg.json (64 x 25,
+   checkpoint's, on the card. Then examples/point_mass_npg.json (64 x 25,
    the quadratic baseline, 16 evaluation episodes after the step): no
-   kernel launch at all, ``eval_score`` logged and finite.
-14. The card's name and power limit from nvidia-smi.
+   kernel launch at all, ``eval_score`` logged and finite. Last the two
+   model-based NPG configs: examples/hopper_model_npg.json at full width
+   (64 real episodes x 500 steps on K1, a 4-member (256, 256) ensemble fit
+   for 20 epochs, 1024 imagined episodes x 500 steps, NPG and the MLP
+   baseline on the imagined batch) with niter=1 and then niter=2, resumed,
+   and examples/point_mass_model_npg.json (16 x 25 real, 256 x 25
+   imagined, no kernel) with niter=1: exactly 500 K1 launches per hopper
+   iteration and none during the imagined rollout (counted around it);
+   the imagined batch is img_traj x img_horizon and each imagined episode
+   starts from a valid observation of that iteration's real batch;
+   ``dyn_error`` finite and under 0.5 at hopper's first iteration (targets
+   of unit variance: an unfitted ensemble reads ~1; point_mass's 10 Adam
+   steps: under 0.7, where the JAX package reads 0.58-0.60); ``running_score`` after
+   the first iteration equals its ``stoc_pol_mean``; the ensemble's
+   parameters, normalizers and Adam moments on the card, and the resumed
+   call's equal to the checkpoint's.
+14. The breadth items, one iteration each on the card through ``run_job``
+   (examples/point_mass_npg.json's settings): point_mass with
+   ``policy="linear"`` and ``algorithm="reinforce"``, cartpole NPG with
+   ``agent_kwargs.hvp_sample_frac=0.5`` (its FVP mask drawn once) and
+   pendulum NPG; every logged value finite, the state on the card, no
+   kernel launched.
+15. The card's name and power limit from nvidia-smi.
 
 Each kernel's launch count in the JSON line is its count over the slice
-that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper``,
+that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper_model_npg``,
+``hopper``,
 ``swimmer``, ``walker2d_trpo``, ``humanoid_trpo`` and ``humanoid_ppo``
 entries, K2's ``hopper`` entry, K3 and K4: their path in phase 13, the
 obs_norm rollout included), reset to 0 just before. Each K1, K2 and K3
@@ -242,6 +264,7 @@ HUMANOID_TRPO_ENVS, HUMANOID_PPO_ENVS, PPO_WINDOW = 1024, 4096, 64  # examples/h
 PEN_ENVS, PEN_HORIZON = 512, 100  # examples/adroit_pen_npg.json
 ADROIT_HORIZON, ADROIT_WIDE = 200, 2048  # door, hammer and relocate; hammer's fixed width
 DAPG_ENVS, POINT_MASS_HORIZON = 64, 25  # examples/*_dapg.json but relocate; point_mass_npg.json
+MODEL_ENVS, MODEL_HORIZON = 64, 500  # examples/hopper_model_npg.json's real rollout
 # the paths through the entry point (phase 13): config, kernel, envs, steps
 # per iteration (the episode or the samples-mode window), run_job's niter
 # per call, and overrides of the config
@@ -270,7 +293,21 @@ ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, HOPPER_HORIZON, (1, 2), 
                ("adroit_relocate_dapg", "adroit_relocate_dapg.json", "K3", ADROIT_WIDE,
                 ADROIT_HORIZON, (1,), ()),
                ("hopper_dapg", "hopper_dapg.json", "K1", DAPG_ENVS, HOPPER_HORIZON, (1,), ()),
-               ("point_mass", "point_mass_npg.json", None, DAPG_ENVS, POINT_MASS_HORIZON, (1,), ()))
+               ("point_mass", "point_mass_npg.json", None, DAPG_ENVS, POINT_MASS_HORIZON, (1,), ()),
+               ("hopper_model_npg", "hopper_model_npg.json", "K1", MODEL_ENVS, MODEL_HORIZON,
+                (1, 2), ()),
+               ("point_mass_model", "point_mass_model_npg.json", None, 16, POINT_MASS_HORIZON, (1,),
+                ()))
+# phase 14: the breadth items on examples/point_mass_npg.json's settings
+BREADTH_ROWS = (("point_mass_linear_reinforce", ("policy=\"linear\"", "algorithm=\"reinforce\"",
+                                                 "agent_kwargs={}")),
+                ("cartpole_hvp", ("env_name=\"cartpole\"", "agent_kwargs.hvp_sample_frac=0.5")),
+                ("pendulum", ("env_name=\"pendulum\"",)))
+# the first iteration's dyn_error bound (normalized targets: an unfitted
+# ensemble reads ~1): hopper's 2480 Adam steps bring it to JAX's 0.048-0.060
+# (runs/hopper_model_npg*); point_mass fits 10 steps, where the JAX package
+# on the CPU reads 0.58-0.60 with seeds 0-2
+DYN_ERROR_MAX = {"hopper_model_npg": 0.5, "point_mass_model": 0.7}
 # the DAPG paths: the demos each makes on the card, and the path that also
 # warm starts a run from its checkpoint (init_policy_from)
 DEMO_PATHS, WARM_START_PATH = 25, "adroit_pen_dapg"
@@ -1116,11 +1153,17 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
     be ``lam_0 * lam_1**i``. On ``WARM_START_PATH`` one more call starts a
     run with ``init_policy_from`` the first directory and no BC: its first
     policy must be that checkpoint's. A config with evaluation rollouts must
-    log a finite ``eval_score``. Returns the kernel's launches over the
-    phase (the demos' aside)."""
+    log a finite ``eval_score``. A model-based config must launch nothing
+    during its imagined rollouts (counted around each), imagine
+    ``img_traj x img_horizon`` steps from valid observations of the real
+    batch, log a finite ``dyn_error`` under its ``DYN_ERROR_MAX`` and a
+    ``running_score`` equal to ``stoc_pol_mean`` at its first iteration,
+    keep its ensemble on the card, and resume it as the checkpoint holds it.
+    Returns the kernel's launches over the phase (the demos' aside)."""
     import torch
 
     from mjrl_tpu_torch import train
+    from mjrl_tpu_torch.algos.model_npg import ModelAccelNPG
     from mjrl_tpu_torch.train import load_config, run_job
 
     def launches():
@@ -1151,9 +1194,34 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
         starts.append({k: v.clone() for k, v in agent.policy.state_dict().items()})
         return train_agent(job, agent, **kwargs)
 
+    imagine, load_model_state = ModelAccelNPG.imagine, ModelAccelNPG.load_state_dict
+    imagined, loaded = [], []
+
+    def counted_imagine(agent, real, generator=None, noise=None):
+        before = launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = imagine(agent, real, generator, noise)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        pool = real.observations[real.valid]
+        nearest = torch.cdist(img.observations[:, 0], pool,
+                              compute_mode="donot_use_mm_for_euclid_dist").min(dim=1).values
+        imagined.append(dict(launches=launches() - before, ms=ms, shape=tuple(img.rewards.shape),
+                             start_dist=float(nearest.max()),
+                             valid=float(img.valid.float().mean())))
+        return img
+
+    def recorded_load(agent, state):
+        load_model_state(agent, state)
+        opt = agent.dynamics.optimizer.state_dict()["state"]
+        loaded.append(({k: v.clone() for k, v in agent.dynamics.state_dict().items()},
+                       {(i, k): v.clone() for i, st in opt.items() for k, v in st.items()}))
+
     demo_launches = None
     train.obs_norm_init, train.warm_start = counted_obs_norm_init, counted_warm_start
     train.train_agent = recorded_train_agent
+    ModelAccelNPG.imagine, ModelAccelNPG.load_state_dict = counted_imagine, recorded_load
     try:
         with tempfile.TemporaryDirectory() as out, tempfile.TemporaryDirectory() as side:
             dapg = load_config(ROOT / "examples" / config, overrides).algorithm == "dapg"
@@ -1225,6 +1293,8 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
                     raise RuntimeError(f"{tag}: demo_coef {got}, expected {want}")
             if cfg.evaluation_rollouts and "eval_score" not in rows[0]:
                 raise RuntimeError(f"{tag}: no eval_score logged")
+            if isinstance(agent, ModelAccelNPG):
+                check_model_path(tag, agent, out, rows, imagined, loaded, niters)
             if agent.sample_mode == "samples":
                 lr = [row["alpha"] for row in rows]
                 if len(lr) > 1 and not lr[1] < lr[0]:
@@ -1264,7 +1334,96 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
     finally:
         train.obs_norm_init, train.warm_start = obs_norm_init, warm_start
         train.train_agent = train_agent
+        ModelAccelNPG.imagine, ModelAccelNPG.load_state_dict = imagine, load_model_state
     return launches() - (demo_launches or 0)
+
+
+def check_model_path(tag, agent, out, rows, imagined, loaded, niters):
+    """The model-based path's checks of ``phase_entry`` (see there)."""
+    import torch
+
+    want = (agent.img_traj, agent.img_horizon)
+    bad = [r for r in imagined if r["launches"] or r["shape"] != want or r["start_dist"] != 0.0]
+    if len(imagined) != niters[-1] or bad:
+        raise RuntimeError(f"{tag}: imagined rollouts {imagined}; expected {niters[-1]} of shape "
+                           f"{want}, no launch, every start a valid real observation")
+    first = rows[0]
+    if not (math.isfinite(first["dyn_error"]) and first["dyn_error"] < DYN_ERROR_MAX[tag]) or \
+            first["running_score"] != first["stoc_pol_mean"]:
+        raise RuntimeError(f"{tag}: first iteration dyn_error {first['dyn_error']} (expected under "
+                           f"{DYN_ERROR_MAX[tag]}), running_score {first['running_score']} against "
+                           f"stoc_pol_mean {first['stoc_pol_mean']}")
+    dyn = agent.dynamics
+    moments = [v for st in dyn.optimizer.state.values() for k, v in st.items() if k != "step"]
+    tensors = [*dyn.parameters(), *dyn.buffers(), *moments]
+    if not moments or not all(t.is_cuda for t in tensors):
+        raise RuntimeError(f"{tag}: the ensemble's state off the card")
+    if len(niters) > 1:
+        saved = torch.load(os.path.join(out, "iterations", f"{niters[0]}.pt"), weights_only=True)
+        params, opt = loaded[0]
+        saved_opt = {(i, k): v for i, st in saved["dynamics_optimizer"]["state"].items()
+                     for k, v in st.items()}
+        same = (len(loaded) == 1 and set(params) == set(saved["dynamics"])
+                and all(params[k].is_cuda and torch.equal(params[k].cpu(), v.cpu())
+                        for k, v in saved["dynamics"].items())
+                and set(opt) == set(saved_opt)
+                and all(torch.equal(opt[k].cpu(), v.cpu()) for k, v in saved_opt.items()))
+        if not same:
+            raise RuntimeError(f"{tag}: the resumed ensemble differs from the checkpoint's")
+    for it, (r, row) in enumerate(zip(imagined, rows)):
+        print(f"[{tag}] iter {it}: imagined {r['shape'][0]} x {r['shape'][1]} in {r['ms']:.1f} ms, "
+              f"{r['launches']} launches, {100 * r['valid']:.1f}% of its steps valid, every start "
+              f"a valid real observation; dyn_error {row['dyn_error']:.5f} (max "
+              f"{row['dyn_error_max']:.5f}) over {row['dyn_num_pairs']:.0f} pairs")
+    if len(niters) > 1:
+        print(f"[{tag}] the resumed call's ensemble (parameters, normalizers, Adam moments and "
+              f"count) equals checkpoint {niters[0]}'s, on the card")
+
+
+def phase_breadth(others):
+    """Phase 14: one iteration of each ``BREADTH_ROWS`` setting on the card
+    through ``run_job``, no kernel launched."""
+    from mjrl_tpu_torch.algos.npg import NPG
+    from mjrl_tpu_torch.train import load_config, run_job
+
+    for k in others:
+        k.launches = 0
+    hvp_mask, masks = NPG.hvp_mask, []
+
+    def counted_mask(agent, batch, generator=None):
+        mask = hvp_mask(agent, batch, generator)
+        masks.append(mask)
+        return mask
+
+    NPG.hvp_mask = counted_mask
+    try:
+        for tag, overrides in BREADTH_ROWS:
+            masks.clear()
+            with tempfile.TemporaryDirectory() as out:
+                cfg = load_config(ROOT / "examples" / "point_mass_npg.json",
+                                  [*overrides, "niter=1", "save_freq=1"])
+                agent = run_job(cfg, out)
+                with open(os.path.join(out, "logs", "log.csv"), newline="") as f:
+                    (row,) = [{k: float(v) for k, v in r.items()} for r in csv.DictReader(f)]
+            state, obs = agent.env.reset(2)
+            tensors = [*agent.policy.parameters(), *agent.baseline.buffers(),
+                       agent.running_score, obs, *state]
+            frac = getattr(agent, "hvp_sample_frac", 1.0)
+            drawn = [m for m in masks if m is not None]
+            if not all(math.isfinite(v) for v in row.values()) or \
+                    not all(t.is_cuda for t in tensors) or len(drawn) != int(frac < 1.0) or \
+                    any(not m.is_cuda for m in drawn):
+                raise RuntimeError(f"{tag}: row {row}, state on the card "
+                                   f"{[t.is_cuda for t in tensors]}, FVP masks {len(drawn)}")
+            print(f"[breadth] {tag}: {type(agent).__name__}, {type(agent.policy).__name__} on "
+                  f"{type(agent.env).__name__}, {row['time_step'] * 1e3:.1f} ms, score "
+                  f"{row['stoc_pol_mean']:.3f}, kl {row['kl_dist']:.5f}, alpha {row['alpha']:.4f}"
+                  + (f", FVP mask mean {float(drawn[0].mean()):.4f}" if drawn else ""))
+    finally:
+        NPG.hvp_mask = hvp_mask
+    stray = {k.name: k.launches for k in others if k.launches}
+    if stray:
+        raise RuntimeError(f"breadth: kernel launches {stray}")
 
 
 def main() -> int:
@@ -1340,6 +1499,7 @@ def main() -> int:
     entry = {tag: phase_entry(tag, config, every.get(k), [v for n, v in every.items() if n != k],
                               n, steps, niters, overrides)
              for tag, config, k, n, steps, niters, overrides in ENTRY_PATHS}
+    phase_breadth(list(every.values()))
     k1_hopper["launches"] = entry["hopper"]
     k3["launches"] = entry["adroit_pen"]
     k4["launches"] = entry["adroit_pen_newton"]
@@ -1383,6 +1543,7 @@ def main() -> int:
             kernels[2][task]["wide"] = r["wide"]
     # the DAPG paths run K1's and K3's checked builds; their launches
     kernels[0]["hopper_dapg"] = {"launches": entry["hopper_dapg"]}
+    kernels[0]["hopper_model_npg"] = {"launches": entry["hopper_model_npg"]}
     for task in ("pen", "door", "hammer", "relocate"):
         kernels[2][f"{task}_dapg"] = {"launches": entry[f"adroit_{task}_dapg"]}
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",

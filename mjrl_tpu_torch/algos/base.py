@@ -49,20 +49,26 @@ def masked_surrogate(new_mean: torch.Tensor, new_log_std: torch.Tensor,
 
 
 def masked_kl(old_mean: torch.Tensor, old_log_std: torch.Tensor, new_mean: torch.Tensor,
-              new_log_std: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Mean ``KL(old || new)`` over the valid states."""
+              new_log_std: torch.Tensor, valid: torch.Tensor,
+              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean ``KL(old || new)`` over the valid states, each weighted by
+    ``weights`` (same shape as ``valid``) where given."""
     kl = DiagGaussian.kl(old_mean, old_log_std, new_mean, new_log_std)
     w = valid.to(kl.dtype)
+    if weights is not None:
+        w = w * weights
     return torch.sum(kl * w) / torch.clamp(w.sum(), min=1.0)
 
 
 class BatchREINFORCE:
-    """Policy-gradient machinery shared by the agents; subclasses (NPG,
-    TRPO, PPO) define ``update``. Hyperparameter names and defaults follow the
-    reference."""
+    """Policy-gradient machinery shared by the agents, and the ``reinforce``
+    agent itself: its ``update`` is the vanilla PG step ``params +=
+    learn_rate * vpg`` (reference default ``learn_rate=0.01``); subclasses
+    (NPG, TRPO, PPO) override it. Hyperparameter names and defaults follow
+    the reference."""
 
     def __init__(self, env: LocomotionEnv, policy: GaussianMLP, baseline: Baseline,
-                 num_traj: int = 64, num_samples: Optional[int] = None,
+                 learn_rate: float = 0.01, num_traj: int = 64, num_samples: Optional[int] = None,
                  horizon: Optional[int] = None, gamma: float = 0.995,
                  gae_lambda: Optional[float] = 0.97, sample_mode: str = "trajectories",
                  normalize_advantages: bool = True, adv_norm_eps: float = 1e-6):
@@ -71,6 +77,7 @@ class BatchREINFORCE:
         self.env = env
         self.policy = policy
         self.baseline = baseline
+        self.learn_rate = learn_rate
         self.num_traj = num_traj
         self.num_samples = num_samples
         self.sample_mode = sample_mode
@@ -144,12 +151,14 @@ class BatchREINFORCE:
         """CPI surrogate ``mean(LR * adv)`` over valid steps."""
         return masked_surrogate(*self.apply(params, batch.observations), batch)
 
-    def mean_kl(self, params: Params, old_params: Params, batch: TrajectoryBatch) -> torch.Tensor:
-        """Masked mean ``KL(old || new)`` over states; ``old_params`` are
-        constants."""
+    def mean_kl(self, params: Params, old_params: Params, batch: TrajectoryBatch,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Masked mean ``KL(old || new)`` over states, weighted by
+        ``weights`` ``(N, T)`` where given; ``old_params`` are constants."""
         new_mean, new_log_std = self.apply(params, batch.observations)
         old = {k: v.detach() for k, v in old_params.items()}
-        return masked_kl(*self.apply(old, batch.observations), new_mean, new_log_std, batch.valid)
+        return masked_kl(*self.apply(old, batch.observations), new_mean, new_log_std, batch.valid,
+                         weights)
 
     def vpg_grad(self, params: Params, batch: TrajectoryBatch) -> Params:
         return torch.func.grad(self.surrogate)(params, batch)
@@ -174,8 +183,21 @@ class BatchREINFORCE:
                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One policy update on a processed batch; returns its metrics.
         ``generator`` draws whatever randomness the update has (PPO's
-        minibatch order)."""
-        raise NotImplementedError
+        minibatch order, NPG's ``hvp_sample_frac`` mask). Here the vanilla
+        PG step ``params += learn_rate * vpg``, then ``project``."""
+        params = self.params()
+        surr_before = self.surrogate(params, batch)
+        grads = self.vpg_grad(params, batch)
+        new_params = self.policy.project({k: p + self.learn_rate * grads[k]
+                                          for k, p in params.items()})
+        kl_dist = self.mean_kl(new_params, params, batch)
+        surr_after = self.surrogate(new_params, batch)
+        self.load_params(new_params)
+        return {
+            "alpha": torch.tensor(self.learn_rate, device=self.env.device),
+            "kl_dist": kl_dist,
+            "surr_improvement": (surr_after - surr_before).detach(),
+        }
 
     # -- the train step ------------------------------------------------------
     def train_step(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:

@@ -21,10 +21,14 @@ from mjrl_tpu_torch.types import TrajectoryBatch
 
 class NPG(BatchREINFORCE):
     """Reference defaults: ``normalized_step_size=0.01``,
-    ``FIM_invert_args={'iters': 10, 'damping': 1e-4}``."""
+    ``FIM_invert_args={'iters': 10, 'damping': 1e-4}``, ``hvp_sample_frac=1``.
+    With ``hvp_sample_frac < 1`` the KL inside the FVP weights each step by
+    a Bernoulli(``hvp_sample_frac``) draw of the rewards' shape (the
+    reference's fixed-shape stand-in for subsampling states), drawn from
+    the update's generator."""
 
     def __init__(self, env, policy, baseline, normalized_step_size: float = 0.01,
-                 FIM_invert_args: Optional[Dict[str, Any]] = None,
+                 FIM_invert_args: Optional[Dict[str, Any]] = None, hvp_sample_frac: float = 1.0,
                  residual_tol: float = 1e-10, **kwargs: Any):
         super().__init__(env, policy, baseline, **kwargs)
         args = dict(iters=10, damping=1e-4)
@@ -32,14 +36,26 @@ class NPG(BatchREINFORCE):
         self.normalized_step_size = normalized_step_size
         self.cg_iters = int(args["iters"])
         self.damping = float(args["damping"])
+        self.hvp_sample_frac = hvp_sample_frac
         self.residual_tol = residual_tol
 
-    def build_fvp(self, params: Params, batch: TrajectoryBatch):
-        """Damped Fisher-vector product over the flat parameter vector."""
+    def hvp_mask(self, batch: TrajectoryBatch,
+                 generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+        """The FVP's ``(N, T)`` Bernoulli weights, or None at
+        ``hvp_sample_frac >= 1`` (nothing drawn)."""
+        if self.hvp_sample_frac >= 1.0:
+            return None
+        p = torch.full_like(batch.rewards, self.hvp_sample_frac)
+        return torch.bernoulli(p, generator=generator)
+
+    def build_fvp(self, params: Params, batch: TrajectoryBatch,
+                  mask: Optional[torch.Tensor] = None):
+        """Damped Fisher-vector product over the flat parameter vector, the
+        KL weighted by ``mask`` where given."""
         flat, unravel = ravel(params)
 
         def kl_of_flat(p_flat: torch.Tensor) -> torch.Tensor:
-            return self.mean_kl(unravel(p_flat), params, batch)
+            return self.mean_kl(unravel(p_flat), params, batch, weights=mask)
 
         grad_kl = torch.func.grad(kl_of_flat)
 
@@ -48,19 +64,26 @@ class NPG(BatchREINFORCE):
 
         return fvp, flat, unravel
 
-    def step_direction(self, params: Params, batch: TrajectoryBatch):
-        """VPG -> CG -> (npg direction, alpha, flat params, unravel)."""
+    def step_direction(self, params: Params, batch: TrajectoryBatch,
+                       generator: Optional[torch.Generator] = None,
+                       hvp_mask: Optional[torch.Tensor] = None):
+        """VPG -> CG -> (npg direction, alpha, flat params, unravel); the
+        FVP's mask is ``hvp_mask`` where given, else drawn from
+        ``generator``."""
         vpg_flat, _ = ravel(self.vpg_grad(params, batch))
-        fvp, flat, unravel = self.build_fvp(params, batch)
+        if hvp_mask is None:
+            hvp_mask = self.hvp_mask(batch, generator)
+        fvp, flat, unravel = self.build_fvp(params, batch, hvp_mask)
         npg_flat = cg_solve(fvp, vpg_flat, cg_iters=self.cg_iters, residual_tol=self.residual_tol)
         inner = torch.abs(torch.dot(vpg_flat, npg_flat))
         alpha = torch.sqrt(2.0 * self.normalized_step_size / (inner + 1e-20))
         return npg_flat, alpha, flat, unravel
 
-    def update(self, batch: TrajectoryBatch, generator=None) -> Dict[str, torch.Tensor]:
+    def update(self, batch: TrajectoryBatch, generator=None,
+               hvp_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         params = self.params()
         surr_before = self.surrogate(params, batch)
-        npg_flat, alpha, flat, unravel = self.step_direction(params, batch)
+        npg_flat, alpha, flat, unravel = self.step_direction(params, batch, generator, hvp_mask)
         new_params = self.policy.project(unravel(flat + alpha * npg_flat))
         kl_dist = self.mean_kl(new_params, params, batch)
         surr_after = self.surrogate(new_params, batch)

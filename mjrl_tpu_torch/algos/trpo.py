@@ -62,7 +62,7 @@ class TRPO(NPG):
     def update(self, batch: TrajectoryBatch, generator=None) -> Dict[str, torch.Tensor]:
         params = self.params()
         surr_before = self.surrogate(params, batch).detach()
-        npg_flat, alpha0, flat, unravel = self.step_direction(params, batch)
+        npg_flat, alpha0, flat, unravel = self.step_direction(params, batch, generator)
         k, alpha, accepted, surr, kl = self._ladder(params, flat, npg_flat, alpha0, unravel,
                                                     surr_before, batch)
         # rejected: the old parameters stay (alpha 0 reproduces them exactly)

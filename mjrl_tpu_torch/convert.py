@@ -6,7 +6,9 @@
 differ in order: JAX's ``ravel_pytree`` sorts dict keys (``log_std`` before
 ``mlp``, ``b`` before ``w``, ``w`` row-major ``(in, out)``), the port
 follows ``named_parameters()``; ``policy_flat_from_jax`` maps one to the
-other.
+other. The dynamics ensemble's JAX state is vmapped: every leaf has a
+leading member axis K, which becomes the stacked ``(K, in, out)`` weights
+and ``(K, out)`` biases of ``DynamicsEnsemble``, in the same orientation.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from mjrl_tpu_torch.models.baselines import (
     QuadraticBaseline,
     ZeroBaseline,
 )
-from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
+from mjrl_tpu_torch.models.dynamics import DynamicsEnsemble
+from mjrl_tpu_torch.models.gaussian_mlp import GaussianLinear, GaussianMLP
 from mjrl_tpu_torch.models.mlp import MLP
 from mjrl_tpu_torch.types import EnvSpec
 
@@ -43,8 +46,11 @@ def _hidden(layers) -> tuple:
 
 def policy_from_jax(params_np: Dict[str, Any], spec: EnvSpec, min_log_std: float = -3.0,
                     transforms_np: Dict[str, Any] = None) -> GaussianMLP:
-    """A :class:`GaussianMLP` holding the JAX policy's parameters."""
-    policy = GaussianMLP(spec, hidden_sizes=_hidden(params_np["mlp"]), min_log_std=min_log_std)
+    """A :class:`GaussianMLP` holding the JAX policy's parameters; a
+    :class:`GaussianLinear` where it has no hidden layer."""
+    hidden = _hidden(params_np["mlp"])
+    policy = (GaussianMLP(spec, hidden_sizes=hidden, min_log_std=min_log_std) if hidden
+              else GaussianLinear(spec, min_log_std=min_log_std))
     _load_mlp(policy.mlp, params_np["mlp"], transforms_np)
     with torch.no_grad():
         policy.log_std.copy_(torch.as_tensor(np.asarray(params_np["log_std"])))
@@ -90,3 +96,35 @@ def policy_flat_from_jax(flat_np: np.ndarray, policy: GaussianMLP) -> torch.Tens
         raise ValueError(f"flat vector has {flat_np.size} entries, policy {o}")
     return torch.cat([torch.from_numpy(np.array(parts[k])).reshape(-1)
                       for k, _ in policy.named_parameters()])
+
+
+def dynamics_state_from_jax(state_np: Dict[str, Any], dynamics: DynamicsEnsemble) -> None:
+    """Load a JAX ``DynamicsEnsemble`` state (``params``: a list of layers
+    ``{"w": (K, in, out), "b": (K, out)}``; ``opt_state``: optax Adam's
+    vmapped state; the four normalizers) into ``dynamics``: parameters,
+    normalizers, and Adam's moments and step count once it has stepped
+    (optax counts per member; the members step together, so the counts
+    are equal and become the one count of the stacked Adam)."""
+    layers = state_np["params"]
+    if len(layers) != len(dynamics.weights):
+        raise ValueError(f"{len(layers)} layers, the ensemble has {len(dynamics.weights)}")
+    as_t = lambda x, like: torch.as_tensor(np.asarray(x)).to(like.device, like.dtype)
+    with torch.no_grad():
+        for w, b, layer in zip(dynamics.weights, dynamics.biases, layers):
+            w.copy_(as_t(layer["w"], w))
+            b.copy_(as_t(layer["b"], b))
+        for name in ("in_shift", "in_scale", "delta_shift", "delta_scale"):
+            getattr(dynamics, name).copy_(as_t(state_np[name], getattr(dynamics, name)))
+    adam = state_np["opt_state"][0]
+    counts = np.asarray(adam.count)
+    if counts.max() == 0:
+        return
+    if counts.min() != counts.max():
+        raise ValueError(f"members stepped unequally: {counts}")
+    opt = dynamics.optimizer
+    params = [*dynamics.weights, *dynamics.biases]
+    moments = [(lay["w"], mu["w"], nu["w"]) for lay, mu, nu in zip(layers, adam.mu, adam.nu)]
+    moments += [(lay["b"], mu["b"], nu["b"]) for lay, mu, nu in zip(layers, adam.mu, adam.nu)]
+    for p, (_, mu, nu) in zip(params, moments):
+        opt.state[p] = {"step": torch.tensor(float(counts[0])), "exp_avg": as_t(mu, p),
+                        "exp_avg_sq": as_t(nu, p)}

@@ -12,7 +12,10 @@ solver. Envs live on the card unless ``device="cpu"`` is asked for. Task
 conventions follow gymnasium's v4 tasks: observation ``[q[k:], clip(qd)]``
 (humanoid adds its com-based features), forward reward from the root's x
 velocity (humanoid's centre of mass), the task's ctrl cost, healthy reward
-and termination.
+and termination. Model-based NPG scores imagined transitions with the
+obs-space hooks ``reward_from_obs`` and ``terminated_from_obs`` over
+``(..., do)`` observations; each task that terminates defines
+``_healthy_from_obs`` beside its ``_healthy``.
 """
 
 from __future__ import annotations
@@ -105,6 +108,43 @@ class LocomotionEnv(Env):
     def _x_pos(self, state: EnvState) -> torch.Tensor:
         return state.q[:, 0]
 
+    # -- obs-space hooks of model-based NPG ---------------------------------
+    def _healthy_from_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        """Obs-space twin of ``_healthy`` over ``(..., do)``: always healthy
+        here, for the tasks that never terminate."""
+        return torch.ones(obs.shape[:-1], dtype=torch.bool, device=obs.device)
+
+    def healthy_from_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        """``_healthy_from_obs``, after checking, by walking the MRO, that
+        the class that defines this env's ``_healthy`` (or a subclass of
+        it) also defines ``_healthy_from_obs``: a task that overrides
+        ``_healthy`` alone would otherwise imagine with an inherited
+        predicate, e.g. episodes that never terminate and always earn the
+        healthy reward."""
+        for cls in type(self).__mro__:
+            if "_healthy_from_obs" in vars(cls):
+                break
+            if "_healthy" in vars(cls):
+                raise NotImplementedError(
+                    f"{cls.__name__} defines _healthy but not _healthy_from_obs; "
+                    "model-based rollouts need its obs-space twin")
+        return self._healthy_from_obs(obs)
+
+    def reward_from_obs(self, obs: torch.Tensor, action: torch.Tensor,
+                        next_obs: torch.Tensor) -> torch.Tensor:
+        """The reward of an imagined transition from observations alone:
+        the forward velocity is the observed qvel channel
+        ``next_obs[..., nq - exclude_positions]`` (the root x position is
+        not observed), not ``step``'s finite difference."""
+        x_velocity = next_obs[..., self.model.nq - self.exclude_positions]
+        ctrl_cost = self.ctrl_cost_weight * torch.sum(torch.square(action), dim=-1)
+        healthy = self.healthy_from_obs(next_obs)
+        return (self.forward_reward_weight * x_velocity - ctrl_cost
+                + self.healthy_reward * healthy.to(x_velocity.dtype))
+
+    def terminated_from_obs(self, next_obs: torch.Tensor) -> torch.Tensor:
+        return ~self.healthy_from_obs(next_obs)
+
     def reset_noise(self, num_envs: int, generator: Optional[torch.Generator] = None):
         """``(q_noise, qd_noise)``: uniform in +-scale on q; on qd uniform
         in +-scale, or scale * normal where ``reset_vel_noise == 'normal'``."""
@@ -163,6 +203,11 @@ class HopperEnv(LocomotionEnv):
         healthy_state = (rest.abs() < 100.0).all(dim=-1)
         return healthy_state & (state.q[:, 1] > 0.7) & (state.q[:, 2].abs() < 0.2)
 
+    def _healthy_from_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        # obs = q[1:] ++ clipped qd: obs[0] is z, obs[1] the angle
+        healthy_state = (obs[..., 1:].abs() < 100.0).all(dim=-1)
+        return healthy_state & (obs[..., 0] > 0.7) & (obs[..., 1].abs() < 0.2)
+
 
 class Walker2dEnv(LocomotionEnv):
     """Walker2d-v4 conventions."""
@@ -175,6 +220,11 @@ class Walker2dEnv(LocomotionEnv):
 
     def _healthy(self, state: EnvState) -> torch.Tensor:
         z, angle = state.q[:, 1], state.q[:, 2]
+        return (z > 0.8) & (z < 2.0) & (angle.abs() < 1.0)
+
+    def _healthy_from_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        # obs = q[1:] ++ clipped qd: obs[0] is z, obs[1] the torso angle
+        z, angle = obs[..., 0], obs[..., 1]
         return (z > 0.8) & (z < 2.0) & (angle.abs() < 1.0)
 
 
@@ -224,6 +274,12 @@ class AntEnv(LocomotionEnv):
         lo, hi = self.healthy_z_range
         return finite & (z > lo) & (z < hi)
 
+    def _healthy_from_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        # obs = q[2:] ++ qd: obs[0] is z; finiteness over the obs
+        lo, hi = self.healthy_z_range
+        z = obs[..., 0]
+        return torch.isfinite(obs).all(dim=-1) & (z > lo) & (z < hi)
+
 
 class HumanoidEnv(LocomotionEnv):
     """Humanoid-v4 conventions: forward reward weight 1.25 on the centre of
@@ -268,6 +324,11 @@ class HumanoidEnv(LocomotionEnv):
 
     def _healthy(self, state: EnvState) -> torch.Tensor:
         z = state.q[:, 2]
+        return (z > 1.0) & (z < 2.0)
+
+    def _healthy_from_obs(self, obs: torch.Tensor) -> torch.Tensor:
+        # both obs modes lead with qpos[2:]: obs[0] is z
+        z = obs[..., 0]
         return (z > 1.0) & (z < 2.0)
 
     def _x_pos(self, state: EnvState) -> torch.Tensor:

@@ -11,7 +11,9 @@ plain tensor ops on the env's device):
 Reward ``-|pos' - target| - ctrl_cost * |clip(a)|^2``; ``info["success"]``
 when the mass is within ``success_radius`` of the target; no termination.
 Observation ``[pos, vel, target - pos]``. The reset noise is the pair
-``(pos, target)``, each uniform in +-arena.
+``(pos, target)``, each uniform in +-arena. The reward is a function of
+the action and the next observation alone, so model-based NPG scores
+imagined transitions with ``reward_from_obs``.
 """
 
 from __future__ import annotations
@@ -72,6 +74,16 @@ class PointMassEnv(Env):
         success = (dist < self.success_radius).to(reward.dtype)
         terminated = torch.zeros_like(dist, dtype=torch.bool)
         return state, self._obs(state), reward, terminated, {"success": success}
+
+    # -- obs-space hooks of model-based NPG ---------------------------------
+    def reward_from_obs(self, obs: torch.Tensor, action: torch.Tensor,
+                        next_obs: torch.Tensor) -> torch.Tensor:
+        a = torch.clamp(action, -1.0, 1.0)
+        dist = torch.linalg.vector_norm(next_obs[..., 4:6], dim=-1)
+        return -dist - self.ctrl_cost * torch.sum(torch.square(a), dim=-1)
+
+    def terminated_from_obs(self, next_obs: torch.Tensor) -> torch.Tensor:
+        return torch.zeros(next_obs.shape[:-1], dtype=torch.bool, device=next_obs.device)
 
 
 register("point_mass", PointMassEnv)

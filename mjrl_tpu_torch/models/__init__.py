@@ -1,6 +1,7 @@
-"""Function approximators: the Gaussian policy and the baselines."""
+"""Function approximators: the Gaussian policies, the baselines and the
+dynamics ensemble of model-based NPG."""
 
-from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP  # noqa: F401
+from mjrl_tpu_torch.models.gaussian_mlp import GaussianLinear, GaussianMLP  # noqa: F401
 from mjrl_tpu_torch.models.baselines import (  # noqa: F401
     Baseline,
     LinearBaseline,
@@ -9,3 +10,4 @@ from mjrl_tpu_torch.models.baselines import (  # noqa: F401
     ZeroBaseline,
 )
 from mjrl_tpu_torch.models.mlp import MLP  # noqa: F401
+from mjrl_tpu_torch.models.dynamics import DynamicsEnsemble, transition_pairs  # noqa: F401

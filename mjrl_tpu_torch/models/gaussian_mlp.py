@@ -1,4 +1,5 @@
-"""Gaussian policy: tanh-MLP mean + state-independent learned log_std.
+"""Gaussian policy: tanh-MLP mean + state-independent learned log_std, and
+its linear-mean variant ``GaussianLinear`` (the MLP with no hidden layer).
 
 Twin of ``mjrl_tpu/models/gaussian_mlp.py``. The module's parameters are
 the policy; ``project`` is the min_log_std clamp applied after every
@@ -40,3 +41,13 @@ class GaussianMLP(nn.Module):
     def project(self, params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Clamp log_std from below."""
         return {**params, "log_std": torch.clamp(params["log_std"], min=self.min_log_std)}
+
+
+class GaussianLinear(GaussianMLP):
+    """Linear-mean variant (``policy="linear"``): :class:`GaussianMLP` with
+    ``hidden_sizes=()``, one affine layer from obs to mean."""
+
+    def __init__(self, spec: EnvSpec, min_log_std: float = -3.0, init_log_std: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(spec, hidden_sizes=(), min_log_std=min_log_std,
+                         init_log_std=init_log_std, generator=generator)

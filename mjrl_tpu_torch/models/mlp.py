@@ -2,7 +2,8 @@
 
 Twin of ``mjrl_tpu/models/mlp.py``: uniform ``+-1/sqrt(fan_in)`` init with
 the final layer scaled by ``final_scale``, and the non-trainable in/out
-transforms as buffers. A JAX layer's ``w`` is ``(in, out)``; ``nn.Linear``
+transforms as buffers. ``sizes`` of two entries (no hidden layer) make an
+affine map, as the linear policy has. A JAX layer's ``w`` is ``(in, out)``; ``nn.Linear``
 keeps ``(out, in)``.
 """
 

@@ -6,6 +6,7 @@ from mjrl_tpu_torch.ops.gae import (  # noqa: F401
     compute_advantages,
     compute_gae,
     compute_returns,
+    discount_sum,
     masked_mean_std,
 )
 from mjrl_tpu_torch.ops.cg import cg_solve  # noqa: F401

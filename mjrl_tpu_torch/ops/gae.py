@@ -1,5 +1,5 @@
-"""Returns and GAE advantages over ``(N, T)`` batches (twin of
-``mjrl_tpu/ops/gae.py``).
+"""Returns and GAE advantages over ``(N, T)`` batches, and ``discount_sum``
+(twin of ``mjrl_tpu/ops/gae.py``).
 
 The reference's reverse ``lax.scan`` over time becomes a reverse loop over
 the ``T`` columns, each step a vector op over all envs. Returns are
@@ -25,6 +25,17 @@ def _reverse_scan(xs: torch.Tensor, done: torch.Tensor, decay: float,
     for t in range(xs.shape[1] - 1, -1, -1):
         carry = xs[:, t] + decay * torch.where(done[:, t], torch.zeros_like(carry), carry)
         out[:, t] = carry
+    return out
+
+
+def discount_sum(x: torch.Tensor, gamma: float, terminal: float = 0.0) -> torch.Tensor:
+    """``y_t = x_t + gamma * y_{t+1}`` along the last dim, ``y_T = terminal``
+    (the reference's 1-D ``discount_sum``; leading dims are a batch)."""
+    out = torch.empty_like(x)
+    carry = torch.full(x.shape[:-1], terminal, dtype=x.dtype, device=x.device)
+    for t in range(x.shape[-1] - 1, -1, -1):
+        carry = x[..., t] + gamma * carry
+        out[..., t] = carry
     return out
 
 

@@ -3,14 +3,16 @@
 Twin of ``mjrl_tpu/utils/configs.py``. ``RunConfig`` has the reference's
 fields, names and defaults, so every ``examples/*.json`` parses and a run's
 ``config.json`` diffs field for field against the JAX package's. ``build``
-makes NPG, TRPO, PPO or DAPG (with the demos of ``demo_file``) with a
-``GaussianMLP`` policy and any of the four baselines, on the env's device.
+makes REINFORCE, NPG, TRPO, PPO, DAPG (with the demos of ``demo_file``) or
+model-based NPG with a ``GaussianMLP`` or ``GaussianLinear`` policy and any
+of the four baselines, on the env's device.
 The warm starts, applied by ``train.run_job`` in this order:
 ``policy_warm_start`` (``init_policy_from``: another run's latest policy
 and baseline), ``warm_start`` (``bc_init``: BC on the demos) and
-``obs_norm_init`` (``obs_norm``). Every other choice raises
+``obs_norm_init`` (``obs_norm``). ``mesh_devices > 1`` raises
 ``NotImplementedError`` naming, by its title, the ROADMAP item that ports
-it; none is ignored.
+it; an unknown algorithm, policy, baseline or env raises ``KeyError``,
+as in the reference; no setting is ignored.
 """
 
 from __future__ import annotations
@@ -23,9 +25,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from mjrl_tpu_torch import envs
-from mjrl_tpu_torch.algos import BC, DAPG, NPG, PPO, TRPO
+from mjrl_tpu_torch.algos import BC, DAPG, NPG, PPO, TRPO, ModelAccelNPG
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
 from mjrl_tpu_torch.models import (
+    GaussianLinear,
     GaussianMLP,
     LinearBaseline,
     MLPBaseline,
@@ -99,31 +102,22 @@ class RunConfig:
         return cfg
 
 
-AGENTS = {"npg": NPG, "trpo": TRPO, "ppo": PPO, "dapg": DAPG}
+AGENTS = {"reinforce": BatchREINFORCE, "npg": NPG, "trpo": TRPO, "ppo": PPO, "dapg": DAPG,
+          "model_npg": ModelAccelNPG}
 BASELINES = {"zero": ZeroBaseline, "linear": LinearBaseline, "quadratic": QuadraticBaseline,
              "mlp": MLPBaseline}
+POLICIES = {"mlp": GaussianMLP, "linear": GaussianLinear}
 
-# the titles of ROADMAP.md's queue 1 items that port what the port lacks
-BREADTH = "Breadth without kernels"
-MODEL_NPG = "Model-based NPG"
+# the title of ROADMAP.md's queue 1 item that ports what the port lacks
 DATA_PARALLEL = "Env-axis data parallel"
-_ALGORITHM_ITEMS = {"model_npg": MODEL_NPG}
-_UNPORTED_ENVS = ("pendulum", "cartpole")  # the reference's envs/classic.py
 
 
 def check_ported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting the port does not have."""
-    unported = [
-        (cfg.algorithm not in AGENTS, f"algorithm {cfg.algorithm!r}",
-         _ALGORITHM_ITEMS.get(cfg.algorithm, BREADTH)),
-        (cfg.policy != "mlp", f"policy {cfg.policy!r}", BREADTH),
-        (cfg.baseline not in BASELINES, f"baseline {cfg.baseline!r}", BREADTH),
-        (cfg.env_name in _UNPORTED_ENVS, f"env {cfg.env_name!r}", BREADTH),
-        (cfg.mesh_devices > 1, "mesh_devices > 1", DATA_PARALLEL),
-    ]
-    for bad, what, title in unported:
-        if bad:
-            raise NotImplementedError(f'{what} is not ported yet (ROADMAP queue 1, "{title}")')
+    """Raise ``NotImplementedError`` for a setting the port does not have
+    (``mesh_devices > 1``)."""
+    if cfg.mesh_devices > 1:
+        raise NotImplementedError(
+            f'mesh_devices > 1 is not ported yet (ROADMAP queue 1, "{DATA_PARALLEL}")')
 
 
 def build(cfg: RunConfig, device="cuda"):
@@ -136,8 +130,11 @@ def build(cfg: RunConfig, device="cuda"):
     if cfg.demo_file is not None:
         demo_batch = load_demo_pickle(cfg.demo_file, device=env.device)
     init = torch.Generator().manual_seed(cfg.seed)
-    policy = GaussianMLP(env.spec, hidden_sizes=cfg.hidden_sizes, min_log_std=cfg.min_log_std,
-                         init_log_std=cfg.init_log_std, generator=init).to(env.device)
+    policy_kwargs = dict(min_log_std=cfg.min_log_std, init_log_std=cfg.init_log_std,
+                         generator=init)
+    if cfg.policy == "mlp":
+        policy_kwargs["hidden_sizes"] = cfg.hidden_sizes
+    policy = POLICIES[cfg.policy](env.spec, **policy_kwargs).to(env.device)
     baseline_kwargs = dict(cfg.baseline_kwargs)
     if cfg.baseline == "mlp":
         baseline_kwargs["generator"] = init
@@ -147,6 +144,8 @@ def build(cfg: RunConfig, device="cuda"):
         if demo_batch is None:
             raise ValueError("algorithm 'dapg' requires demo_file")
         agent_kwargs["demo_batch"] = demo_batch
+    if cfg.algorithm == "model_npg":
+        agent_kwargs["generator"] = init  # the ensemble's initial weights
     agent = AGENTS[cfg.algorithm](
         env, policy, baseline, num_traj=cfg.num_traj, num_samples=cfg.num_samples,
         sample_mode=cfg.sample_mode, horizon=cfg.horizon, gamma=cfg.gamma,

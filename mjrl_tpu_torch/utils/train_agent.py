@@ -16,9 +16,10 @@ score as ``eval_score``; keeps a snapshot of the best state by
 state and ``log.csv``. A run continues from the latest checkpoint in
 ``job_name``, with the log cut to match.
 
-Left out against the reference: the training-curve plots and the
-tabulate table (the card's machine has neither matplotlib nor tabulate; a
-plain line is printed), and the retry loop around a failed step: a CUDA
+Left out against the reference: the training-curve plots (the card's
+machine has no matplotlib; ``utils/plots.make_train_plots`` draws them
+from a run's ``log.csv`` on the CPU afterwards), the tabulate table (nor
+tabulate; a plain line is printed), and the retry loop around a failed step: a CUDA
 error in PyTorch poisons the context, so a retry in the same process
 would hide it rather than recover.
 A crashed run resumes from its latest checkpoint when started again.

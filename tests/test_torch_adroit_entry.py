@@ -3,9 +3,9 @@ which example configs the port builds.
 
 ``adroit_door_npg_small.json`` runs at 4 envs x 5 steps through
 ``run_job`` and resumes from its checkpoint. Every ``examples/*.json``
-either builds (``check_ported`` and ``envs.make``: 37 of the 39) or raises
-naming, by its title, the ROADMAP.md queue item that ports what it needs
-(the two model-based NPG configs).
+either builds (``check_ported`` and ``envs.make``: all 39 since
+model-based NPG was ported) or raises naming, by its title, the ROADMAP.md
+queue item that ports what it needs (none is left).
 """
 
 import glob
@@ -42,7 +42,7 @@ def test_door_small_config_runs_and_resumes(tmp_path):
 
 ROADMAP = open(os.path.join(ROOT, "ROADMAP.md")).read()
 CONFIGS = sorted(os.path.basename(p) for p in glob.glob(os.path.join(ROOT, "examples", "*.json")))
-REFUSED = {"hopper_model_npg.json", "point_mass_model_npg.json"}
+REFUSED = set()
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -66,10 +66,15 @@ def test_config_builds_or_names_a_roadmap_title(name):
 
 
 def test_port_builds_31_of_the_39_example_configs():
-    """The count of example configs the port builds: 37 of 39 since BC,
-    DAPG and point_mass were ported (the name is kept from when it was 31);
-    the two refused are the model-based NPG configs."""
-    assert len(CONFIGS) == 39 and REFUSED <= set(CONFIGS) and len(CONFIGS) - len(REFUSED) == 37
-    for name in REFUSED:
-        with pytest.raises(NotImplementedError, match="Model-based NPG"):
-            build(load_config(os.path.join(ROOT, "examples", name), []), device="cpu")
+    """The count of example configs the port builds: 39 of 39 since
+    model-based NPG was ported (the name is kept from when it was 31); the
+    two model-based configs build a ``ModelAccelNPG`` with their ensemble
+    and imagined batch."""
+    assert len(CONFIGS) == 39 and not REFUSED and len(CONFIGS) - len(REFUSED) == 39
+    for name, env_name, img in (("hopper_model_npg.json", "HopperEnv", (1024, 500)),
+                                ("point_mass_model_npg.json", "PointMassEnv", (256, 25))):
+        env, _, _, agent = build(load_config(os.path.join(ROOT, "examples", name), []),
+                                 device="cpu")
+        assert type(agent).__name__ == "ModelAccelNPG" and type(env).__name__ == env_name
+        assert (agent.img_traj, agent.img_horizon) == img and agent.dynamics.K == 4
+        assert agent.dynamics.hidden_sizes == (256, 256)

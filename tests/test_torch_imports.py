@@ -7,8 +7,11 @@ physics/engine.py, contact.py and comfeat.py) with their shipped assets,
 and Adroit pen (envs/adroit.py, kernel K3's plain version) with its
 shipped model, and the door, hammer (its nail sensor: physics/contact.py's
 box kinds) and relocate envs reset with theirs; BC, DAPG, the demos, the
-ridge solve and the least-squares baselines import and point_mass steps.
-(The card's machine has none of those packages.)"""
+ridge solve and the least-squares baselines import and point_mass steps;
+model-based NPG (algos/model_npg.py, models/dynamics.py) takes a train
+step on point_mass, pendulum and cartpole (envs/classic.py) step, and
+the linear policy and utils/plots.py import (matplotlib only inside
+``make_train_plots``). (The card's machine has none of those packages.)"""
 
 import os
 import subprocess
@@ -75,6 +78,21 @@ state, obs = env.reset(2, torch.Generator().manual_seed(0))
 state, obs, reward, term, info = env.step(state, torch.ones(2, 2))
 assert obs.shape == (2, 6) and torch.isfinite(reward).all() and "success" in info
 assert QuadraticBaseline(env.spec).coef.shape == (37,) and LinearBaseline(env.spec).coef.shape == (16,)
+for name in ("algos.model_npg", "models.dynamics", "envs.classic", "utils.plots"):
+    assert "mjrl_tpu_torch." + name in names, name
+assert "matplotlib" not in sys.modules
+from mjrl_tpu_torch.algos import ModelAccelNPG
+from mjrl_tpu_torch.models import GaussianLinear
+env = make("point_mass", horizon=5, device="cpu")
+agent = ModelAccelNPG(env, GaussianLinear(env.spec), QuadraticBaseline(env.spec), num_traj=4,
+                      img_traj=8, ensemble_size=2, dyn_hidden_sizes=(8,), dyn_fit_epochs=1)
+metrics = agent.train_step(torch.Generator().manual_seed(0))
+assert all(torch.isfinite(v) for v in metrics.values()) and "dyn_error" in metrics
+for name, obs_dim in (("pendulum", 3), ("cartpole", 4)):
+    env = make(name, device="cpu")
+    state, obs = env.reset(2, torch.Generator().manual_seed(0))
+    state, obs, reward, term, info = env.step(state, torch.ones(2, 1))
+    assert obs.shape == (2, obs_dim) and torch.isfinite(reward).all()
 print("imported", len(names), "modules")
 """
 

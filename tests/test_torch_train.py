@@ -4,10 +4,11 @@ Hopper NPG from ``examples/hopper_npg.json`` cut to 4 envs x 20 steps:
 the CLI writes ``config.json``, a ``log.csv`` with every column of the JAX
 package's hopper run (``runs/hopper_npg_expert/logs/log.csv``) and
 checkpoints; a resumed run continues at the checkpoint's iteration with
-the log cut to match and ends with the policy of a straight run; settings
-the port does not have raise, and those it had refused until BC, DAPG,
-the warm starts, the evaluation rollouts and the least-squares baselines
-were ported build; every other config the port runs goes through the
+the log cut to match and ends with the policy of a straight run; the one
+setting the port does not have (``mesh_devices > 1``) raises, and those it
+had refused until BC, DAPG, the warm starts, the evaluation rollouts, the
+least-squares baselines, model-based NPG, the linear policy, REINFORCE and
+the classic envs were ported build; every other config the port runs goes through the
 entry point at 2 envs x 2 steps; the humanoid PPO and TRPO configs run
 with their obs_norm at a small width and resume; and a run on the card
 never falls back to the CPU; the Adroit pen NPG configs run at 2 envs x 2
@@ -84,13 +85,28 @@ def test_resume_continues_a_run_exactly(tmp_path):
     assert float(rows[-1]["running_score"]) == pytest.approx(float(straight.running_score))
 
 
-@pytest.mark.parametrize("override", [
-    "policy=\"linear\"", "mesh_devices=2", "algorithm=\"reinforce\"", "algorithm=\"model_npg\"",
-    "env_name=\"pendulum\"",
-])
+@pytest.mark.parametrize("override", ["mesh_devices=2"])
 def test_unported_settings_raise(override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The one setting the port refuses names its ROADMAP queue 1 item."""
+    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Env-axis data parallel"'):
         build(load_config(HOPPER, [override]), device="cpu")
+
+
+@pytest.mark.parametrize("overrides,agent_type,policy_type,env_type", [
+    (("policy=\"linear\"",), "NPG", "GaussianLinear", "HopperEnv"),
+    (("algorithm=\"reinforce\"", "agent_kwargs={}"), "BatchREINFORCE", "GaussianMLP", "HopperEnv"),
+    (("algorithm=\"model_npg\"",), "ModelAccelNPG", "GaussianMLP", "HopperEnv"),
+    (("env_name=\"pendulum\"",), "NPG", "GaussianMLP", "PendulumEnv"),
+], ids=["linear", "reinforce", "model_npg", "pendulum"])
+def test_formerly_unported_settings_build(overrides, agent_type, policy_type, env_type):
+    """The settings refused until model-based NPG and the breadth items
+    were ported build on the CPU, with the agent, policy and env they
+    name."""
+    env, policy, _, agent = build(load_config(HOPPER, list(overrides)), device="cpu")
+    assert (type(agent).__name__, type(policy).__name__, type(env).__name__) == \
+        (agent_type, policy_type, env_type)
+    if agent_type == "ModelAccelNPG":
+        assert agent.dynamics.K == 4 and agent.img_traj == 256 and agent.img_horizon == 1000
 
 
 DEMOS = "demo_file=\"demos/hopper_expert.pickle\""

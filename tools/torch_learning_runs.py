@@ -51,6 +51,12 @@ RUNS = {
     **{f"pen_dapg_s{s}": ("adroit_pen_dapg.json", [f"seed={s}"], None, 100)
        for s in (200, 201, 202)},
     **{f"point_mass_s{s}": ("point_mass_npg.json", [f"seed={s}"], None, 20) for s in (0, 1, 2)},
+    # model-based NPG: runs/hopper_model_npg{,_s1,_s2} are seeds 33-35; 36-38
+    # widen the port's own spread
+    **{f"hopper_model_npg_s{s}": ("hopper_model_npg.json", [f"seed={s}"], None, 1000)
+       for s in (33, 34, 35, 36, 37, 38)},
+    **{f"point_mass_model_s{s}": ("point_mass_model_npg.json", [f"seed={s}"], None, 30)
+       for s in (0, 1, 2)},
 }
 
 

@@ -27,7 +27,14 @@ config's demo pickle is timed once as ``bc_warm_start`` (``--demos DIR``
 reads the pickle of that name from DIR: the card's copy of the repo has
 no ``demos/``); or ``point_mass`` (point_mass_npg.json, 64 x 25, no
 kernel), whose 16 evaluation episodes after the step are the
-``evaluation`` phase. The ``update`` phase is the agent's policy update:
+``evaluation`` phase; or the model-based NPG configs ``hopper_model_npg``
+(hopper_model_npg.json: 64 real episodes x 500 steps on K1, the 4-member
+ensemble's 20-epoch fit, 1024 imagined episodes x 500 steps) and
+``point_mass_model`` (point_mass_model_npg.json, no kernel), whose
+``rollout`` is the real one, followed by the ``ensemble_fit`` and the
+``imagined_rollout`` phases, with returns, GAE, the update and the
+baseline fit on the imagined batch and the statistics on the real one.
+The ``update`` phase is the agent's policy update:
 NPG's, TRPO's with its line-search probes, PPO's minibatch Adam epochs,
 or DAPG's with the demo surrogate in its gradient.
 Warms it for 2 iterations, then times one iteration
@@ -59,7 +66,8 @@ CONFIG_ROWS = {"hopper": "hopper_npg.json", "hopper_newton": "hopper_npg_newton.
                "adroit_relocate": "adroit_relocate_scratch.json",
                **{f"{name}_dapg": f"{name}_dapg.json" for name in (
                    "adroit_pen", "adroit_door", "adroit_hammer", "adroit_relocate", "hopper")},
-               "point_mass": "point_mass_npg.json"}
+               "point_mass": "point_mass_npg.json", "hopper_model_npg": "hopper_model_npg.json",
+               "point_mass_model": "point_mass_model_npg.json"}
 # --set overrides of a row's config
 ROW_OVERRIDES = {"adroit_hammer": ["num_traj=2048", "min_log_std=-2.0",
                                    'baseline_kwargs={"epochs": 2, "batch_size": 4096}']}
@@ -70,7 +78,7 @@ def main() -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from mjrl_tpu_torch.algos import NPG
+    from mjrl_tpu_torch.algos import NPG, ModelAccelNPG
     from mjrl_tpu_torch.envs import make
     from mjrl_tpu_torch.models import GaussianMLP, MLPBaseline
     from mjrl_tpu_torch.physics.dispatch import kernel_for
@@ -152,11 +160,14 @@ def main() -> int:
 
     def iteration():
         t0 = time.perf_counter()
-        batch = rollout()
+        batch = real = rollout()
+        if isinstance(agent, ModelAccelNPG):
+            timed("ensemble_fit", lambda: agent.dynamics.fit(real, gen)["dyn_error"].item())
+            batch = timed("imagined_rollout", lambda: agent.imagine(real, gen))
         batch = timed("returns_gae", lambda: agent.process_batch(batch))
         timed("update", lambda: agent.update(batch, generator=gen))
         timed("baseline_fit", lambda: baseline.fit(batch, generator=gen))
-        timed("statistics", lambda: rollout_statistics(batch).mean.item())
+        timed("statistics", lambda: rollout_statistics(real).mean.item())
         if evaluation:
             timed("evaluation", lambda: rollout_statistics(sample_episodes(
                 env, policy, evaluation, horizon, gen, eval_mode=True)).mean.item())
