@@ -160,7 +160,28 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    ``agent_kwargs.hvp_sample_frac=0.5`` (its FVP mask drawn once) and
    pendulum NPG; every logged value finite, the state on the card, no
    kernel launched.
-15. The card's name and power limit from nvidia-smi.
+15. Data parallelism (mjrl_tpu_torch/parallel/dist.py): two ranks, spawned
+   processes sharing cuda:0 over gloo. Ant NPG at the bench's width (1024
+   envs x 100 steps, phase 6's agent), two iterations, on one rank in this
+   process and on the two ranks: each rank launches K1 exactly 100 times
+   per iteration on its 512 envs; in the first iteration each rank's rows
+   of the sampled batch against the matching rows of the single-rank batch
+   (bit for bit, or else the step and field where they first part and
+   their difference there, which must be round-off: under ``DP_ROW_TOL``),
+   ``num_samples`` equal, the ranks' parameters the same bits (an
+   all-reduce MAX and MIN of a checksum) and within ``DP_PARAM_TOL`` of the
+   single-rank step; the second iteration's ms on one rank and on two.
+   Then examples/humanoid_ppo_v4.json with ``mesh_devices=2`` through
+   ``run_job`` on each rank (niter=2: obs_norm, PPO's sharded path with its
+   32 Adam steps, the MLP baseline's fit), exactly 64 K1 launches per rank
+   per iteration and 64 for the obs_norm rollout, the ranks' replicated
+   state held at each checkpoint (``train_agent``), the log written by rank
+   0 alone; then ``run_job`` in this process spawning the two ranks itself
+   resumes the run to iteration 3. Prints the second iteration's ms on two
+   ranks beside phase 13's single-rank one. Where ``torch.cuda.device_count()
+   >= 2`` the ant run is repeated over NCCL, a card per rank; otherwise a line
+   says NCCL did not run. A rank that fails fails the script.
+16. The card's name and power limit from nvidia-smi.
 
 Each kernel's launch count in the JSON line is its count over the slice
 that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper_model_npg``,
@@ -172,7 +193,9 @@ entry holds the warps per block its default launch took; K3's ``hammer``,
 ``door`` and ``relocate`` entries their check and their path's launches;
 K1's ``hopper_dapg`` and K3's ``pen_dapg``, ``door_dapg``, ``hammer_dapg``
 and ``relocate_dapg`` entries their DAPG path's launches (the warm-started
-call's included, the demos' not). ``bound_ms`` is the least
+call's included, the demos' not); K1's ``ant_dp`` and ``humanoid_ppo_dp``
+entries each rank's launches in phase 15 (per iteration for ant; for
+humanoid over the first call, obs_norm included). ``bound_ms`` is the least
 time the card could take for one control step at the check's batch: the
 larger of the bytes the kernel must move (state in and out, its tables)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
@@ -311,6 +334,15 @@ DYN_ERROR_MAX = {"hopper_model_npg": 0.5, "point_mass_model": 0.7}
 # the DAPG paths: the demos each makes on the card, and the path that also
 # warm starts a run from its checkpoint (init_policy_from)
 DEMO_PATHS, WARM_START_PATH = 25, "adroit_pen_dapg"
+# phase 15: ranks, the two iterations' seeds, the sampled rows held, the
+# parameters' tolerance against one rank (an MLP policy's NPG step: CG grows
+# the sums' reordering by the ranks; on the CPU the same step moves by up to
+# 4.3e-5 on point_mass, tests/test_torch_parallel.py) and the largest
+# difference allowed where a row first parts from one rank's (round-off of
+# one step: nothing else may differ)
+DP_RANKS, DP_SEEDS = 2, (11, 12)
+DP_FIELDS = ("observations", "actions", "rewards", "valid", "done", "mean", "log_std")
+DP_PARAM_TOL, DP_ROW_TOL = 1e-3, 1e-4
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 ROOT = Path(__file__).resolve().parent
 
@@ -1140,7 +1172,8 @@ def _make_demos(config, overrides, out):
     return path
 
 
-def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overrides=()):
+def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overrides=(),
+                record=None):
     """Full-width iterations of ``examples/<config>`` (with ``overrides``)
     through ``mjrl_tpu_torch.train.run_job``: one call per entry of ``niters``, all
     into one temporary directory, each call after the first resuming from
@@ -1159,7 +1192,8 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
     batch, log a finite ``dyn_error`` under its ``DYN_ERROR_MAX`` and a
     ``running_score`` equal to ``stoc_pol_mean`` at its first iteration,
     keep its ensemble on the card, and resume it as the checkpoint holds it.
-    Returns the kernel's launches over the phase (the demos' aside)."""
+    Returns the kernel's launches over the phase (the demos' aside); the
+    log's rows go into ``record[tag]`` where given."""
     import torch
 
     from mjrl_tpu_torch import train
@@ -1265,6 +1299,8 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
                 rows = [{k: float(v) for k, v in row.items()} for row in csv.DictReader(f)]
             if len(rows) != niters[-1]:
                 raise RuntimeError(f"{tag}: log.csv has {len(rows)} rows, expected {niters[-1]}")
+            if record is not None:
+                record[tag] = rows
             for row in rows:
                 bad = [k for k, v in row.items() if not math.isfinite(v)]
                 if bad:
@@ -1426,6 +1462,212 @@ def phase_breadth(others):
         raise RuntimeError(f"breadth: kernel launches {stray}")
 
 
+def _dp_iterations(env, agent, kernel):
+    """Phase 15's two ant iterations (``DP_SEEDS``) on this process's rows:
+    the first's rows, metrics, launches and parameters, the second's ms."""
+    import torch
+
+    from mjrl_tpu_torch.ops.ravel import ravel
+    from mjrl_tpu_torch.parallel import dist
+    from mjrl_tpu_torch.samplers import sample_episodes
+    from mjrl_tpu_torch.utils.train_agent import replicated_tensors
+
+    out = {}
+    for it, seed in enumerate(DP_SEEDS):
+        gen = torch.Generator(device=env.device).manual_seed(seed)
+        kernel.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch = sample_episodes(env, agent.policy, NUM_ENVS, HORIZON, gen)
+        metrics = agent.finish_train_step(batch, generator=gen)
+        values = {k: float(v) for k, v in metrics.items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        dist.check_replicated(replicated_tensors(agent.state_dict()))
+        if it == 0:
+            out.update(rows={f: getattr(batch, f).cpu() for f in DP_FIELDS}, metrics=values,
+                       launches=kernel.launches, envs=batch.num_envs,
+                       flat=ravel(agent.params())[0].cpu())
+        else:
+            out.update(ms=ms, launches_2=kernel.launches)
+    return out
+
+
+def _dp_ant_rank(device, out_dir):
+    """One rank of phase 15's ant run."""
+    import torch
+
+    from mjrl_tpu_torch.envs import make
+    from mjrl_tpu_torch.parallel import dist
+    from mjrl_tpu_torch.physics.pkernel import K1
+
+    env = make("ant", horizon=HORIZON, device=device)
+    res = _dp_iterations(env, _agent(env, horizon=HORIZON), K1)
+    res.update(device=str(device), backend=torch.distributed.get_backend())
+    torch.save(res, os.path.join(out_dir, f"rank{dist.rank()}.pt"))
+
+
+def _dp_entry_rank(device, cfg, job, out_dir):
+    """One rank of phase 15's humanoid PPO run: ``run_job`` in the group,
+    with K1's launches counted, the obs_norm rollout's apart."""
+    import torch
+
+    from mjrl_tpu_torch import train
+    from mjrl_tpu_torch.parallel import dist
+    from mjrl_tpu_torch.physics.pkernel import K1
+
+    obs_norm, counted = [], train.obs_norm_init
+
+    def counted_obs_norm_init(*args, **kwargs):
+        before = K1.launches
+        counted(*args, **kwargs)
+        obs_norm.append(K1.launches - before)
+
+    train.obs_norm_init = counted_obs_norm_init
+    K1.launches = 0
+    agent = train.run_job(cfg, job, device)
+    torch.save(dict(launches=K1.launches, obs_norm=obs_norm, iteration=agent.iteration,
+                    envs=agent.sampler_carry.obs.shape[0]),
+               os.path.join(out_dir, f"rank{dist.rank()}.pt"))
+
+
+def _dp_spawn(fn, args, share):
+    """``dist.spawn`` of ``DP_RANKS`` ranks; ``share``: every rank on this
+    process's first card (the children see that card alone)."""
+    from mjrl_tpu_torch.parallel import dist
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if share:
+        os.environ["CUDA_VISIBLE_DEVICES"] = (visible or "0").split(",")[0]
+    try:
+        dist.spawn(fn, DP_RANKS, "cuda", args)
+    finally:
+        if visible is None:
+            os.environ.pop("CUDA_VISIBLE_DEVICES", None)
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = visible
+
+
+def _dp_ant_check(tag, single, ranks):
+    """Phase 15's checks of one two-rank ant run against one rank's."""
+    import torch
+
+    from mjrl_tpu_torch.parallel import dist
+
+    parts = []
+    for r, res in enumerate(ranks):
+        start, stop = dist.row_block(NUM_ENVS, r, DP_RANKS)
+        if res["launches"] != HORIZON or res["launches_2"] != HORIZON or \
+                res["envs"] != stop - start:
+            raise RuntimeError(f"{tag}: rank {r} launched K1 {res['launches']} and "
+                               f"{res['launches_2']} times on {res['envs']} envs, expected "
+                               f"{HORIZON} on {stop - start}")
+        for f in DP_FIELDS:
+            got, want = res["rows"][f], single["rows"][f][start:stop]
+            if torch.equal(got, want):
+                continue
+            apart = (got != want).reshape(got.shape[0], got.shape[1], -1).any(-1).any(0)
+            t = int(torch.nonzero(apart)[0])
+            err = float((got[:, t].double() - want[:, t].double()).abs().max())
+            parts.append(f"rank {r} {f} from step {t} ({err:.3g} there)")
+            if err > DP_ROW_TOL:
+                raise RuntimeError(f"{tag}: rank {r}'s {f} parts from one rank's at step {t} "
+                                   f"by {err:.3g}, over {DP_ROW_TOL}")
+    if not torch.equal(ranks[0]["flat"], ranks[1]["flat"]):
+        raise RuntimeError(f"{tag}: the ranks' parameters differ")
+    err = float((ranks[0]["flat"] - single["flat"]).abs().max())
+    n1, n2 = single["metrics"]["num_samples"], ranks[0]["metrics"]["num_samples"]
+    if err > DP_PARAM_TOL or n1 != n2 or ranks[0]["metrics"] != ranks[1]["metrics"]:
+        raise RuntimeError(f"{tag}: parameters {err:.3g} from one rank's (tolerance "
+                           f"{DP_PARAM_TOL}), num_samples {n2} against {n1}, the ranks' "
+                           f"metrics alike: {ranks[0]['metrics'] == ranks[1]['metrics']}")
+    print(f"[{tag}] {DP_RANKS} ranks ({ranks[0]['backend']}, {ranks[0]['device']} and "
+          f"{ranks[1]['device']}): K1 {HORIZON} launches per iteration on each rank's "
+          f"{ranks[0]['envs']} and {ranks[1]['envs']} envs; sampled rows "
+          f"{'bit for bit' if not parts else 'parting: ' + '; '.join(parts)}; parameters the "
+          f"same bits on both ranks, {err:.3g} from one rank's; num_samples {n2:.0f}; alpha "
+          f"{ranks[0]['metrics']['alpha']:.6f} against {single['metrics']['alpha']:.6f}, kl "
+          f"{ranks[0]['metrics']['kl_dist']:.6f} against {single['metrics']['kl_dist']:.6f}")
+    print(f"[{tag}] iteration ms: 1 rank {single['ms']:.1f}, {DP_RANKS} ranks "
+          f"{max(r['ms'] for r in ranks):.1f} (rank 0 {ranks[0]['ms']:.1f}, rank 1 "
+          f"{ranks[1]['ms']:.1f})")
+    return err
+
+
+def phase_data_parallel(entry_rows):
+    """Phase 15 (see the module's docstring); ``entry_rows``: phase 13's log
+    rows by path. Returns each rank's K1 launches of the two paths."""
+    import torch
+
+    from mjrl_tpu_torch.envs import make
+    from mjrl_tpu_torch.physics.pkernel import K1
+    from mjrl_tpu_torch.train import load_config, run_job
+
+    env = make("ant", horizon=HORIZON)
+    single = _dp_iterations(env, _agent(env, horizon=HORIZON), K1)
+    if single["launches"] != HORIZON:
+        raise RuntimeError(f"dp ant: one rank launched K1 {single['launches']} times")
+    with tempfile.TemporaryDirectory() as out:
+        _dp_spawn(_dp_ant_rank, (out,), share=True)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+    _dp_ant_check("dp ant", single, ranks)
+    result = {"ant_dp": {"launches": [r["launches"] for r in ranks],
+                         "ms_1_rank": single["ms"], "ms_2_ranks": max(r["ms"] for r in ranks)}}
+    if torch.cuda.device_count() >= DP_RANKS:
+        with tempfile.TemporaryDirectory() as out:
+            _dp_spawn(_dp_ant_rank, (out,), share=False)
+            nccl = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                    for r in range(DP_RANKS)]
+        if nccl[0]["backend"] != "nccl":
+            raise RuntimeError(f"dp ant: {torch.cuda.device_count()} cards, backend "
+                               f"{nccl[0]['backend']}")
+        _dp_ant_check("dp ant nccl", single, nccl)
+    else:
+        print(f"[dp ant] NCCL did not run: {torch.cuda.device_count()} card (it needs a card "
+              f"per rank)")
+
+    overrides = ["mesh_devices=2", "save_freq=1"]
+    with tempfile.TemporaryDirectory() as job, tempfile.TemporaryDirectory() as out:
+        cfg = load_config(ROOT / "examples" / "humanoid_ppo_v4.json", [*overrides, "niter=2"])
+        _dp_spawn(_dp_entry_rank, (cfg, job, out), share=True)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DP_RANKS)]
+        with open(os.path.join(job, "logs", "log.jsonl")) as f:
+            lines = f.readlines()
+        half = HUMANOID_PPO_ENVS // DP_RANKS
+        want = dict(launches=3 * PPO_WINDOW, obs_norm=[PPO_WINDOW], iteration=2, envs=half)
+        if any(r != want for r in ranks) or len(lines) != 2:
+            raise RuntimeError(f"dp humanoid_ppo: ranks {ranks}, expected {want} each; log.jsonl "
+                               f"{len(lines)} lines, expected 2")
+        rows = [json.loads(line) for line in lines]
+        agent = run_job(load_config(ROOT / "examples" / "humanoid_ppo_v4.json",
+                                    [*overrides, "niter=3"]), job)
+        with open(os.path.join(job, "logs", "log.csv"), newline="") as f:
+            rows += [{k: float(v) for k, v in row.items()} for row in csv.DictReader(f)][2:]
+        saved = sorted(os.listdir(os.path.join(job, "iterations")))
+        on_card = all(t.is_cuda for t in [*agent.policy.parameters(), *agent.policy.buffers()])
+        if agent.iteration != 3 or len(rows) != 3 or saved != ["1.pt", "2.pt", "3.pt"] or \
+                not on_card or not all(math.isfinite(v) for row in rows for v in row.values()):
+            raise RuntimeError(f"dp humanoid_ppo: resumed to iteration {agent.iteration}, rows "
+                               f"{rows}, checkpoints {saved}, on the card {on_card}")
+    for row in rows:
+        print(f"[dp humanoid_ppo] iter {int(row['iteration'])}: {row['time_step'] * 1e3:.1f} ms "
+              f"on {DP_RANKS} ranks, valid {row['steps_per_sec']:.1f} env-steps/s "
+              f"({row['num_samples']:.0f} samples), score {row['stoc_pol_mean']:.3f}, alpha "
+              f"{row['alpha']:.6f}, kl {row['kl_dist']:.5f}, log_std_mean "
+              f"{row['log_std_mean']:.5f}, VF {row['VF_error_before']:.3f}->"
+              f"{row['VF_error_after']:.3f}")
+    one = entry_rows["humanoid_ppo"][-1]["time_step"] * 1e3
+    print(f"[dp humanoid_ppo] each rank: {half} envs, K1 {PPO_WINDOW} launches per iteration and "
+          f"{PPO_WINDOW} for obs_norm; the ranks' state held bit for bit at each checkpoint; "
+          f"resumed to iteration 3 by run_job's own ranks; iteration ms: 1 rank "
+          f"{one:.1f} (phase 13, its second iteration), {DP_RANKS} ranks "
+          f"{rows[1]['time_step'] * 1e3:.1f} (the second iteration, rank 0's clock)")
+    result["humanoid_ppo_dp"] = {"launches": [r["launches"] for r in ranks], "ms_1_rank": one,
+                                 "ms_2_ranks": rows[1]["time_step"] * 1e3}
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1496,10 +1738,12 @@ def main() -> int:
     k4 = phase_k4_pen("K4 pen", pen_newton, K4, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K4 pen"],
                       TOL["K4 pen quantile"])
     every = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+    entry_rows = {}
     entry = {tag: phase_entry(tag, config, every.get(k), [v for n, v in every.items() if n != k],
-                              n, steps, niters, overrides)
+                              n, steps, niters, overrides, entry_rows)
              for tag, config, k, n, steps, niters, overrides in ENTRY_PATHS}
     phase_breadth(list(every.values()))
+    data_parallel = phase_data_parallel(entry_rows)
     k1_hopper["launches"] = entry["hopper"]
     k3["launches"] = entry["adroit_pen"]
     k4["launches"] = entry["adroit_pen_newton"]
@@ -1544,6 +1788,7 @@ def main() -> int:
     # the DAPG paths run K1's and K3's checked builds; their launches
     kernels[0]["hopper_dapg"] = {"launches": entry["hopper_dapg"]}
     kernels[0]["hopper_model_npg"] = {"launches": entry["hopper_model_npg"]}
+    kernels[0].update(data_parallel)
     for task in ("pen", "door", "hammer", "relocate"):
         kernels[2][f"{task}_dapg"] = {"launches": entry[f"adroit_{task}_dapg"]}
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",

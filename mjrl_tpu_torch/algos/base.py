@@ -11,6 +11,13 @@ functional parameter dicts that the updates build go through
 ``"samples"`` runs the auto-reset sampler over windows of
 ``num_samples / num_traj`` steps, with the rows persisting across train
 steps in a carry held on the agent.
+
+Under data parallelism (``parallel/dist.py``) the agent holds this rank's
+block of the ``num_traj`` rows and its carry; every mean over steps has
+the global denominator (:meth:`BatchREINFORCE.valid_count`), each rank
+differentiates its own numerator over it, and the gradient, the surrogate
+and the KL are all-reduced outside ``torch.func``'s transforms, which
+cannot trace a collective.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from mjrl_tpu_torch.models.baselines import Baseline
 from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
 from mjrl_tpu_torch.ops.gae import compute_advantages, compute_returns, masked_mean_std
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.samplers.rollout import (
     SamplerCarry,
     init_autoreset_carry,
@@ -39,25 +47,32 @@ Params = Dict[str, torch.Tensor]
 
 
 def masked_surrogate(new_mean: torch.Tensor, new_log_std: torch.Tensor,
-                     batch: TrajectoryBatch) -> torch.Tensor:
-    """CPI surrogate ``mean(LR * adv)`` over valid steps of the policy with
-    outputs ``new_mean, new_log_std`` on ``batch.observations``."""
+                     batch: TrajectoryBatch, n: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """CPI surrogate ``sum(LR * adv) / n`` over valid steps of the policy
+    with outputs ``new_mean, new_log_std`` on ``batch.observations``; ``n``
+    defaults to the batch's valid steps (at least 1)."""
     lr = DiagGaussian.likelihood_ratio(batch.actions, new_mean, new_log_std,
                                        batch.mean, batch.log_std)
     validf = batch.valid.to(lr.dtype)
-    return torch.sum(lr * batch.advantages * validf) / torch.clamp(validf.sum(), min=1.0)
+    if n is None:
+        n = torch.clamp(validf.sum(), min=1.0)
+    return torch.sum(lr * batch.advantages * validf) / n
 
 
 def masked_kl(old_mean: torch.Tensor, old_log_std: torch.Tensor, new_mean: torch.Tensor,
               new_log_std: torch.Tensor, valid: torch.Tensor,
-              weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean ``KL(old || new)`` over the valid states, each weighted by
-    ``weights`` (same shape as ``valid``) where given."""
+              weights: Optional[torch.Tensor] = None,
+              n: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``sum(KL(old || new)) / n`` over the valid states, each weighted by
+    ``weights`` (same shape as ``valid``) where given; ``n`` defaults to
+    the sum of those weights (at least 1)."""
     kl = DiagGaussian.kl(old_mean, old_log_std, new_mean, new_log_std)
     w = valid.to(kl.dtype)
     if weights is not None:
         w = w * weights
-    return torch.sum(kl * w) / torch.clamp(w.sum(), min=1.0)
+    if n is None:
+        n = torch.clamp(w.sum(), min=1.0)
+    return torch.sum(kl * w) / n
 
 
 class BatchREINFORCE:
@@ -102,7 +117,10 @@ class BatchREINFORCE:
         """The full train state: policy, baseline and its optimizer (None
         for a baseline without one: the least-squares fits), iteration,
         running score and the sampler carry (None until samples mode makes
-        one). Its tensors are the live ones, not copies."""
+        one). Its tensors are the live ones, not copies, but for the
+        carry's under data parallelism: every rank's rows, gathered (a
+        collective, so every rank calls this together), so that the state
+        is the single-rank run's whatever the number of ranks."""
         carry = self.sampler_carry
         optimizer = getattr(self.baseline, "optimizer", None)
         return {
@@ -111,17 +129,22 @@ class BatchREINFORCE:
             "baseline_optimizer": None if optimizer is None else optimizer.state_dict(),
             "iteration": self.iteration,
             "running_score": self.running_score,
-            "sampler_carry": None if carry is None else dict(
-                **carry.state._asdict(), obs=carry.obs, t_in_ep=carry.t_in_ep,
-                ep_return=carry.ep_return, ep_success=carry.ep_success),
+            "sampler_carry": None if carry is None else {
+                k: dist.gather_rows(v) for k, v in dict(
+                    **carry.state._asdict(), obs=carry.obs, t_in_ep=carry.t_in_ep,
+                    ep_return=carry.ep_return, ep_success=carry.ep_success).items()},
         }
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """The state of :meth:`state_dict`; the carry's rows are all the
+        run's, of which this rank keeps its block."""
         self.load_policy_and_baseline(state)
         self.iteration = int(state["iteration"])
         self.running_score = state["running_score"].to(self.env.device)
         c = state["sampler_carry"]
         state_type = getattr(self.env, "state_type", EnvState)
+        if c is not None:
+            c = {k: None if v is None else dist.local_rows(v) for k, v in c.items()}
         self.sampler_carry = None if c is None else SamplerCarry(
             state_type(*(c[f] for f in state_type._fields)), c["obs"], c["t_in_ep"],
             c["ep_return"], c.get("ep_success"))
@@ -147,21 +170,50 @@ class BatchREINFORCE:
         return functional_call(self.policy, params, (obs,))
 
     # -- core math ---------------------------------------------------------
-    def surrogate(self, params: Params, batch: TrajectoryBatch) -> torch.Tensor:
-        """CPI surrogate ``mean(LR * adv)`` over valid steps."""
-        return masked_surrogate(*self.apply(params, batch.observations), batch)
+    def valid_count(self, batch: TrajectoryBatch,
+                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The masked means' denominator: the valid steps of every rank's
+        rows, each weighted by ``weights`` ``(N, T)`` where given, at
+        least 1."""
+        w = batch.valid.to(batch.advantages.dtype)
+        if weights is not None:
+            w = w * weights
+        return torch.clamp(dist.all_sum(w.sum()), min=1.0)
+
+    def local_surrogate(self, params: Params, batch: TrajectoryBatch,
+                        n: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the surrogate: its steps' sum over ``n``."""
+        return masked_surrogate(*self.apply(params, batch.observations), batch, n)
+
+    def surrogate(self, params: Params, batch: TrajectoryBatch,
+                  n: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """CPI surrogate ``mean(LR * adv)`` over valid steps; ``n`` is
+        :meth:`valid_count` where the caller has it."""
+        n = self.valid_count(batch) if n is None else n
+        return dist.all_sum(self.local_surrogate(params, batch, n))
+
+    def local_kl(self, params: Params, old_params: Params, batch: TrajectoryBatch,
+                 weights: Optional[torch.Tensor], n: torch.Tensor) -> torch.Tensor:
+        """This rank's share of :meth:`mean_kl`: its states' sum over ``n``."""
+        new_mean, new_log_std = self.apply(params, batch.observations)
+        old = {k: v.detach() for k, v in old_params.items()}
+        return masked_kl(*self.apply(old, batch.observations), new_mean, new_log_std, batch.valid,
+                         weights, n)
 
     def mean_kl(self, params: Params, old_params: Params, batch: TrajectoryBatch,
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Masked mean ``KL(old || new)`` over states, weighted by
         ``weights`` ``(N, T)`` where given; ``old_params`` are constants."""
-        new_mean, new_log_std = self.apply(params, batch.observations)
-        old = {k: v.detach() for k, v in old_params.items()}
-        return masked_kl(*self.apply(old, batch.observations), new_mean, new_log_std, batch.valid,
-                         weights)
+        n = self.valid_count(batch, weights)
+        return dist.all_sum(self.local_kl(params, old_params, batch, weights, n))
 
-    def vpg_grad(self, params: Params, batch: TrajectoryBatch) -> Params:
-        return torch.func.grad(self.surrogate)(params, batch)
+    def vpg_grad(self, params: Params, batch: TrajectoryBatch,
+                 n: Optional[torch.Tensor] = None) -> Params:
+        """The surrogate's gradient: each rank's share differentiated, then
+        summed over the ranks."""
+        n = self.valid_count(batch) if n is None else n
+        grads = torch.func.grad(self.local_surrogate)(params, batch, n)
+        return dist.all_sum_dict(grads)
 
     # -- post-processing -----------------------------------------------------
     @torch.no_grad()
@@ -186,12 +238,13 @@ class BatchREINFORCE:
         minibatch order, NPG's ``hvp_sample_frac`` mask). Here the vanilla
         PG step ``params += learn_rate * vpg``, then ``project``."""
         params = self.params()
-        surr_before = self.surrogate(params, batch)
-        grads = self.vpg_grad(params, batch)
+        n = self.valid_count(batch)
+        surr_before = self.surrogate(params, batch, n)
+        grads = self.vpg_grad(params, batch, n)
         new_params = self.policy.project({k: p + self.learn_rate * grads[k]
                                           for k, p in params.items()})
         kl_dist = self.mean_kl(new_params, params, batch)
-        surr_after = self.surrogate(new_params, batch)
+        surr_after = self.surrogate(new_params, batch, n)
         self.load_params(new_params)
         return {
             "alpha": torch.tensor(self.learn_rate, device=self.env.device),
@@ -203,7 +256,8 @@ class BatchREINFORCE:
     def train_step(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """One on-policy iteration: sample -> returns/GAE -> update ->
         baseline fit -> statistics. Metrics stay on the device. In samples
-        mode the rows continue from the agent's carry."""
+        mode the rows continue from the agent's carry. ``num_traj`` counts
+        every rank's rows, of which this rank samples its block."""
         if self.sample_mode == "trajectories":
             batch = sample_episodes(self.env, self.policy, self.num_traj, self.horizon, generator)
         else:
@@ -236,7 +290,7 @@ class BatchREINFORCE:
             "stoc_pol_min": stats.min,
             "success_rate": stats.success_rate,
             "running_score": self.running_score,
-            "num_samples": batch.num_valid,
+            "num_samples": dist.all_sum(batch.num_valid),
             **update_metrics,
             **vf_metrics,
         }

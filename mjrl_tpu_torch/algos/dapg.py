@@ -8,7 +8,10 @@ sampled and the demo steps, while the Fisher products and CG use the
 sampled data only (NPG's ``step_direction`` with this ``vpg_grad``). The
 demo surrogate's ratio denominator is the current policy on the demo
 states with its gradient stopped (demos carry no behavior distribution).
-Without demos the update is NPG's.
+Without demos the update is NPG's. Under data parallelism ``n_s`` and the
+max are over every rank's sampled steps, and the demo batch, which every
+rank holds whole, adds its term on rank 0 alone, so that the all-reduced
+gradient counts it once.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from mjrl_tpu_torch.algos.base import Params
 from mjrl_tpu_torch.algos.npg import NPG
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 
@@ -48,19 +52,24 @@ class DAPG(NPG):
         w = d.valid.to(lr.dtype)
         return torch.sum(lr * demo_adv * w) / torch.clamp(w.sum(), min=1.0)
 
-    def vpg_grad(self, params: Params, batch: TrajectoryBatch) -> Params:
+    def vpg_grad(self, params: Params, batch: TrajectoryBatch,
+                 n: Optional[torch.Tensor] = None) -> Params:
         if self.demo_batch is None:
-            return super().vpg_grad(params, batch)
-        n_s = torch.clamp(batch.valid.to(batch.advantages.dtype).sum(), min=1.0)
+            return super().vpg_grad(params, batch, n)
+        n_s = self.valid_count(batch) if n is None else n
         n_d = torch.clamp(self.demo_batch.valid.to(n_s.dtype).sum(), min=1.0)
         big = torch.finfo(batch.advantages.dtype).max
-        demo_adv = self.demo_coef() * torch.where(batch.valid, batch.advantages, -big).max()
+        demo_adv = self.demo_coef() * dist.all_max(
+            torch.where(batch.valid, batch.advantages, -big).max())
 
         def union_surrogate(p):
-            return (n_s * self.surrogate(p, batch)
-                    + n_d * self.demo_surrogate(p, demo_adv)) / (n_s + n_d)
+            # this rank's share: its sampled steps, and the demos on rank 0
+            union = n_s * self.local_surrogate(p, batch, n_s)
+            if dist.is_main():
+                union = union + n_d * self.demo_surrogate(p, demo_adv)
+            return union / (n_s + n_d)
 
-        return torch.func.grad(union_surrogate)(params)
+        return dist.all_sum_dict(torch.func.grad(union_surrogate)(params))
 
     def update(self, batch: TrajectoryBatch, generator=None) -> Dict[str, torch.Tensor]:
         metrics = super().update(batch, generator)

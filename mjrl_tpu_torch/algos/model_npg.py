@@ -22,6 +22,12 @@ member, drawn uniformly, for the whole episode. The draws that have no
 seam elsewhere can be injected (``finish_model_step``: the ensemble's
 minibatch order, the imagined resets and action noise), as
 ``finish_train_step``'s ``fit_perms`` can.
+
+Under data parallelism (``parallel/dist.py``) the real rollout is sharded
+like any other, the ensemble fits as ``models/dynamics.py`` says, and the
+start pool of the imagination is the real observations of every rank,
+gathered by an all-reduce; the imagined rows are sharded like real ones,
+from draws made for all of them.
 """
 
 from __future__ import annotations
@@ -33,9 +39,11 @@ import torch
 from mjrl_tpu_torch.algos.npg import NPG
 from mjrl_tpu_torch.envs.base import Env, StepResult
 from mjrl_tpu_torch.models.dynamics import DynamicsEnsemble
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.samplers.rollout import (
     EpisodeNoise,
     draw_episode_noise,
+    local_noise,
     rollout_statistics,
     run_episodes,
     sample_episodes,
@@ -126,14 +134,17 @@ class ModelAccelNPG(NPG):
     def imagine(self, real: TrajectoryBatch, generator: Optional[torch.Generator] = None,
                 noise: Optional[EpisodeNoise] = None) -> TrajectoryBatch:
         """``img_traj`` imagined episodes of ``img_horizon`` steps through the
-        current ensemble, from the real batch's valid observations;
-        ``noise`` (reset: start indices and members; action noise) fixes the
-        draws."""
+        current ensemble, from the real batch's valid observations (every
+        rank's); ``noise`` (reset: start indices and members; action noise;
+        for all ``img_traj`` rows) fixes the draws. Returns this rank's
+        block of the imagined rows."""
         do = real.observations.shape[-1]
-        env = ModelEnv(self.env, self.dynamics, real.observations.reshape(-1, do),
-                       real.valid.reshape(-1), self.img_horizon)
+        env = ModelEnv(self.env, self.dynamics, dist.gather_rows(real.observations.reshape(-1, do)),
+                       dist.gather_rows(real.valid.reshape(-1)), self.img_horizon)
         if noise is None:
             noise = draw_episode_noise(env, self.img_traj, self.img_horizon, generator)
+        else:
+            noise = local_noise(noise)
         return run_episodes(env, self.policy, noise)
 
     def train_step(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -164,7 +175,7 @@ class ModelAccelNPG(NPG):
             "stoc_pol_min": stats.min,
             "success_rate": stats.success_rate,
             "running_score": self.running_score,
-            "num_samples": real.num_valid,
+            "num_samples": dist.all_sum(real.num_valid),
             **update_metrics,
             **vf_metrics,
             **dyn_metrics,

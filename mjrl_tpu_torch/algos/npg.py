@@ -5,6 +5,11 @@ The Fisher matrix is never formed: CG inverts it through Fisher-vector
 products, forward-over-reverse as in the reference,
 ``torch.func.jvp(torch.func.grad(mean_kl))`` plus damping, and the step is
 scaled to the KL budget ``alpha = sqrt(2 delta / g^T F^-1 g)``.
+
+Under data parallelism each rank's FVP differentiates its own states' KL
+over the global weight (``valid_count``) and the product is all-reduced:
+one all-reduce of ``n_params`` floats per CG iteration. CG itself runs on
+replicated vectors, the same on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from mjrl_tpu_torch.algos.base import BatchREINFORCE, Params
 from mjrl_tpu_torch.ops.cg import cg_solve
 from mjrl_tpu_torch.ops.ravel import ravel
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 
@@ -42,25 +48,29 @@ class NPG(BatchREINFORCE):
     def hvp_mask(self, batch: TrajectoryBatch,
                  generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
         """The FVP's ``(N, T)`` Bernoulli weights, or None at
-        ``hvp_sample_frac >= 1`` (nothing drawn)."""
+        ``hvp_sample_frac >= 1`` (nothing drawn); drawn for every rank's
+        rows, of which this rank keeps its block."""
         if self.hvp_sample_frac >= 1.0:
             return None
-        p = torch.full_like(batch.rewards, self.hvp_sample_frac)
-        return torch.bernoulli(p, generator=generator)
+        rows = dist.block(batch.num_envs, batch.rewards.device)[1]
+        p = batch.rewards.new_full((rows, batch.horizon), self.hvp_sample_frac)
+        return dist.local_rows(torch.bernoulli(p, generator=generator))
 
     def build_fvp(self, params: Params, batch: TrajectoryBatch,
                   mask: Optional[torch.Tensor] = None):
         """Damped Fisher-vector product over the flat parameter vector, the
-        KL weighted by ``mask`` where given."""
+        KL weighted by ``mask`` (this rank's rows) where given; each rank's
+        product summed over the ranks."""
         flat, unravel = ravel(params)
+        n = self.valid_count(batch, mask)
 
         def kl_of_flat(p_flat: torch.Tensor) -> torch.Tensor:
-            return self.mean_kl(unravel(p_flat), params, batch, weights=mask)
+            return self.local_kl(unravel(p_flat), params, batch, mask, n)
 
         grad_kl = torch.func.grad(kl_of_flat)
 
         def fvp(v: torch.Tensor) -> torch.Tensor:
-            return torch.func.jvp(grad_kl, (flat,), (v,))[1] + self.damping * v
+            return dist.all_sum(torch.func.jvp(grad_kl, (flat,), (v,))[1]) + self.damping * v
 
         return fvp, flat, unravel
 
@@ -68,11 +78,11 @@ class NPG(BatchREINFORCE):
                        generator: Optional[torch.Generator] = None,
                        hvp_mask: Optional[torch.Tensor] = None):
         """VPG -> CG -> (npg direction, alpha, flat params, unravel); the
-        FVP's mask is ``hvp_mask`` where given, else drawn from
-        ``generator``."""
+        FVP's mask is ``hvp_mask`` (every rank's rows) where given, else
+        drawn from ``generator``."""
         vpg_flat, _ = ravel(self.vpg_grad(params, batch))
-        if hvp_mask is None:
-            hvp_mask = self.hvp_mask(batch, generator)
+        hvp_mask = (self.hvp_mask(batch, generator) if hvp_mask is None
+                    else dist.local_rows(hvp_mask))
         fvp, flat, unravel = self.build_fvp(params, batch, hvp_mask)
         npg_flat = cg_solve(fvp, vpg_flat, cg_iters=self.cg_iters, residual_tol=self.residual_tol)
         inner = torch.abs(torch.dot(vpg_flat, npg_flat))
@@ -82,11 +92,12 @@ class NPG(BatchREINFORCE):
     def update(self, batch: TrajectoryBatch, generator=None,
                hvp_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         params = self.params()
-        surr_before = self.surrogate(params, batch)
+        n = self.valid_count(batch)
+        surr_before = self.surrogate(params, batch, n)
         npg_flat, alpha, flat, unravel = self.step_direction(params, batch, generator, hvp_mask)
         new_params = self.policy.project(unravel(flat + alpha * npg_flat))
         kl_dist = self.mean_kl(new_params, params, batch)
-        surr_after = self.surrogate(new_params, batch)
+        surr_after = self.surrogate(new_params, batch, n)
         self.load_params(new_params)
         return {
             "alpha": alpha,

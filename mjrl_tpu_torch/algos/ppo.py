@@ -15,9 +15,18 @@ within each minibatch; ``lr_anneal_iters > 0`` scales Adam's normalized
 step by ``learn_rate * clip(1 - iteration / lr_anneal_iters, 0, 1)``,
 ``iteration`` being the agent's.
 
-The Adam state persists across iterations and in the checkpoint. The
-sharded path of the reference (per-device shuffles under ``shard_map``)
-is not ported (ROADMAP queue 1, "Env-axis data parallel").
+The Adam state persists across iterations and in the checkpoint.
+
+Under data parallelism (``parallel/dist.py``, D ranks) this is the twin of
+the reference's sharded path (``_minibatch_adam_sharded``): D must divide
+``num_traj``; each rank shuffles its own ``m_loc = (E / D) H`` steps into
+``num_mb = max(m_loc // mb_loc, 1)`` minibatches of ``mb_loc =
+max(min(mb_size, E H) // D, 1)``; the minibatch moments of
+``norm_adv_per_minibatch`` and the loss's denominator are over every
+rank's part of the minibatch, and the gradient is summed over the ranks
+before each Adam step, so the replicated parameters move together. Every
+rank draws all D ranks' permutations from the generator and keeps its own,
+so the generators stay in step. One rank keeps the global shuffle.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 
@@ -47,6 +57,9 @@ class PPO(BatchREINFORCE):
         self.lr_anneal_iters = int(lr_anneal_iters)
         self.norm_adv_per_minibatch = norm_adv_per_minibatch
         self.optimizer = torch.optim.Adam(self.policy.parameters(), lr=learn_rate)
+        if self.num_traj % dist.world_size():
+            raise ValueError(f"PPO's sharded minibatches need num_traj ({self.num_traj}) to "
+                             f"divide over the {dist.world_size()} ranks")
 
     def lr_now(self) -> float:
         """This iteration's learning rate."""
@@ -69,14 +82,34 @@ class PPO(BatchREINFORCE):
         return [torch.randperm(m, generator=generator, device=self.env.device)[: num_mb * mb]
                 .reshape(num_mb, mb) for _ in range(self.epochs)]
 
+    def sharded_perms(self, m_loc: int, horizon: int,
+                      generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        """The sharded path's minibatches: one ``(num_mb, mb_loc)`` tensor
+        of this rank's ``m_loc`` steps per epoch. All ranks' permutations
+        are drawn, in rank order, and this rank's kept."""
+        world = dist.world_size()
+        mb_loc = max(min(self.mb_size, self.num_traj * horizon) // world, 1)
+        num_mb = max(m_loc // mb_loc, 1)
+        perms = []
+        for _ in range(self.epochs):
+            drawn = [torch.randperm(m_loc, generator=generator, device=self.env.device)
+                     for _ in range(world)]
+            perms.append(drawn[dist.rank()][: num_mb * mb_loc].reshape(num_mb, mb_loc))
+        return perms
+
     def _minibatch_loss(self, obs, act, adv, old_mean, old_log_std, vf) -> torch.Tensor:
+        """This rank's part of the minibatch's loss: its steps' sum over
+        the count of every rank's valid steps (the minibatch moments too)."""
         new_mean, new_log_std = self.policy(obs)
         lr = DiagGaussian.likelihood_ratio(act, new_mean, new_log_std, old_mean, old_log_std)
-        n = torch.clamp(vf.sum(), min=1.0)
         if self.norm_adv_per_minibatch:
-            mu = torch.sum(adv * vf) / n
-            var = torch.sum(torch.square(adv - mu) * vf) / n
+            count, total = dist.all_sum(torch.stack([vf.sum(), torch.sum(adv * vf)]))
+            n = torch.clamp(count, min=1.0)
+            mu = total / n
+            var = dist.all_sum(torch.sum(torch.square(adv - mu) * vf)) / n
             adv = (adv - mu) / (torch.sqrt(var) + 1e-6)
+        else:
+            n = torch.clamp(dist.all_sum(vf.sum()), min=1.0)
         clipped = torch.clamp(lr, 1.0 - self.clip_coef, 1.0 + self.clip_coef)
         obj = torch.minimum(lr * adv, clipped * adv) * vf
         if self.entropy_coef:
@@ -86,10 +119,11 @@ class PPO(BatchREINFORCE):
     def update(self, batch: TrajectoryBatch, generator: Optional[torch.Generator] = None,
                perms: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """``epochs`` passes of minibatch Adam; ``perms`` (one ``(num_mb,
-        mb)`` index tensor per epoch) fixes the minibatch order, else it is
-        drawn from ``generator``."""
+        mb)`` index tensor per epoch, into this rank's steps) fixes the
+        minibatch order, else it is drawn from ``generator``."""
         params = {k: v.clone() for k, v in self.params().items()}  # Adam steps in place
-        surr_before = self.surrogate(params, batch)
+        n = self.valid_count(batch)
+        surr_before = self.surrogate(params, batch, n)
         m = batch.num_envs * batch.horizon
         obs = batch.observations.reshape(m, -1)
         act = batch.actions.reshape(m, -1)
@@ -99,12 +133,16 @@ class PPO(BatchREINFORCE):
         lr_now = self.lr_now()
         for group in self.optimizer.param_groups:
             group["lr"] = lr_now
-        for perm in self.minibatch_perms(m, generator) if perms is None else perms:
+        if perms is None:
+            perms = (self.minibatch_perms(m, generator) if dist.world_size() == 1
+                     else self.sharded_perms(m, batch.horizon, generator))
+        for perm in perms:
             for idx in perm:
                 loss = self._minibatch_loss(obs[idx], act[idx], adv[idx], old_mean[idx],
                                             old_log_std[idx], validf[idx])
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                dist.all_sum_grads(self.policy.parameters())
                 self.optimizer.step()
                 self.load_params(self.policy.project(self.params()))
         new_params = self.params()
@@ -112,6 +150,6 @@ class PPO(BatchREINFORCE):
         return {
             "alpha": torch.tensor(lr_now, device=dev),
             "kl_dist": self.mean_kl(new_params, params, batch).detach(),
-            "surr_improvement": (self.surrogate(new_params, batch) - surr_before).detach(),
+            "surr_improvement": (self.surrogate(new_params, batch, n) - surr_before).detach(),
             "log_std_mean": torch.mean(new_params["log_std"]),
         }

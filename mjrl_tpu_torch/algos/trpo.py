@@ -12,6 +12,9 @@ Each probe is one forward pass of the candidate policy over the batch,
 which gives both the surrogate (against the sampling policy's mean and
 log-std stored in the batch) and the KL (against the old policy's mean and
 log-std, computed once before the ladder), and one scalar read to decide.
+Under data parallelism each probe's surrogate and KL are this rank's sums
+over the global count, both summed over the ranks in one all-reduce, so
+every rank takes the same decision.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from mjrl_tpu_torch.algos.base import Params, masked_kl, masked_surrogate
 from mjrl_tpu_torch.algos.npg import NPG
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 
@@ -37,22 +41,26 @@ class TRPO(NPG):
         self.max_backtracks = max_backtracks
 
     def _probe(self, params: Params, old_mean: torch.Tensor, old_log_std: torch.Tensor,
-               batch: TrajectoryBatch):
+               batch: TrajectoryBatch, n: torch.Tensor):
         """``(surrogate, mean KL(old || new))`` of ``params`` from one
-        forward pass; the same values as ``surrogate`` and ``mean_kl``."""
+        forward pass, ``n`` the valid count; the same values as
+        ``surrogate`` and ``mean_kl``."""
         new_mean, new_log_std = self.apply(params, batch.observations)
-        return (masked_surrogate(new_mean, new_log_std, batch),
-                masked_kl(old_mean, old_log_std, new_mean, new_log_std, batch.valid))
+        surr, kl = dist.all_sum(torch.stack([
+            masked_surrogate(new_mean, new_log_std, batch, n),
+            masked_kl(old_mean, old_log_std, new_mean, new_log_std, batch.valid, n=n)]))
+        return surr, kl
 
     @torch.no_grad()
     def _ladder(self, params, flat, npg_flat, alpha, unravel, surr_before, batch):
         """The backtracking probes: ``(probes, alpha, accepted, surr, kl)``."""
         old_mean, old_log_std = self.apply(params, batch.observations)
+        n = self.valid_count(batch)
         k, accepted = 0, False
         surr, kl = surr_before, torch.zeros_like(surr_before)
         while k < self.max_backtracks and not accepted:
             cand = self.policy.project(unravel(flat + alpha * npg_flat))
-            surr, kl = self._probe(cand, old_mean, old_log_std, batch)
+            surr, kl = self._probe(cand, old_mean, old_log_std, batch, n)
             accepted = bool((surr > surr_before) & (kl <= self.kl_dist))
             k += 1
             if not accepted:

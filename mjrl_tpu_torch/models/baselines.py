@@ -12,6 +12,15 @@ minibatches. Two options of the MLP baseline,
 off by default as in the reference: ``reg_coef`` adds an L2 penalty on the
 weights, and ``vf_clip_coef`` clips the value loss PPO-style around the
 pre-fit prediction.
+
+Under data parallelism (``parallel/dist.py``) each rank fits on its own
+rows: the least-squares fits sum the normal equations over the ranks, and
+the MLP fit draws the same global permutation on every rank, takes from
+each minibatch the rows in its own block (the others weigh 0), divides its
+loss by the minibatch's weight over every rank, and sums the gradient over
+the ranks before each Adam step: the single-rank fit up to the order of the
+sums, with no rows moved. The errors and the clip's target moments are over
+every rank's rows.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from torch import nn
 
 from mjrl_tpu_torch.models.mlp import MLP
 from mjrl_tpu_torch.ops.lstsq import ridge_solve
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import EnvSpec, TrajectoryBatch
 
 
@@ -42,7 +52,10 @@ def quadratic_features(obs: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
 
 
 def relative_error(pred, target, w) -> torch.Tensor:
-    return torch.sum(w * torch.square(target - pred)) / (torch.sum(w * torch.square(target)) + 1e-8)
+    """``sum(w (y - yhat)^2) / sum(w y^2)`` over every rank's rows."""
+    num, den = dist.all_sum(torch.stack([torch.sum(w * torch.square(target - pred)),
+                                         torch.sum(w * torch.square(target))]))
+    return num / (den + 1e-8)
 
 
 class Baseline(nn.Module, abc.ABC):
@@ -136,7 +149,8 @@ class MLPBaseline(Baseline):
         return self.mlp(base_features(obs, time))[..., 0]
 
     def fit_perms(self, m: int, generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
-        """One ``(num_minibatches, minibatch)`` index tensor per epoch."""
+        """One ``(num_minibatches, minibatch)`` index tensor per epoch, of
+        the ``m`` steps of every rank."""
         mb = min(self.batch_size, m)
         num_mb = max(m // mb, 1)
         device = self.mlp.in_shift.device
@@ -146,31 +160,38 @@ class MLPBaseline(Baseline):
         ]
 
     def fit(self, batch, generator=None, perms=None):
+        """``perms`` (one ``(num_mb, mb)`` tensor per epoch, indices into
+        every rank's steps) fixes the minibatches, else they are drawn from
+        ``generator``."""
         feats, target, w = _flat_fit_data(batch, base_features)
-        m = target.shape[0]
+        offset, m = dist.block(target.shape[0], target.device)
         with torch.no_grad():
             pred0 = self.mlp(feats)[..., 0]
             err_before = relative_error(pred0, target, w)
             if self.vf_clip_coef > 0.0:
-                n = torch.clamp(w.sum(), min=1.0)
-                t_mu = torch.sum(target * w) / n
+                count, total = dist.all_sum(torch.stack([w.sum(), torch.sum(target * w)]))
+                n = torch.clamp(count, min=1.0)
+                t_mu = total / n
                 vf_eps = self.vf_clip_coef * torch.sqrt(
-                    torch.sum(torch.square(target - t_mu) * w) / n + 1e-8)
+                    dist.all_sum(torch.sum(torch.square(target - t_mu) * w)) / n + 1e-8)
         for perm in self.fit_perms(m, generator) if perms is None else perms:
-            for idx in perm:
-                ww, y = w[idx], target[idx]
+            perm, weights = dist.local_index(perm, offset, target.shape[0], w)
+            dens = torch.clamp(dist.all_sum(weights.sum(dim=-1)), min=1.0)
+            for idx, ww, den in zip(perm, weights, dens):
+                y = target[idx]
                 pred = self.mlp(feats[idx])[..., 0]
                 sq = torch.square(pred - y)
                 if self.vf_clip_coef > 0.0:
                     v_old = pred0[idx]
                     v_clip = v_old + torch.clamp(pred - v_old, -vf_eps, vf_eps)
                     sq = torch.maximum(sq, torch.square(v_clip - y))
-                loss = torch.sum(ww * sq) / torch.clamp(ww.sum(), min=1.0)
-                if self.reg_coef > 0.0:
+                loss = torch.sum(ww * sq) / den
+                if self.reg_coef > 0.0 and dist.is_main():  # replicated: counted once
                     loss = loss + self.reg_coef * sum(
                         torch.sum(torch.square(layer.weight)) for layer in self.mlp.layers)
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                dist.all_sum_grads(self.mlp.parameters())
                 self.optimizer.step()
         with torch.no_grad():
             err_after = relative_error(self.mlp(feats)[..., 0], target, w)

@@ -10,7 +10,12 @@ normalized delta ``s' - s``; the input and target normalizers are the
 masked moments of each fit's batch, ``+1e-3`` on ``in_scale`` and ``+1e-6``
 on ``delta_scale``, kept as buffers. One Adam over the stacked tensors is K
 separate Adams (Adam works element by element; all members step together,
-so the one step count is each member's).
+so the one step count is each member's). Under data parallelism
+(``parallel/dist.py``) each rank holds its own rows' pairs: the normalizers
+are the moments over every rank's pairs, and each Adam step takes from the
+members' global minibatches the pairs in this rank's block, over the
+minibatch's weight on every rank, and sums the gradient over the ranks (as
+the MLP baseline's fit does).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import EnvSpec, TrajectoryBatch
 
 
@@ -104,19 +110,19 @@ class DynamicsEnsemble(nn.Module):
     # -- fitting -------------------------------------------------------------
     def fit_perms(self, m: int, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``(epochs, K, num_mb, mb)``: each member's own permutation of the
-        ``m`` pairs per epoch, cut to whole minibatches."""
+        ``m`` pairs (every rank's) per epoch, cut to whole minibatches."""
         mb = min(self.batch_size, m)
         num_mb = max(m // mb, 1)
         u = torch.rand(self.fit_epochs, self.K, m, generator=generator,
                        device=self.in_shift.device)
         return u.argsort(dim=-1)[..., : num_mb * mb].reshape(self.fit_epochs, self.K, num_mb, mb)
 
-    def _member_errors(self, xn, yn, w) -> torch.Tensor:
-        """``(K,)`` masked normalized MSE of each member over the rows of
-        ``(K, B, ...)`` inputs, targets and weights."""
+    def _member_errors(self, xn, yn, w, den) -> torch.Tensor:
+        """``(K,)`` masked normalized squared errors of each member over the
+        rows of ``(K, B, ...)`` inputs, targets and weights, summed, over
+        ``den`` ``(K,)``."""
         pred = self.net(xn)
-        num = torch.sum(w[..., None] * torch.square(pred - yn), dim=(1, 2))
-        return num / torch.clamp(w.sum(dim=1) * yn.shape[-1], min=1.0)
+        return torch.sum(w[..., None] * torch.square(pred - yn), dim=(1, 2)) / den
 
     def fit(self, batch: TrajectoryBatch, generator: Optional[torch.Generator] = None,
             perms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -125,32 +131,42 @@ class DynamicsEnsemble(nn.Module):
         trailing partial minibatch dropped); ``perms`` ``(epochs, K, num_mb,
         mb)`` fixes the order (else drawn from ``generator``). Returns
         ``dyn_error`` (mean over members of the masked normalized MSE over
-        all pairs after the fit), ``dyn_error_max`` and ``dyn_num_pairs``."""
+        all pairs after the fit), ``dyn_error_max`` and ``dyn_num_pairs``,
+        all over every rank's pairs."""
         obs, act, nxt, w = transition_pairs(batch)
         x = torch.cat([obs, act], dim=-1)
         delta = nxt - obs
+        do = delta.shape[-1]
         with torch.no_grad():
-            n = torch.clamp(w.sum(), min=1.0)
             wc = w[:, None]
-            in_shift = torch.sum(x * wc, 0) / n
-            in_scale = torch.sqrt(torch.sum(torch.square(x - in_shift) * wc, 0) / n) + 1e-3
-            d_shift = torch.sum(delta * wc, 0) / n
-            d_scale = torch.sqrt(torch.sum(torch.square(delta - d_shift) * wc, 0) / n) + 1e-6
+            sums = dist.all_sum_dict({"n": w.sum(), "x": torch.sum(x * wc, 0),
+                                      "delta": torch.sum(delta * wc, 0)})
+            n = torch.clamp(sums["n"], min=1.0)
+            in_shift, d_shift = sums["x"] / n, sums["delta"] / n
+            sq = dist.all_sum_dict({"x": torch.sum(torch.square(x - in_shift) * wc, 0),
+                                    "delta": torch.sum(torch.square(delta - d_shift) * wc, 0)})
+            in_scale = torch.sqrt(sq["x"] / n) + 1e-3
+            d_scale = torch.sqrt(sq["delta"] / n) + 1e-6
             for name, value in (("in_shift", in_shift), ("in_scale", in_scale),
                                 ("delta_shift", d_shift), ("delta_scale", d_scale)):
                 getattr(self, name).copy_(value)
             xn = (x - in_shift) / (in_scale + 1e-8)
             yn = (delta - d_shift) / d_scale
+        offset, m = dist.block(xn.shape[0], xn.device)
         if perms is None:
-            perms = self.fit_perms(xn.shape[0], generator)
+            perms = self.fit_perms(m, generator)
         for epoch in perms:
+            epoch, weights = dist.local_index(epoch, offset, xn.shape[0], w)
+            dens = torch.clamp(dist.all_sum(weights.sum(dim=-1)) * do, min=1.0)  # (K, num_mb)
             for j in range(epoch.shape[1]):
                 idx = epoch[:, j]  # (K, mb), a row of pairs per member
-                loss = self._member_errors(xn[idx], yn[idx], w[idx]).sum()
+                loss = self._member_errors(xn[idx], yn[idx], weights[:, j], dens[:, j]).sum()
                 self.optimizer.zero_grad(set_to_none=True)
                 loss.backward()
+                dist.all_sum_grads(self.parameters())
                 self.optimizer.step()
         with torch.no_grad():
-            errs = self._member_errors(xn.expand(self.K, *xn.shape), yn.expand(self.K, *yn.shape),
-                                       w.expand(self.K, *w.shape))
+            num = self._member_errors(xn.expand(self.K, *xn.shape), yn.expand(self.K, *yn.shape),
+                                      w.expand(self.K, *w.shape), 1.0)
+            errs = dist.all_sum(num) / torch.clamp(sums["n"] * do, min=1.0)
         return {"dyn_error": errs.mean(), "dyn_error_max": errs.max(), "dyn_num_pairs": n}

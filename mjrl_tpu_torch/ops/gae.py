@@ -6,7 +6,8 @@ the ``T`` columns, each step a vector op over all envs. Returns are
 in-episode Monte-Carlo sums (in samples mode a window's tail bootstraps
 with the value of its last state); GAE bootstraps a terminated episode with 0 and
 a truncated one with the value of its own last state; ``done`` resets the
-carry at episode boundaries.
+carry at episode boundaries. The advantages' moments
+(:func:`masked_mean_std`) are over every rank's rows (``parallel/dist.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 
@@ -64,11 +66,13 @@ def compute_gae(rewards, values, done, terminated, valid, gamma: float,
 
 
 def masked_mean_std(x: torch.Tensor, valid: torch.Tensor, eps: float = 1e-8):
-    """Mean/std over valid entries."""
+    """Mean/std over the valid entries of every rank's rows: the count and
+    the sum in one all-reduce, then the squared deviations in another."""
     validf = valid.to(x.dtype)
-    n = torch.clamp(validf.sum(), min=1.0)
-    mean = torch.sum(x * validf) / n
-    var = torch.sum(torch.square(x - mean) * validf) / n
+    count, total = dist.all_sum(torch.stack([validf.sum(), torch.sum(x * validf)]))
+    n = torch.clamp(count, min=1.0)
+    mean = total / n
+    var = dist.all_sum(torch.sum(torch.square(x - mean) * validf)) / n
     return mean, torch.sqrt(var + eps)
 
 

@@ -6,12 +6,17 @@ iterative refinement, retried with ``reg *= 10`` (at most ``max_retries``
 times) while the solution is not finite, the reference's escalating ridge.
 Where ``jax.scipy.linalg.cho_factor`` returns NaNs on a matrix that is not
 positive definite, ``torch.linalg.cholesky_ex`` reports it in ``info``;
-a nonzero ``info`` counts as a non-finite solution.
+a nonzero ``info`` counts as a non-finite solution. Under data
+parallelism the Gram matrix and the right side are summed over the ranks'
+rows (one all-reduce; the rows never move), and every rank solves the
+same system.
 """
 
 from __future__ import annotations
 
 import torch
+
+from mjrl_tpu_torch.parallel import dist
 
 
 def _chol_solve(gram: torch.Tensor, rhs: torch.Tensor, reg: torch.Tensor):
@@ -30,10 +35,10 @@ def ridge_solve(features: torch.Tensor, targets: torch.Tensor, weights: torch.Te
                 reg_coef: float = 1e-5, max_retries: int = 10) -> torch.Tensor:
     """``argmin_w |sqrt(W) (F w - y)|^2 + reg |w|^2`` for ``features (M,
     K)``, ``targets (M,)`` and ``weights (M,)`` (a 0/1 mask or sample
-    weights)."""
+    weights), the rows those of every rank."""
     wf = weights[:, None] * features
-    gram = features.T @ wf
-    rhs = wf.T @ targets
+    normal = dist.all_sum_dict({"gram": features.T @ wf, "rhs": wf.T @ targets})
+    gram, rhs = normal["gram"], normal["rhs"]
     reg = torch.tensor(reg_coef, dtype=gram.dtype, device=gram.device)
     x, ok = _chol_solve(gram, rhs, reg)
     for _ in range(max_retries):

@@ -38,6 +38,7 @@ tensor they run the plain version, ``physics/soa.py::multistep``. ``K1``,
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -133,7 +134,9 @@ def size_class(model: Model) -> int:
 def build_library(source: str, compiler_cmd, build_dir: Path, csrc: Path = CSRC) -> Path:
     """Compile ``<csrc>/<source>`` into a shared library in ``build_dir``,
     unless a build of the same sources (every header in ``csrc``) and
-    flags is there."""
+    flags is there. Processes that want the same build at once (the ranks
+    of a data-parallel run) take a file lock: one compiles, the others wait
+    and load its library."""
     csrc = Path(csrc)
     digest = hashlib.sha256()
     for path in [*sorted(csrc.glob("*.h")), csrc / source]:
@@ -144,12 +147,16 @@ def build_library(source: str, compiler_cmd, build_dir: Path, csrc: Path = CSRC)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [*compiler_cmd, "-o", str(tmp), str(csrc / source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"build failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # built by the process that held the lock
+            return out
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [*compiler_cmd, "-o", str(tmp), str(csrc / source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"build failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
     return out
 
 

@@ -9,6 +9,7 @@ from mjrl_tpu_torch.samplers.rollout import (  # noqa: F401
     draw_autoreset_noise,
     draw_episode_noise,
     init_autoreset_carry,
+    local_noise,
     rollout_statistics,
     run_autoreset,
     run_episodes,

@@ -27,6 +27,11 @@ observation is ~1350 ops). An env's state is a NamedTuple of batch-first
 tensors (``EnvState``, or Adroit's with its link offsets and target); its
 reset noise is the pair ``reset_noise`` draws (locomotion: q and qd noise;
 pen: the target angles and an empty tensor).
+
+Under data parallelism (``parallel/dist.py``) every draw is made for all
+the batch's rows, as a single-rank run makes it, and each rank keeps its
+own block (:func:`local_noise`); the statistics reduce over every rank's
+rows.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 from mjrl_tpu_torch.envs.base import Env
 from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
 
 
@@ -58,12 +64,13 @@ class EpisodeNoise:
 def draw_episode_noise(env: Env, num_envs: int, horizon: int,
                        generator: Optional[torch.Generator] = None,
                        eval_mode: bool = False) -> EpisodeNoise:
-    """The reset draws and, unless ``eval_mode``, the action noise."""
+    """The reset draws and, unless ``eval_mode``, the action noise of
+    ``num_envs`` rows; this rank's block of them."""
     reset_q, reset_qd = env.reset_noise(num_envs, generator)
     shape = (horizon, num_envs, 0 if eval_mode else env.spec.action_dim)
     action = (torch.empty(shape, device=env.device) if eval_mode
               else torch.randn(shape, device=env.device, generator=generator))
-    return EpisodeNoise(reset_q=reset_q, reset_qd=reset_qd, action=action)
+    return local_noise(EpisodeNoise(reset_q=reset_q, reset_qd=reset_qd, action=action))
 
 
 @torch.no_grad()
@@ -131,18 +138,33 @@ def carry_from_noise(env: Env, q_noise: torch.Tensor,
 
 def init_autoreset_carry(env: Env, num_envs: int,
                          generator: Optional[torch.Generator] = None) -> SamplerCarry:
-    """A fresh carry for :func:`sample_autoreset`'s persistent mode."""
-    return carry_from_noise(env, *env.reset_noise(num_envs, generator))
+    """A fresh carry of ``num_envs`` rows for :func:`sample_autoreset`'s
+    persistent mode; this rank's block of them."""
+    q_noise, qd_noise = env.reset_noise(num_envs, generator)
+    return carry_from_noise(env, dist.local_rows(q_noise), dist.local_rows(qd_noise))
 
 
 def draw_autoreset_noise(env: Env, num_envs: int, num_steps: int,
                          generator: Optional[torch.Generator] = None) -> AutoresetNoise:
+    """Each step's resets and action noise for ``num_envs`` rows, drawn in
+    ``(step, env)`` order; this rank's block of the rows."""
     reset_q, reset_qd = env.reset_noise(num_steps * num_envs, generator)
     action = torch.randn(num_steps, num_envs, env.spec.action_dim, device=env.device,
                          generator=generator)
-    return AutoresetNoise(reset_q=reset_q.reshape(num_steps, num_envs, *reset_q.shape[1:]),
-                          reset_qd=reset_qd.reshape(num_steps, num_envs, *reset_qd.shape[1:]),
-                          action=action)
+    return local_noise(AutoresetNoise(
+        reset_q=reset_q.reshape(num_steps, num_envs, *reset_q.shape[1:]),
+        reset_qd=reset_qd.reshape(num_steps, num_envs, *reset_qd.shape[1:]), action=action))
+
+
+def local_noise(noise):
+    """This rank's block of the rows of an :class:`EpisodeNoise` or
+    :class:`AutoresetNoise` drawn for all of them (itself on one rank)."""
+    if isinstance(noise, EpisodeNoise):
+        return EpisodeNoise(reset_q=dist.local_rows(noise.reset_q),
+                            reset_qd=dist.local_rows(noise.reset_qd),
+                            action=dist.local_rows(noise.action, dim=1))
+    return AutoresetNoise(*(dist.local_rows(x, dim=1) for x in
+                            (noise.reset_q, noise.reset_qd, noise.action)))
 
 
 @torch.no_grad()
@@ -196,8 +218,10 @@ def sample_autoreset(env: Env, policy: GaussianMLP, carry: SamplerCarry,
                      ) -> Tuple[TrajectoryBatch, SamplerCarry]:
     """Continuous rows with in-place auto-reset, continuing from ``carry``
     (a fresh one from :func:`init_autoreset_carry` starts every row from
-    reset); every transition is valid. Returns ``(batch, new_carry)``."""
-    noise = draw_autoreset_noise(env, carry.obs.shape[0], num_steps, generator)
+    reset); every transition is valid. Returns ``(batch, new_carry)``. The
+    noise is drawn for every rank's rows, ``carry`` holding this rank's."""
+    num_envs = dist.block(carry.obs.shape[0], carry.obs.device)[1]
+    noise = draw_autoreset_noise(env, num_envs, num_steps, generator)
     return run_autoreset(env, policy, noise, carry, episode_horizon or env.spec.horizon)
 
 
@@ -236,7 +260,9 @@ def rollout_statistics(batch: TrajectoryBatch) -> RolloutStats:
     else the rewards summed per episode along each row. ``success_rate``
     is 100 times the share of those episodes that ever succeeded: from
     ``episode_success`` (samples mode) or from ``success`` taken along each
-    row (episodes mode), and 0 for an env that reports no success."""
+    row (episodes mode), and 0 for an env that reports no success. Over
+    every rank's rows: the counts and sums are all-reduced, the max and min
+    too."""
     validf = batch.valid.to(batch.rewards.dtype)
     rewards = batch.rewards * validf
     done = batch.done
@@ -249,17 +275,9 @@ def rollout_statistics(batch: TrajectoryBatch) -> RolloutStats:
             acc = acc + rewards[:, t]
             scores[:, t] = torch.where(done[:, t], acc, torch.zeros_like(acc))
             acc = torch.where(done[:, t], torch.zeros_like(acc), acc)
-    raw_ep = done.to(rewards.dtype).sum()
-    n_ep = torch.clamp(raw_ep, min=1.0)
-    has_ep = raw_ep > 0
-    mean = scores.sum() / n_ep
-    var = torch.where(done, torch.square(scores - mean), torch.zeros_like(scores)).sum() / n_ep
-    big = torch.finfo(rewards.dtype).max
     zero = rewards.new_zeros(())
-    mx = torch.where(has_ep, torch.where(done, scores, -big).max(), zero)
-    mn = torch.where(has_ep, torch.where(done, scores, big).min(), zero)
     if "episode_success" in batch.env_info:
-        success_rate = 100.0 * (batch.env_info["episode_success"] * validf).sum() / n_ep
+        successes = (batch.env_info["episode_success"] * validf).sum()
     elif "success" in batch.env_info:
         succ = batch.env_info["success"].to(rewards.dtype) * validf
         acc = succ.new_zeros(succ.shape[0])
@@ -268,8 +286,21 @@ def rollout_statistics(batch: TrajectoryBatch) -> RolloutStats:
             acc = torch.maximum(acc, succ[:, t])
             ep_succ[:, t] = torch.where(done[:, t], acc, torch.zeros_like(acc))
             acc = torch.where(done[:, t], torch.zeros_like(acc), acc)
-        success_rate = 100.0 * ep_succ.sum() / n_ep
+        successes = ep_succ.sum()
     else:
-        success_rate = zero
+        successes = zero
+    raw_ep, total, successes = dist.all_sum(torch.stack(
+        [done.to(rewards.dtype).sum(), scores.sum(), successes]))
+    n_ep = torch.clamp(raw_ep, min=1.0)
+    has_ep = raw_ep > 0
+    mean = total / n_ep
+    var = dist.all_sum(torch.where(done, torch.square(scores - mean),
+                                   torch.zeros_like(scores)).sum()) / n_ep
+    big = torch.finfo(rewards.dtype).max
+    mx, neg_mn = dist.all_max(torch.stack([torch.where(done, scores, -big).max(),
+                                           -torch.where(done, scores, big).min()]))
+    mx = torch.where(has_ep, mx, zero)
+    mn = torch.where(has_ep, -neg_mn, zero)
+    success_rate = 100.0 * successes / n_ep
     return RolloutStats(mean=mean, std=torch.sqrt(var), max=mx, min=mn,
                         success_rate=success_rate, num_episodes=raw_ep)

@@ -14,12 +14,24 @@ The run is on the card (``--device cuda``, the default) unless ``--device
 cpu`` is asked for; without a card a CUDA run fails and never falls back
 to the CPU.
 
+``mesh_devices: D > 1`` trains as D ranks (``parallel/dist.py``), each with
+a block of the env rows. Under ``torchrun`` (``WORLD_SIZE`` set, and equal
+to D) this process is one rank and joins the group torchrun set up; else
+``run_job`` starts D ranks on this host (``torch.multiprocessing``'s
+``spawn``) that meet through a file in a temporary directory. Rank r runs on
+``cuda:(r % device_count)`` (or the CPU): NCCL when each rank has a card of
+its own, gloo when ranks share a card or run on the CPU. Rank 0 writes the
+config, log and checkpoints; a rank that fails stops the run.
+
     python -m mjrl_tpu_torch.train --config examples/hopper_npg.json --output runs/hopper
+    torchrun --nproc-per-node 2 -m mjrl_tpu_torch.train --config examples/humanoid_ppo_v4.json \
+        --output runs/hppo --set mesh_devices=2
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 
@@ -27,6 +39,7 @@ import numpy as np
 import torch
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
 from mjrl_tpu_torch.utils.configs import (
     RunConfig,
@@ -47,13 +60,32 @@ def side_generator(seed: int, key: int, device) -> torch.Generator:
 
 
 def run_job(cfg: RunConfig, output: str, device="cuda") -> BatchREINFORCE:
-    """Train ``cfg`` into ``output`` on ``device``; returns the agent."""
+    """Train ``cfg`` into ``output`` on ``device``; returns the agent. With
+    ``mesh_devices > 1`` outside a group, the ranks run in processes of
+    their own and the agent returned is the run's last checkpoint, loaded
+    into a single-rank agent on ``device``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: pass device='cpu' to train on the CPU")
-    cfg.to_json(os.path.join(output, "config.json"))
+    if cfg.mesh_devices > 1 and dist.world_size() == 1:
+        if "WORLD_SIZE" in os.environ:  # one rank of torchrun's group
+            world, r = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+            local = int(os.environ.get("LOCAL_RANK", r))
+            dist.init_group(r, world, dist.rank_device(device, local), "env://")
+            try:
+                return run_job(cfg, output, dist.rank_device(device, local))
+            finally:
+                dist.shutdown()
+        dist.spawn(_run_rank, cfg.mesh_devices, device, (cfg, output))
+        single = dataclasses.replace(cfg, mesh_devices=0)
+        _, _, _, agent = build(single, device=device)
+        agent.load_state_dict(CheckpointManager(output, create=False).restore_latest(
+            map_location=device))
+        return agent
+    if dist.is_main():
+        cfg.to_json(os.path.join(output, "config.json"))
     _, _, _, agent = build(cfg, device=device)
-    if CheckpointManager(output).latest_step() is None:
+    if CheckpointManager(output, create=False).latest_step() is None:
         if cfg.init_policy_from:
             policy_warm_start(cfg, agent)
         if cfg.bc_init:
@@ -62,6 +94,11 @@ def run_job(cfg: RunConfig, output: str, device="cuda") -> BatchREINFORCE:
             obs_norm_init(agent, side_generator(cfg.seed, 2, device))
     return train_agent(output, agent, seed=cfg.seed, niter=cfg.niter, save_freq=cfg.save_freq,
                        evaluation_rollouts=cfg.evaluation_rollouts)
+
+
+def _run_rank(device: torch.device, cfg: RunConfig, output: str) -> None:
+    """One rank of a run that ``run_job`` spawned."""
+    run_job(cfg, output, device)
 
 
 def load_config(config_path=None, overrides=()) -> RunConfig:

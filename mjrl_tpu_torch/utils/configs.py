@@ -9,10 +9,11 @@ of the four baselines, on the env's device.
 The warm starts, applied by ``train.run_job`` in this order:
 ``policy_warm_start`` (``init_policy_from``: another run's latest policy
 and baseline), ``warm_start`` (``bc_init``: BC on the demos) and
-``obs_norm_init`` (``obs_norm``). ``mesh_devices > 1`` raises
-``NotImplementedError`` naming, by its title, the ROADMAP item that ports
-it; an unknown algorithm, policy, baseline or env raises ``KeyError``,
-as in the reference; no setting is ignored.
+``obs_norm_init`` (``obs_norm``). ``mesh_devices: D > 1`` builds one rank
+of D in a ``torch.distributed`` group (``parallel/dist.py``), which
+``train.run_job`` starts or joins; ``build`` outside such a group raises.
+An unknown algorithm, policy, baseline or env raises ``KeyError``, as in
+the reference; no setting is ignored.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from mjrl_tpu_torch.models import (
     QuadraticBaseline,
     ZeroBaseline,
 )
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.samplers import init_autoreset_carry, sample_autoreset, sample_episodes
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
 from mjrl_tpu_torch.utils.demos import load_demo_pickle
@@ -74,7 +76,7 @@ class RunConfig:
     init_policy_from: Optional[str] = None
     # observation normalization from a random-policy rollout at init
     obs_norm: bool = False
-    # parallelism: shard the env axis over this many devices (0 = single)
+    # parallelism: shard the env axis over this many ranks (0 = single)
     mesh_devices: int = 0
     # harness
     save_freq: int = 10
@@ -108,23 +110,29 @@ BASELINES = {"zero": ZeroBaseline, "linear": LinearBaseline, "quadratic": Quadra
              "mlp": MLPBaseline}
 POLICIES = {"mlp": GaussianMLP, "linear": GaussianLinear}
 
-# the title of ROADMAP.md's queue 1 item that ports what the port lacks
-DATA_PARALLEL = "Env-axis data parallel"
 
-
-def check_ported(cfg: RunConfig) -> None:
-    """Raise ``NotImplementedError`` for a setting the port does not have
-    (``mesh_devices > 1``)."""
-    if cfg.mesh_devices > 1:
-        raise NotImplementedError(
-            f'mesh_devices > 1 is not ported yet (ROADMAP queue 1, "{DATA_PARALLEL}")')
+def check_group(cfg: RunConfig) -> None:
+    """Raise unless this process is one of ``mesh_devices`` ranks of a
+    ``torch.distributed`` group (or, for 0 or 1, in none), each with at
+    least one of the ``num_traj`` rows and of the evaluation episodes."""
+    ranks = max(cfg.mesh_devices, 1)
+    if dist.world_size() != ranks:
+        raise RuntimeError(
+            f"mesh_devices={cfg.mesh_devices} trains as {ranks} rank(s) of one torch.distributed "
+            f"group and this process is in a group of {dist.world_size()}: start it through "
+            f"mjrl_tpu_torch.train.run_job or python -m mjrl_tpu_torch.train, which start "
+            f"the ranks, or under torchrun --nproc-per-node {ranks} -m mjrl_tpu_torch.train")
+    if cfg.num_traj < ranks or 0 < cfg.evaluation_rollouts < ranks:
+        raise ValueError(f"num_traj={cfg.num_traj} and evaluation_rollouts="
+                         f"{cfg.evaluation_rollouts} must give each of the {ranks} ranks a row")
 
 
 def build(cfg: RunConfig, device="cuda"):
     """``(env, policy, baseline, agent)`` from a config, on ``device``. The
     policy's and the MLP baseline's initial weights come from ``cfg.seed``;
-    ``demo_file``'s demos are loaded onto the env's device."""
-    check_ported(cfg)
+    ``demo_file``'s demos are loaded onto the env's device. With
+    ``mesh_devices > 1``, this rank's (see :func:`check_group`)."""
+    check_group(cfg)
     env = envs.make(cfg.env_name, device=device, **cfg.env_kwargs)
     demo_batch = None
     if cfg.demo_file is not None:
@@ -162,7 +170,9 @@ def policy_warm_start(cfg: RunConfig, agent: BatchREINFORCE) -> None:
     restored = src.restore_latest(map_location=agent.env.device)
     if restored is None:
         raise FileNotFoundError(f"init_policy_from: no checkpoint under {cfg.init_policy_from}")
-    print(f"Policy warm start from {cfg.init_policy_from} iteration {int(restored['iteration'])}")
+    if dist.is_main():
+        print(f"Policy warm start from {cfg.init_policy_from} iteration "
+              f"{int(restored['iteration'])}")
     agent.load_policy_and_baseline(restored)
 
 
@@ -174,8 +184,9 @@ def warm_start(cfg: RunConfig, agent: BatchREINFORCE,
         raise ValueError("bc_init requires demo_file")
     demos = load_demo_pickle(cfg.demo_file, device=agent.env.device)
     metrics = BC(demos, agent.policy, **cfg.bc_kwargs).train(generator)
-    print(f"BC warm start: loss {float(metrics['loss_before']):.6g} -> "
-          f"{float(metrics['loss_after']):.6g}")
+    if dist.is_main():
+        print(f"BC warm start: loss {float(metrics['loss_before']):.6g} -> "
+              f"{float(metrics['loss_after']):.6g}")
     return metrics
 
 
@@ -187,7 +198,8 @@ def obs_norm_init(agent: BatchREINFORCE, generator: Optional[torch.Generator] = 
     of one batch of the initial policy, over its valid steps. The batch
     comes from the agent's sampler with a fresh reset: a samples-mode
     agent's persistent carry is untouched. One-shot statistics, not running
-    ones, keep the policy fixed for the on-policy ratios."""
+    ones, keep the policy fixed for the on-policy ratios. Over every rank's
+    rows."""
     env, policy = agent.env, agent.policy
     if agent.sample_mode == "trajectories":
         batch = sample_episodes(env, policy, agent.num_traj, agent.horizon, generator)
@@ -197,8 +209,9 @@ def obs_norm_init(agent: BatchREINFORCE, generator: Optional[torch.Generator] = 
         batch, _ = sample_autoreset(env, policy, carry, window, agent.horizon, generator)
     obs = batch.observations.reshape(-1, batch.observations.shape[-1])
     w = batch.valid.reshape(-1).to(obs.dtype)[:, None]
-    n = torch.clamp(w.sum(), min=1.0)
-    mean = (obs * w).sum(0) / n
-    var = (torch.square(obs - mean) * w).sum(0) / n
+    sums = dist.all_sum_dict({"n": w.sum(), "obs": (obs * w).sum(0)})
+    n = torch.clamp(sums["n"], min=1.0)
+    mean = sums["obs"] / n
+    var = dist.all_sum((torch.square(obs - mean) * w).sum(0)) / n
     policy.mlp.in_shift.copy_(mean)
     policy.mlp.in_scale.copy_(torch.clamp(torch.sqrt(var), min=scale_min))

@@ -23,6 +23,14 @@ tabulate; a plain line is printed), and the retry loop around a failed step: a C
 error in PyTorch poisons the context, so a retry in the same process
 would hide it rather than recover.
 A crashed run resumes from its latest checkpoint when started again.
+
+Under data parallelism (``parallel/dist.py``) every rank runs this loop on
+its own rows with the same generators; the metrics are all-reduced, so
+every rank takes the same decisions. Rank 0 alone writes the log and the
+checkpoints and prints; every rank restores from the checkpoint on resume
+(each reads it before its first collective, and rank 0 cannot write a
+newer one before that); at each checkpoint the ranks' replicated state is
+held bit for bit (``dist.check_replicated``).
 """
 
 from __future__ import annotations
@@ -31,11 +39,13 @@ import copy
 import math
 import os
 import time
+from typing import Any, Dict
 
 import numpy as np
 import torch
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
+from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.samplers.rollout import rollout_statistics, sample_episodes
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
 from mjrl_tpu_torch.utils.logger import DataLog
@@ -46,12 +56,27 @@ def iteration_seed(seed: int, iteration: int) -> int:
     return int(np.random.SeedSequence([seed, iteration]).generate_state(1)[0])
 
 
+def replicated_tensors(state: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The tensors of an agent's ``state_dict()`` that every rank holds
+    alike, by dotted name: all but the sampler carry's rows."""
+    out = {}
+    for k, v in state.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, torch.Tensor):
+            out[name] = v
+        elif isinstance(v, dict) and k != "sampler_carry":
+            out.update(replicated_tensors(v, name + "."))
+    return out
+
+
 def train_agent(job_name: str, agent: BatchREINFORCE, seed: int = 0, niter: int = 101,
                 save_freq: int = 10, evaluation_rollouts: int = 0) -> BatchREINFORCE:
-    os.makedirs(job_name, exist_ok=True)
+    main = dist.is_main()
     logdir = os.path.join(job_name, "logs")
-    logger = DataLog(logdir)
-    ckpt = CheckpointManager(job_name)
+    if main:
+        os.makedirs(job_name, exist_ok=True)
+    logger = DataLog(logdir if main else None)
+    ckpt = CheckpointManager(job_name, create=main)
     device = agent.env.device
 
     start_iter = 0
@@ -59,10 +84,11 @@ def train_agent(job_name: str, agent: BatchREINFORCE, seed: int = 0, niter: int 
     if restored is not None:
         agent.load_state_dict(restored)
         start_iter = agent.iteration
-        print(f"Resuming {job_name} from iteration {start_iter}")
+        if main:
+            print(f"Resuming {job_name} from iteration {start_iter}")
         # reload the earlier rows, so save_log keeps them
         prev_csv = os.path.join(logdir, "log.csv")
-        if os.path.exists(prev_csv):
+        if main and os.path.exists(prev_csv):
             logger.read_log(prev_csv)
             logger.shrink_to(start_iter)
 
@@ -100,14 +126,19 @@ def train_agent(job_name: str, agent: BatchREINFORCE, seed: int = 0, niter: int 
             best_state = copy.deepcopy(agent.state_dict())  # stays on the device
 
         if i % save_freq == 0 or i == niter - 1:
-            ckpt.save(i + 1, agent.state_dict())
-            if best_state is not None:
-                ckpt.save_best(best_state)
-                best_state = None
-            logger.save_log(logdir)
+            state = agent.state_dict()
+            dist.check_replicated(replicated_tensors(state))
+            if main:
+                ckpt.save(i + 1, state)
+                if best_state is not None:
+                    ckpt.save_best(best_state)
+                logger.save_log(logdir)
+            best_state = None
 
-        print(f"iter {i}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(row.items())))
+        if main:
+            print(f"iter {i}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(row.items())))
 
-    logger.save_log(logdir)
+    if main:
+        logger.save_log(logdir)
     logger.close()
     return agent

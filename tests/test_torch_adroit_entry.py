@@ -3,7 +3,7 @@ which example configs the port builds.
 
 ``adroit_door_npg_small.json`` runs at 4 envs x 5 steps through
 ``run_job`` and resumes from its checkpoint. Every ``examples/*.json``
-either builds (``check_ported`` and ``envs.make``: all 39 since
+either builds (``build``'s checks and ``envs.make``: all 39 since
 model-based NPG was ported) or raises naming, by its title, the ROADMAP.md
 queue item that ports what it needs (none is left).
 """
@@ -47,7 +47,7 @@ REFUSED = set()
 
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_builds_or_names_a_roadmap_title(name):
-    """Each example config either builds (``check_ported`` and
+    """Each example config either builds (``build``'s checks and
     ``envs.make``) or raises naming the ROADMAP queue item that ports it,
     by a title that starts an item of that queue in ROADMAP.md."""
     config = load_config(os.path.join(ROOT, "examples", name), [])

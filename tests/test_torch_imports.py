@@ -11,7 +11,9 @@ ridge solve and the least-squares baselines import and point_mass steps;
 model-based NPG (algos/model_npg.py, models/dynamics.py) takes a train
 step on point_mass, pendulum and cartpole (envs/classic.py) step, and
 the linear policy and utils/plots.py import (matplotlib only inside
-``make_train_plots``). (The card's machine has none of those packages.)"""
+``make_train_plots``); parallel/dist.py imports, and with no group its
+helpers are the identity. (The card's machine has none of those
+packages.)"""
 
 import os
 import subprocess
@@ -93,6 +95,11 @@ for name, obs_dim in (("pendulum", 3), ("cartpole", 4)):
     state, obs = env.reset(2, torch.Generator().manual_seed(0))
     state, obs, reward, term, info = env.step(state, torch.ones(2, 1))
     assert obs.shape == (2, obs_dim) and torch.isfinite(reward).all()
+assert "mjrl_tpu_torch.parallel.dist" in names
+from mjrl_tpu_torch.parallel import dist
+x = torch.arange(6.0)
+assert dist.world_size() == 1 and dist.all_sum(x) is x and dist.local_rows(x) is x
+assert dist.gather_rows(x) is x and dist.row_block(5, 1, 2) == (3, 5)
 print("imported", len(names), "modules")
 """
 

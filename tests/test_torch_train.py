@@ -4,8 +4,9 @@ Hopper NPG from ``examples/hopper_npg.json`` cut to 4 envs x 20 steps:
 the CLI writes ``config.json``, a ``log.csv`` with every column of the JAX
 package's hopper run (``runs/hopper_npg_expert/logs/log.csv``) and
 checkpoints; a resumed run continues at the checkpoint's iteration with
-the log cut to match and ends with the policy of a straight run; the one
-setting the port does not have (``mesh_devices > 1``) raises, and those it
+the log cut to match and ends with the policy of a straight run;
+``mesh_devices=2`` raises in ``build`` outside a group of two ranks and
+trains through ``run_job``, which starts them; the settings the port
 had refused until BC, DAPG, the warm starts, the evaluation rollouts, the
 least-squares baselines, model-based NPG, the linear policy, REINFORCE and
 the classic envs were ported build; every other config the port runs goes through the
@@ -86,10 +87,17 @@ def test_resume_continues_a_run_exactly(tmp_path):
 
 
 @pytest.mark.parametrize("override", ["mesh_devices=2"])
-def test_unported_settings_raise(override):
-    """The one setting the port refuses names its ROADMAP queue 1 item."""
-    with pytest.raises(NotImplementedError, match='ROADMAP queue 1, "Env-axis data parallel"'):
+def test_unported_settings_raise(override, tmp_path):
+    """``mesh_devices=2``, refused until data parallelism was ported (the
+    name is kept from then): ``build`` outside a group of two ranks raises,
+    saying how to start them; ``run_job`` starts them and trains."""
+    with pytest.raises(RuntimeError, match="start it through mjrl_tpu_torch.train.run_job"):
         build(load_config(HOPPER, [override]), device="cpu")
+    agent = run_job(load_config(HOPPER, [override, "num_traj=4", "horizon=4", "niter=1"]),
+                    str(tmp_path), device="cpu")
+    assert agent.iteration == 1 and agent.num_traj == 4
+    (row,) = _rows(str(tmp_path / "logs" / "log.csv"))
+    assert all(math.isfinite(float(v)) for v in row.values()), row
 
 
 @pytest.mark.parametrize("overrides,agent_type,policy_type,env_type", [

@@ -1,7 +1,7 @@
 """Where one training iteration of the PyTorch port spends its time, on a
 GPU.
 
-    python3 tools/torch_npg_breakdown.py [--row ROW] [--no-profile] [--demos DIR]
+    python3 tools/torch_npg_breakdown.py [--row ROW] [--no-profile] [--demos DIR] [--ranks D]
 
 Builds the agent of one row: the bench's ant rows at their width (1024
 envs x 100 steps, policy (64, 64), MLPBaseline(epochs=2, batch_size=1024),
@@ -44,6 +44,13 @@ phase by phase on the host clock (each phase ends in
 profiled wall time, which the profiler inflates) and the kernel's share.
 ``--no-profile`` skips the traced iteration (humanoid TRPO's takes ~27 min:
 the profiler's post-processing of ~2.3M ops). Prints one JSON line.
+
+``--ranks D`` runs the row as D data-parallel ranks (``mesh_devices: D``,
+``mjrl_tpu_torch/parallel/dist.py``), spawned processes sharing this
+host's first card over gloo, each timing its own phases; every all-reduce
+is counted with its bytes and timed between two syncs (``collectives``: per
+phase, count, bytes and ms, the wait for the other ranks included). Prints
+one JSON line per rank, rank 0's first.
 """
 
 from __future__ import annotations
@@ -73,7 +80,65 @@ ROW_OVERRIDES = {"adroit_hammer": ["num_traj=2048", "min_log_std=-2.0",
                                    'baseline_kwargs={"epochs": 2, "batch_size": 4096}']}
 
 
+def _count_collectives(stats):
+    """Wrap ``torch.distributed.all_reduce`` in this process to add each
+    call's count, bytes and ms (between two syncs) to ``stats``."""
+    import torch
+    import torch.distributed as tdist
+
+    plain = tdist.all_reduce
+
+    def counted(tensor, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(tensor, *args, **kwargs)
+        torch.cuda.synchronize()
+        stats["count"] += 1
+        stats["bytes"] += tensor.numel() * tensor.element_size()
+        stats["ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    tdist.all_reduce = counted
+
+
+def _rank(device, argv, out_dir):
+    """One rank of ``--ranks D``: the breakdown on this rank's rows."""
+    from mjrl_tpu_torch.parallel import dist
+
+    path = os.path.join(out_dir, f"rank{dist.rank()}.json")
+    with open(path, "w") as f:
+        json.dump(breakdown(argv, device), f)
+
+
 def main() -> int:
+    import torch
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--ranks", type=int, default=1)
+    args, rest = p.parse_known_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    if args.ranks <= 1:
+        print(json.dumps(breakdown(rest, torch.device("cuda"))))
+        return 0
+    import tempfile
+
+    from mjrl_tpu_torch.parallel import dist
+
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = (visible or "0").split(",")[0]  # the ranks share it
+    with tempfile.TemporaryDirectory() as out:
+        dist.spawn(_rank, args.ranks, "cuda", (rest, out))
+        for r in range(args.ranks):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                print(f.read())
+    return 0
+
+
+def breakdown(argv, dev):
+    """The breakdown of ``argv``'s row on ``dev`` (this rank's rows in a
+    group): the dict that ``main`` prints."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -93,29 +158,34 @@ def main() -> int:
     from mjrl_tpu_torch.train import load_config, side_generator
     from mjrl_tpu_torch.utils.configs import build, obs_norm_init, warm_start
 
+    from mjrl_tpu_torch.parallel import dist
+
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--row", choices=("penalty", "newton", *CONFIG_ROWS), default="penalty")
     p.add_argument("--no-profile", action="store_true")
     p.add_argument("--demos", default=None, help="the directory of the DAPG rows' demo pickles")
-    args = p.parse_args()
+    args = p.parse_args(argv)
     row = args.row
-    if not torch.cuda.is_available():
-        print("no CUDA device", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda")
-    phases = {}
+    phases, collectives = {}, {}
+    stats = {"count": 0, "bytes": 0, "ms": 0.0}
+    ranks = dist.world_size()
+    if ranks > 1:
+        _count_collectives(stats)
 
     def timed(name, fn):
         torch.cuda.synchronize()
+        before = dict(stats)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         phases[name] = (time.perf_counter() - t0) * 1e3
+        if ranks > 1:
+            collectives[name] = {k: stats[k] - before[k] for k in stats}
         return out
 
     evaluation = 0
     if row in CONFIG_ROWS:
-        overrides = ROW_OVERRIDES.get(row, [])
+        overrides = [*ROW_OVERRIDES.get(row, []), f"mesh_devices={ranks if ranks > 1 else 0}"]
         cfg = load_config(ROOT / "examples" / CONFIG_ROWS[row], overrides)
         if cfg.demo_file and args.demos:
             demo_file = os.path.join(args.demos, os.path.basename(cfg.demo_file))
@@ -178,13 +248,16 @@ def main() -> int:
     plain_phases = dict(phases)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    start, stop = dist.row_block(num_envs)
+    result = {"card": smi, "row": row, "rank": dist.rank(), "ranks": ranks,
+              "wall_ms": plain_wall, "phases_ms": plain_phases, "one_off_ms": one_off,
+              "kernel": kernel_name, "kernel_launches": kernel and kernel.launches,
+              "num_envs": num_envs, "rank_envs": stop - start,
+              "horizon": horizon, "steps_per_iteration": window}
+    if ranks > 1:
+        result["collectives"] = {k: dict(v) for k, v in collectives.items()}
     if args.no_profile:
-        print(json.dumps({"card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,
-                          "one_off_ms": one_off, "kernel": kernel_name,
-                          "kernel_launches": kernel and kernel.launches,
-                          "num_envs": num_envs, "horizon": horizon,
-                          "steps_per_iteration": window}))
-        return 0
+        return result
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = iteration()
 
@@ -199,16 +272,13 @@ def main() -> int:
     busy = sum(device_us(e) for e in events) / 1e3
     kernel_ms = sum(device_us(e) for e in events if kernel and kernel.name in e.key) / 1e3
     top = sorted(events, key=device_us, reverse=True)[:8]
-    print(json.dumps({
-        "card": smi, "row": row, "wall_ms": plain_wall, "phases_ms": plain_phases,
-        "profiled_wall_ms": wall, "profiled_phases_ms": phases, "one_off_ms": one_off,
-        "device_busy_ms": busy, "device_busy_share": busy / wall, "kernel": kernel_name,
-        "kernel_device_ms": kernel_ms, "kernel_launches": kernel and kernel.launches,
-        "num_envs": num_envs, "horizon": horizon,
-        "steps_per_iteration": window,
+    result.update({
+        "profiled_wall_ms": wall, "profiled_phases_ms": phases, "device_busy_ms": busy,
+        "device_busy_share": busy / wall, "kernel_device_ms": kernel_ms,
+        "kernel_launches": kernel and kernel.launches,
         "top_device_ms": {e.key[:60]: device_us(e) / 1e3 for e in top},
-    }))
-    return 0
+    })
+    return result
 
 
 if __name__ == "__main__":
