@@ -181,7 +181,29 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    ranks beside phase 13's single-rank one. Where ``torch.cuda.device_count()
    >= 2`` the ant run is repeated over NCCL, a card per rank; otherwise a line
    says NCCL did not run. A rank that fails fails the script.
-16. The card's name and power limit from nvidia-smi.
+16. The per-env engine (physics/engine.py, csolve.py: the frame stepper's
+   path with ``use_soa=False``, for ball joints and planes on a moving
+   link): (i) one control step of the engine against K1 (ant penalty, phase
+   2's states), K2 (hopper Newton, phase 8's folded states), K3 (pen, phase
+   11's ``adroit_states``) and K4 (pen Newton, phase 12's) at B=256 from
+   the same states, each to its kernel's tolerance plus the engine's own
+   spread (``ENGINE_SPREAD_TOL``; K4 also on the 99% quantile), no kernel
+   launched by the engine, both times; (ii) the ball-joint chain and the
+   link-mounted planes of physics/probe.py, 3 chained control steps of 5
+   frames at B=256 on the card, each held against the engine on the CPU
+   from the same inputs (``ENGINE_SMALL_TOL``), their ball and free joints'
+   quaternion norms within 1e-5 of 1; (iii) path (a): two DAPG iterations
+   of runs/adroit_pen_dapg_newton_s1's settings (examples/
+   adroit_pen_dapg.json with ``env_kwargs.use_soa=false`` and Newton
+   contacts, seed 211; 64 envs x 100 steps, BC on the card's own demos)
+   through ``run_job`` as phase 13 runs its paths, with 0 launches of K1-K4
+   and every control step through ``engine.step``, and the same config with
+   ``use_soa`` unset launching K4 100 times per iteration; (iv)
+   ``evaluate_policy`` (8 eval-mode episodes) and ``export_rollout`` (one
+   episode), 20 steps each, on that engine path, finite, with the
+   reference's keys. Prints
+   the results on a line of their own, ``{"engine": ...}``.
+17. The card's name and power limit from nvidia-smi.
 
 Each kernel's launch count in the JSON line is its count over the slice
 that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper_model_npg``,
@@ -343,6 +365,41 @@ DEMO_PATHS, WARM_START_PATH = 25, "adroit_pen_dapg"
 DP_RANKS, DP_SEEDS = 2, (11, 12)
 DP_FIELDS = ("observations", "actions", "rewards", "valid", "done", "mean", "log_std")
 DP_PARAM_TOL, DP_ROW_TOL = 1e-3, 1e-4
+# phase 16: the per-env engine (physics/engine.py) against each kernel on
+# that kernel's earlier phase's states, one control step at ENGINE_ENVS:
+# (row, env, its make() keywords, kernel). The engine and the plain version
+# compute the same physics in another order (a dense Cholesky where the
+# plain one walks the dof chains; rows built apart), and the kernel is held
+# to the plain version within TOL; so the kernel against the engine is held
+# to TOL plus ten times the engine-vs-plain spread on the CPU over the same
+# states, rounded up to a power of ten (tools/torch_engine_check.py, PERF.md;
+# K4 on its 99% quantile, as its own check). The models outside the
+# kernels' set: the card against the CPU from the same inputs, per control
+# step of 5 frames, to the JAX package's bounds for its engine against its
+# fast path over one frame (tests/test_soa.py: q rtol 1e-3 / atol 1e-4, qd
+# 5e-3 / 5e-3); a one-ulp perturbation of the inputs moves these models by
+# under a tenth of those bounds over a control step on the CPU.
+ENGINE_ENVS = 256
+ENGINE_ROWS = (("ant", "ant", {}, "K1"),
+               ("hopper_newton", "hopper", {"constraint_solver": "newton"}, "K2"),
+               ("pen", "adroit_pen", {}, "K3"),
+               ("pen_newton", "adroit_pen", {"constraint_solver": "newton"}, "K4"))
+# (on the CPU at B=256 the engine parts from the plain version by up to
+# ant 3.6e-7 / 4.5e-5, hopper Newton 3.0e-8 / 1.3e-6, pen 9.5e-7 / 1.1e-4,
+# pen Newton 5.7e-5 / 8.7e-3 with a 99% quantile of 1.9e-5 / 2.2e-3: the
+# Newton iterations' line search picks other fractions where round-off
+# ties its costs)
+ENGINE_SPREAD_TOL = {"ant": {"q": 1e-5, "qd": 1e-3}, "hopper_newton": {"q": 1e-6, "qd": 1e-4},
+                     "pen": {"q": 1e-5, "qd": 1e-2},
+                     "pen_newton": {"q": 1e-3, "qd": 1e-1, "q_quantile": 1e-3,
+                                    "qd_quantile": 1e-1}}
+ENGINE_SMALL_TOL = {"q": (1e-3, 1e-4), "qd": (5e-3, 5e-3)}  # (rtol, atol)
+ENGINE_SMALL_STEPS, ENGINE_FRAMES, QUAT_NORM_TOL = 3, 5, 1e-5
+ENGINE_EVAL_HORIZON = 20  # (iv)'s episodes, cut from pen's 100 for the phase's time
+# path (a): examples/adroit_pen_dapg.json with runs/adroit_pen_dapg_newton_s1's
+# settings (the runs/ folder is not copied to the card)
+ENGINE_PATH = ("adroit_pen_dapg_engine", "adroit_pen_dapg.json",
+               ('env_kwargs={"constraint_solver": "newton", "use_soa": false}', "seed=211"))
 HBM_BYTES_PER_S, F32_OPS_PER_S = 3.35e12, 67e12  # H100 SXM data sheet
 ROOT = Path(__file__).resolve().parent
 
@@ -547,6 +604,41 @@ def _offsets_and_kind_states(model, q0, qd0, rng, scene=None):
     qd0[:, half:] = torch.as_tensor(kqd[:, : full - half], device=dev)
     delta[:, half:] = torch.as_tensor(kd[:, : full - half], device=dev)
     return delta
+
+
+def engine_row_env(row, device=None):
+    """The env of ``ENGINE_ROWS``' ``row`` (on the card by default)."""
+    from mjrl_tpu_torch.envs import make
+
+    _, name, kwargs, _ = next(r for r in ENGINE_ROWS if r[0] == row)
+    horizon = {"ant": HORIZON, "hopper": HOPPER_HORIZON, "adroit_pen": PEN_HORIZON}[name]
+    return make(name, horizon=horizon, **kwargs, **({} if device is None else {"device": device}))
+
+
+def engine_row_states(row, env, full):
+    """``(q, qd, link_delta or None, ctrl)`` batch-last: the states of the
+    phase that holds ``row``'s kernel against the plain version (ant: phase
+    2's, hopper Newton: phase 8's folded ones, pen: ``adroit_states`` of
+    phases 11 and 12) and the control of one step."""
+    if row in ("pen", "pen_newton"):
+        q, qd, delta, ctrls = adroit_states(env, full, 1)
+        return q, qd, delta, ctrls[0]
+    q, qd, ctrls = start_states(env, full, 1, fold=row == "hopper_newton")
+    return q, qd, None, ctrls[0]
+
+
+def engine_control_step(model, frames, q, qd, ctrl, delta=None):
+    """One control step of the per-env engine through the frame stepper
+    (``use_soa=False``), batch-last in and out."""
+    from mjrl_tpu_torch.physics.dispatch import make_frame_stepper
+
+    step = make_frame_stepper(model, frames, with_link_delta=delta is not None, use_soa=False)
+    assert step.path == "engine"
+    args = [q.T.contiguous(), qd.T.contiguous(), ctrl.T.contiguous()]
+    if delta is not None:
+        args.append(delta.T.reshape(q.shape[1], model.nlink, 3).contiguous())
+    q2, qd2 = step(*args)
+    return q2.T, qd2.T
 
 
 def pen_train_states(env, full, n_chain, steps=50):
@@ -1668,6 +1760,170 @@ def phase_data_parallel(entry_rows):
     return result
 
 
+def phase_engine(every):
+    """Phase 16 (see the module's docstring); ``every``: the kernels by
+    name. Returns the line's results."""
+    import numpy as np
+    import torch
+
+    from mjrl_tpu_torch.physics import engine, probe
+    from mjrl_tpu_torch.physics.dispatch import make_frame_stepper
+    from mjrl_tpu_torch.train import load_config
+    from mjrl_tpu_torch.utils import evaluate_policy, export_rollout
+    from mjrl_tpu_torch.utils.configs import build
+
+    t_phase = time.perf_counter()
+    kernels = list(every.values())
+    result = {"vs_kernels": {}, "small_models": {}}
+
+    def launched():
+        return {k.name: k.launches for k in kernels if k.launches}
+
+    # (i) against each kernel, from its own phase's states
+    base = {"K1": TOL["K1"], "K2": TOL["K2"], "K3": TOL["K3 pen"], "K4": TOL["K4 pen"]}
+    for row, _, _, kname in ENGINE_ROWS:
+        kernel = every[kname]
+        env = engine_row_env(row)
+        model, frames = env.model, env.frame_skip
+        q, qd, delta, ctrl = engine_row_states(row, env, ENGINE_ENVS)
+        kw = {} if delta is None else {"link_delta": delta}
+        kq, kqd = kernel(model, q, qd, ctrl, frames, **kw)
+        for k in kernels:
+            k.launches = 0
+        eq, eqd = engine_control_step(model, frames, q, qd, ctrl, delta)
+        torch.cuda.synchronize()
+        if launched():
+            raise RuntimeError(f"engine {row}: the engine launched {launched()}")
+        spread = ENGINE_SPREAD_TOL[row]
+        r = {"kernel": kname, "batch": ENGINE_ENVS}
+        for name, got, want in (("q", eq, kq), ("qd", eqd, kqd)):
+            if not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"engine {row}: {name} not finite")
+            per_env = (got - want).abs().amax(dim=0)
+            err, tol = float(per_env.max()), base[kname][name] + spread[name]
+            r[f"{name}_max_abs_err"], r[f"{name}_tol"] = err, tol
+            checks = [("max", err, tol)]
+            if kname == "K4":
+                quant = float(torch.quantile(per_env, HUMANOID_QUANTILE))
+                qtol = TOL["K4 pen quantile"][name] + spread[f"{name}_quantile"]
+                r[f"{name}_quantile_abs_err"], r[f"{name}_quantile_tol"] = quant, qtol
+                checks.append((f"{HUMANOID_QUANTILE:.0%} quantile of the per-env", quant, qtol))
+            for what, e, t in checks:
+                ok = e <= t
+                print(f"[engine vs {kname} {row}] B={ENGINE_ENVS} one control step {name}: {what} "
+                      f"|err|={e:.3e} tol={t:.1e} ({kname}'s {base[kname][name]:.0e} + the "
+                      f"engine's spread) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise RuntimeError(f"the engine disagrees with {kname} on {row}: {name}")
+        r["ms"] = _cuda_ms(lambda: engine_control_step(model, frames, q, qd, ctrl, delta), 3)
+        r["kernel_ms"] = _cuda_ms(lambda: kernel(model, q, qd, ctrl, frames, **kw), 3)
+        print(f"[engine vs {kname} {row}] one control step at B={ENGINE_ENVS}: engine "
+              f"{r['ms']:.3f} ms, {kname} {r['kernel_ms']:.3f} ms (CUDA events)")
+        result["vs_kernels"][row] = r
+
+    # (ii) models outside the kernels' set: the card against the CPU
+    for build_model in (probe.ball_chain_model, probe.link_plane_model):
+        model = build_model()
+        step = make_frame_stepper(model, ENGINE_FRAMES)
+        if step.path != "engine":
+            raise RuntimeError(f"{build_model.__name__}: the frame stepper runs {step.path}")
+        q, qd, ctrl = (torch.as_tensor(x, device="cuda")
+                       for x in probe.engine_states(model, ENGINE_ENVS, np.random.default_rng(0)))
+        quat_adr = [int(model.link_qadr[i]) + (3 if t == 0 else 0)
+                    for i, t in enumerate(model.link_jnt_type) if t in (0, 1)]  # free, ball
+        worst = {"q": 0.0, "qd": 0.0, "quat_norm": 0.0}
+        for k in kernels:
+            k.launches = 0
+        for _ in range(ENGINE_SMALL_STEPS):
+            cq, cqd = step(q, qd, ctrl)
+            hq, hqd = step(q.cpu(), qd.cpu(), ctrl.cpu())
+            for name, got, want in (("q", cq, hq), ("qd", cqd, hqd)):
+                rtol, atol = ENGINE_SMALL_TOL[name]
+                got = got.cpu()
+                excess = float(((got - want).abs() - (atol + rtol * want.abs())).max())
+                worst[name] = max(worst[name], float((got - want).abs().max()))
+                if not (excess <= 0 and bool(torch.isfinite(got).all())):
+                    raise RuntimeError(f"{build_model.__name__}: the card's {name} parts from the "
+                                       f"CPU's by more than rtol {rtol} / atol {atol}")
+            for a in quat_adr:
+                norm = torch.linalg.vector_norm(cq[:, a : a + 4], dim=-1)
+                worst["quat_norm"] = max(worst["quat_norm"], float((norm - 1).abs().max()))
+            q, qd = cq, cqd
+        if worst["quat_norm"] > QUAT_NORM_TOL or launched():
+            raise RuntimeError(f"{build_model.__name__}: quaternion norms off 1 by "
+                               f"{worst['quat_norm']:.2e}, kernels {launched()}")
+        ms = _cuda_ms(lambda: step(q, qd, ctrl), 3)
+        name = build_model.__name__[: -len("_model")]
+        result["small_models"][name] = {**worst, "ms": ms, "nq": model.nq, "nv": model.nv}
+        print(f"[engine {name}] nq {model.nq}, nv {model.nv}: {ENGINE_SMALL_STEPS} chained control "
+              f"steps ({ENGINE_FRAMES} frames) at B={ENGINE_ENVS}, card vs CPU max |err| q "
+              f"{worst['q']:.3e} qd {worst['qd']:.3e} (rtol/atol q {ENGINE_SMALL_TOL['q']}, qd "
+              f"{ENGINE_SMALL_TOL['qd']}) ok; quaternion norms within {worst['quat_norm']:.1e} of "
+              f"1; {ms:.3f} ms per control step")
+
+    # (iii) path (a) through the entry point, and the guard: unset, K4
+    tag, config, overrides = ENGINE_PATH
+    calls = [0]
+    step_fn = engine.step
+
+    def counted_step(*args, **kwargs):
+        calls[0] += 1
+        return step_fn(*args, **kwargs)
+
+    rows = {}
+    engine.step = counted_step
+    try:
+        phase_entry(tag, config, None, kernels, DAPG_ENVS, PEN_HORIZON, (1, 2), overrides, rows)
+    finally:
+        engine.step = step_fn
+    want = (1 + 2) * PEN_HORIZON * 5  # the demos' rollout and two iterations, 5 frames a step
+    if calls[0] != want:
+        raise RuntimeError(f"{tag}: {calls[0]} engine steps, expected {want}")
+    guard = ('env_kwargs={"constraint_solver": "newton"}', *overrides[1:])
+    k4 = phase_entry(f"{tag}_use_soa_unset", config, every["K4"],
+                     [k for k in kernels if k is not every["K4"]], DAPG_ENVS, PEN_HORIZON, (1,),
+                     guard, rows)
+    print(f"[{tag}] {calls[0]} engine.step calls (the demos and 2 iterations x {PEN_HORIZON} "
+          f"steps x 5 frames), 0 kernel launches; with use_soa unset K4 launched {k4} times in "
+          f"its iteration")
+    result["path"] = {
+        "launches": 0, "engine_steps": calls[0], "k4_launches_use_soa_unset": k4,
+        "iteration_ms": [row["time_step"] * 1e3 for row in rows[tag]],
+        "steps_per_sec": [row["steps_per_sec"] for row in rows[tag]],
+        "k4_iteration_ms": rows[f"{tag}_use_soa_unset"][0]["time_step"] * 1e3}
+
+    # (iv) evaluation and export on the engine path
+    cfg = load_config(ROOT / "examples" / config, [*overrides, "demo_file=null",
+                                                   "algorithm=\"npg\"", "agent_kwargs={}"])
+    env, policy, _, _ = build(cfg)
+    for k in kernels:
+        k.launches = 0
+    stats = evaluate_policy(env, policy, num_episodes=8, horizon=ENGINE_EVAL_HORIZON,
+                            percentiles=(50,), generator=torch.Generator(device="cuda").manual_seed(0))
+    with tempfile.TemporaryDirectory() as out:
+        data = np.load(export_rollout(env, policy, os.path.join(out, "rollout.npz"),
+                                      horizon=ENGINE_EVAL_HORIZON,
+                                      generator=torch.Generator(device="cuda").manual_seed(0)))
+        shapes = {k: data[k].shape for k in data.files}
+        finite = all(np.isfinite(data[k]).all() for k in data.files)
+    T = shapes["rewards"][0]
+    want_shapes = {"observations": (T, env.spec.observation_dim),
+                   "actions": (T, env.spec.action_dim), "rewards": (T,), "qpos": (T, env.model.nq)}
+    if env._frame_step.path != "engine" or launched() or shapes != want_shapes or not finite \
+            or sorted(stats) != ["max", "mean", "min", "p50", "std"] \
+            or not all(math.isfinite(v) for v in stats.values()):
+        raise RuntimeError(f"engine evaluation: path {env._frame_step.path}, kernels {launched()}, "
+                           f"stats {stats}, rollout {shapes} finite {finite}")
+    print(f"[engine evaluation] evaluate_policy over 8 eval-mode episodes of "
+          f"{ENGINE_EVAL_HORIZON} steps: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stats.items())
+          + f"; export_rollout: {shapes}, finite; 0 kernel launches")
+    result["evaluation"] = {"stats": stats, "rollout": {k: list(v) for k, v in shapes.items()}}
+    result["seconds"] = time.perf_counter() - t_phase
+    print(f"[engine] phase 16 took {result['seconds']:.1f} s")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1744,6 +2000,7 @@ def main() -> int:
              for tag, config, k, n, steps, niters, overrides in ENTRY_PATHS}
     phase_breadth(list(every.values()))
     data_parallel = phase_data_parallel(entry_rows)
+    engine_result = phase_engine(every)
     k1_hopper["launches"] = entry["hopper"]
     k3["launches"] = entry["adroit_pen"]
     k4["launches"] = entry["adroit_pen_newton"]
@@ -1794,6 +2051,7 @@ def main() -> int:
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
                                           "held_rows_mean", "held_rows_max",
                                           "line_search_flips", "overflow", "train_states")})
+    print(json.dumps({"engine": engine_result}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,11 +17,16 @@ hammer's board moved per episode; zeros for pen) and its task target in
 the state. ``step`` advances all envs through one launch of kernel K3 per
 control step, or of K4 with ``constraint_solver="newton"`` (MuJoCo-parity
 soft contacts and joint limits; the tendon limits stay penalties, as in
-the reference) (physics/dispatch.py); both take the offsets. The
+the reference) (physics/dispatch.py); both take the offsets.
+``use_soa=False`` (a config's ``env_kwargs.use_soa``) steps the envs on
+the per-env engine instead, as the reference's runs with that setting did
+(physics/engine.py: no kernel launch). The
 observation's kinematics, sites and hammer's nail sensor (the contact
 wrench on the nail, from the pairs that touch it: physics/contact.py) are
 plain PyTorch, as in the reference. The rewards keep the DAPG paper's
-signs (the reference's default ``reward_variant="dapg"``). Each reset
+signs by default (``reward_variant="dapg"``); ``"gymnasium_v1"`` flips the
+sign of relocate's, hammer's and door's hand-to-object reach term, as
+Gymnasium-Robotics' v1 envs do. Each reset
 draws its noise first (``reset_noise``) and builds the state from it
 (``reset_from_noise``), so a test can inject the reference's draws. Envs
 live on the card unless ``device="cpu"`` is asked for.
@@ -38,10 +43,9 @@ import torch
 from mjrl_tpu_torch.envs.base import Env, StepResult, register
 from mjrl_tpu_torch.physics import math3d as m3
 from mjrl_tpu_torch.physics.contact import contact_forces
-from mjrl_tpu_torch.physics.dispatch import make_frame_stepper
+from mjrl_tpu_torch.physics.dispatch import check_model, make_frame_stepper
 from mjrl_tpu_torch.physics.engine import compute_kinematics, forward_kinematics, site_positions
 from mjrl_tpu_torch.physics.model import load_model_npz
-from mjrl_tpu_torch.physics.soa import check_supported
 from mjrl_tpu_torch.physics.tables import scale_limit_penalties
 from mjrl_tpu_torch.types import EnvSpec
 
@@ -55,13 +59,13 @@ class AdroitState(NamedTuple):
     target: torch.Tensor  # (B, 3) the task's target vector
 
 
-def adroit_model(task: str, constraint_solver: str = "penalty"):
+def adroit_model(task: str, constraint_solver: str = "penalty", use_soa: Optional[bool] = None):
     """The Adroit ``task``'s model (``envs/assets/adroit_<task>.npz``) with
     the reference env's settings: the solver, the penalty tuning for
     gram-scale fingers and hectogram objects (left as the reference leaves
     it under either solver), one 2 ms substep, per-dof limit gains. The
     Newton rows' parameters are filled by the frame stepper, before the
-    first launch."""
+    first launch. ``use_soa``: the frame stepper's (physics/dispatch.py)."""
     model = load_model_npz(os.path.join(ASSETS, f"adroit_{task}.npz"))
     model.constraint_solver = constraint_solver
     model.contact_stiffness = 1000.0
@@ -70,7 +74,7 @@ def adroit_model(task: str, constraint_solver: str = "penalty"):
     model.friction_vel = 0.01
     model.n_substeps = 1
     scale_limit_penalties(model, omega=60.0)
-    check_supported(model)
+    check_model(model, use_soa)
     return model
 
 
@@ -83,12 +87,19 @@ class AdroitEnv(Env):
     frame_skip: int = 5
     default_horizon: int = 200
     state_type = AdroitState
+    reward_variant: str = "dapg"  # or "gymnasium_v1": the reach term's sign flipped
 
     def __init__(self, horizon: Optional[int] = None, device="cuda",
-                 constraint_solver: str = "penalty"):
+                 constraint_solver: str = "penalty", use_soa: Optional[bool] = None,
+                 reward_variant: Optional[str] = None):
         self.device = torch.device(device)
-        self.model = model = adroit_model(self.task, constraint_solver)
-        self._frame_step = make_frame_stepper(model, self.frame_skip, with_link_delta=True)
+        if reward_variant is not None:
+            if reward_variant not in ("dapg", "gymnasium_v1"):
+                raise ValueError(f"reward_variant {reward_variant!r}")
+            self.reward_variant = reward_variant
+        self.model = model = adroit_model(self.task, constraint_solver, use_soa)
+        self._frame_step = make_frame_stepper(model, self.frame_skip, with_link_delta=True,
+                                              use_soa=use_soa)
         self._site = {n: i for i, n in enumerate(model.site_name)}
         self._link = {n: i for i, n in enumerate(model.link_name)}
         self._jnt_q = {n: model.link_qadr[i] for i, n in enumerate(model.jnt_name) if n}
@@ -139,6 +150,11 @@ class AdroitEnv(Env):
     def reset(self, num_envs: int, generator: Optional[torch.Generator] = None):
         return self.reset_from_noise(*self.reset_noise(num_envs, generator))
 
+    @property
+    def _reach_sign(self) -> float:
+        """The sign and weight of the hand-to-object reach term."""
+        return -0.1 if self.reward_variant == "dapg" else 0.1
+
     def _scaled_ctrl(self, action: torch.Tensor) -> torch.Tensor:
         return self._act_mean + torch.clamp(action, -1.0, 1.0) * self._act_rng
 
@@ -153,7 +169,8 @@ class AdroitEnv(Env):
 
     def check(self) -> None:
         """Raise if the kernel flagged a fault (K4: an env-substep with more
-        contact rows inside their margin than its build holds)."""
+        contact rows inside their margin than its build holds; the engine
+        flags none)."""
         self._frame_step.check()
 
     @staticmethod
@@ -177,9 +194,8 @@ class AdroitPenEnv(AdroitEnv):
     task = "pen"
     default_horizon = 100
 
-    def __init__(self, horizon: Optional[int] = None, device="cuda",
-                 constraint_solver: str = "penalty"):
-        super().__init__(horizon=horizon, device=device, constraint_solver=constraint_solver)
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
         sp = self.model.site_pos
         ot, ob = self._site["object_top"], self._site["object_bottom"]
         tt, tb = self._site["target_top"], self._site["target_bottom"]
@@ -306,7 +322,7 @@ class AdroitRelocateEnv(AdroitEnv):
         norm = lambda x: torch.linalg.vector_norm(x, dim=-1)  # noqa: E731
         goal_dist = norm(obj - st.target)
         zero = torch.zeros_like(goal_dist)
-        reward = (-0.1 * norm(palm - obj)
+        reward = (self._reach_sign * norm(palm - obj)
                   + torch.where(obj[:, 2] > 0.04,
                                 1.0 - 0.5 * norm(palm - st.target) - 0.5 * goal_dist, zero)
                   + torch.where(goal_dist < 0.1, zero + 10.0, zero)
@@ -385,7 +401,7 @@ class AdroitHammerEnv(AdroitEnv):
         norm = lambda x: torch.linalg.vector_norm(x, dim=-1)  # noqa: E731
         goal_dist = norm(nail - goal)
         zero = torch.zeros_like(goal_dist)
-        reward = (-0.1 * norm(palm - obj)
+        reward = (self._reach_sign * norm(palm - obj)
                   - norm(head - nail)
                   - 10.0 * goal_dist
                   - 1e-2 * norm(st.qd)
@@ -447,7 +463,7 @@ class AdroitDoorEnv(AdroitEnv):
         feats = palm, handle = self._features(st)
         door = st.q[:, self._hinge]
         zero = torch.zeros_like(door)
-        reward = (-0.1 * torch.linalg.vector_norm(palm - handle, dim=-1)
+        reward = (self._reach_sign * torch.linalg.vector_norm(palm - handle, dim=-1)
                   - 0.1 * (door - 1.57) ** 2
                   - 1e-5 * torch.sum(st.qd ** 2, dim=-1)
                   + torch.where(door > 0.2, zero + 2.0, zero)

@@ -8,7 +8,9 @@ model is compiled from the asset shipped in ``envs/assets/`` (Gymnasium
 1.2.2's XML; the card's machine has no gymnasium), the contact and limit
 gains are tuned as the reference tunes them, and ``step`` advances all
 envs through one kernel call per control step: K1 with the penalty solver, K2 with the Newton
-solver. Envs live on the card unless ``device="cpu"`` is asked for. Task
+solver; a model loaded through ``asset_path`` that the kernels do not step
+(a ball joint, a plane on a moving link) runs on the per-env engine
+(physics/dispatch.py). Envs live on the card unless ``device="cpu"`` is asked for. Task
 conventions follow gymnasium's v4 tasks: observation ``[q[k:], clip(qd)]``
 (humanoid adds its com-based features), forward reward from the root's x
 velocity (humanoid's centre of mass), the task's ctrl cost, healthy reward
@@ -30,10 +32,9 @@ from mjrl_tpu_torch.envs.base import Env, EnvState, StepResult, register
 from mjrl_tpu_torch.physics import math3d as m3
 from mjrl_tpu_torch.physics.comfeat import body_links, com_features
 from mjrl_tpu_torch.physics.contact import contact_forces
-from mjrl_tpu_torch.physics.dispatch import make_frame_stepper
+from mjrl_tpu_torch.physics.dispatch import check_model, make_frame_stepper
 from mjrl_tpu_torch.physics.engine import compute_kinematics, const, forward_kinematics
 from mjrl_tpu_torch.physics.mjcf import load_mjcf
-from mjrl_tpu_torch.physics.soa import check_supported
 from mjrl_tpu_torch.physics.tables import scale_limit_penalties
 from mjrl_tpu_torch.types import EnvSpec
 
@@ -79,7 +80,9 @@ class LocomotionEnv(Env):
         model.contact_depth_cap = 0.02
         # critically damped per-dof limit gains (k = w^2 M_jj, c = 2 w M_jj)
         scale_limit_penalties(model, omega=60.0)
-        check_supported(model)
+        # a model outside the kernels' set (an asset_path's ball joints or
+        # planes on a link) steps on the per-env engine (physics/dispatch.py)
+        check_model(model)
         self.model = model
         self._frame_step = make_frame_stepper(model, self.frame_skip)
         self.qpos0 = torch.as_tensor(model.default_qpos, dtype=torch.float32, device=self.device)

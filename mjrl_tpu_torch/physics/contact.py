@@ -1,24 +1,30 @@
 """Penalty contact wrenches of a batch, batched by collider kind.
 
-Twin of ``contact_forces``, ``_collide_kind``, ``_geom_world_batch``,
-``_point_velocity`` and ``_penalty_forces`` of
-``mjrl_tpu/physics/contact.py``, batch-first: each kind's pairs are one
-set of ops over ``(B, P, ...)`` tensors, as the reference's are, not one
-per contact point. Kernel K1 computes the same forces inside its substep
-(physics/soa.py is its plain version); this module serves the observation
-outside it: humanoid's ``cfrc_ext`` (physics/comfeat.py) and Adroit
+Twin of ``contact_forces``, ``_collide_kind``, ``_geom_world_batch``
+(here ``geom_poses``, every geom at once), ``_point_velocity`` and
+``_penalty_forces`` of ``mjrl_tpu/physics/contact.py``, batch-first: each
+kind's pairs are one set of ops over ``(B, P, ...)`` tensors, as the
+reference's are, not one per contact point. Kernels K1 and K3 compute the
+same forces inside their substep (physics/soa.py is their plain version);
+this module serves what runs outside them: the per-env engine's penalty step (physics/engine.py)
+and its Newton rows (physics/csolve.py), which take every kind, and the
+observation: humanoid's ``cfrc_ext`` (physics/comfeat.py) and Adroit
 hammer's nail sensor (envs/adroit.py), which asks for one link's wrench:
 ``contact_forces(..., links=...)`` then collides only the pairs that touch
 those links, so their rows come out as the whole model's call gives them.
+A plane may sit on a moving link: its pose and velocity are its link's.
 
 Force model, per contact point (depth > 0 only):
 
     f_n = max(0, k_n * min(depth, cap) - c_n * v_n)   [capped if set]
     f_t = -mu * f_n * v_t / (|v_t| + v_reg)
 
-Kinds: sphere-plane, capsule-plane, sphere-sphere, sphere-capsule,
-capsule-capsule, sphere-box and capsule-box (three spheres along the
-capsule's axis). Box-plane and box-box raise: no observation needs them.
+Kinds (a cylinder collides as a capsule): sphere-, capsule- and box-plane
+(a box's 8 corners), sphere-sphere, sphere-capsule, capsule-capsule,
+sphere-box, capsule-box (three spheres along the capsule's axis) and
+box-box (each box's 8 corners against the other box: two runs of 8 points
+per pair, all pairs' first runs before all second runs, the order
+physics/csolve.py's rows read).
 """
 
 from __future__ import annotations
@@ -32,19 +38,19 @@ from mjrl_tpu_torch.physics.model import Model
 from mjrl_tpu_torch.physics.tables import pair_groups
 
 
-def _geom_world_batch(model: Model, kin: Kinematics, g_idx: np.ndarray, tag: str):
-    """World poses ``(B, P, 3), (B, P, 4)`` of the geoms ``g_idx``; world
-    geoms take the identity pose of a padded dump row."""
+def geom_poses(model: Model, kin: Kinematics):
+    """World poses ``(B, ngeom, 3), (B, ngeom, 4)`` of every geom (a world
+    geom takes the identity pose of a padded dump row): one batched set of
+    ops that each kind's narrow phase then indexes."""
     dev, B = kin.pos.device, kin.pos.shape[0]
     pos_all = torch.cat([kin.pos, kin.pos.new_zeros(B, 1, 3)], dim=1)
     ident = const(model, "quat_ident", [[1.0, 0.0, 0.0, 0.0]], dev).expand(B, 1, 4)
     quat_all = torch.cat([kin.quat, ident], dim=1)
-    links = np.asarray([model.geom_link[g] for g in g_idx], np.int64)
-    links = const(model, f"geom_links_{tag}", np.where(links < 0, model.nlink, links), dev,
-                  torch.int64)
+    links = np.asarray(model.geom_link, np.int64)
+    links = const(model, "geom_links", np.where(links < 0, model.nlink, links), dev, torch.int64)
     lq = quat_all[:, links]
-    gp = const(model, f"geom_pos_{tag}", np.asarray(model.geom_pos)[g_idx], dev)
-    gq = const(model, f"geom_quat_{tag}", np.asarray(model.geom_quat)[g_idx], dev)
+    gp = const(model, "geom_pos", model.geom_pos, dev)
+    gq = const(model, "geom_quat", model.geom_quat, dev)
     return pos_all[:, links] + m3.quat_rotate(lq, gp), m3.quat_mul(lq, gq)
 
 
@@ -83,6 +89,12 @@ def _sphere_sphere(c1, r1, c2, r2):
     return depth, nrm, pts
 
 
+def _one_hot3(ax: torch.Tensor) -> torch.Tensor:
+    """``(..., 1)`` axis indices -> ``(..., 3)`` f32 one-hot rows, without
+    the host sync of ``one_hot``'s range check."""
+    return (ax == torch.arange(3, device=ax.device)).float()
+
+
 def _sphere_box(c, r, pb, qb, sb):
     """Sphere centres ``c (B, P, 3)`` with radii ``r (P,)`` against boxes at
     ``pb (B, P, 3)``, ``qb (B, P, 4)`` with half-sizes ``sb (P, 3)``:
@@ -98,7 +110,7 @@ def _sphere_box(c, r, pb, qb, sb):
     gap = sb - p.abs()  # per-face distance when inside
     ax = torch.argmin(gap, dim=-1, keepdim=True)
     sgn = torch.where(torch.gather(p, -1, ax) >= 0, 1.0, -1.0)
-    n_in = torch.nn.functional.one_hot(ax[..., 0], 3).to(p.dtype) * sgn
+    n_in = _one_hot3(ax) * sgn
     depth_in = r + torch.gather(gap, -1, ax)[..., 0]
     nrm_b = torch.where(inside[..., None], n_in, n_out)
     depth = torch.where(inside, depth_in, r - d_out)
@@ -106,18 +118,42 @@ def _sphere_box(c, r, pb, qb, sb):
     return depth, nrm_w, pb + torch.einsum("bpij,bpj->bpi", R, clamped)
 
 
-def _collide_kind(model: Model, kin: Kinematics, kind: str, tab, tag: str = ""):
+_BOX_CORNERS = np.array([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)],
+                        np.float32)  # (8, 3)
+
+
+def _box_corners_in_box(model: Model, pa, qa, sa, pb, qb, sb):
+    """The corners of boxes a (``pa (B, P, 3)``, ``qa (B, P, 4)``,
+    half-sizes ``sa (P, 3)``) against boxes b: depth ``(B, P, 8)``, > 0
+    only where a corner lies inside b, by its nearest face; the world
+    normal of that face ``(B, P, 8, 3)``; the corners ``(B, P, 8, 3)``."""
+    corners = const(model, "box_corners", _BOX_CORNERS, pa.device)
+    Ra, Rb = m3.quat_to_mat(qa), m3.quat_to_mat(qb)
+    cw = pa[:, :, None, :] + torch.einsum("bpij,pkj->bpki", Ra, corners[None] * sa[:, None, :])
+    p = torch.einsum("bpji,bpkj->bpki", Rb, cw - pb[:, :, None, :])  # in b's frame
+    gap = sb[:, None, :] - p.abs()
+    ax = torch.argmin(gap, dim=-1, keepdim=True)
+    sgn = torch.where(torch.gather(p, -1, ax) >= 0, 1.0, -1.0)
+    n_b = _one_hot3(ax) * sgn
+    return gap.amin(dim=-1), torch.einsum("bpij,bpkj->bpki", Rb, n_b), cw
+
+
+def _collide_kind(model: Model, kin: Kinematics, kind: str, tab, tag: str = "", poses=None):
     """One kind's narrow phase: per contact point ``depth (B, P)``,
     ``normal (B, P, 3)`` from j to i, world ``points (B, P, 3)``, and the
     links ``li, lj`` (numpy, -1 for the world) and frictions ``mu`` of each
     point. ``tag`` names ``tab``'s device constants when it is a subset of
-    the kind's pairs."""
+    the kind's pairs; ``poses``: ``geom_poses(model, kin)``, if the caller
+    has them."""
     dev = kin.pos.device
     gi, gj, li, lj = tab["gi"], tab["gj"], tab["li"], tab["lj"]
     tag = kind + tag
     mu = const(model, f"mu_{tag}", tab["mu"], dev)
-    pi, qi = _geom_world_batch(model, kin, gi, f"{tag}_i")
-    pj, qj = _geom_world_batch(model, kin, gj, f"{tag}_j")
+    gpos, gquat = geom_poses(model, kin) if poses is None else poses
+    gi_t = const(model, f"gi_{tag}", gi, dev, torch.int64)
+    gj_t = const(model, f"gj_{tag}", gj, dev, torch.int64)
+    pi, qi = gpos[:, gi_t], gquat[:, gi_t]
+    pj, qj = gpos[:, gj_t], gquat[:, gj_t]
     si = const(model, f"size_{tag}_i", np.asarray(model.geom_size)[gi], dev)
     sj = const(model, f"size_{tag}_j", np.asarray(model.geom_size)[gj], dev)
     z = const(model, "z_axis", [0.0, 0.0, 1.0], dev)
@@ -136,6 +172,25 @@ def _collide_kind(model: Model, kin: Kinematics, kind: str, tab, tag: str = ""):
         return ((-dist).reshape(B, 2 * P), nrm.expand(B, P, 2, 3).reshape(B, 2 * P, 3),
                 pts.reshape(B, 2 * P, 3), np.repeat(li, 2), np.repeat(lj, 2),
                 torch.repeat_interleave(mu, 2))
+    if kind == "box_plane":
+        corners = const(model, "box_corners", _BOX_CORNERS, dev)
+        pts = pi[:, :, None, :] + m3.quat_rotate(qi[:, :, None, :],
+                                                 corners[None] * si[:, None, :3])  # (B, P, 8, 3)
+        nrm = m3.quat_rotate(qj, z)[:, :, None, :]
+        dist = torch.sum((pts - pj[:, :, None, :]) * nrm, dim=-1)
+        B, P = pts.shape[:2]
+        return ((-dist).reshape(B, 8 * P), nrm.expand(B, P, 8, 3).reshape(B, 8 * P, 3),
+                pts.reshape(B, 8 * P, 3), np.repeat(li, 8), np.repeat(lj, 8),
+                torch.repeat_interleave(mu, 8))
+    if kind == "box_box":
+        d1, n1, p1 = _box_corners_in_box(model, pi, qi, si, pj, qj, sj)
+        d2, n2, p2 = _box_corners_in_box(model, pj, qj, sj, pi, qi, si)
+        B, P = pi.shape[:2]
+        two = lambda x: np.concatenate([np.repeat(x, 8), np.repeat(x, 8)])  # noqa: E731
+        return (torch.cat([d1.reshape(B, 8 * P), d2.reshape(B, 8 * P)], dim=1),
+                torch.cat([n1.reshape(B, 8 * P, 3), -n2.reshape(B, 8 * P, 3)], dim=1),
+                torch.cat([p1.reshape(B, 8 * P, 3), p2.reshape(B, 8 * P, 3)], dim=1),
+                two(li), two(lj), torch.repeat_interleave(mu, 8).repeat(2))
     if kind == "sphere_sphere":
         return (*_sphere_sphere(pi, si[:, 0], pj, sj[:, 0]), li, lj, mu)
     if kind == "sphere_capsule":  # geom i the sphere, geom j the capsule
@@ -178,7 +233,7 @@ def _collide_kind(model: Model, kin: Kinematics, kind: str, tab, tag: str = ""):
         return (*_sphere_box(centres.reshape(B, 3 * P, 3), torch.repeat_interleave(si[:, 0], 3),
                              three(pj), three(qj), torch.repeat_interleave(sj, 3, dim=0)),
                 np.repeat(li, 3), np.repeat(lj, 3), torch.repeat_interleave(mu, 3))
-    raise NotImplementedError(f"contact kind {kind!r} is not ported")
+    raise ValueError(kind)
 
 
 def _pairs_touching(model: Model, links: tuple):
@@ -207,8 +262,9 @@ def contact_forces(model: Model, kin: Kinematics, links=None) -> torch.Tensor:
     else:
         links = tuple(sorted(int(i) for i in links))
         kinds, tag = _pairs_touching(model, links), f"@{links}"
+    poses = geom_poses(model, kin)
     for kind, tab in kinds:
-        depth, n, pts, li, lj, mu = _collide_kind(model, kin, kind, tab, tag)
+        depth, n, pts, li, lj, mu = _collide_kind(model, kin, kind, tab, tag, poses)
         dev = pts.device
         li = const(model, f"li_{kind}{tag}", np.where(li < 0, model.nlink, li), dev, torch.int64)
         lj = const(model, f"lj_{kind}{tag}", np.where(lj < 0, model.nlink, lj), dev, torch.int64)

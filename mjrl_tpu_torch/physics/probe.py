@@ -15,6 +15,12 @@ floats above the floor. ``kind_states`` draws states for each kind all
 the same, with a per-env link offset (``link_delta``, the randomised
 scenes' input) that lowers the moving geom's root link onto the static
 geom: a contact the kernels must get right whatever the scene.
+
+``ball_chain_model`` and ``link_plane_model`` are two small models outside
+the kernels' set, which the frame stepper sends to the per-env engine (a
+chain of ball joints; planes on a moving link); ``engine_states`` draws
+their states. Each takes the ``ModelBuilder`` class to build with, so a
+test can build the JAX package's twin of the same model.
 """
 
 from __future__ import annotations
@@ -26,7 +32,18 @@ import torch
 
 from mjrl_tpu_torch.physics import soa, soa_newton
 from mjrl_tpu_torch.physics.csolve import ensure_solver_params
-from mjrl_tpu_torch.physics.model import HINGE, SLIDE, Model
+from mjrl_tpu_torch.physics.model import (
+    BALL,
+    BOX,
+    CAPSULE,
+    FREE,
+    HINGE,
+    PLANE,
+    SLIDE,
+    SPHERE,
+    Model,
+    ModelBuilder,
+)
 from mjrl_tpu_torch.physics.tables import pair_groups, points_per_pair
 
 
@@ -235,3 +252,71 @@ def kind_states(model: Model, n: int, rng: np.random.Generator):
     q = np.ascontiguousarray(np.concatenate(qs, axis=1))
     delta = np.ascontiguousarray(np.concatenate(deltas, axis=1))
     return q, rng.uniform(-0.1, 0.1, (model.nv, q.shape[1])).astype(np.float32), delta
+
+
+def ball_chain_model(builder=ModelBuilder) -> Model:
+    """Two links on ball joints hanging from the world at 1 m, a capsule on
+    the first and a sphere at the end of the second over the world plane
+    (which the sphere reaches when the chain hangs straight), a motor on
+    each joint's first dof: nq 8, nv 6, nu 2."""
+    b = builder(dt=0.002)
+    b.add_geom(None, PLANE, size=(0, 0, 0))
+    inertia = np.eye(3) * 0.01
+    b.add_body("l1", joints=[dict(type=BALL)], pos=(0, 0, 1.0), mass=1.0, com=(0, 0, -0.25),
+               inertia_com=inertia)
+    b.add_geom("l1", CAPSULE, size=(0.05, 0.25, 0), pos=(0, 0, -0.25))
+    b.add_body("l2", parent="l1", joints=[dict(type=BALL)], pos=(0, 0, -0.5), mass=1.0,
+               com=(0, 0, -0.25), inertia_com=inertia)
+    b.add_geom("l2", SPHERE, size=(0.08, 0, 0), pos=(0, 0, -0.5))
+    b.add_motor("l1", gear=1.0, ctrlrange=(-1.0, 1.0))
+    b.add_motor("l2", gear=1.0, ctrlrange=(-1.0, 1.0))
+    return b.finalize(contact_pairs="ground")
+
+
+def link_plane_model(builder=ModelBuilder) -> Model:
+    """A tray on a damped hinge about x, 30 cm up, whose plane carries a
+    free sphere and a free box 1 cm above it, over the world plane, with a
+    motor on the hinge: sphere_plane and box_plane against a plane on a
+    moving link (and the world's). nq 15, nv 13, nu 1."""
+    b = builder(dt=0.002)
+    b.add_geom(None, PLANE, size=(0, 0, 0))
+    b.add_body("tray", joints=[dict(type=HINGE, axis=(1, 0, 0), damping=0.5)], pos=(0, 0, 0.3),
+               mass=2.0, inertia_com=np.eye(3) * 0.05)
+    b.add_geom("tray", PLANE, size=(0, 0, 0))
+    b.add_body("ball", joints=[dict(type=FREE)], pos=(0.1, 0, 0.36), mass=0.5,
+               inertia_com=np.eye(3) * 5e-4)
+    b.add_geom("ball", SPHERE, size=(0.05, 0, 0))
+    b.add_body("brick", joints=[dict(type=FREE)], pos=(-0.1, 0, 0.33), mass=0.5,
+               inertia_com=np.eye(3) * 5e-4)
+    b.add_geom("brick", BOX, size=(0.04, 0.03, 0.02))
+    b.add_motor("tray", gear=1.0, ctrlrange=(-1.0, 1.0))
+    return b.finalize(contact_pairs="ground")
+
+
+def engine_states(model: Model, n: int, rng: np.random.Generator, scale: float = 0.3):
+    """``(q (n, nq), qd (n, nv), ctrl (n, nu))`` float32 numpy, batch-first:
+    the default pose with each hinge and slide moved and each ball and free
+    joint turned by a draw uniform in +-``scale`` (radians, metres for a
+    free joint's position, by a tenth of it), qd normal times ``scale``,
+    ctrl uniform in +-1."""
+    q = np.tile(np.asarray(model.default_qpos, np.float32), (n, 1))
+    for i in range(model.nlink):
+        t, adr = model.link_jnt_type[i], int(model.link_qadr[i])
+        if t in (HINGE, SLIDE):
+            q[:, adr] += rng.uniform(-scale, scale, n)
+        elif t in (BALL, FREE):
+            a = adr if t == BALL else adr + 3
+            if t == FREE:
+                q[:, adr : adr + 3] += rng.uniform(-0.1 * scale, 0.1 * scale, (n, 3))
+            v = rng.uniform(-scale, scale, (n, 3))
+            angle = np.linalg.norm(v, axis=1, keepdims=True)
+            dq = np.concatenate([np.cos(angle / 2), np.sin(angle / 2) * v / angle], axis=1)
+            w1, x1, y1, z1 = q[:, a : a + 4].T
+            w2, x2, y2, z2 = dq.T
+            q[:, a : a + 4] = np.stack([w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+                                        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+                                        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+                                        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2], axis=1)
+    qd = (scale * rng.standard_normal((n, model.nv))).astype(np.float32)
+    ctrl = rng.uniform(-1, 1, (n, model.nu)).astype(np.float32)
+    return q.astype(np.float32), qd, ctrl

@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mjrl_tpu_torch.physics.model import FREE, HINGE, JOINT_NV, SLIDE, Model
+from mjrl_tpu_torch.physics.model import BALL, FREE, HINGE, JOINT_NV, SLIDE, Model
 from mjrl_tpu_torch.physics.tables import (
     SoATables,
     pair_groups,
@@ -65,20 +65,34 @@ def needs_ext(model: Model) -> bool:
             or any(kind in _BOX_KINDS for kind, _ in pair_groups(model).kinds))
 
 
-def check_supported(model: Model) -> None:
-    """Raise ``NotImplementedError`` for a model outside the ported set."""
+def _unsupported(model: Model) -> Optional[str]:
+    """Why ``model`` is outside the kernels' feature set, or None."""
     for i in range(model.nlink):
         if model.link_jnt_type[i] not in (-1, FREE, HINGE, SLIDE):
-            raise NotImplementedError(
-                f"link {i}: joint type {model.link_jnt_type[i]} is not ported"
-            )
+            return f"link {i}: joint type {model.link_jnt_type[i]} is not ported"
     if model.constraint_solver not in ("penalty", "newton"):
-        raise NotImplementedError(f"solver {model.constraint_solver!r} is not ported")
+        return f"solver {model.constraint_solver!r} is not ported"
     for kind, tab in pair_groups(model).kinds:
         if kind not in SUPPORTED_KINDS:
-            raise NotImplementedError(f"contact kind {kind!r} is not ported")
+            return f"contact kind {kind!r} is not ported"
         if kind in _PLANE_KINDS and any(model.geom_link[int(g)] >= 0 for g in tab["gj"]):
-            raise NotImplementedError("planes must be world geoms")
+            return "planes must be world geoms"
+    return None
+
+
+def soa_supported(model: Model) -> bool:
+    """True if the kernels (and this plain version) step ``model``; a
+    model with a ball joint or a plane on a moving link runs on the
+    per-env engine instead (physics/dispatch.py)."""
+    return _unsupported(model) is None
+
+
+def check_supported(model: Model) -> None:
+    """Raise ``NotImplementedError`` for a model outside the kernels'
+    feature set, ``ValueError`` for limits without their gains."""
+    reason = _unsupported(model)
+    if reason is not None:
+        raise NotImplementedError(reason)
     if model.dof_limit_stiffness is None and np.any(model.jnt_limited > 0):
         raise ValueError("limited joints need per-dof limit gains")
     if (model.tendon_Jq is not None and model.tendon_limit_stiffness is None
@@ -864,7 +878,15 @@ def static_kinematics(model: Model, qpos: np.ndarray):
     """One configuration's dense mass matrix (f32, without armature) and
     its link poses and motion subspaces, as numpy: ``(M (nv, nv),
     pos (nlink, 3), quat (nlink, 4), cdof (nv, 6))``, subspaces about
-    ``pos[0]``. Load-time input of the limit gains and the invweights."""
+    ``pos[0]``. Load-time input of the limit gains and the invweights. A
+    model with a ball joint, which the plain version does not step, takes
+    the per-env engine's (physics/engine.py)."""
+    if BALL in model.link_jnt_type:
+        from mjrl_tpu_torch.physics import engine
+
+        q = torch.as_tensor(np.asarray(qpos, np.float32))[None]
+        kin = engine.compute_kinematics(model, q, q.new_zeros(1, model.nv))
+        return tuple(x[0].numpy() for x in (engine.crba(model, kin), kin.pos, kin.quat, kin.cdof))
     tab = soa_tables(model)
     q = torch.as_tensor(np.asarray(qpos, np.float32)).reshape(-1, 1)
     pos, quat = _fk(model, q)

@@ -12,7 +12,9 @@ model-based NPG (algos/model_npg.py, models/dynamics.py) takes a train
 step on point_mass, pendulum and cartpole (envs/classic.py) step, and
 the linear policy and utils/plots.py import (matplotlib only inside
 ``make_train_plots``); parallel/dist.py imports, and with no group its
-helpers are the identity. (The card's machine has none of those
+helpers are the identity; utils/evaluation.py imports, the per-env engine
+(physics/engine.py, csolve.py) steps the ball-joint chain through the
+frame stepper and pen on Newton contacts with ``use_soa=False``. (The card's machine has none of those
 packages.)"""
 
 import os
@@ -100,6 +102,17 @@ from mjrl_tpu_torch.parallel import dist
 x = torch.arange(6.0)
 assert dist.world_size() == 1 and dist.all_sum(x) is x and dist.local_rows(x) is x
 assert dist.gather_rows(x) is x and dist.row_block(5, 1, 2) == (3, 5)
+assert "mjrl_tpu_torch.utils.evaluation" in names
+from mjrl_tpu_torch.physics import dispatch, probe
+from mjrl_tpu_torch.utils import evaluate_policy, export_rollout
+step = dispatch.make_frame_stepper(probe.ball_chain_model(), 2)
+q, qd = step(*(torch.as_tensor(x) for x in probe.engine_states(probe.ball_chain_model(), 2,
+                                                                 __import__("numpy").random.default_rng(0))))
+assert step.path == "engine" and torch.isfinite(q).all() and torch.isfinite(qd).all()
+env = make("adroit_pen", device="cpu", constraint_solver="newton", use_soa=False)
+state, obs = env.reset(2, torch.Generator().manual_seed(0))
+state, obs, reward, term, info = env.step(state, torch.zeros(2, env.spec.action_dim))
+assert env._frame_step.path == "engine" and torch.isfinite(reward).all()
 print("imported", len(names), "modules")
 """
 
