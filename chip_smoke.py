@@ -89,17 +89,30 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    both times at B=512, and K3's on hammer and relocate at their paths'
    B=2048 (B=512's states four times over).
 12. K4 on Adroit pen with the Newton solver against plain, to its own
-   tolerance: the same, from ``adroit_states`` warmed by K4; counts the
+   tolerance: the same at B=512 (a ragged launch of K4's 3 warps per
+   block), from ``adroit_states`` warmed by K4; counts the
    env-steps that hold a row of each contact kind, of each facet count (1,
    4, 6) and of a joint limit, and fails if any is 0; the rows held per
    env-step (mean, max), the line-search flips, and K4's overflow counter,
    which must stay 0 (its check raises otherwise). Then one control step
    at B=512 from ``pen_train_states`` (50 steps of the training path's
    policy at init) to the same tolerance. On both state sets, K4's q, qd
-   and picks bit for bit the same over two launches and with 1 and 4 warps
-   per block (the check for a missing __syncwarp(), which no sanitizer
-   reads on that machine); both times at B=512 on both.
-13. Nineteen paths through the entry point at full width, ``run_job`` of
+   and picks bit for bit the same over two launches and with 1 and with
+   the most warps per block (3: the Adroit class holds 96 rows; the check
+   for a missing __syncwarp(), which no sanitizer reads on that machine);
+   both times at B=512 on both. Then K4 on door (760 contact points),
+   hammer and relocate (the sphere kinds, 19-dof chains) with the Newton
+   solver, to pen's tolerances, against the plain version on the CPU
+   stepping by K4's line-search fractions: one control step at B=256 from
+   ``adroit_states`` of the env (half from its reset warmed by K4, half
+   where each of the model's contact kinds touches), every one of the
+   model's kinds holding a row (the facet counts and limits printed), the
+   held rows per env, the line-search flips and the overflow counter,
+   which must stay 0; the launches bit for bit as on pen; both times at
+   B=256, and K4's at B=512 on B=256's states twice over, its results bit
+   for bit B=256's repeated (their bounds: tools/torch_k4_tasks.py, which
+   also reads the spreads and the planted faults behind the tolerances).
+13. Twenty-two paths through the entry point at full width, ``run_job`` of
    mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
    examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
    then niter=2, the second call resuming from the first one's checkpoint;
@@ -116,7 +129,9 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    (512 x 200, K3), examples/adroit_hammer_npg.json at hammer's
    fixed-physics width (num_traj=2048: 2048 x 200, K3, the nail's sensor
    in every observation) and examples/adroit_relocate_scratch.json (2048 x
-   200, K3) with niter=1. Exactly the path's launches of its kernel per
+   200, K3) with niter=1; the same door, hammer (at its config's 512 x 200)
+   and relocate configs with ``env_kwargs.constraint_solver="newton"`` (K4)
+   with niter=1. Exactly the path's launches of its kernel per
    iteration (1000, 200, 100, or humanoid PPO's 64) and 0 of
    the others, the obs_norm rollout's counted apart (one more window or
    episode), every logged value finite, the agent's state on the card,
@@ -212,7 +227,8 @@ that runs it (phase 6 for K1, phase 7 for K2; K1's ``hopper_model_npg``,
 entries, K2's ``hopper`` entry, K3 and K4: their path in phase 13, the
 obs_norm rollout included), reset to 0 just before. Each K1, K2 and K3
 entry holds the warps per block its default launch took; K3's ``hammer``,
-``door`` and ``relocate`` entries their check and their path's launches;
+``door`` and ``relocate`` entries their check and their path's launches,
+and K4's the same for its Newton paths;
 K1's ``hopper_dapg`` and K3's ``pen_dapg``, ``door_dapg``, ``hammer_dapg``
 and ``relocate_dapg`` entries their DAPG path's launches (the warm-started
 call's included, the demos' not); K1's ``ant_dp`` and ``humanoid_ppo_dp``
@@ -295,6 +311,23 @@ from pathlib import Path
 # reads 1.3e-6 / 1.9e-4 and the missing diagonal 4.9e-4 / 5.7e-2, every box
 # geom's solref 2% off 2.2e-3 / 0.32 and the condim-4 torsional friction 2%
 # off 4.7e-4 / 6.7e-2 (tools/torch_adroit_newton_check.py, PERF.md).
+# K4 on door, hammer and relocate is held to pen's tolerances with the
+# plain version stepping by K4's line-search fractions (phase_k4's
+# ``replay``). Free-running, the plain version on the card and on the CPU
+# differ there by up to 2.1e-5 / 2.6e-3 (door), 3.9e-5 / 7.9e-3 (hammer)
+# and 2.4e-5 / 5.1e-3 (relocate), with 99% quantiles of 9.7e-6 / 1.7e-3,
+# 4.6e-6 / 1.0e-3 and 1.2e-5 / 1.3e-3, over pen's quantile tolerance:
+# their kind states (a box or capsule up to 1 cm in the table, 57-71 rows
+# held) tie the line search's costs in many more envs than pen's, and a
+# tie that flips on round-off moves the step by a whole fraction. The
+# replay takes those flips out and leaves the rows, the metric and the
+# Newton direction to the comparison; the line search, whose code all four
+# tasks share, is held free-running on pen. With the fractions replayed the
+# plain version on the card and on the CPU differ by 99% quantiles of at
+# most 1.0e-6 / 1.8e-4 and K4 reads at most 2.0e-6 / 5.2e-4 (door), while
+# each of pen's three planted faults fails pen's tolerances on each task,
+# the mildest (every geom's torsional friction 2% too large) at 5.1e-2 to
+# 1.1e-1 in qd's quantile (tools/torch_k4_tasks.py --faults, PERF.md).
 TOL = {"K1": {"q": 1e-3, "qd": 5e-2}, "K2": {"q": 1e-4, "qd": 1e-2},
        "K1 swimmer": {"q": 1e-5, "qd": 1e-3}, "K1 humanoid": {"q": 1e-4, "qd": 5e-2},
        "K3 pen": {"q": 1e-4, "qd": 1e-2}, "K3 hammer": {"q": 1e-4, "qd": 1e-2},
@@ -310,6 +343,8 @@ PEN_ENVS, PEN_HORIZON = 512, 100  # examples/adroit_pen_npg.json
 ADROIT_HORIZON, ADROIT_WIDE = 200, 2048  # door, hammer and relocate; hammer's fixed width
 DAPG_ENVS, POINT_MASS_HORIZON = 64, 25  # examples/*_dapg.json but relocate; point_mass_npg.json
 MODEL_ENVS, MODEL_HORIZON = 64, 500  # examples/hopper_model_npg.json's real rollout
+NEWTON = 'env_kwargs.constraint_solver="newton"'  # door, hammer and relocate on K4
+K4_TASK_ENVS = 256  # phase 12's check of K4 on door, hammer and relocate (and twice that, timed)
 # the paths through the entry point (phase 13): config, kernel, envs, steps
 # per iteration (the episode or the samples-mode window), run_job's niter
 # per call, and overrides of the config
@@ -329,6 +364,12 @@ ENTRY_PATHS = (("hopper", "hopper_npg.json", "K1", 256, HOPPER_HORIZON, (1, 2), 
                 (f"num_traj={ADROIT_WIDE}",)),
                ("adroit_relocate", "adroit_relocate_scratch.json", "K3", ADROIT_WIDE,
                 ADROIT_HORIZON, (1,), ()),
+               ("adroit_door_newton", "adroit_door_npg.json", "K4", PEN_ENVS, ADROIT_HORIZON, (1,),
+                (NEWTON,)),
+               ("adroit_hammer_newton", "adroit_hammer_npg.json", "K4", PEN_ENVS, ADROIT_HORIZON,
+                (1,), (NEWTON,)),
+               ("adroit_relocate_newton", "adroit_relocate_scratch.json", "K4", ADROIT_WIDE,
+                ADROIT_HORIZON, (1,), (NEWTON,)),
                ("adroit_pen_dapg", "adroit_pen_dapg.json", "K3", DAPG_ENVS, PEN_HORIZON, (1, 2),
                 ()),
                ("adroit_door_dapg", "adroit_door_dapg.json", "K3", DAPG_ENVS, ADROIT_HORIZON, (1,),
@@ -459,17 +500,24 @@ def _bound_ms(model, n_sub: int, ops_per_env_substep: float, tables, batch: int,
 
 
 def _newton_op_count(model, q, qd, ctrl, held_cand: float, held_lim: float,
-                     link_delta=None) -> float:
+                     link_delta=None, max_pairs: int = 16) -> float:
     """K2's and K4's operations per env-substep for the rows this run
     holds: the plain version's count with no row held (the pipeline, the
     narrow phase of every contact point and the iterations' dense algebra),
     plus the count of one held contact row, from the plain version with a
-    row for every point, and of one held limit row, from a model with one
+    row for every point of the model cut to at most ``max_pairs`` of the
+    pairs that hold a row in some env at the states ``q`` (evenly spaced
+    in the model's order), and of one held limit row, from a model with one
     contact pair with and without its limits (the kernels hold only the
     rows inside their margin)."""
-    from mjrl_tpu_torch.physics import soa_newton
+    from mjrl_tpu_torch.physics import soa, soa_newton
     from mjrl_tpu_torch.physics.tables import num_contact_candidates
 
+    cands = soa._contact_candidates(model, *soa._fk(model, q, link_delta))
+    kept = {frozenset((c.gi, c.gj)) for c in soa_newton._in_margin_somewhere(model, cands)}
+    held_pairs = tuple(p for p in model.contact_pairs if frozenset(p) in kept)
+    step = max(1, -(-len(held_pairs) // max_pairs))  # 1 where no pair holds a row
+    held_pairs = held_pairs[::step] or model.contact_pairs[:1]
     q, qd, ctrl = q[:, :1], qd[:, :1], ctrl[:, :1]
     if link_delta is not None:
         link_delta = link_delta[:, :1]
@@ -493,7 +541,8 @@ def _newton_op_count(model, q, qd, ctrl, held_cand: float, held_lim: float,
     per_lim = (ops(variant(one_pair, model.jnt_limited), True) - ops(variant(
         one_pair, tuple(0 for _ in model.jnt_limited)), True)) / n_lim
     no_row = ops(model, False) - n_lim * per_lim
-    per_row = (ops(model, True) - ops(model, False)) / num_contact_candidates(model)
+    cut = variant(held_pairs, model.jnt_limited)
+    per_row = (ops(cut, True) - ops(cut, False)) / num_contact_candidates(cut)
     return no_row + held_cand * per_row + held_lim * per_lim
 
 
@@ -701,6 +750,46 @@ def hammer_states(model, kernel, full, n_chain, warm_steps=10):
     return q0, qd0, delta, [rand_ctrl() for _ in range(n_chain)]
 
 
+def check_wide(tag, kernel, model, frames, states, wide, ops, label=""):
+    """K3's or K4's launch at ``wide`` envs on ``states`` (``(q, qd,
+    link_delta, ctrl)`` at a batch that divides ``wide``, held against the
+    plain version before) repeated: its results must be bit for bit the
+    smaller batch's repeated (each env is one warp on its own inputs);
+    returns them with its warps per block, time and, where ``ops`` (f32
+    operations per env-substep) is given, bound; ``label`` starts each
+    printed line after the tag."""
+    import torch
+
+    from mjrl_tpu_torch.physics.pkernel import size_class
+
+    q0, qd0, d0, ctrl = states
+    full = q0.shape[1]
+    reps, n_sub = wide // full, frames * model.n_substeps
+    want = kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
+    q, qd, d, c = (x.repeat(1, reps).contiguous() for x in (q0, qd0, d0, ctrl))
+    got = kernel(model, q, qd, c, frames, link_delta=d)
+    kernel.check()
+    same = all(torch.equal(_bits(g), _bits(w.repeat(1, reps))) for g, w in zip(got, want))
+    warps = kernel.launch_warps(size_class(model), wide, q.device)
+    print(f"[{tag}] {label}B={wide} ({warps} warps per block) one control step from B={full}'s "
+          f"states repeated: q and qd {'bit for bit' if same else 'DIFFER from'} B={full}'s "
+          f"repeated")
+    if not same:
+        raise RuntimeError(f"{tag}: {kernel.name} at B={wide} disagrees with its B={full} "
+                           f"results on the same states")
+    ms = _cuda_ms(lambda: kernel(model, q, qd, c, frames, link_delta=d), 20)
+    out = dict(batch=wide, ms=ms, warps_per_block=warps, bit_for_bit_as_full_batch=same)
+    what = ""
+    if ops is not None:
+        out["bound_ms"], out["bound_by"] = _bound_ms(model, n_sub, ops,
+                                                     kernel._tables(model, q.device), wide,
+                                                     extra_rows=3 * model.nlink)
+        what = f", bound {out['bound_ms']:.5f} ms by {out['bound_by']}"
+    print(f"[{tag}] {label}B={wide} (B={full}'s states repeated) one control step: "
+          f"{kernel.name} {ms:.4f} ms{what}")
+    return out
+
+
 def phase_k3(tag, model, frames, kernel, states, batches, tol, wide=None):
     """Holds K3 against the plain version on an Adroit model over the
     chained control steps of ``states`` (``(q, qd, link_delta, ctrls)`` at
@@ -715,7 +804,6 @@ def phase_k3(tag, model, frames, kernel, states, batches, tol, wide=None):
     import torch
 
     from mjrl_tpu_torch.physics import probe, soa
-    from mjrl_tpu_torch.physics.pkernel import size_class
 
     q0, qd0, d0, ctrls = states
     full, n_chain = batches[0], len(ctrls)
@@ -768,72 +856,69 @@ def phase_k3(tag, model, frames, kernel, states, batches, tol, wide=None):
     out = dict(max_abs_err=max_err, kind_env_steps=kind_steps, warps_per_block=warps, ms=ms,
                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     if wide:
-        reps = wide // full
-        want = kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
-        q, qd, d, c = (x.repeat(1, reps).contiguous() for x in (q0, qd0, d0, ctrl))
-        got = kernel(model, q, qd, c, frames, link_delta=d)
-        torch.cuda.synchronize()
-        # each env is one warp on its own inputs, so the B=full results
-        # (held against plain above) repeated are what the wide launch owes
-        same = all(torch.equal(_bits(g), _bits(w.repeat(1, reps))) for g, w in zip(got, want))
-        w_warps = kernel.launch_warps(size_class(model), wide, q.device)
-        print(f"[{tag}] B={wide} ({w_warps} warps per block) one control step from B={full}'s "
-              f"states repeated: q and qd {'bit for bit' if same else 'DIFFER from'} B={full}'s "
-              f"repeated")
-        if not same:
-            raise RuntimeError(f"{tag}: {kernel.name} at B={wide} disagrees with its B={full} "
-                               f"results on the same states")
-        w_ms = _cuda_ms(lambda: kernel(model, q, qd, c, frames, link_delta=d), 20)
-        w_bound, w_by = _bound_ms(model, n_sub, ops, kernel._tables(model, q.device), wide,
-                                  extra_rows=3 * model.nlink)
-        print(f"[{tag}] B={wide} (B={full}'s states repeated) one control step: {kernel.name} "
-              f"{w_ms:.4f} ms, bound {w_bound:.5f} ms by {w_by}")
-        out["wide"] = dict(batch=wide, ms=w_ms, bound_ms=w_bound, bound_by=w_by,
-                           warps_per_block=w_warps, bit_for_bit_as_full_batch=same)
+        out["wide"] = check_wide(tag, kernel, model, frames, (q0, qd0, d0, ctrl), wide, ops)
     return out
 
 
 FACETS = ("facets_1", "facets_4", "facets_6")
 
 
-def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
-    """Holds K4 against the plain version on Adroit pen with the Newton
+def phase_k4(tag, env, kernel, n_chain, batches, tol, tol_quantile, train_states=False,
+             wide=None, bound=True, plain_on_cpu=False, replay=False):
+    """Holds K4 against the plain version on an Adroit env with the Newton
     solver over ``n_chain`` chained control steps at each batch size of
     ``batches`` (the first the full one), from ``adroit_states`` (half the
     batch warmed by K4) with their link offsets; ``tol`` bounds each step's
     max |err| of q and qd, ``tol_quantile`` the HUMANOID_QUANTILE quantile
     of the per env-step max |err|. At each step's entry state it counts the
-    env-steps that hold a row of each of pen's five contact kinds, of each
-    facet count (condim 1, 3, 4: 1, 4, 6 facets) and of a joint limit, and
-    fails if any is 0; the rows held per env (mean, max); the envs whose
-    line search picked another fraction than the plain version's; and K4's
-    overflow counter, which must stay 0. Then the same for one control step
-    at the full batch from ``pen_train_states`` (the training path's
-    states), without the counts that need every kind. On both state sets:
-    K4's results bit for bit the same over two launches and with 1 and 4
-    warps (envs) per block (a missing __syncwarp() would let a lane read
-    what another has not yet written, which shows as results that change
-    from run to run or with the block's shape); both times and the bound
-    at the full batch."""
+    env-steps that hold a row of each of the model's contact kinds (its
+    ``pair_groups``), of each facet count (condim 1, 3, 4: 1, 4, 6 facets)
+    and of a joint limit, and fails if a kind holds none (with
+    ``train_states``, pen's full check, also if a facet count or the
+    limits do); the rows held per env (mean, max); the envs whose line
+    search picked another fraction than the plain version's (with
+    ``replay``, the plain version steps by K4's fractions, which takes the
+    line search's ties out of the comparison, and a flip is a fraction
+    that the plain version would have picked otherwise at K4's iterate);
+    and K4's overflow counter, which must stay 0. With ``train_states`` the same for
+    one control step at the full batch from ``pen_train_states`` (the
+    training path's states), without the counts that need every kind. On
+    each state set: K4's results bit for bit the same over two launches and
+    with 1 and with the most warps (envs) per block (a missing
+    __syncwarp() would let a lane read what another has not yet written,
+    which shows as results that change from run to run or with the block's
+    shape); K4's time (CUDA events), the plain version's (its first step of
+    the check at the full batch, host clock) and, with ``bound``, the bound
+    at the full batch; with ``wide`` (a multiple of it), K4 at that batch on
+    the full batch's states repeated: its results bit for bit the full
+    batch's repeated, its time (and bound). With ``plain_on_cpu`` the plain
+    version runs on the CPU from the same inputs (a third of its time on
+    the card for door's, hammer's and relocate's rows)."""
     import torch
 
     from mjrl_tpu_torch.physics import probe, soa
     from mjrl_tpu_torch.physics.pkernel import size_class
+    from mjrl_tpu_torch.physics.tables import pair_groups
 
     model, dev, frames = env.model, env.device, env.frame_skip
     n_sub, iters = frames * model.n_substeps, int(model.solver_iters)
-    full = batches[0]
+    size, full = size_class(model), batches[0]
+    kinds = tuple(k for k, _ in pair_groups(model).kinds)
+    most = kernel.warps_per_block(size)
+    at_k4s = " at K4's iterates (K4's fractions replayed)" if replay else ""
     kernel.check()
     result = {"overflow": 0}
-    for label, states, chain, sizes in (("pen_states", adroit_states, n_chain, batches),
-                                        ("pen_train_states", pen_train_states, 1, batches[:1])):
+    sets = [(f"{env.task}_states", adroit_states, n_chain, batches)]
+    if train_states:
+        sets.append((f"{env.task}_train_states", pen_train_states, 1, batches[:1]))
+    for label, states, chain, sizes in sets:
         q0, qd0, d0, ctrls = states(env, full, chain)
         max_err, quantile_err, flips, held_all, lim_all = 0.0, 0.0, 0, [], []
         for B in sizes:
             q, qd, d = (x[:, :B].contiguous() for x in (q0, qd0, d0))
             worst = {"q": 0.0, "qd": 0.0}
             per_env = {"q": [], "qd": []}
-            counts = dict.fromkeys((*PEN_KINDS, *FACETS, "limits"), 0)
+            counts = dict.fromkeys((*kinds, *FACETS, "limits"), 0)
             held = []
             flipped = torch.zeros(B, dtype=torch.bool, device=dev)
             flipped_first = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -847,10 +932,17 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
                 picks = torch.full((n_sub * iters, B), -1, dtype=torch.int32, device=dev)
                 plain_picks = []
                 kq, kqd = kernel(model, q, qd, ctrl, frames, link_delta=d, picks=picks)
-                pq, pqd = soa.multistep(model, q, qd, ctrl, frames, picks=plain_picks,
-                                        link_delta=d)
                 torch.cuda.synchronize()
-                differ = picks != torch.cat(plain_picks)
+                t0 = time.perf_counter()
+                on = torch.device("cpu") if plain_on_cpu else dev
+                pq, pqd = soa.multistep(model, q.to(on), qd.to(on), ctrl.to(on), frames,
+                                        picks=plain_picks, link_delta=d.to(on),
+                                        replay=picks.to(on) if replay else None)
+                pq, pqd = pq.to(dev), pqd.to(dev)
+                torch.cuda.synchronize()
+                if B == full and step == 0:
+                    plain_ms = (time.perf_counter() - t0) * 1e3
+                differ = picks != torch.cat(plain_picks).to(dev)
                 flipped |= differ.any(dim=0)
                 flipped_first |= differ[::iters].any(dim=0)
                 for name, got, want in (("q", kq, pq), ("qd", kqd, pqd)):
@@ -876,25 +968,26 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
                 if not ok:
                     raise RuntimeError(f"{tag} disagrees with the plain version: {name} at "
                                        f"B={B} from {label}")
+            needed = kinds + ((*FACETS, "limits") if train_states else ())
             for k, n in counts.items():
                 print(f"[{tag}] {label} B={B} a held {k} row in {n} of "
                       f"{len(ctrls) * B} env-steps")
-                if n == 0 and states is adroit_states:
+                if n == 0 and states is adroit_states and k in needed:
                     raise RuntimeError(f"{tag}: no held {k} row at B={B}")
             held = torch.stack(held)
             held_all.append(held.reshape(-1))
             flips += int(flipped.sum())
             print(f"[{tag}] {label} B={B} contact rows inside their margin per "
                   f"env-step: mean {float(held.mean()):.3f}, max {int(held.max())} (the build "
-                  f"holds {kernel._newton_layouts[size_class(model)]['MAX_HELD']}); overflow "
+                  f"holds {kernel._newton_layouts[size]['MAX_HELD']}); overflow "
                   f"counter 0")
             print(f"[{tag}] {label} B={B} envs with another line-search fraction in "
-                  f"some iteration: {int(flipped.sum())} of {B}; in a substep's first "
-                  f"iteration: {int(flipped_first.sum())}")
+                  f"some iteration{at_k4s}: {int(flipped.sum())} of {B}; in a substep's "
+                  f"first iteration: {int(flipped_first.sum())}")
         ctrl = ctrls[0]
         runs = {}
         for run, warps in (("first", None), ("second", None), ("1 warp per block", 1),
-                           ("4 warps per block", 4)):
+                           (f"{most} warps per block", most)):
             picks = torch.full((n_sub * iters, full), -1, dtype=torch.int32, device=dev)
             runs[run] = (*kernel(model, q0, qd0, ctrl, frames, link_delta=d0, picks=picks,
                                  warps_per_block=warps), picks)
@@ -908,20 +1001,24 @@ def phase_k4_pen(tag, env, kernel, n_chain, batches, tol, tol_quantile):
         for _ in range(3):
             kernel(model, q0, qd0, ctrl, frames, link_delta=d0)
         ms = _cuda_ms(lambda: kernel(model, q0, qd0, ctrl, frames, link_delta=d0), 20)
-        plain_ms = _cuda_ms(lambda: soa.multistep(model, q0, qd0, ctrl, frames, link_delta=d0),
-                            1)
         kernel.check()
         held = torch.cat(held_all)
-        ops = _newton_op_count(model, q0, qd0, ctrl, float(held.mean()),
-                               float(torch.cat(lim_all).mean()), d0)
-        bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev), full,
-                                       extra_rows=3 * model.nlink)
-        print(f"[{tag}] {label} B={full} one control step ({n_sub} substeps): "
-              f"{kernel.name} {ms:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by "
-              f"{bound_by} ({ops:.0f} f32 operations per env-substep)")
         r = dict(max_abs_err=max_err, quantile=HUMANOID_QUANTILE, quantile_abs_err=quantile_err,
                  held_rows_mean=float(held.mean()), held_rows_max=int(held.max()), ms=ms,
-                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                 plain_ms=plain_ms, warps_per_block=most)
+        ops, what = None, ""
+        if bound:
+            ops = _newton_op_count(model, q0, qd0, ctrl, float(held.mean()),
+                                   float(torch.cat(lim_all).mean()), d0)
+            r["bound_ms"], r["bound_by"] = _bound_ms(model, n_sub, ops, kernel._tables(model, dev),
+                                                     full, extra_rows=3 * model.nlink)
+            what = (f", bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({ops:.0f} f32 "
+                    f"operations per env-substep)")
+        print(f"[{tag}] {label} B={full} one control step ({n_sub} substeps): "
+              f"{kernel.name} {ms:.4f} ms, plain {plain_ms:.2f} ms{what}")
+        if wide:
+            r["wide"] = check_wide(tag, kernel, model, frames, (q0, qd0, d0, ctrl), wide, ops,
+                                   label=f"{label} ")
         if states is adroit_states:
             result.update(r, env_steps=counts, line_search_flips=flips)
         else:
@@ -1991,8 +2088,16 @@ def main() -> int:
                                   adroit_states(env, PEN_ENVS, 1), (PEN_ENVS,), TOL[f"K3 {task}"],
                                   wide=ADROIT_WIDE if task != "door" else None)
     pen_newton = make("adroit_pen", horizon=PEN_HORIZON, constraint_solver="newton")
-    k4 = phase_k4_pen("K4 pen", pen_newton, K4, 3, (PEN_ENVS, PEN_ENVS - 6), TOL["K4 pen"],
-                      TOL["K4 pen quantile"])
+    # B=512 is itself a ragged launch of K4's 3 warps per block (170 full
+    # blocks and one of 2), so the run at B=506 is left out for the time
+    k4 = phase_k4("K4 pen", pen_newton, K4, 3, (PEN_ENVS,), TOL["K4 pen"],
+                  TOL["K4 pen quantile"], train_states=True)
+    k4_tasks = {}
+    for task in ("door", "hammer", "relocate"):
+        env = make(f"adroit_{task}", constraint_solver="newton")
+        k4_tasks[task] = phase_k4(f"K4 {task}", env, K4, 1, (K4_TASK_ENVS,), TOL["K4 pen"],
+                                  TOL["K4 pen quantile"], wide=2 * K4_TASK_ENVS, bound=False,
+                                  plain_on_cpu=True, replay=True)
     every = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
     entry_rows = {}
     entry = {tag: phase_entry(tag, config, every.get(k), [v for n, v in every.items() if n != k],
@@ -2050,7 +2155,13 @@ def main() -> int:
         kernels[2][f"{task}_dapg"] = {"launches": entry[f"adroit_{task}_dapg"]}
     kernels[3].update({k: k4[k] for k in ("quantile", "quantile_abs_err", "env_steps",
                                           "held_rows_mean", "held_rows_max",
-                                          "line_search_flips", "overflow", "train_states")})
+                                          "line_search_flips", "overflow", "train_states",
+                                          "warps_per_block")})
+    for task, r in k4_tasks.items():
+        kernels[3][task] = {k: r[k] for k in (*keys, "quantile", "quantile_abs_err", "env_steps",
+                                              "held_rows_mean", "held_rows_max",
+                                              "line_search_flips", "overflow", "wide") if k in r}
+        kernels[3][task]["launches"] = entry[f"adroit_{task}_newton"]
     print(json.dumps({"engine": engine_result}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,11 +18,12 @@
 // design puts one env on 32 lanes instead of one thread, so a warp no
 // longer waits for the env among 32 with the most rows, and the work of
 // each stage is spread over the lanes; the env's state (rows, H, the
-// metric, the kinematics: 56964 bytes in the Adroit class) sits in shared
-// memory instead of local memory, and at most MJ_MAX_WARPS warps share a
-// block (4 in the Adroit class, ~223 KB of dynamic shared memory), so
-// that B=512 envs take 128 of the 132 SMs in one wave, one warp on each of
-// an SM's four schedulers. With no other warp to hide it, each phase's
+// metric, the kinematics: 74980 bytes in the Adroit class, whose 96 held
+// rows take 54048 of them) sits in shared memory instead of local memory,
+// and at most MJ_MAX_WARPS warps share a block (3 in the Adroit class,
+// ~220 KB of dynamic shared memory), one block on an SM, one warp on each
+// of three of its four schedulers: B=256 envs take 86 of the 132 SMs in
+// one wave, B=512 two waves. With no other warp to hide it, each phase's
 // latency (a shared round trip, the reconvergence of its lanes, the sync)
 // is what a stage costs; a build with -DMJ_STAGE_CLOCKS
 // (tools/torch_warp_stages.py) adds a clocks output (MJ_N_STAGES, B) of

@@ -57,8 +57,6 @@
 #include "mj_newton.h"
 #include "mj_warp_stages.h"
 
-#define MJ_MAX_WARPS 4  // K4's warps (envs) per block at most
-
 static_assert(MJ_MAX_NV <= 2 * MJ_WARP, "a lane holds two rows of a triangular solve");
 
 // One env's state for its control step, shared by the warp's lanes.
@@ -97,6 +95,11 @@ struct MjWarpEnv {
   float J[MJ_MAX_HELD][MJ_MAX_FACET][MJ_MAX_CHAIN];
   int cnt[MJ_WARP], off[MJ_WARP];  // the compaction's counts and slots
 };
+
+// K4's warps (envs) per block at most: 4, or as many as fit the 227 KB of
+// shared memory a block may use (3 in the Adroit class, whose 96 held
+// rows take 74980 bytes per warp).
+#define MJ_MAX_WARPS (4 * sizeof(MjWarpEnv) <= 232448 ? 4 : (int)(232448 / sizeof(MjWarpEnv)))
 
 // The layout as the wrapper reads it (mj_warp_layout()): bytes of shared
 // memory per warp, tendons, warps per block and stages at most, and

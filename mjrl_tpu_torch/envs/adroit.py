@@ -5,11 +5,12 @@ Twin of ``mjrl_tpu/envs/adroit.py`` (``AdroitEnv`` and its four tasks),
 the DAPG paper's environments (Rajeswaran et al., RSS 2018) on the ADROIT
 MJCF assets: a 30-dof hand and arm (position servos, 44 coupled-finger
 fixed tendons, frictionloss on every dof), the task's object, and a
-capsule, sphere and box contact set. The port loads no ``mujoco``: each
-model is the JAX package's compilation of the Gymnasium-Robotics asset,
-stored by ``tools/gen_adroit_model.py`` in ``envs/assets/adroit_<task>.npz``;
-the env applies the reference's settings (contact gains, one substep,
-per-dof and per-tendon limit gains).
+capsule, sphere and box contact set. The env loads no ``mujoco``: each
+model is the Gymnasium-Robotics asset compiled once on the host by
+``physics/bridge.py`` with the reference's servo retuning
+(``compile_adroit_model``) and stored in ``envs/assets/adroit_<task>.npz``
+(``tools/torch_gen_adroit_model.py``); the env applies the reference's
+settings (contact gains, one substep, per-dof and per-tendon limit gains).
 
 Scene randomisation is data, as in the reference: each env carries its
 link offsets (``link_delta``: the door's frame, relocate's ball and
@@ -45,7 +46,7 @@ from mjrl_tpu_torch.physics import math3d as m3
 from mjrl_tpu_torch.physics.contact import contact_forces
 from mjrl_tpu_torch.physics.dispatch import check_model, make_frame_stepper
 from mjrl_tpu_torch.physics.engine import compute_kinematics, forward_kinematics, site_positions
-from mjrl_tpu_torch.physics.model import load_model_npz
+from mjrl_tpu_torch.physics.model import Model, load_model_npz
 from mjrl_tpu_torch.physics.tables import scale_limit_penalties
 from mjrl_tpu_torch.types import EnvSpec
 
@@ -57,6 +58,43 @@ class AdroitState(NamedTuple):
     qd: torch.Tensor  # (B, nv)
     link_delta: torch.Tensor  # (B, nlink, 3) per-episode body-position offsets
     target: torch.Tensor  # (B, 3) the task's target vector
+
+
+def adroit_xml(task: str) -> str:
+    """The installed Gymnasium-Robotics wheel's ``adroit_<task>.xml``."""
+    import gymnasium_robotics
+
+    return os.path.join(os.path.dirname(gymnasium_robotics.__file__), "envs", "assets",
+                        "adroit_hand", f"adroit_{task}.xml")
+
+
+def apply_gain_overrides(mj) -> None:
+    """The servo retuning mj_envs and Gymnasium-Robotics make when they build
+    an Adroit env, on a ``mujoco.MjModel``: the wrist servos kp=10, the
+    finger servos kp=1 (twin of ``AdroitEnv._apply_gain_overrides``)."""
+    import mujoco
+
+    def aid(name):
+        return mujoco.mj_name2id(mj, mujoco.mjtObj.mjOBJ_ACTUATOR, name)
+
+    w0, w1 = aid("A_WRJ1"), aid("A_WRJ0")
+    f0, f1 = aid("A_FFJ3"), aid("A_THJ0")
+    mj.actuator_gainprm[w0 : w1 + 1, :3] = np.array([10, 0, 0])
+    mj.actuator_biasprm[w0 : w1 + 1, :3] = np.array([0, -10, 0])
+    mj.actuator_gainprm[f0 : f1 + 1, :3] = np.array([1, 0, 0])
+    mj.actuator_biasprm[f0 : f1 + 1, :3] = np.array([0, -1, 0])
+
+
+def compile_adroit_model(task: str) -> Model:
+    """The ``Model`` stored in ``envs/assets/adroit_<task>.npz``: the
+    wheel's asset through ``physics/bridge.py`` after the servo retuning.
+    Needs ``mujoco`` and ``gymnasium_robotics`` (the host; the card's
+    machine has neither and reads the stored file)."""
+    from mjrl_tpu_torch.physics.bridge import load_mj_model, model_from_mujoco
+
+    mj = load_mj_model(adroit_xml(task))
+    apply_gain_overrides(mj)
+    return model_from_mujoco(mj)
 
 
 def adroit_model(task: str, constraint_solver: str = "penalty", use_soa: Optional[bool] = None):

@@ -492,11 +492,35 @@ class ModelBuilder:
         )
 
 
+def model_arrays(model: Model) -> Dict[str, np.ndarray]:
+    """Every set field of a ``Model`` as a numpy array; dicts keyed by
+    geom pairs become ``<name>__keys`` (P, 2) and ``<name>__values``."""
+    out = {}
+    for f in dataclasses.fields(model):
+        v = getattr(model, f.name)
+        if v is None:
+            continue
+        if isinstance(v, dict):
+            keys = sorted(v)
+            out[f"{f.name}__keys"] = np.asarray(keys, np.int64).reshape(-1, 2)
+            out[f"{f.name}__values"] = np.asarray([v[k] for k in keys])
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
+def save_model_npz(model: Model, path: str) -> None:
+    """Write ``model_arrays(model)`` to ``path`` (compressed), for
+    ``load_model_npz``."""
+    np.savez_compressed(path, **model_arrays(model))
+
+
 def load_model_npz(path: str) -> Model:
-    """A ``Model`` from the arrays ``tools/gen_adroit_model.py`` stores: one
-    entry per set field, the geom-pair dicts as ``<name>__keys`` and
-    ``<name>__values``. Tuples, ints, floats and strings come back as the
-    dataclass declares them."""
+    """A ``Model`` from the arrays ``save_model_npz`` stores (and
+    ``tools/gen_adroit_model.py``, the same format): one entry per set
+    field, the geom-pair dicts as ``<name>__keys`` and ``<name>__values``.
+    Tuples, ints, floats and strings come back as the dataclass declares
+    them."""
     with np.load(path, allow_pickle=False) as z:
         data = {k: z[k] for k in z.files}
     kw = {}

@@ -107,18 +107,25 @@ _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphe
 # on a Newton contact pair's chain (mj_newton.h; pen's pairs reach 13,
 # hammer's 15, relocate's 19). POINT_CLASSES: each class's contact points
 # of a model in K1's warp body (mj_warp_penalty.h; ant 25, humanoid 140);
-# K3 takes the pairs in rounds of 32 and has no such cap.
+# K3 takes the pairs in rounds of 32 and has no such cap. HELD_CLASSES:
+# each class's contact rows inside their margin that K2's and K4's bodies
+# hold per env-substep (mj_newton.h; ant and hopper hold under 10; Adroit's
+# states where a box, capsule or sphere sits up to 1 cm deep in the table
+# or the hand, physics/probe.py's kind_states, hold up to 75 on door and
+# relocate and 65 on hammer, 36 on pen: 96 rows take 74980 bytes of shared
+# memory per warp, so a K4 block holds 3 envs).
 SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24), (38, 36, 36, 30))
 CHAIN_CLASSES = (8, 8, 19)
 POINT_CLASSES = (32, 160, 512)
+HELD_CLASSES = (64, 64, 96)
 
 
 def size_flags(size_class: int) -> Tuple[str, ...]:
     """The compiler defines of one size class."""
     return tuple(f"-DMJ_MAX_{name}={n}" for name, n in
-                 zip(("LINK", "NV", "NQ", "NU", "CHAIN", "POINTS"),
+                 zip(("LINK", "NV", "NQ", "NU", "CHAIN", "POINTS", "HELD"),
                      (*SIZE_CLASSES[size_class], CHAIN_CLASSES[size_class],
-                      POINT_CLASSES[size_class])))
+                      POINT_CLASSES[size_class], HELD_CLASSES[size_class])))
 
 
 def size_class(model: Model) -> int:
@@ -752,6 +759,15 @@ class ExtNewtonKernel(NewtonKernel):
             self._libs[size] = lib
         return self._libs[size]
 
+    def launch_warps(self, size: int, batch: int, device: torch.device,
+                     warps_per_block: Optional[int] = None) -> int:
+        """As K1's, but by default as many warps as a block holds: a K4
+        block fills an SM's shared memory, so fewer warps per block would
+        only leave schedulers idle."""
+        if warps_per_block is None:
+            return self.warps_per_block(size)
+        return super().launch_warps(size, batch, device, warps_per_block)
+
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k4_tables", {})
         key = str(device)
@@ -778,8 +794,7 @@ class ExtNewtonKernel(NewtonKernel):
             raise ValueError(f"no K4 path for device {q.device}")
         size = size_class(model)
         lib = self.build(size)
-        warps = (self.warps_per_block(size) if warps_per_block is None
-                 else self.launch_warps(size, B, q.device, warps_per_block))
+        warps = self.launch_warps(size, B, q.device, warps_per_block)
         mf, mi, nf, ni = self._tables(model, q.device)
         n_sub = n_frames * model.n_substeps
         iters = int(model.solver_iters)

@@ -274,7 +274,8 @@ def _chol_solve_rows(H, g: List[torch.Tensor], nv: int) -> List[torch.Tensor]:
 def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tensor],
                     q: torch.Tensor, qd: torch.Tensor, qdd0: torch.Tensor, candidates,
                     dt: float, fric_diag: Optional[list] = None,
-                    picks: Optional[list] = None, costs: Optional[list] = None) -> torch.Tensor:
+                    picks: Optional[list] = None, costs: Optional[list] = None,
+                    replay: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Newton solve of the primal soft-constraint problem, batch-last.
 
     ``M`` is the sparse mass matrix of soa._mass_matrix_sparse; the metric
@@ -285,7 +286,10 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
     ``model.solver_iters`` iterations (no early exit). ``picks``, when a
     list, receives each iteration's chosen fraction as an index into
     ``_ALPHAS`` (int (1, B)), and ``costs`` each iteration's cost at the
-    five fractions ((5, B)).
+    five fractions ((5, B)). ``replay``, an int (solver_iters, B) tensor of
+    fraction indices (a kernel's ``picks``), makes iteration i step by
+    ``_ALPHAS[replay[i]]`` instead of its own pick, in each env where it
+    is not negative; ``picks`` still receives the solve's own picks.
     """
     ensure_solver_params(model)
     nv = model.nv
@@ -320,7 +324,9 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
         return [o if o is not None else zero for o in out]
 
     x = qdd0
-    for _ in range(int(model.solver_iters)):
+    if replay is not None:
+        alphas = torch.tensor(_ALPHAS, dtype=qdd0.dtype, device=qdd0.device)
+    for it in range(int(model.solver_iters)):
         xs = [x[j : j + 1] for j in range(nv)]
         d0 = [xs[j] - qdd0[j : j + 1] for j in range(nv)]
         Md0 = mat_vec(d0)
@@ -391,5 +397,8 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
             picks.append(best_k)
         if costs is not None:
             costs.append(torch.cat(all_c))
+        if replay is not None:
+            given = replay[it : it + 1].to(qdd0.device).long()
+            best_a = torch.where(given >= 0, alphas[given.clamp(min=0)], best_a)
         x = x + best_a * torch.cat(dx, dim=0)
     return x

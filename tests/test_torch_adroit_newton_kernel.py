@@ -11,8 +11,9 @@ held against the plain PyTorch version (physics/soa.py and
 physics/soa_newton.py) on Adroit pen, from warmed states with link offsets
 and from states where each of pen's five contact kinds touches, and its
 substep against the engine oracle ``tests/golden/adroit_hammer_newton_substep.npz``
-on hammer (671 contact points, pair chains of 15 dofs). A build with room
-for 4 rows counts the env-substeps that have more and the wrapper's check
+on hammer (671 contact points, pair chains of 15 dofs); on door and
+relocate, states that hold more than 64 rows are held without overflow. A
+build with room for 4 rows counts the env-substeps that have more and the wrapper's check
 raises on them. The test marked ``cuda`` launches the real kernel and runs
 only where a card is present.
 """
@@ -121,7 +122,7 @@ def test_k4_host_build_matches_plain_on_pen(pen, lib):
     """One control step, then two more chained (5 substeps each), each held
     against the plain version from the same state with the same link
     offsets; every contact kind and every facet count holds rows on the
-    way, and no env-substep overflows the 64 rows."""
+    way, and no env-substep overflows the build's rows."""
     env, q, qd, delta = pen
     m = env.model
     run = _host_runner(lib, m)
@@ -162,15 +163,40 @@ def test_k4_host_build_matches_hammer_golden(lib):
     np.testing.assert_allclose(got_qd.T, g["ref_qd"], **TOL_GOLDEN_QD)
 
 
+@pytest.mark.parametrize("task, n, seed", [("door", 16, 7), ("relocate", 8, 1)])
+def test_k4_host_build_holds_more_than_64_rows(lib, task, n, seed):
+    """Door's and relocate's two states (of ``probe.kind_states``) with the
+    most contact rows inside their margin, 71 and more in the fullest: more
+    than the 64 the Adroit class held before it took 96. One substep of 3
+    Newton iterations holds every row (no overflow) and matches the plain
+    version."""
+    env = make(f"adroit_{task}", device="cpu", constraint_solver="newton")
+    m = env.model
+    m.solver_iters = 3
+    q, qd, delta = probe.kind_states(m, n, np.random.default_rng(seed))
+    held = probe.held_rows(m, torch.as_tensor(q), torch.as_tensor(delta))["contacts"].numpy()
+    top = np.argsort(-held, kind="stable")[:2]
+    assert 64 < held[top[0]] <= pkernel.read_newton_layout(lib)["MAX_HELD"], held[top]
+    q, qd, delta = (np.ascontiguousarray(x[:, top]) for x in (q, qd, delta))
+    ctrl = np.tile(np.asarray(env._act_mean)[:, None], (1, 2)).astype(np.float32)
+    got_q, got_qd, got_p, over = _host_runner(lib, m)(q, qd, ctrl, delta, 1)
+    want_q, want_qd, want_p = _plain(m, q, qd, ctrl, delta, 1)
+    assert over == 0
+    np.testing.assert_allclose(got_q, want_q, **TOL_Q)
+    np.testing.assert_allclose(got_qd, want_qd, **TOL_QD)
+    _check_picks(m.solver_iters, got_p, want_p)
+
+
 def test_k4_layout_is_the_packers(pen, lib):
-    """K4's tables: the Adroit class holds 19-dof chains and 64 rows; every
+    """K4's tables: the Adroit class holds 19-dof chains and 96 rows; every
     one of pen's 406 contact points is packed (K2's packer refuses them);
     pen's pairs have 1, 4 and 6 facets and chains of up to 13 dofs, each
     dof's sign +1 on geom i's link."""
     env, *_ = pen
     m = env.model
     L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
-    assert NL["MAX_CHAIN"] == pkernel.CHAIN_CLASSES[2] == 19 and NL["MAX_HELD"] == 64
+    assert NL["MAX_CHAIN"] == pkernel.CHAIN_CLASSES[2] == 19
+    assert NL["MAX_HELD"] == pkernel.HELD_CLASSES[2] == 96
     assert NL["NPAIR_I"] == 2 + 2 * NL["MAX_CHAIN"]
     with pytest.raises(NotImplementedError, match="exceed"):
         pkernel.pack_newton_tables(m, L, NL)

@@ -123,3 +123,81 @@ def test_port_imports_and_steps_without_jax():
                           text=True, timeout=300, env=env, cwd=ROOT)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "imported" in proc.stdout
+
+
+_BRIDGE_SCRIPT = r"""
+import sys
+BLOCKED = ("jax", "jaxlib", "gymnasium", "gymnasium_robotics", "mujoco", "mjrl_tpu")
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+for name in BLOCKED:
+    sys.modules[name] = None
+sys.path.insert(0, sys.argv[1])
+import importlib.util
+from mjrl_tpu_torch.physics import bridge
+from mjrl_tpu_torch.envs import adroit
+for path in sys.argv[2:]:
+    spec = importlib.util.spec_from_file_location("tool", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules if sys.modules[m] is not None)
+for call in (lambda: bridge.load_mj_model("model.xml"), lambda: adroit.compile_adroit_model("pen")):
+    try:
+        call()
+    except ImportError:
+        continue
+    raise AssertionError("compiled a model with mujoco blocked")
+print("bridge imported without mujoco")
+"""
+
+_HOST_FILES = ("mjrl_tpu_torch/physics/bridge.py", "tools/torch_gen_adroit_model.py",
+               "tools/torch_repro_check.py")
+
+
+def test_bridge_imports_with_mujoco_blocked():
+    """The bridge and the Adroit env module import with mujoco, jax and
+    mjrl_tpu blocked (mujoco only inside the bridge's functions, which then
+    raise ImportError), and so do the two host tools."""
+    env = {**os.environ, "PYTHONPATH": "", "OMP_NUM_THREADS": "1"}
+    tools = [os.path.join(ROOT, p) for p in _HOST_FILES[1:]]
+    proc = subprocess.run([sys.executable, "-c", _BRIDGE_SCRIPT, ROOT, *tools],
+                          capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "bridge imported without mujoco" in proc.stdout
+
+
+def test_bridge_and_host_tools_import_no_jax():
+    """No import statement of the bridge or of the two host tools, at any
+    depth (inside functions too), names jax or the JAX package."""
+    import ast
+
+    for rel in _HOST_FILES:
+        with open(os.path.join(ROOT, rel)) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+        bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "mjrl_tpu")]
+        assert not bad, (rel, bad)
+        assert "mjrl_tpu_torch" in " ".join(names) or rel.startswith("mjrl_tpu_torch"), rel
+
+
+def test_gen_adroit_model_tool_writes_the_committed_pen(tmp_path):
+    """``tools/torch_gen_adroit_model.py pen`` (the port's bridge on the
+    installed wheel's asset) writes the committed ``adroit_pen.npz``: every
+    array the same dtype, shape and bits."""
+    import numpy as np
+    import pytest
+
+    pytest.importorskip("mujoco")
+    pytest.importorskip("gymnasium_robotics")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "torch_gen_adroit_model.py"),
+                           "pen", "--out", str(tmp_path)], capture_output=True, text=True,
+                          timeout=300, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with np.load(tmp_path / "adroit_pen.npz") as got, np.load(
+            os.path.join(ROOT, "mjrl_tpu_torch", "envs", "assets", "adroit_pen.npz")) as want:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+            assert got[k].tobytes() == want[k].tobytes(), k
