@@ -1,0 +1,9 @@
+"""``update_ms``: the host clock around the update phase of each iteration,
+between syncs, averaged over the traced window's unprofiled iterations
+(the harness's spans, ``configs/<config>.json``'s ``spans``)."""
+
+from gpubench.harness import phase_mean
+
+
+def read(data):
+    return phase_mean(data, "update")
