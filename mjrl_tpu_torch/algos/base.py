@@ -42,6 +42,7 @@ from mjrl_tpu_torch.samplers.rollout import (
     sample_episodes,
 )
 from mjrl_tpu_torch.types import TrajectoryBatch
+from mjrl_tpu_torch.utils import trace
 
 Params = Dict[str, torch.Tensor]
 
@@ -247,7 +248,7 @@ class BatchREINFORCE:
         surr_after = self.surrogate(new_params, batch, n)
         self.load_params(new_params)
         return {
-            "alpha": torch.tensor(self.learn_rate, device=self.env.device),
+            "alpha": torch.full((), self.learn_rate, device=self.env.device),
             "kl_dist": kl_dist,
             "surr_improvement": (surr_after - surr_before).detach(),
         }
@@ -257,31 +258,41 @@ class BatchREINFORCE:
         """One on-policy iteration: sample -> returns/GAE -> update ->
         baseline fit -> statistics. Metrics stay on the device. In samples
         mode the rows continue from the agent's carry. ``num_traj`` counts
-        every rank's rows, of which this rank samples its block."""
-        if self.sample_mode == "trajectories":
-            batch = sample_episodes(self.env, self.policy, self.num_traj, self.horizon, generator)
-        else:
-            if self.sampler_carry is None:
-                self.sampler_carry = init_autoreset_carry(self.env, self.num_traj, generator)
-            window = -(-int(self.num_samples) // self.num_traj)
-            batch, self.sampler_carry = sample_autoreset(
-                self.env, self.policy, self.sampler_carry, window, self.horizon, generator)
-        return self.finish_train_step(batch, generator=generator)
+        every rank's rows, of which this rank samples its block. Traced, the
+        iteration is the root span ``train_step`` over ``sample``,
+        ``process_batch``, ``update``, ``fit`` and ``statistics``."""
+        with trace.span("train_step"):
+            with trace.span("sample"):
+                if self.sample_mode == "trajectories":
+                    batch = sample_episodes(self.env, self.policy, self.num_traj, self.horizon,
+                                            generator)
+                else:
+                    if self.sampler_carry is None:
+                        self.sampler_carry = init_autoreset_carry(self.env, self.num_traj,
+                                                                  generator)
+                    window = -(-int(self.num_samples) // self.num_traj)
+                    batch, self.sampler_carry = sample_autoreset(
+                        self.env, self.policy, self.sampler_carry, window, self.horizon, generator)
+            return self.finish_train_step(batch, generator=generator)
 
     def finish_train_step(self, batch: TrajectoryBatch,
                           generator: Optional[torch.Generator] = None,
                           fit_perms: Optional[List[torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
         """Everything after sampling; ``fit_perms`` fixes the baseline's
         minibatch order (else drawn from ``generator``)."""
-        batch = self.process_batch(batch)
-        update_metrics = self.update(batch, generator=generator)
-        vf_metrics = self.baseline.fit(batch, generator=generator, perms=fit_perms)
-        stats = rollout_statistics(batch)
-        # the EMA seeds at the first iteration that completes an episode;
-        # running_score == 0 is the unseeded sentinel
-        seeded = torch.where(self.running_score == 0.0, stats.mean,
-                             0.9 * self.running_score + 0.1 * stats.mean)
-        self.running_score = torch.where(stats.num_episodes > 0, seeded, self.running_score)
+        with trace.span("process_batch"):
+            batch = self.process_batch(batch)
+        with trace.span("update"):
+            update_metrics = self.update(batch, generator=generator)
+        with trace.span("fit"):
+            vf_metrics = self.baseline.fit(batch, generator=generator, perms=fit_perms)
+        with trace.span("statistics"):
+            stats = rollout_statistics(batch)
+            # the EMA seeds at the first iteration that completes an episode;
+            # running_score == 0 is the unseeded sentinel
+            seeded = torch.where(self.running_score == 0.0, stats.mean,
+                                 0.9 * self.running_score + 0.1 * stats.mean)
+            self.running_score = torch.where(stats.num_episodes > 0, seeded, self.running_score)
         self.iteration += 1
         return {
             "stoc_pol_mean": stats.mean,

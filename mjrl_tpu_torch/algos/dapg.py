@@ -40,8 +40,8 @@ class DAPG(NPG):
     def demo_coef(self) -> torch.Tensor:
         """``lam_0 * lam_1**iteration`` (f32, on the env's device)."""
         dev = self.env.device
-        return torch.tensor(self.lam_0, device=dev) * torch.pow(
-            torch.tensor(self.lam_1, device=dev), float(self.iteration))
+        return torch.full((), self.lam_0, device=dev) * torch.pow(
+            torch.full((), self.lam_1, device=dev), float(self.iteration))
 
     def demo_surrogate(self, params: Params, demo_adv: torch.Tensor) -> torch.Tensor:
         """Masked mean likelihood-ratio surrogate over the demo steps."""

@@ -49,6 +49,7 @@ from mjrl_tpu_torch.samplers.rollout import (
     sample_episodes,
 )
 from mjrl_tpu_torch.types import EnvSpec, TrajectoryBatch
+from mjrl_tpu_torch.utils import trace
 
 
 class ModelState(NamedTuple):
@@ -88,6 +89,7 @@ class ModelEnv(Env):
         obs = self.start_pool[index]
         return ModelState(obs, member.long()), obs
 
+    @trace.spanned("env.step")
     def step(self, state: ModelState, action: torch.Tensor) -> StepResult:
         nxt = self.dynamics.predict(state.obs, action, state.member)
         reward = self.real_env.reward_from_obs(state.obs, action, nxt)
@@ -148,8 +150,15 @@ class ModelAccelNPG(NPG):
         return run_episodes(env, self.policy, noise)
 
     def train_step(self, generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        real = sample_episodes(self.env, self.policy, self.num_traj, self.horizon, generator)
-        return self.finish_model_step(real, generator)
+        """One iteration; traced, the root span ``train_step`` over the real
+        rollout (``sample``), ``model.ensemble_fit``,
+        ``model.imagined_rollout``, ``process_batch``, ``update``, ``fit``
+        and ``statistics``."""
+        with trace.span("train_step"):
+            with trace.span("sample"):
+                real = sample_episodes(self.env, self.policy, self.num_traj, self.horizon,
+                                       generator)
+            return self.finish_model_step(real, generator)
 
     def finish_model_step(self, real: TrajectoryBatch,
                           generator: Optional[torch.Generator] = None,
@@ -160,13 +169,20 @@ class ModelAccelNPG(NPG):
         ones where passed, and every draw not given comes from
         ``generator`` in the step's order (the fit, the imagined rollout,
         the update's FVP mask, the baseline's minibatches)."""
-        dyn_metrics = self.dynamics.fit(real, generator, perms=dyn_perms)
-        img = self.process_batch(self.imagine(real, generator, img_noise))
-        update_metrics = self.update(img, generator=generator)
-        vf_metrics = self.baseline.fit(img, generator=generator)
-        stats = rollout_statistics(real)
-        self.running_score = (stats.mean if self.iteration == 0
-                              else 0.9 * self.running_score + 0.1 * stats.mean)
+        with trace.span("model.ensemble_fit"):
+            dyn_metrics = self.dynamics.fit(real, generator, perms=dyn_perms)
+        with trace.span("model.imagined_rollout"):
+            img = self.imagine(real, generator, img_noise)
+        with trace.span("process_batch"):
+            img = self.process_batch(img)
+        with trace.span("update"):
+            update_metrics = self.update(img, generator=generator)
+        with trace.span("fit"):
+            vf_metrics = self.baseline.fit(img, generator=generator)
+        with trace.span("statistics"):
+            stats = rollout_statistics(real)
+            self.running_score = (stats.mean if self.iteration == 0
+                                  else 0.9 * self.running_score + 0.1 * stats.mean)
         self.iteration += 1
         return {
             "stoc_pol_mean": stats.mean,

@@ -23,6 +23,7 @@ from mjrl_tpu_torch.ops.cg import cg_solve
 from mjrl_tpu_torch.ops.ravel import ravel
 from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
+from mjrl_tpu_torch.utils import trace
 
 
 class NPG(BatchREINFORCE):
@@ -84,7 +85,9 @@ class NPG(BatchREINFORCE):
         hvp_mask = (self.hvp_mask(batch, generator) if hvp_mask is None
                     else dist.local_rows(hvp_mask))
         fvp, flat, unravel = self.build_fvp(params, batch, hvp_mask)
-        npg_flat = cg_solve(fvp, vpg_flat, cg_iters=self.cg_iters, residual_tol=self.residual_tol)
+        with trace.span("npg.cg"):
+            npg_flat = cg_solve(fvp, vpg_flat, cg_iters=self.cg_iters,
+                                residual_tol=self.residual_tol)
         inner = torch.abs(torch.dot(vpg_flat, npg_flat))
         alpha = torch.sqrt(2.0 * self.normalized_step_size / (inner + 1e-20))
         return npg_flat, alpha, flat, unravel
@@ -101,7 +104,7 @@ class NPG(BatchREINFORCE):
         self.load_params(new_params)
         return {
             "alpha": alpha,
-            "delta": torch.tensor(self.normalized_step_size, device=self.env.device),
+            "delta": torch.full((), self.normalized_step_size, device=self.env.device),
             "kl_dist": kl_dist,
             "surr_improvement": (surr_after - surr_before).detach(),
         }

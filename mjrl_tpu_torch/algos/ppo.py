@@ -148,7 +148,7 @@ class PPO(BatchREINFORCE):
         new_params = self.params()
         dev = self.env.device
         return {
-            "alpha": torch.tensor(lr_now, device=dev),
+            "alpha": torch.full((), lr_now, device=dev),
             "kl_dist": self.mean_kl(new_params, params, batch).detach(),
             "surr_improvement": (self.surrogate(new_params, batch, n) - surr_before).detach(),
             "log_std_mean": torch.mean(new_params["log_std"]),

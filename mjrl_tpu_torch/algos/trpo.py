@@ -27,6 +27,7 @@ from mjrl_tpu_torch.algos.base import Params, masked_kl, masked_surrogate
 from mjrl_tpu_torch.algos.npg import NPG
 from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
+from mjrl_tpu_torch.utils import trace
 
 
 class TRPO(NPG):
@@ -61,7 +62,7 @@ class TRPO(NPG):
         while k < self.max_backtracks and not accepted:
             cand = self.policy.project(unravel(flat + alpha * npg_flat))
             surr, kl = self._probe(cand, old_mean, old_log_std, batch, n)
-            accepted = bool((surr > surr_before) & (kl <= self.kl_dist))
+            accepted = trace.host_read("trpo.accepted", (surr > surr_before) & (kl <= self.kl_dist))
             k += 1
             if not accepted:
                 alpha = alpha * self.backtrack_ratio
@@ -80,9 +81,9 @@ class TRPO(NPG):
         dev = self.env.device
         return {
             "alpha": alpha,
-            "delta": torch.tensor(self.kl_dist, device=dev),
+            "delta": torch.full((), self.kl_dist, device=dev),
             "kl_dist": kl if accepted else zero,
             "surr_improvement": surr - surr_before if accepted else zero,
-            "backtrack_iters": torch.tensor(float(k), device=dev),
-            "step_accepted": torch.tensor(float(accepted), device=dev),
+            "backtrack_iters": torch.full((), float(k), device=dev),
+            "step_accepted": torch.full((), float(accepted), device=dev),
         }

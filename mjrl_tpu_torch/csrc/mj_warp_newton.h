@@ -117,6 +117,18 @@ MJ_HD void mj_count(int* c) {
 #endif
 }
 
+// An env-substep's held rows into the device-side held_stats: their sum
+// in [0], their largest in [1].
+MJ_HD void mj_count_held(int* held_stats, int held) {
+#ifdef __CUDA_ARCH__
+  atomicAdd(held_stats, held);
+  atomicMax(held_stats + 1, held);
+#else
+  held_stats[0] += held;
+  if (held > held_stats[1]) held_stats[1] = held;
+#endif
+}
+
 // (a, b), b <= a, of entry e of a lower triangle stored row by row.
 MJ_HD void mj_tri(int e, int& a, int& b) {
   const float r = 8.0f * (float)e + 1.0f;
@@ -390,18 +402,20 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
 // Advances the env in S (q, qd, with ctrl held) by one Newton substep of
 // length dt; delta (S.delta or null): the link offsets; *overflow counts
 // the substep if it has more contact rows inside their margin than
-// MJ_MAX_HELD; maxd: the tree's depth (mj_warp_depths).
+// MJ_MAX_HELD; held_stats (or null) takes the substep's rows inside their
+// margin (mj_count_held); maxd: the tree's depth (mj_warp_depths).
 template <bool EXT, class W>
 MJ_WD void mj_warp_substep(W& w, MjWarpEnv& S, const float* mf, const int* mi,
                            const float* nf, const int* ni, float dt, int iters,
                            int* picks, long stride, const float* delta, int* overflow,
-                           int maxd) {
+                           int* held_stats, int maxd) {
   const int nv = mi[MJ_I_NV];
   mj_warp_kinematics(w, S, mf, mi, delta, maxd);
   MJ_STAMP(w, MJ_ST_KIN);
   int nl;
   const int held = mj_warp_rows<EXT>(w, S, mf, mi, nf, ni, nl);
   if (held > MJ_MAX_HELD) w.one([&] { mj_count(overflow); });
+  if (held_stats) w.one([&] { mj_count_held(held_stats, held); });
   MJ_STAMP(w, MJ_ST_ROWS);
   mj_warp_qdd0<EXT>(w, S, mf, mi, dt, maxd);
   w.each(nv, [&](int j) { S.x[j] = S.qdd0[j]; });
@@ -412,19 +426,19 @@ MJ_WD void mj_warp_substep(W& w, MjWarpEnv& S, const float* mf, const int* mi,
 
 // Kernel K2's (EXT = false) or K4's (EXT = true) env: n_sub substeps with
 // ctrl (and, with delta_in, K4's link offsets) held; picks (or null) is
-// (n_sub * iters, B) int.
+// (n_sub * iters, B) int; held_stats (or null) as mj_warp_substep's.
 template <bool EXT, class W>
 MJ_WD void mj_warp_env_multistep(W& w, MjWarpEnv& S, const float* mf, const int* mi,
                                  const float* nf, const int* ni, int env, int B,
                                  const float* q_in, const float* qd_in,
                                  const float* ctrl_in, const float* delta_in,
                                  float* q_out, float* qd_out, int* picks, int* overflow,
-                                 int n_sub, int iters, float dt) {
+                                 int* held_stats, int n_sub, int iters, float dt) {
   mj_warp_load(w, S, mi, env, B, q_in, qd_in, ctrl_in, delta_in, S.delta);
   const int maxd = mj_warp_depths(w, S, mi);
   for (int s = 0; s < n_sub; ++s)
     mj_warp_substep<EXT>(w, S, mf, mi, nf, ni, dt, iters,
                          picks ? picks + (long)s * iters * B + env : nullptr, B,
-                         delta_in ? S.delta : nullptr, overflow, maxd);
+                         delta_in ? S.delta : nullptr, overflow, held_stats, maxd);
   mj_warp_store(w, S, mi, env, B, q_out, qd_out);
 }

@@ -49,6 +49,7 @@ from mjrl_tpu_torch.physics.engine import compute_kinematics, forward_kinematics
 from mjrl_tpu_torch.physics.model import Model, load_model_npz
 from mjrl_tpu_torch.physics.tables import scale_limit_penalties
 from mjrl_tpu_torch.types import EnvSpec
+from mjrl_tpu_torch.utils import trace
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
@@ -282,6 +283,7 @@ class AdroitPenEnv(AdroitEnv):
         st = self._rest_state(ex.shape[0])._replace(target=m3.quat_rotate(quat, self._tar_dir))
         return st, self._obs(st)
 
+    @trace.spanned("env.step")
     def step(self, st: AdroitState, action: torch.Tensor) -> StepResult:
         st = self._physics(st, self._scaled_ctrl(action))
         feats = self._features(st)
@@ -354,6 +356,7 @@ class AdroitRelocateEnv(AdroitEnv):
         palm, obj = feats if feats is not None else self._features(st)
         return torch.cat([st.q[:, :-6], palm - obj, palm - st.target, obj - st.target], dim=-1)
 
+    @trace.spanned("env.step")
     def step(self, st: AdroitState, action: torch.Tensor) -> StepResult:
         st = self._physics(st, self._scaled_ctrl(action))
         feats = palm, obj = self._features(st)
@@ -431,6 +434,7 @@ class AdroitHammerEnv(AdroitEnv):
         return torch.cat([st.q[:, :-6], qv[:, -6:], palm, obj, obj_rot, nail, impact[:, None]],
                          dim=-1)
 
+    @trace.spanned("env.step")
     def step(self, st: AdroitState, action: torch.Tensor) -> StepResult:
         st = self._physics(st, self._scaled_ctrl(action))
         feats = self._features(st)
@@ -496,6 +500,7 @@ class AdroitDoorEnv(AdroitEnv):
         return torch.cat([q[:, 1:-2], q[:, -1:], door, palm, handle, palm - handle, is_open],
                          dim=-1)
 
+    @trace.spanned("env.step")
     def step(self, st: AdroitState, action: torch.Tensor) -> StepResult:
         st = self._physics(st, self._scaled_ctrl(action))
         feats = palm, handle = self._features(st)

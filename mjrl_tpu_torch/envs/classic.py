@@ -24,6 +24,7 @@ import torch
 
 from mjrl_tpu_torch.envs.base import Env, StepResult, register
 from mjrl_tpu_torch.types import EnvSpec
+from mjrl_tpu_torch.utils import trace
 
 
 class PendulumState(NamedTuple):
@@ -60,6 +61,7 @@ class PendulumEnv(Env):
         s = PendulumState(theta.clone(), theta_dot.clone())
         return s, self._obs(s)
 
+    @trace.spanned("env.step")
     def step(self, s: PendulumState, action: torch.Tensor) -> StepResult:
         u = torch.clamp(action[:, 0], -self.max_torque, self.max_torque)
         th = torch.remainder(s.theta + math.pi, 2.0 * math.pi) - math.pi
@@ -111,6 +113,7 @@ class CartpoleEnv(Env):
         s = CartpoleState(*(v[:, i].clone() for i in range(4)))
         return s, self._obs(s)
 
+    @trace.spanned("env.step")
     def step(self, s: CartpoleState, action: torch.Tensor) -> StepResult:
         force = self.force_mag * torch.clamp(action[:, 0], -1.0, 1.0)
         total_m = self.m_cart + self.m_pole

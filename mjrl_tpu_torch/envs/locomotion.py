@@ -37,6 +37,7 @@ from mjrl_tpu_torch.physics.engine import compute_kinematics, const, forward_kin
 from mjrl_tpu_torch.physics.mjcf import load_mjcf
 from mjrl_tpu_torch.physics.tables import scale_limit_penalties
 from mjrl_tpu_torch.types import EnvSpec
+from mjrl_tpu_torch.utils import trace
 
 ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets")
 
@@ -166,6 +167,7 @@ class LocomotionEnv(Env):
         state = EnvState(q=self.qpos0 + q_noise, qd=qd_noise.clone())
         return state, self._obs(state)
 
+    @trace.spanned("env.step")
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
         x_before = self._x_pos(state)
         q2, qd2 = self._frame_step(state.q, state.qd, action)

@@ -24,6 +24,7 @@ import torch
 
 from mjrl_tpu_torch.envs.base import Env, StepResult, register
 from mjrl_tpu_torch.types import EnvSpec
+from mjrl_tpu_torch.utils import trace
 
 
 class PointMassState(NamedTuple):
@@ -64,6 +65,7 @@ class PointMassEnv(Env):
         state = PointMassState(pos=pos.clone(), vel=torch.zeros_like(pos), target=target.clone())
         return state, self._obs(state)
 
+    @trace.spanned("env.step")
     def step(self, state: PointMassState, action: torch.Tensor) -> StepResult:
         a = torch.clamp(action, -1.0, 1.0)
         vel = self.damping * state.vel + self.dt * self.gain * a

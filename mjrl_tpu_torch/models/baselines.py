@@ -35,6 +35,7 @@ from mjrl_tpu_torch.models.mlp import MLP
 from mjrl_tpu_torch.ops.lstsq import ridge_solve
 from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import EnvSpec, TrajectoryBatch
+from mjrl_tpu_torch.utils import trace
 
 
 def base_features(obs: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
@@ -178,21 +179,22 @@ class MLPBaseline(Baseline):
             perm, weights = dist.local_index(perm, offset, target.shape[0], w)
             dens = torch.clamp(dist.all_sum(weights.sum(dim=-1)), min=1.0)
             for idx, ww, den in zip(perm, weights, dens):
-                y = target[idx]
-                pred = self.mlp(feats[idx])[..., 0]
-                sq = torch.square(pred - y)
-                if self.vf_clip_coef > 0.0:
-                    v_old = pred0[idx]
-                    v_clip = v_old + torch.clamp(pred - v_old, -vf_eps, vf_eps)
-                    sq = torch.maximum(sq, torch.square(v_clip - y))
-                loss = torch.sum(ww * sq) / den
-                if self.reg_coef > 0.0 and dist.is_main():  # replicated: counted once
-                    loss = loss + self.reg_coef * sum(
-                        torch.sum(torch.square(layer.weight)) for layer in self.mlp.layers)
-                self.optimizer.zero_grad(set_to_none=True)
-                loss.backward()
-                dist.all_sum_grads(self.mlp.parameters())
-                self.optimizer.step()
+                with trace.span("fit.adam_step"):
+                    y = target[idx]
+                    pred = self.mlp(feats[idx])[..., 0]
+                    sq = torch.square(pred - y)
+                    if self.vf_clip_coef > 0.0:
+                        v_old = pred0[idx]
+                        v_clip = v_old + torch.clamp(pred - v_old, -vf_eps, vf_eps)
+                        sq = torch.maximum(sq, torch.square(v_clip - y))
+                    loss = torch.sum(ww * sq) / den
+                    if self.reg_coef > 0.0 and dist.is_main():  # replicated: counted once
+                        loss = loss + self.reg_coef * sum(
+                            torch.sum(torch.square(layer.weight)) for layer in self.mlp.layers)
+                    self.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                    dist.all_sum_grads(self.mlp.parameters())
+                    self.optimizer.step()
         with torch.no_grad():
             err_after = relative_error(self.mlp(feats)[..., 0], target, w)
         return {"VF_error_before": err_before, "VF_error_after": err_after}

@@ -2,7 +2,8 @@
 
 Same loop order and early exit as the reference: check ``rdotr < tol`` on
 entry to each iteration, update ``x``, then recompute the residual. The
-exit test reads ``rdotr`` on the host once per iteration.
+exit test reads ``rdotr`` on the host once per iteration (``cg.rdotr``,
+through ``utils/trace.py``'s ``host_read``).
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+
+from mjrl_tpu_torch.utils import trace
 
 
 def cg_solve(f_Ax: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
@@ -21,7 +24,7 @@ def cg_solve(f_Ax: Callable[[torch.Tensor], torch.Tensor], b: torch.Tensor,
     p = r
     rdotr = torch.dot(r, r)
     for _ in range(cg_iters):
-        if float(rdotr) < residual_tol:
+        if trace.host_read("cg.rdotr", rdotr) < residual_tol:
             break
         z = f_Ax(p)
         v = rdotr / torch.dot(p, z)

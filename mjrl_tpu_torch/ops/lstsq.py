@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from mjrl_tpu_torch.parallel import dist
+from mjrl_tpu_torch.utils import trace
 
 
 def _chol_solve(gram: torch.Tensor, rhs: torch.Tensor, reg: torch.Tensor):
@@ -39,10 +40,10 @@ def ridge_solve(features: torch.Tensor, targets: torch.Tensor, weights: torch.Te
     wf = weights[:, None] * features
     normal = dist.all_sum_dict({"gram": features.T @ wf, "rhs": wf.T @ targets})
     gram, rhs = normal["gram"], normal["rhs"]
-    reg = torch.tensor(reg_coef, dtype=gram.dtype, device=gram.device)
+    reg = torch.full((), reg_coef, dtype=gram.dtype, device=gram.device)
     x, ok = _chol_solve(gram, rhs, reg)
     for _ in range(max_retries):
-        if bool(ok & torch.isfinite(x).all()):
+        if trace.host_read("lstsq.solved", ok & torch.isfinite(x).all()):
             break
         reg = reg * 10.0
         x, ok = _chol_solve(gram, rhs, reg)

@@ -28,6 +28,7 @@ from mjrl_tpu_torch.physics import engine, soa
 from mjrl_tpu_torch.physics.csolve import ensure_solver_params
 from mjrl_tpu_torch.physics.model import Model
 from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4
+from mjrl_tpu_torch.utils import trace
 
 FrameStepper = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
@@ -68,7 +69,9 @@ def make_frame_stepper(model: Model, frame_skip: int, with_link_delta: bool = Fa
     builds have. With ``use_soa=False``, or for a model outside the
     kernels' set, the per-env engine steps it (:func:`uses_engine`). The
     stepper's ``path`` names what it runs (``"K1"`` to ``"K4"`` or
-    ``"engine"``); its ``check()`` raises if its kernel flagged a fault in
+    ``"engine"``); traced, each call is the span ``physics.frame_step``
+    (the transposes and the kernel's launch, or the engine's steps); its
+    ``check()`` raises if its kernel flagged a fault in
     the steps so far (K2's and K4's held-row overflow; the others flag
     none, nor does the engine)."""
     on_engine = uses_engine(model, use_soa)
@@ -78,6 +81,7 @@ def make_frame_stepper(model: Model, frame_skip: int, with_link_delta: bool = Fa
         ensure_solver_params(model)
 
     if on_engine:
+        @trace.spanned("physics.frame_step")
         def frame_step(q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, *delta):
             state = engine.PhysicsState(q=q, qd=qd)
             for _ in range(frame_skip):
@@ -90,6 +94,7 @@ def make_frame_stepper(model: Model, frame_skip: int, with_link_delta: bool = Fa
 
     kernel = kernel_for(model, with_link_delta)
 
+    @trace.spanned("physics.frame_step")
     def frame_step(q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, *delta):
         args = (model, q.T.contiguous(), qd.T.contiguous(), ctrl.T.contiguous(), frame_skip)
         if delta and kernel in (K3, K4):

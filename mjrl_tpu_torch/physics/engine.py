@@ -211,7 +211,7 @@ def site_positions(model: Model, pos: torch.Tensor, quat: torch.Tensor) -> torch
     links = np.asarray(model.site_link, np.int64)
     ix = const(model, "site_ix", np.where(links < 0, model.nlink, links), dev, torch.int64)
     pos_all = torch.cat([pos, pos.new_zeros(pos.shape[0], 1, 3)], dim=1)
-    ident = quat.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(quat.shape[0], 1, 4)
+    ident = const(model, "quat_identity", [1.0, 0.0, 0.0, 0.0], dev).expand(quat.shape[0], 1, 4)
     quat_all = torch.cat([quat, ident], dim=1)
     return pos_all[:, ix] + m3.quat_rotate(quat_all[:, ix], const(model, "site_pos", model.site_pos, dev))
 

@@ -32,7 +32,10 @@ in device memory).
 wrappers: for a CUDA tensor they launch the kernel or raise; for a CPU
 tensor they run the plain version, ``physics/soa.py::multistep``. ``K1``,
 ``K2``, ``K3`` and ``K4`` are the instances the frame stepper calls; their
-``launches`` count kernel launches.
+``launches`` count kernel launches. While tracing is on (``utils/trace.py``)
+K2 and K4 also count their env-substeps and the contact rows each holds
+(the kernel's held-row counter, read with the overflow count at
+``check()``; the plain version's on the CPU).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +62,7 @@ from mjrl_tpu_torch.physics.tables import (
     soa_tables,
     tree_tables,
 )
+from mjrl_tpu_torch.utils import trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -570,12 +574,14 @@ class NewtonKernel(MultistepKernel):
     that could have more)."""
 
     name = "mj_newton"
+    label = "K2"
     source = "mjrl_tpu_torch/csrc/mj_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:79 (soa_newton.py:338)"
 
     def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
         super().__init__(csrc, build_dir)
-        self._overflow: Dict[str, torch.Tensor] = {}
+        # per device: [overflow count, held rows' sum, held rows' largest]
+        self._counters: Dict[str, torch.Tensor] = {}
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library. K2 has the small size
@@ -587,7 +593,7 @@ class NewtonKernel(MultistepKernel):
             path = build_library("mj_newton_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(0)),
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
-            lib.mj_newton_launch.argtypes = [ctypes.c_void_p] * 11 + [
+            lib.mj_newton_launch.argtypes = [ctypes.c_void_p] * 12 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p]
             lib.mj_newton_launch.restype = ctypes.c_int
@@ -606,21 +612,45 @@ class NewtonKernel(MultistepKernel):
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
         return cache[key]
 
+    def _device_counters(self, device: torch.device) -> torch.Tensor:
+        key = str(device)
+        if key not in self._counters:
+            self._counters[key] = torch.zeros(3, dtype=torch.int32, device=device)
+        return self._counters[key]
+
     def overflow(self, device: torch.device) -> torch.Tensor:
         """The device's counter of env-substeps that held too many rows."""
-        key = str(device)
-        if key not in self._overflow:
-            self._overflow[key] = torch.zeros(1, dtype=torch.int32, device=device)
-        return self._overflow[key]
+        return self._device_counters(device)[:1]
+
+    def held_stats(self, device: torch.device) -> int:
+        """The address of the device's held-row counter (the sum and the
+        largest of each env-substep's rows inside their margin) while
+        tracing is on, else 0: the kernel then counts nothing."""
+        return self._device_counters(device)[1:].data_ptr() if trace.enabled() else 0
+
+    def count_launch(self, B: int, n_sub: int, held: Optional[List[torch.Tensor]] = None) -> None:
+        """Traced: the launch's env-substeps, and the plain version's held
+        rows (``held``: one ``(B,)`` count per substep) where it ran."""
+        trace.count(f"{self.label}.env_substeps", B * n_sub)
+        if held:
+            rows = torch.stack(held)
+            trace.count(f"{self.label}.held_rows", int(rows.sum()))
+            trace.peak(f"{self.label}.held_rows_max", int(rows.max()))
 
     def check(self) -> None:
         """Raise ``RuntimeError`` if any launch so far had an env-substep
         with more contact rows inside their margin than the build holds
-        (synchronises with the device)."""
-        for key, counter in self._overflow.items():
-            n = int(counter.item())
+        (synchronises with the device: one read, ``K2.check`` or
+        ``K4.check``, which also takes the held-row counter while tracing
+        is on)."""
+        for key, counters in self._counters.items():
+            n, held, most = trace.host_read(f"{self.label}.check", counters)
+            if held or most:
+                counters[1:].zero_()
+                trace.count(f"{self.label}.held_rows", held)
+                trace.peak(f"{self.label}.held_rows_max", most)
             if n:
-                counter.zero_()
+                counters[:1].zero_()
                 raise RuntimeError(
                     f"{self.name}: {n} env-substeps on {key} held more contact rows inside "
                     f"their margin than the build's MAX_HELD; those substeps are wrong")
@@ -634,14 +664,17 @@ class NewtonKernel(MultistepKernel):
         if soa.needs_ext(model):
             raise ValueError("tendons, frictionloss, gain/bias actuators and box contacts "
                              "run in K4")
+        n_sub = n_frames * model.n_substeps
         if q.device.type == "cpu":
-            return soa.multistep(model, q, qd, ctrl, n_frames)
+            held = [] if trace.enabled() else None
+            out = soa.multistep(model, q, qd, ctrl, n_frames, held=held)
+            self.count_launch(B, n_sub, held)
+            return out
         if q.device.type != "cuda":
             raise ValueError(f"no K2 path for device {q.device}")
         lib = self.build()
         warps = self.launch_warps(0, B, q.device, warps_per_block)
         mf, mi, nf, ni = self._tables(model, q.device)
-        n_sub = n_frames * model.n_substeps
         iters = int(model.solver_iters)
         check_optional("picks", picks, torch.int32, (n_sub * iters, B), q.device)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
@@ -651,11 +684,12 @@ class NewtonKernel(MultistepKernel):
             err = lib.mj_newton_launch(
                 mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
                 qd.data_ptr(), ctrl.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(),
-                0 if picks is None else picks.data_ptr(), self.overflow(q.device).data_ptr(), B,
-                n_sub, iters, dt, warps, stream)
+                0 if picks is None else picks.data_ptr(), self.overflow(q.device).data_ptr(),
+                self.held_stats(q.device), B, n_sub, iters, dt, warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
+        self.count_launch(B, n_sub)
         return q_out, qd_out
 
 
@@ -739,6 +773,7 @@ class ExtNewtonKernel(NewtonKernel):
     ``MAX_WARPS``)."""
 
     name = "mj_ext_newton"
+    label = "K4"
     source = "mjrl_tpu_torch/csrc/mj_ext_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext; soa_newton.py:338)"
 
@@ -749,7 +784,7 @@ class ExtNewtonKernel(NewtonKernel):
                                  (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
-            lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * 12 + [
+            lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * 13 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p]
             lib.mj_ext_newton_launch.restype = ctypes.c_int
@@ -788,15 +823,18 @@ class ExtNewtonKernel(NewtonKernel):
         if model.constraint_solver != "newton":
             raise ValueError("K4 runs models with constraint_solver='newton'")
         check_optional("link_delta", link_delta, torch.float32, (3 * model.nlink, B), q.device)
+        n_sub = n_frames * model.n_substeps
         if q.device.type == "cpu":
-            return soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta)
+            held = [] if trace.enabled() else None
+            out = soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta, held=held)
+            self.count_launch(B, n_sub, held)
+            return out
         if q.device.type != "cuda":
             raise ValueError(f"no K4 path for device {q.device}")
         size = size_class(model)
         lib = self.build(size)
         warps = self.launch_warps(size, B, q.device, warps_per_block)
         mf, mi, nf, ni = self._tables(model, q.device)
-        n_sub = n_frames * model.n_substeps
         iters = int(model.solver_iters)
         check_optional("picks", picks, torch.int32, (n_sub * iters, B), q.device)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
@@ -807,10 +845,12 @@ class ExtNewtonKernel(NewtonKernel):
                 mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
                 qd.data_ptr(), ctrl.data_ptr(), 0 if link_delta is None else link_delta.data_ptr(),
                 q_out.data_ptr(), qd_out.data_ptr(), 0 if picks is None else picks.data_ptr(),
-                self.overflow(q.device).data_ptr(), B, n_sub, iters, dt, warps, stream)
+                self.overflow(q.device).data_ptr(), self.held_stats(q.device), B, n_sub, iters, dt,
+                warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
+        self.count_launch(B, n_sub)
         return q_out, qd_out
 
 

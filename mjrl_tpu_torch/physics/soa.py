@@ -815,13 +815,15 @@ def _integrate(model: Model, q, qd, qdd, dt: float):
 
 def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, dt: float,
             picks: Optional[list] = None, link_delta: Optional[torch.Tensor] = None,
-            costs: Optional[list] = None, replay: Optional[torch.Tensor] = None):
+            costs: Optional[list] = None, replay: Optional[torch.Tensor] = None,
+            held: Optional[list] = None):
     """One physics substep, batch-last: q (nq, B), qd (nv, B), ctrl (nu, B),
     ``link_delta`` (3 nlink, B) or None. With the Newton solver, ``picks``
     and ``costs`` (lists) collect each iteration's line-search fraction
-    index and its five costs, and ``replay`` ((solver_iters, B) fraction
-    indices, or None) sets the fractions it steps by (see
-    ``soa_newton.constrained_qdd``)."""
+    index and its five costs, ``held`` (a list) each env's contact rows
+    inside their margin ((B,), the kernels' held rows), and ``replay``
+    ((solver_iters, B) fraction indices, or None) sets the fractions it
+    steps by (see ``soa_newton.constrained_qdd``)."""
     newton = model.constraint_solver == "newton"
     tab = soa_tables(model)
     pos, quat = _fk(model, q, link_delta)
@@ -857,7 +859,7 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
         qdd0 = _ltdl_solve(model, tab, M, rhs, dt, fric_rows)
         qdd = soa_newton.constrained_qdd(model, pos, cdof, M, q, qd, qdd0, candidates, dt,
                                          fric_diag=fric_rows, picks=picks, costs=costs,
-                                         replay=replay)
+                                         replay=replay, held=held)
     else:
         diag = _limit_damping_rows(model, q, dt)
         if fric_rows is not None:
@@ -869,17 +871,18 @@ def substep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
 def multistep(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
               n_frames: int = 1, picks: Optional[list] = None,
               link_delta: Optional[torch.Tensor] = None, costs: Optional[list] = None,
-              replay: Optional[torch.Tensor] = None):
+              replay: Optional[torch.Tensor] = None, held: Optional[list] = None):
     """``n_frames`` control frames = ``n_frames * model.n_substeps`` substeps
     with ``ctrl`` (and ``link_delta``) held. With the Newton solver,
     ``replay`` (an int (n_frames * n_substeps * solver_iters, B) tensor, a
     kernel's ``picks``, or None) sets each iteration's line-search fraction
-    (``soa_newton.constrained_qdd``)."""
+    (``soa_newton.constrained_qdd``); ``picks``, ``costs`` and ``held`` as
+    :func:`substep`'s, over every substep."""
     dt = model.dt / model.n_substeps
     iters = int(model.solver_iters)
     for s in range(n_frames * model.n_substeps):
         q, qd = substep(model, q, qd, ctrl, dt, picks, link_delta, costs,
-                        None if replay is None else replay[s * iters : (s + 1) * iters])
+                        None if replay is None else replay[s * iters : (s + 1) * iters], held)
     return q, qd
 
 

@@ -32,6 +32,7 @@ import torch
 from mjrl_tpu_torch.physics.csolve import ensure_solver_params
 from mjrl_tpu_torch.physics.model import Model
 from mjrl_tpu_torch.physics.tables import tree_tables
+from mjrl_tpu_torch.utils import trace
 
 _MINVAL = 1e-10
 _ALPHAS = (1.0, 0.5, 0.25, 0.0625, 0.0)  # the safeguarded step fractions
@@ -217,16 +218,23 @@ def _contact_rows(model: Model, pos, cdof, qd, candidates) -> List[_Row]:
     return rows
 
 
-def _in_margin_somewhere(model: Model, candidates) -> list:
-    """The candidates whose row is inside its margin (``pos < 0``) or
-    non-finite in some env: every other one has D = 0 in every env. One
-    read of a ``(n, 1)`` mask from the device per substep."""
-    if not candidates:
-        return candidates
+def _inside_margin(model: Model, candidates) -> torch.Tensor:
+    """``(n, B)``: where each candidate's row is inside its margin
+    (``pos < 0``) or non-finite."""
     margin = [_f32(contact_params(model, c.gi, c.gj, c.mu)[2]) for c in candidates]
     depth = torch.cat([c.depth for c in candidates])
     m = torch.tensor(margin, dtype=depth.dtype, device=depth.device)[:, None]
-    keep = (~(-depth - m >= 0.0)).any(dim=1).tolist()
+    return ~(-depth - m >= 0.0)
+
+
+def _in_margin_somewhere(model: Model, candidates) -> list:
+    """The candidates whose row is inside its margin (``pos < 0``) or
+    non-finite in some env: every other one has D = 0 in every env. One
+    read of a ``(n,)`` mask from the device per substep
+    (``soa_newton.in_margin``)."""
+    if not candidates:
+        return candidates
+    keep = trace.host_read("soa_newton.in_margin", _inside_margin(model, candidates).any(dim=1))
     return [c for c, k in zip(candidates, keep) if k]
 
 
@@ -275,7 +283,8 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
                     q: torch.Tensor, qd: torch.Tensor, qdd0: torch.Tensor, candidates,
                     dt: float, fric_diag: Optional[list] = None,
                     picks: Optional[list] = None, costs: Optional[list] = None,
-                    replay: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    replay: Optional[torch.Tensor] = None,
+                    held: Optional[list] = None) -> torch.Tensor:
     """Newton solve of the primal soft-constraint problem, batch-last.
 
     ``M`` is the sparse mass matrix of soa._mass_matrix_sparse; the metric
@@ -290,11 +299,16 @@ def constrained_qdd(model: Model, pos, cdof, M: Dict[Tuple[int, int], torch.Tens
     fraction indices (a kernel's ``picks``), makes iteration i step by
     ``_ALPHAS[replay[i]]`` instead of its own pick, in each env where it
     is not negative; ``picks`` still receives the solve's own picks.
+    ``held``, when a list, receives each env's contact rows inside their
+    margin ((B,)).
     """
     ensure_solver_params(model)
     nv = model.nv
     rows = _limit_rows(model, q, qd) + _contact_rows(
         model, pos, cdof, qd, _in_margin_somewhere(model, candidates))
+    if held is not None:
+        held.append(_inside_margin(model, candidates).sum(dim=0) if candidates
+                    else torch.zeros(q.shape[1], dtype=torch.int64, device=q.device))
     if not rows:
         return qdd0
     extra = np.asarray(model.dof_armature, np.float32) + np.float32(dt) * np.asarray(

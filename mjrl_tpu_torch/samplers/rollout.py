@@ -32,6 +32,11 @@ Under data parallelism (``parallel/dist.py``) every draw is made for all
 the batch's rows, as a single-rank run makes it, and each rank keeps its
 own block (:func:`local_noise`); the statistics reduce over every rank's
 rows.
+
+Traced (``utils/trace.py``), each control step is the span
+``sampler.step``, over ``sampler.policy`` (the forward pass, the sample
+and its log-probability) and the env's ``env.step``; its self time is the
+sampler's own bookkeeping.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
 from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.types import TrajectoryBatch
+from mjrl_tpu_torch.utils import trace
 
 
 def _select(mask: torch.Tensor, a: NamedTuple, b: NamedTuple) -> NamedTuple:
@@ -84,22 +90,24 @@ def run_episodes(env: Env, policy: GaussianMLP, noise: EpisodeNoise,
     finished = torch.zeros(N, dtype=torch.bool, device=obs.device)
     steps: List[Dict[str, torch.Tensor]] = []
     for t in range(T):
-        mean, log_std = policy(obs)
-        action = mean if eval_mode else DiagGaussian.sample(mean, log_std, noise.action[t])
-        log_prob = DiagGaussian.log_prob(action, mean, log_std)
-        new_state, new_obs, reward, term, info = env.step(state, action)
-        valid = ~finished
-        is_last = term | (t == T - 1)
-        steps.append(dict(
-            obs=obs, action=action, reward=reward * valid.to(reward.dtype),
-            done=valid & is_last, terminated=valid & term, valid=valid,
-            mean=mean, log_std=log_std, log_prob=log_prob,
-            time=torch.full((N,), t, dtype=torch.int32, device=obs.device), info=info,
-        ))
-        # freeze finished envs so post-termination dynamics can't blow up
-        state = _select(finished, state, new_state)
-        obs = torch.where(finished[:, None], obs, new_obs)
-        finished = finished | term
+        with trace.span("sampler.step"):
+            with trace.span("sampler.policy"):
+                mean, log_std = policy(obs)
+                action = mean if eval_mode else DiagGaussian.sample(mean, log_std, noise.action[t])
+                log_prob = DiagGaussian.log_prob(action, mean, log_std)
+            new_state, new_obs, reward, term, info = env.step(state, action)
+            valid = ~finished
+            is_last = term | (t == T - 1)
+            steps.append(dict(
+                obs=obs, action=action, reward=reward * valid.to(reward.dtype),
+                done=valid & is_last, terminated=valid & term, valid=valid,
+                mean=mean, log_std=log_std, log_prob=log_prob,
+                time=torch.full((N,), t, dtype=torch.int32, device=obs.device), info=info,
+            ))
+            # freeze finished envs so post-termination dynamics can't blow up
+            state = _select(finished, state, new_state)
+            obs = torch.where(finished[:, None], obs, new_obs)
+            finished = finished | term
     env.check()
     return _to_batch(steps)
 
@@ -183,31 +191,33 @@ def run_autoreset(env: Env, policy: GaussianMLP, noise: AutoresetNoise,
     reset_obs = reset_obs.reshape(T, N, -1)
     steps: List[Dict[str, torch.Tensor]] = []
     for t in range(T):
-        mean, log_std = policy(obs)
-        action = DiagGaussian.sample(mean, log_std, noise.action[t])
-        log_prob = DiagGaussian.log_prob(action, mean, log_std)
-        new_state, new_obs, reward, term, info = env.step(state, action)
-        done = term | ((t_in_ep + 1) >= episode_horizon)
-        d = done[:, None]
-        ret_acc = ep_ret + reward
-        zero = torch.zeros_like(ret_acc)
-        # the whole episode's score (and success), emitted at its end, so
-        # episodes that span windows are scored whole
-        if "success" in info:
-            suc_acc = torch.maximum(ep_suc, info["success"].to(ep_suc.dtype))
-            info = {**info, "episode_success": torch.where(done, suc_acc, zero)}
-        else:
-            suc_acc = ep_suc
-        steps.append(dict(
-            obs=obs, action=action, reward=reward, done=done, terminated=term,
-            valid=torch.ones_like(done), mean=mean, log_std=log_std, log_prob=log_prob,
-            time=t_in_ep, info={**info, "episode_score": torch.where(done, ret_acc, zero)},
-        ))
-        state = _select(done, type(resets)(*(x[t] for x in resets)), new_state)
-        obs = torch.where(d, reset_obs[t], new_obs)
-        t_in_ep = torch.where(done, torch.zeros_like(t_in_ep), t_in_ep + 1)
-        ep_ret = torch.where(done, zero, ret_acc)
-        ep_suc = torch.where(done, zero, suc_acc)
+        with trace.span("sampler.step"):
+            with trace.span("sampler.policy"):
+                mean, log_std = policy(obs)
+                action = DiagGaussian.sample(mean, log_std, noise.action[t])
+                log_prob = DiagGaussian.log_prob(action, mean, log_std)
+            new_state, new_obs, reward, term, info = env.step(state, action)
+            done = term | ((t_in_ep + 1) >= episode_horizon)
+            d = done[:, None]
+            ret_acc = ep_ret + reward
+            zero = torch.zeros_like(ret_acc)
+            # the whole episode's score (and success), emitted at its end, so
+            # episodes that span windows are scored whole
+            if "success" in info:
+                suc_acc = torch.maximum(ep_suc, info["success"].to(ep_suc.dtype))
+                info = {**info, "episode_success": torch.where(done, suc_acc, zero)}
+            else:
+                suc_acc = ep_suc
+            steps.append(dict(
+                obs=obs, action=action, reward=reward, done=done, terminated=term,
+                valid=torch.ones_like(done), mean=mean, log_std=log_std, log_prob=log_prob,
+                time=t_in_ep, info={**info, "episode_score": torch.where(done, ret_acc, zero)},
+            ))
+            state = _select(done, type(resets)(*(x[t] for x in resets)), new_state)
+            obs = torch.where(d, reset_obs[t], new_obs)
+            t_in_ep = torch.where(done, torch.zeros_like(t_in_ep), t_in_ep + 1)
+            ep_ret = torch.where(done, zero, ret_acc)
+            ep_suc = torch.where(done, zero, suc_acc)
     env.check()
     return _to_batch(steps), SamplerCarry(state, obs, t_in_ep, ep_ret, ep_suc)
 

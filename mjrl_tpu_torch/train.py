@@ -14,6 +14,14 @@ The run is on the card (``--device cuda``, the default) unless ``--device
 cpu`` is asked for; without a card a CUDA run fails and never falls back
 to the CPU.
 
+``--trace PATH`` turns the program's tracer on (``utils/trace.py``) and
+writes every span and device read of the run to PATH as Chrome trace JSON
+(``chrome://tracing``, Perfetto): each iteration's ``train_step`` with its
+phases (the rollout's control steps, policy, env and physics; the update's
+CG; the fit's Adam steps; model-based NPG's ensemble fit and imagined
+rollout), BC's warm start and the evaluation rollouts. It holds every span
+in memory, so trace a few iterations; one process only.
+
 ``mesh_devices: D > 1`` trains as D ranks (``parallel/dist.py``), each with
 a block of the env rows. Under ``torchrun`` (``WORLD_SIZE`` set, and equal
 to D) this process is one rank and joins the group torchrun set up; else
@@ -24,6 +32,8 @@ its own, gloo when ranks share a card or run on the CPU. Rank 0 writes the
 config, log and checkpoints; a rank that fails stops the run.
 
     python -m mjrl_tpu_torch.train --config examples/hopper_npg.json --output runs/hopper
+    python -m mjrl_tpu_torch.train --config examples/adroit_pen_npg_newton.json \
+        --output runs/pen --set niter=3 --trace runs/pen/trace.json
     torchrun --nproc-per-node 2 -m mjrl_tpu_torch.train --config examples/humanoid_ppo_v4.json \
         --output runs/hppo --set mesh_devices=2
 """
@@ -40,6 +50,7 @@ import torch
 
 from mjrl_tpu_torch.algos.base import BatchREINFORCE
 from mjrl_tpu_torch.parallel import dist
+from mjrl_tpu_torch.utils import trace
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
 from mjrl_tpu_torch.utils.configs import (
     RunConfig,
@@ -125,15 +136,29 @@ def load_config(config_path=None, overrides=()) -> RunConfig:
     return RunConfig.from_dict(raw)
 
 
-def main() -> None:
+def main(argv=None) -> None:
     p = argparse.ArgumentParser(description="mjrl_tpu_torch policy optimization job")
     p.add_argument("--output", required=True, help="job directory")
     p.add_argument("--config", default=None, help="JSON config path")
     p.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE",
                    help="config overrides, JSON-parsed values (e.g. niter=50)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = p.parse_args()
-    run_job(load_config(args.config, args.set), args.output, device=args.device)
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="trace the run (utils/trace.py) and write its host spans and device "
+                        "reads to PATH as Chrome trace JSON")
+    args = p.parse_args(argv)
+    cfg = load_config(args.config, args.set)
+    if args.trace is None:
+        run_job(cfg, args.output, device=args.device)
+        return
+    if cfg.mesh_devices > 1:
+        raise SystemExit("--trace traces one process: run it without mesh_devices > 1")
+    trace.enable()
+    try:
+        run_job(cfg, args.output, device=args.device)
+    finally:
+        trace.disable()
+        trace.write_chrome(args.trace)
 
 
 if __name__ == "__main__":

@@ -39,6 +39,7 @@ from mjrl_tpu_torch.models import (
 from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.samplers import init_autoreset_carry, sample_autoreset, sample_episodes
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
+from mjrl_tpu_torch.utils import trace
 from mjrl_tpu_torch.utils.demos import load_demo_pickle
 
 
@@ -182,11 +183,13 @@ def warm_start(cfg: RunConfig, agent: BatchREINFORCE,
     current policy; returns BC's ``loss_before`` and ``loss_after``."""
     if cfg.demo_file is None:
         raise ValueError("bc_init requires demo_file")
-    demos = load_demo_pickle(cfg.demo_file, device=agent.env.device)
-    metrics = BC(demos, agent.policy, **cfg.bc_kwargs).train(generator)
+    with trace.span("bc.warm_start"):
+        demos = load_demo_pickle(cfg.demo_file, device=agent.env.device)
+        metrics = BC(demos, agent.policy, **cfg.bc_kwargs).train(generator)
     if dist.is_main():
-        print(f"BC warm start: loss {float(metrics['loss_before']):.6g} -> "
-              f"{float(metrics['loss_after']):.6g}")
+        before, after = trace.host_read(
+            "bc.loss", torch.stack([metrics["loss_before"], metrics["loss_after"]]))
+        print(f"BC warm start: loss {before:.6g} -> {after:.6g}")
     return metrics
 
 

@@ -48,6 +48,7 @@ from mjrl_tpu_torch.algos.base import BatchREINFORCE
 from mjrl_tpu_torch.parallel import dist
 from mjrl_tpu_torch.samplers.rollout import rollout_statistics, sample_episodes
 from mjrl_tpu_torch.utils.checkpoint import CheckpointManager
+from mjrl_tpu_torch.utils import trace
 from mjrl_tpu_torch.utils.logger import DataLog
 
 
@@ -103,7 +104,8 @@ def train_agent(job_name: str, agent: BatchREINFORCE, seed: int = 0, niter: int 
         gen = torch.Generator(device=device).manual_seed(iteration_seed(seed, i))
         metrics = agent.train_step(gen)
         # one device -> host transfer for all metrics; it waits for the step
-        values = torch.stack([v.detach().float().reshape(()) for v in metrics.values()]).tolist()
+        values = trace.host_read("train_agent.metrics", torch.stack(
+            [v.detach().float().reshape(()) for v in metrics.values()]))
         t_step = time.perf_counter() - t0
 
         row = dict(zip(metrics, values))
@@ -115,9 +117,11 @@ def train_agent(job_name: str, agent: BatchREINFORCE, seed: int = 0, niter: int 
         if evaluation_rollouts > 0:
             eval_gen = torch.Generator(device=device).manual_seed(
                 iteration_seed(seed, 10_000_000 + i))
-            batch = sample_episodes(agent.env, agent.policy, evaluation_rollouts, agent.horizon,
-                                    eval_gen, eval_mode=True)
-            row["eval_score"] = float(rollout_statistics(batch).mean)
+            with trace.span("evaluation"):
+                batch = sample_episodes(agent.env, agent.policy, evaluation_rollouts,
+                                        agent.horizon, eval_gen, eval_mode=True)
+                row["eval_score"] = trace.host_read("train_agent.eval_score",
+                                                    rollout_statistics(batch).mean)
         logger.log_dict(row)
 
         perf = row.get("eval_score", row["running_score"])

@@ -145,6 +145,46 @@ def test_k4_host_build_matches_plain_on_pen(pen, lib):
     assert all(seen.values()), seen
 
 
+def test_k4_held_counter_changes_no_bit(pen, lib):
+    """``mj_ext_newton_held_host`` (K4's body with the held-row counter
+    that tracing reads) on pen's states with link offsets, every contact
+    kind touching: the same bits with the counter null and non-null, and
+    over one substep the sum and the largest of the rows each env holds,
+    as the plain version counts them."""
+    lib.mj_ext_newton_held_host.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
+        ctypes.c_float]
+    lib.mj_ext_newton_held_host.restype = ctypes.c_int
+    env, q, qd, delta = pen
+    m = env.model
+    L = pkernel.read_layout(lib)
+    tables = (*pkernel.pack_tables(m, L, ext=True),
+              *pkernel.pack_newton_tables(m, L, pkernel.read_newton_layout(lib), ext=True))
+    B = q.shape[1]
+    ctrl = np.tile(np.asarray(env._act_mean)[:, None], (1, B)).astype(np.float32)
+    dt = float(np.float32(m.dt / m.n_substeps))
+
+    def run(n_sub, stats):
+        out = [np.empty_like(q), np.empty_like(qd),
+               np.full((n_sub * m.solver_iters, B), -1, np.int32), np.zeros(1, np.int32)]
+        ptr = [a.ctypes.data for a in (*tables, q, qd, ctrl, delta, *out)]
+        held = None if stats is None else stats.ctypes.data
+        assert lib.mj_ext_newton_held_host(*ptr, held, B, n_sub, m.solver_iters, dt) == 0
+        return out
+
+    stats = np.zeros(2, np.int32)
+    for a, b in zip(run(env.frame_skip, None), run(env.frame_skip, stats)):
+        np.testing.assert_array_equal(a, b)
+    stats[:] = 0
+    run(1, stats)
+    held = []
+    soa.multistep(m, *map(torch.as_tensor, (q, qd, ctrl)), 1, held=held,
+                  link_delta=torch.as_tensor(delta))
+    assert int(held[0].max()) > 4
+    assert stats.tolist() == [int(held[0].sum()), int(held[0].max())]
+    rows = probe.held_rows(m, torch.as_tensor(q), torch.as_tensor(delta))["contacts"]
+    assert torch.equal(rows, held[0])
+
+
 def test_k4_host_build_matches_hammer_golden(lib):
     """Hammer's substep (3 Newton iterations, the golden's link offsets;
     671 contact points, pair chains of up to 15 dofs) against the engine
@@ -296,3 +336,37 @@ def test_cuda_k4_matches_plain_on_pen():
     # chip_smoke.py's tolerance for K4 on pen
     torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-3)
     torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-1)
+
+
+@pytest.mark.cuda
+def test_cuda_k4_held_counter_changes_no_bit():
+    """K4 on the card, one control step from pen's kind states with their
+    link offsets, with tracing off (no held-row counter) and on (the
+    counter read with the overflow count at ``check()``): the same bits,
+    and the counter's env-substeps, sum and largest held rows, the most
+    at most the build's 96."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from mjrl_tpu_torch.utils import trace
+
+    env = make("adroit_pen", constraint_solver="newton")
+    m, rng, dev = env.model, np.random.default_rng(0), torch.device("cuda")
+    q, qd, d = (torch.as_tensor(x, device=dev) for x in probe.kind_states(m, 50, rng))
+    ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
+    kernel = pkernel.ExtNewtonKernel()
+    off = kernel(m, q, qd, ctrl, env.frame_skip, link_delta=d)
+    kernel.check()
+    trace.reset()
+    trace.enable()
+    try:
+        on = kernel(m, q, qd, ctrl, env.frame_skip, link_delta=d)
+        kernel.check()
+        got = trace.take()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+    assert got["counters"]["K4.env_substeps"] == 250 * env.frame_skip * m.n_substeps
+    assert got["counters"]["K4.held_rows"] > 0
+    assert 0 < got["peaks"]["K4.held_rows_max"] <= 96
+    assert got["reads"]["K4.check"]["count"] == 1

@@ -134,6 +134,42 @@ def test_newton_kernel_body_matches_plain_one_step(env, host, warm):
     _check_picks(env, got_p, want_p)
 
 
+def test_newton_held_counter_changes_no_bit(env, lib, warm):
+    """``mj_newton_held_host`` (K2's body with the held-row counter that
+    tracing reads): the same bits with the counter null and non-null, and
+    over one substep the sum and the largest of the rows each env holds,
+    as the plain version counts them."""
+    lib.mj_newton_held_host.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+        ctypes.c_float]
+    lib.mj_newton_held_host.restype = ctypes.c_int
+    m = env.model
+    L = pkernel.read_layout(lib)
+    tables = (*pkernel.pack_tables(m, L),
+              *pkernel.pack_newton_tables(m, L, pkernel.read_newton_layout(lib)))
+    q, qd, ctrl = warm
+    dt = float(np.float32(m.dt / m.n_substeps))
+
+    def run(n_sub, stats):
+        out = [np.empty_like(q), np.empty_like(qd),
+               np.full((n_sub * m.solver_iters, B), -1, np.int32)]
+        ptr = [a.ctypes.data for a in (*tables, q, qd, ctrl, *out)]
+        held = None if stats is None else stats.ctypes.data
+        assert lib.mj_newton_held_host(*ptr, held, B, n_sub, m.solver_iters, dt) == 0
+        return out
+
+    stats = np.zeros(2, np.int32)
+    for a, b in zip(run(env.frame_skip, None), run(env.frame_skip, stats)):
+        np.testing.assert_array_equal(a, b)
+    stats[:] = 0
+    run(1, stats)
+    held = []
+    soa.multistep(m, *map(torch.as_tensor, (q, qd, ctrl)), 1, held=held)
+    assert held[0].shape == (B,) and int(held[0].max()) > 0
+    assert stats.tolist() == [int(held[0].sum()), int(held[0].max())]
+    rows = probe.held_rows(m, torch.as_tensor(q))["contacts"]
+    assert torch.equal(rows, held[0])
+
+
 def test_newton_kernel_body_matches_plain_along_a_chain(env, host, warm):
     """Six chained control steps of the host build, each held against the
     plain version from the same state."""
@@ -226,6 +262,38 @@ def test_cuda_newton_kernel_matches_plain(env):
     # chip_smoke.py's tolerances for K2
     torch.testing.assert_close(got_q, want_q, rtol=0, atol=1e-4)
     torch.testing.assert_close(got_qd, want_qd, rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_newton_held_counter_changes_no_bit(env):
+    """K2 on the card, one control step of ant from reset states with the
+    torso lowered into the floor's margin: the same bits with tracing off
+    and on (the held-row counter passed), and the counter's env-substeps
+    and rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from mjrl_tpu_torch.utils import trace
+
+    dev = torch.device("cuda")
+    state, _ = env.reset(256, torch.Generator().manual_seed(0))
+    q, qd = state.q.T.contiguous().to(dev), state.qd.T.contiguous().to(dev)
+    q[2] -= 0.4
+    ctrl = torch.zeros(env.model.nu, 256, device=dev)
+    kernel = pkernel.NewtonKernel()
+    off = kernel(env.model, q, qd, ctrl, env.frame_skip)
+    kernel.check()
+    trace.reset()
+    trace.enable()
+    try:
+        on = kernel(env.model, q, qd, ctrl, env.frame_skip)
+        kernel.check()
+        got = trace.take()
+    finally:
+        trace.disable()
+        trace.reset()
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+    assert got["counters"]["K2.env_substeps"] == 256 * env.frame_skip
+    assert got["counters"]["K2.held_rows"] > 0 and got["peaks"]["K2.held_rows_max"] > 0
 
 
 @pytest.mark.cuda

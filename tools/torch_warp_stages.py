@@ -123,14 +123,14 @@ def main() -> int:
         else:
             if kname == "K2":
                 B = 1024
-                source, fn, n_ptr, ext = "mj_newton_kernel.cu", "mj_newton_launch", 11, False
+                source, fn, n_ptr, ext = "mj_newton_kernel.cu", "mj_newton_launch", 12, False
                 q, qd, ctrls = start_states(env, B, 1, warm_steps=15, warm_scale=0.0)
                 d = None
                 pkernel.K2.build(size)
                 warps = pkernel.K2.launch_warps(size, B, dev)
             else:
                 B = 512
-                source, fn, n_ptr, ext = "mj_ext_newton_kernel.cu", "mj_ext_newton_launch", 12, True
+                source, fn, n_ptr, ext = "mj_ext_newton_kernel.cu", "mj_ext_newton_launch", 13, True
                 states = adroit_states if row.startswith("pen_states") else pen_train_states
                 q, qd, d, ctrls = states(env, B, 1)
                 pkernel.K4.build(size)
@@ -144,7 +144,7 @@ def main() -> int:
             delta = (d,) if ext else ()
 
             def ptrs():
-                return (*tables, q, qd, ctrls[0], *delta, q_out, qd_out, None, overflow)
+                return (*tables, q, qd, ctrls[0], *delta, q_out, qd_out, None, overflow, None)
 
             tail = lambda clocks: (B, n_sub, iters, dt, warps, stream, clocks.data_ptr())  # noqa: E731
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
