@@ -11,8 +11,10 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    (csrc/mj_newton_kernel.cu, Newton solver, one warp per env) in the
    first, K3 (csrc/mj_ext_kernel.cu, Adroit's stages, one warp per env)
    and K4 (csrc/mj_ext_newton_kernel.cu, Adroit's stages under the Newton
-   solver, one warp per env) in the third, with nvcc for sm_90a from the checkout's sources, the five
-   builds side by side.
+   solver, one warp per env) and the pose kernel (csrc/mj_poses_kernel.cu,
+   the Adroit envs' link poses and sites, one warp per env) in the third,
+   with nvcc for sm_90a from the checkout's sources, the six builds side by
+   side.
 2. K1 against plain: K1 against its plain PyTorch version (physics/soa.py)
    on the card, ant (penalty, 4 substeps per frame) at B=1024 and a ragged
    B=1000, one control step (5 frames x 4 substeps) and 6 chained control
@@ -112,6 +114,15 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    B=256, and K4's at B=512 on B=256's states twice over, its results bit
    for bit B=256's repeated (their bounds: tools/torch_k4_tasks.py, which
    also reads the spreads and the planted faults behind the tolerances).
+   Then the pose kernel (physics/pkernel.py ``POSES``) on pen, relocate and
+   door with the Newton solver at B=512 and a ragged B=510, from states
+   stepped by K4 (the env's ``q`` the transposed view of K4's output, the
+   link offsets a transposed view too): every link's position and
+   orientation and every site's position against the plain version
+   (physics/engine.py ``forward_kinematics`` + ``site_positions``) on the
+   card to ``POSE_TOL``, the world sites equal, two launches bit for bit;
+   its device time per launch (torch.profiler), the stream's time per call
+   and the plain version's, and its bound, at B=512 (``phase_poses``).
 13. Twenty-two paths through the entry point at full width, ``run_job`` of
    mjrl_tpu_torch.train with save_freq=1 into a temporary directory each:
    examples/hopper_npg.json (256 envs x 1000 steps, K1) with niter=1 and
@@ -134,8 +145,11 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    with niter=1. Exactly the path's launches of its kernel per
    iteration (1000, 200, 100, or humanoid PPO's 64) and 0 of
    the others, the obs_norm rollout's counted apart (one more window or
-   episode), every logged value finite, the agent's state on the card,
-   log.csv and the checkpoints written; prints each iteration's ms, valid
+   episode); on the pen, door and relocate paths (the DAPG ones too) also
+   exactly 101 or 201 launches of the pose kernel per iteration (each
+   control step and the reset), and none on the others; every logged
+   value finite, the agent's state on the card, log.csv and the
+   checkpoints written; prints each iteration's ms, valid
    and computed env-steps/s, score and, for TRPO, backtrack_iters and
    step_accepted, for PPO alpha, kl_dist and log_std_mean.
    Then the five DAPG configs (BC warm start, then DAPG):
@@ -174,7 +188,7 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    ``policy="linear"`` and ``algorithm="reinforce"``, cartpole NPG with
    ``agent_kwargs.hvp_sample_frac=0.5`` (its FVP mask drawn once) and
    pendulum NPG; every logged value finite, the state on the card, no
-   kernel launched.
+   kernel launched (the pose kernel's included).
 15. Data parallelism (mjrl_tpu_torch/parallel/dist.py): two ranks, spawned
    processes sharing cuda:0 over gloo. Ant NPG at the bench's width (1024
    envs x 100 steps, phase 6's agent), two iterations, on one rank in this
@@ -212,11 +226,12 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    adroit_pen_dapg.json with ``env_kwargs.use_soa=false`` and Newton
    contacts, seed 211; 64 envs x 100 steps, BC on the card's own demos)
    through ``run_job`` as phase 13 runs its paths, with 0 launches of K1-K4
-   and every control step through ``engine.step``, and the same config with
-   ``use_soa`` unset launching K4 100 times per iteration; (iv)
-   ``evaluate_policy`` (8 eval-mode episodes) and ``export_rollout`` (one
-   episode), 20 steps each, on that engine path, finite, with the
-   reference's keys. Prints
+   and of the pose kernel (the engine path's observation is plain) and every
+   control step through ``engine.step``, and the same config with
+   ``use_soa`` unset launching K4 100 times and the pose kernel 101 times per
+   iteration; (iv) ``evaluate_policy`` (8 eval-mode episodes) and
+   ``export_rollout`` (one episode), 20 steps each, on that engine path,
+   finite, with the reference's keys, no kernel launched. Prints
    the results on a line of their own, ``{"engine": ...}``.
 17. The card's name and power limit from nvidia-smi.
 
@@ -233,8 +248,11 @@ K1's ``hopper_dapg`` and K3's ``pen_dapg``, ``door_dapg``, ``hammer_dapg``
 and ``relocate_dapg`` entries their DAPG path's launches (the warm-started
 call's included, the demos' not); K1's ``ant_dp`` and ``humanoid_ppo_dp``
 entries each rank's launches in phase 15 (per iteration for ant; for
-humanoid over the first call, obs_norm included). ``bound_ms`` is the least
-time the card could take for one control step at the check's batch: the
+humanoid over the first call, obs_norm included); the pose kernel's
+``launches_per_iteration`` what phase 13 held each of its paths to.
+``bound_ms`` is the least
+time the card could take for one control step (the pose kernel: one
+launch, whose ``ms`` is its device time) at the check's batch: the
 larger of the bytes the kernel must move (state in and out, its tables)
 over 3.35 TB/s and its f32 operations over 67 TFLOP/s, with the
 operations counted per env-substep on the plain version (which does the
@@ -345,6 +363,12 @@ DAPG_ENVS, POINT_MASS_HORIZON = 64, 25  # examples/*_dapg.json but relocate; poi
 MODEL_ENVS, MODEL_HORIZON = 64, 500  # examples/hopper_model_npg.json's real rollout
 NEWTON = 'env_kwargs.constraint_solver="newton"'  # door, hammer and relocate on K4
 K4_TASK_ENVS = 256  # phase 12's check of K4 on door, hammer and relocate (and twice that, timed)
+# phase 12's pose kernel: the Adroit tasks whose observation runs it (on K3
+# and K4) and the control steps that warm its states. The kernel computes
+# the plain version's f32 formulas link by link; on the card they part by
+# at most 3.7e-7 (PERF.md), so 1e-5, where a site's offset 2% too long
+# moves it by 3e-4 or more (the shortest offset on a link is 14.8 mm).
+POSE_TASKS, POSE_WARM_STEPS, POSE_TOL = ("pen", "relocate", "door"), 5, 1e-5
 # the paths through the entry point (phase 13): config, kernel, envs, steps
 # per iteration (the episode or the samples-mode window), run_job's niter
 # per call, and overrides of the config
@@ -460,14 +484,12 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _f32_ops_per_env_substep(model, q, qd, ctrl, link_delta=None) -> float:
-    """f32 arithmetic operations of one plain substep per env (elements
-    produced by add/mul/div/sqrt/sin/... and reduced by sum), counted by
-    running the plain version on the CPU under a dispatch counter."""
+def _f32_ops(fn) -> int:
+    """f32 arithmetic operations of ``fn()`` (elements produced by
+    add/mul/div/sqrt/sin/... and reduced by sum), counted under a dispatch
+    counter."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from mjrl_tpu_torch.physics import soa
 
     class Count(TorchDispatchMode):
         n = 0
@@ -483,12 +505,22 @@ def _f32_ops_per_env_substep(model, q, qd, ctrl, link_delta=None) -> float:
                 Count.n += 2 * int((args[0] != 0).sum()) * out.shape[1]
             return out
 
+    with Count():
+        fn()
+    return Count.n
+
+
+def _f32_ops_per_env_substep(model, q, qd, ctrl, link_delta=None) -> float:
+    """f32 arithmetic operations of one plain substep per env, counted by
+    running the plain version on the CPU (:func:`_f32_ops`)."""
+    from mjrl_tpu_torch.physics import soa
+
     q, qd, ctrl = (x.cpu() for x in (q, qd, ctrl))
     if link_delta is not None:
         link_delta = link_delta.cpu()
-    with Count():
-        soa.substep(model, q, qd, ctrl, model.dt / model.n_substeps, link_delta=link_delta)
-    return Count.n / q.shape[1]
+    n = _f32_ops(lambda: soa.substep(model, q, qd, ctrl, model.dt / model.n_substeps,
+                                     link_delta=link_delta))
+    return n / q.shape[1]
 
 
 def _bound_ms(model, n_sub: int, ops_per_env_substep: float, tables, batch: int,
@@ -1026,6 +1058,100 @@ def phase_k4(tag, env, kernel, n_chain, batches, tol, tol_quantile, train_states
     return result
 
 
+def phase_poses(kernel, batch):
+    """The pose kernel (phase 12's last part, see the module's docstring)
+    on each of ``POSE_TASKS`` with the Newton solver at ``batch`` envs and
+    at ``batch - 2`` (a ragged last block): reset, ``POSE_WARM_STEPS``
+    control steps of random actions through K4, so that the env's ``q`` is
+    the transposed view of K4's batch-last output, and the links offset by
+    the reset's plus a draw uniform in +-5 mm, given as a transposed view
+    too. Its link positions, orientations and site positions against the
+    plain version's (``POSES.plain``: physics/engine.py
+    ``forward_kinematics`` + ``site_positions``) on the card within
+    ``POSE_TOL``, the world sites (link -1) equal, every output finite and
+    bit for bit the same over two launches. Its device time per launch
+    (``torch.profiler``), the stream's time per call back to back and the
+    plain version's (CUDA events: both paced by the host where it issues
+    the calls slower than the card runs them), and the bound: the larger
+    of the bytes it moves (q and offsets in, poses and sites out, its
+    tables) over 3.35 TB/s and the plain version's f32 operations over 67
+    TFLOP/s. Returns each task's results."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mjrl_tpu_torch.envs import make
+
+    result = {}
+    for task in POSE_TASKS:
+        tag = f"poses {task}"
+        env = make(f"adroit_{task}", constraint_solver="newton")
+        model, dev = env.model, env.device
+        if env._frame_step.path != "K4" or not env._poses_on_kernel:
+            raise RuntimeError(f"{tag}: the env runs {env._frame_step.path}, pose kernel "
+                               f"{env._poses_on_kernel}")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st, _ = env.reset(batch, gen)
+        for _ in range(POSE_WARM_STEPS):
+            st = env.step(st, torch.rand(batch, model.nu, device=dev, generator=gen) * 2 - 1)[0]
+        env.check()
+        q = st.q
+        offsets = st.link_delta + (torch.rand(st.link_delta.shape, device=dev, generator=gen)
+                                   - 0.5) * 1e-2
+        delta = offsets.reshape(batch, -1).T.contiguous().T.reshape(batch, model.nlink, 3)
+        if q.is_contiguous() or delta.is_contiguous():
+            raise RuntimeError(f"{tag}: q and the offsets must be transposed views")
+        world = torch.as_tensor(np.asarray(model.site_link) < 0, device=dev)
+        r = {"batch": batch, "q_strides": list(q.stride())}
+        for B in (batch, batch - 2):
+            got = kernel(model, q[:B], delta[:B])
+            again = kernel(model, q[:B], delta[:B])
+            want = kernel.plain(model, q[:B], delta[:B])
+            errs = {name: float((a - b).abs().max())
+                    for name, a, b in zip(("pos", "quat", "sites"), got, want)}
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            world_equal = bool(torch.equal(got[2][:, world], want[2][:, world]))
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            ok = max(errs.values()) <= POSE_TOL and same and world_equal and finite
+            print(f"[{tag}] B={B} max|err| pos {errs['pos']:.3e}, quat {errs['quat']:.3e}, "
+                  f"sites {errs['sites']:.3e} (tol {POSE_TOL:.0e}); {int(world.sum())} world "
+                  f"sites {'equal' if world_equal else 'DIFFER'}; two launches "
+                  f"{'bit for bit' if same else 'DIFFER'}; finite {finite} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{tag}: the pose kernel disagrees with the plain version at "
+                                   f"B={B}")
+            if B == batch:
+                r["max_abs_err"] = max(errs.values())
+                r.update({f"{name}_max_abs_err": e for name, e in errs.items()})
+        for _ in range(3):
+            kernel(model, q, delta)
+        r["stream_ms"] = _cuda_ms(lambda: kernel(model, q, delta), 200)
+        r["plain_ms"] = _cuda_ms(lambda: kernel.plain(model, q, delta), 20)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                kernel(model, q, delta)
+            torch.cuda.synchronize()
+        times = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "mj_poses_kernel" in e.name]
+        r["ms"] = sum(times) / len(times) * 1e-3 if times else None
+        nsite = len(model.site_link)
+        io = batch * (model.nq + 3 * model.nlink + 7 * model.nlink + 3 * nsite) * 4
+        t_bytes = (io + sum(t.numel() * 4 for t in kernel._tables(model, dev))) / HBM_BYTES_PER_S
+        ops = _f32_ops(lambda: kernel.plain(model, q.cpu(), delta.cpu()))
+        t_ops = ops / F32_OPS_PER_S
+        r["bound_ms"] = max(t_bytes, t_ops) * 1e3
+        r["bound_by"] = "operations" if t_ops > t_bytes else "bytes"
+        device = "not in the profiler's trace" if r["ms"] is None else f"{r['ms']:.5f} ms"
+        print(f"[{tag}] B={batch} {kernel.name}: device {device} a launch, stream "
+              f"{r['stream_ms']:.4f} ms a call back to back, plain {r['plain_ms']:.4f} ms a call; "
+              f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({ops / batch:.0f} f32 "
+              f"operations per env)")
+        result[task] = r
+    return result
+
+
 def _bits(x):
     """A float32 tensor's bits (so that equal NaNs compare equal), or the
     tensor."""
@@ -1362,7 +1488,7 @@ def _make_demos(config, overrides, out):
 
 
 def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overrides=(),
-                record=None):
+                record=None, poses=None):
     """Full-width iterations of ``examples/<config>`` (with ``overrides``)
     through ``mjrl_tpu_torch.train.run_job``: one call per entry of ``niters``, all
     into one temporary directory, each call after the first resuming from
@@ -1381,6 +1507,9 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
     batch, log a finite ``dyn_error`` under its ``DYN_ERROR_MAX`` and a
     ``running_score`` equal to ``stoc_pol_mean`` at its first iteration,
     keep its ensemble on the card, and resume it as the checkpoint holds it.
+    ``poses``: the pose kernel, where the path's env runs it: each
+    iteration, and the demos' and the warm start's rollouts, must launch it
+    ``steps + 1`` times (each control step and the episode's reset).
     Returns the kernel's launches over the phase (the demos' aside); the
     log's rows go into ``record[tag]`` where given."""
     import torch
@@ -1392,12 +1521,17 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
     def launches():
         return kernel.launches if kernel is not None else 0
 
-    per_iter = steps if kernel is not None else 0
+    def pose_launches():
+        return poses.launches if poses is not None else 0
 
-    for k in (kernel, *others):
+    per_iter = steps if kernel is not None else 0
+    pose_per_iter = steps + 1 if poses is not None else 0
+
+    for k in (kernel, poses, *others):
         if k is not None:
             k.launches = 0
     per_call, obs_norm, carried, bc, starts = [], [], [], [], []
+    pose_per_call, pose_demos = [], None
     obs_norm_init, warm_start = train.obs_norm_init, train.warm_start
     train_agent = train.train_agent
 
@@ -1449,16 +1583,18 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
         with tempfile.TemporaryDirectory() as out, tempfile.TemporaryDirectory() as side:
             dapg = load_config(ROOT / "examples" / config, overrides).algorithm == "dapg"
             if dapg:
-                before = launches()
+                before, before_poses = launches(), pose_launches()
                 demo_file = _make_demos(config, overrides, side)
                 demo_launches = launches() - before
+                pose_demos = pose_launches() - before_poses
                 overrides = (*overrides, f"demo_file=\"{demo_file}\"")
             for i, niter in enumerate(niters):
-                before = launches()
+                before, before_poses = launches(), pose_launches()
                 cfg = load_config(ROOT / "examples" / config,
                                   [*overrides, f"niter={niter}", "save_freq=1"])
                 agent = run_job(cfg, out)
                 per_call.append(launches() - before - (sum(obs_norm) if i == 0 else 0))
+                pose_per_call.append(pose_launches() - before_poses)
                 if agent.sample_mode == "samples":
                     # rows mid-episode at the window's end go on into the next
                     carried.append(int((agent.sampler_carry.t_in_ep > 0).sum()))
@@ -1471,6 +1607,13 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
                                    f"obs_norm rollout {obs_norm}, demos {demo_launches}, other "
                                    f"kernels {stray}; expected {per_iter} per iteration, "
                                    f"{want_norm} and none")
+            if pose_per_call != [pose_per_iter * d for d in done] or \
+                    pose_demos not in (None, pose_per_iter):
+                raise RuntimeError(f"{tag}: {pose_per_call} pose kernel launches per call, demos "
+                                   f"{pose_demos}; expected {pose_per_iter} per iteration")
+            if poses is not None:
+                print(f"[{tag}] pose kernel: {pose_per_call} launches per call, {pose_per_iter} "
+                      f"per iteration" + ("" if pose_demos is None else f", demos {pose_demos}"))
             if kernel is not None:
                 kernel.check()
             if obs_norm:
@@ -1541,7 +1684,7 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
             if not all(t.is_cuda for t in tensors):
                 raise RuntimeError(f"{tag}: state or parameters off the card")
             if tag == WARM_START_PATH:
-                before = launches()
+                before, before_poses = launches(), pose_launches()
                 warm = load_config(ROOT / "examples" / config, [
                     *overrides, f"init_policy_from=\"{out}\"", "bc_init=false", "niter=1",
                     "save_freq=1"])
@@ -1550,10 +1693,13 @@ def phase_entry(tag, config, kernel, others, num_envs, steps, niters=(1,), overr
                                  weights_only=True)["policy"]
                 first = starts[-1]
                 same = all(first[k].is_cuda and torch.equal(first[k], v) for k, v in src.items())
-                if not same or len(bc) != 1 or launches() - before != per_iter:
+                warm_poses = pose_launches() - before_poses
+                if not same or len(bc) != 1 or launches() - before != per_iter or \
+                        warm_poses != pose_per_iter:
                     raise RuntimeError(f"{tag}: the warm-started run's first policy equals the "
                                        f"checkpoint's: {same}; BC runs {len(bc)}; launches "
-                                       f"{launches() - before}, expected {per_iter}")
+                                       f"{launches() - before}, expected {per_iter}; pose kernel "
+                                       f"{warm_poses}, expected {pose_per_iter}")
                 print(f"[{tag}] init_policy_from the run above (iteration {niters[-1]}), no BC: "
                       f"first policy equal to the checkpoint's on the card, {per_iter} launches")
     finally:
@@ -1859,7 +2005,8 @@ def phase_data_parallel(entry_rows):
 
 def phase_engine(every):
     """Phase 16 (see the module's docstring); ``every``: the kernels by
-    name. Returns the line's results."""
+    name, the pose kernel (``POSES``) among them. Returns the line's
+    results."""
     import numpy as np
     import torch
 
@@ -1978,11 +2125,11 @@ def phase_engine(every):
         raise RuntimeError(f"{tag}: {calls[0]} engine steps, expected {want}")
     guard = ('env_kwargs={"constraint_solver": "newton"}', *overrides[1:])
     k4 = phase_entry(f"{tag}_use_soa_unset", config, every["K4"],
-                     [k for k in kernels if k is not every["K4"]], DAPG_ENVS, PEN_HORIZON, (1,),
-                     guard, rows)
+                     [k for k in kernels if k not in (every["K4"], every["POSES"])], DAPG_ENVS,
+                     PEN_HORIZON, (1,), guard, rows, poses=every["POSES"])
     print(f"[{tag}] {calls[0]} engine.step calls (the demos and 2 iterations x {PEN_HORIZON} "
-          f"steps x 5 frames), 0 kernel launches; with use_soa unset K4 launched {k4} times in "
-          f"its iteration")
+          f"steps x 5 frames), 0 kernel launches (the pose kernel's included); with use_soa "
+          f"unset K4 launched {k4} times in its iteration")
     result["path"] = {
         "launches": 0, "engine_steps": calls[0], "k4_launches_use_soa_unset": k4,
         "iteration_ms": [row["time_step"] * 1e3 for row in rows[tag]],
@@ -2028,15 +2175,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from mjrl_tpu_torch.envs import make
-    from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4, SIZE_CLASSES
+    from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4, POSES, SIZE_CLASSES
 
     t0 = time.perf_counter()
-    builds = [(K1, 0), (K1, 1), (K2, 0), (K3, 2), (K4, 2)]
+    builds = [(K1, 0), (K1, 1), (K2, 0), (K3, 2), (K4, 2), (POSES, 2)]
     with ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: b[0].build(b[1]), builds))
     print(f"[1] built {K1.source} in size classes {SIZE_CLASSES[:2]}, {K2.source} in "
-          f"{SIZE_CLASSES[0]}, {K3.source} and {K4.source} in {SIZE_CLASSES[2]} in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{SIZE_CLASSES[0]}, {K3.source}, {K4.source} and {POSES.source} in {SIZE_CLASSES[2]} "
+          f"in {time.perf_counter() - t0:.1f} s")
 
     env = make("ant", horizon=HORIZON)  # on the card by default
     newton_env = make("ant", horizon=HORIZON, constraint_solver="newton", n_substeps=1)
@@ -2098,14 +2245,20 @@ def main() -> int:
         k4_tasks[task] = phase_k4(f"K4 {task}", env, K4, 1, (K4_TASK_ENVS,), TOL["K4 pen"],
                                   TOL["K4 pen quantile"], wide=2 * K4_TASK_ENVS, bound=False,
                                   plain_on_cpu=True, replay=True)
+    poses = phase_poses(POSES, PEN_ENVS)
     every = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
-    entry_rows = {}
-    entry = {tag: phase_entry(tag, config, every.get(k), [v for n, v in every.items() if n != k],
-                              n, steps, niters, overrides, entry_rows)
-             for tag, config, k, n, steps, niters, overrides in ENTRY_PATHS}
-    phase_breadth(list(every.values()))
+    entry_rows, entry, pose_launches = {}, {}, {}
+    for tag, config, k, n, steps, niters, overrides in ENTRY_PATHS:
+        # the pose kernel on the paths whose env runs it; elsewhere none
+        on_poses = tag.startswith("adroit_") and tag.split("_")[1] in POSE_TASKS
+        others = [v for name, v in every.items() if name != k] + ([] if on_poses else [POSES])
+        entry[tag] = phase_entry(tag, config, every.get(k), others, n, steps, niters, overrides,
+                                 entry_rows, poses=POSES if on_poses else None)
+        if on_poses:
+            pose_launches[tag] = steps + 1
+    phase_breadth([*every.values(), POSES])
     data_parallel = phase_data_parallel(entry_rows)
-    engine_result = phase_engine(every)
+    engine_result = phase_engine({**every, "POSES": POSES})
     k1_hopper["launches"] = entry["hopper"]
     k3["launches"] = entry["adroit_pen"]
     k4["launches"] = entry["adroit_pen_newton"]
@@ -2162,6 +2315,13 @@ def main() -> int:
                                               "held_rows_mean", "held_rows_max",
                                               "line_search_flips", "overflow", "wide") if k in r}
         kernels[3][task]["launches"] = entry[f"adroit_{task}_newton"]
+    keys = ("ms", "stream_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "pos_max_abs_err",
+            "quat_max_abs_err", "sites_max_abs_err", "q_strides")
+    kernels.append({"name": POSES.name, "route": "cuda", "source": POSES.source,
+                    "replaces": POSES.replaces, **{k: poses["pen"][k] for k in keys},
+                    "library_ms": None, "launches_per_iteration": pose_launches})
+    for task in POSE_TASKS[1:]:
+        kernels[4][task] = {k: poses[task][k] for k in keys}
     print(json.dumps({"engine": engine_result}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

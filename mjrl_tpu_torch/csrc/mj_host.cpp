@@ -1,9 +1,11 @@
 // Host build of the K1, K2, K3 and K4 bodies (mj_warp_penalty.h with EXT
 // off and on, mj_warp_newton.h with EXT off and on) for the CPU tests: the
 // same warp-decomposed code as the CUDA kernels under the emulated warp
-// (mj_warp.h's MjWarpHost), one env after another, each on a fresh state.
+// (mj_warp.h's MjWarpHost), one env after another, each on a fresh state;
+// and the pose kernel's warp body (mj_poses.h) the same way.
 #include <string.h>
 
+#include "mj_poses.h"
 #include "mj_warp_newton.h"
 #include "mj_warp_penalty.h"
 
@@ -144,6 +146,20 @@ int mj_ext_newton_host(const float* mf, const int* mi, const float* nf,
                        int iters, float dt) {
   return mj_ext_newton_held_host(mf, mi, nf, ni, q, qd, ctrl, delta, q_out, qd_out, picks,
                                  overflow, nullptr, B, n_sub, iters, dt);
+}
+
+// The pose kernel's body (mj_poses_kernel.cu's mj_poses_launch, the same
+// arguments without the stream).
+int mj_poses_host(const float* mf, const int* mi, const float* site_pos, const int* site_link,
+                  int nsite, const float* q, long long sq0, long long sq1, const float* delta,
+                  long long sd0, long long sd1, long long sd2, float* pos, float* quat,
+                  float* sites, int B) {
+  MjWarpHost w;
+  const long long sq[2] = {sq0, sq1}, sd[3] = {sd0, sd1, sd2};
+  for (int env = 0; env < B; ++env)
+    mj_warp_poses(w, *mj_fresh_env<MjPoseEnv>(), mf, mi, site_pos, site_link, nsite, q, sq,
+                  delta, sd, env, pos, quat, sites);
+  return 0;
 }
 
 // The contact rows K4 holds for env's substep from the batch-last state

@@ -21,10 +21,13 @@ soft contacts and joint limits; the tendon limits stay penalties, as in
 the reference) (physics/dispatch.py); both take the offsets.
 ``use_soa=False`` (a config's ``env_kwargs.use_soa``) steps the envs on
 the per-env engine instead, as the reference's runs with that setting did
-(physics/engine.py: no kernel launch). The
-observation's kinematics, sites and hammer's nail sensor (the contact
-wrench on the nail, from the pairs that touch it: physics/contact.py) are
-plain PyTorch, as in the reference. The rewards keep the DAPG paper's
+(physics/engine.py: no kernel launch, the observation's included). On
+the card the frame stepper's kernel path takes the observation's link
+poses and sites (``_poses``: pen, relocate and door) in one launch of the
+pose kernel (physics/pkernel.py ``POSES``); elsewhere they, and hammer's
+kinematics and nail sensor (the contact wrench on the nail, from the
+pairs that touch it: physics/contact.py), are plain PyTorch, as in the
+reference. The rewards keep the DAPG paper's
 signs by default (``reward_variant="dapg"``); ``"gymnasium_v1"`` flips the
 sign of relocate's, hammer's and door's hand-to-object reach term, as
 Gymnasium-Robotics' v1 envs do. Each reset
@@ -45,8 +48,9 @@ from mjrl_tpu_torch.envs.base import Env, StepResult, register
 from mjrl_tpu_torch.physics import math3d as m3
 from mjrl_tpu_torch.physics.contact import contact_forces
 from mjrl_tpu_torch.physics.dispatch import check_model, make_frame_stepper
-from mjrl_tpu_torch.physics.engine import compute_kinematics, forward_kinematics, site_positions
+from mjrl_tpu_torch.physics.engine import compute_kinematics, site_positions
 from mjrl_tpu_torch.physics.model import Model, load_model_npz
+from mjrl_tpu_torch.physics.pkernel import POSES
 from mjrl_tpu_torch.physics.tables import scale_limit_penalties
 from mjrl_tpu_torch.types import EnvSpec
 from mjrl_tpu_torch.utils import trace
@@ -139,6 +143,8 @@ class AdroitEnv(Env):
         self.model = model = adroit_model(self.task, constraint_solver, use_soa)
         self._frame_step = make_frame_stepper(model, self.frame_skip, with_link_delta=True,
                                               use_soa=use_soa)
+        # K3 and K4 take only models in the kernels' feature set, as the pose kernel
+        self._poses_on_kernel = self._frame_step.path != "engine"
         self._site = {n: i for i, n in enumerate(model.site_name)}
         self._link = {n: i for i, n in enumerate(model.link_name)}
         self._jnt_q = {n: model.link_qadr[i] for i, n in enumerate(model.jnt_name) if n}
@@ -198,9 +204,13 @@ class AdroitEnv(Env):
         return self._act_mean + torch.clamp(action, -1.0, 1.0) * self._act_rng
 
     def _poses(self, st: AdroitState):
-        """Link poses and site positions of ``st``, with its offsets."""
-        pos, quat = forward_kinematics(self.model, st.q, st.link_delta)
-        return pos, quat, site_positions(self.model, pos, quat)
+        """Link poses and site positions of ``st``, with its offsets: with
+        the frame stepper on K3 or K4, the pose kernel's wrapper (one launch
+        on the card, the plain version on the CPU); on the engine path the
+        plain version."""
+        if self._poses_on_kernel:
+            return POSES(self.model, st.q, st.link_delta)
+        return POSES.plain(self.model, st.q, st.link_delta)
 
     def _physics(self, st: AdroitState, ctrl: torch.Tensor) -> AdroitState:
         q, qd = self._frame_step(st.q, st.qd, ctrl, st.link_delta)

@@ -32,10 +32,15 @@ in device memory).
 wrappers: for a CUDA tensor they launch the kernel or raise; for a CPU
 tensor they run the plain version, ``physics/soa.py::multistep``. ``K1``,
 ``K2``, ``K3`` and ``K4`` are the instances the frame stepper calls; their
-``launches`` count kernel launches. While tracing is on (``utils/trace.py``)
-K2 and K4 also count their env-substeps and the contact rows each holds
-(the kernel's held-row counter, read with the overflow count at
-``check()``; the plain version's on the CPU).
+``launches`` count kernel launches. :class:`PoseKernel` (``POSES``,
+``mj_poses_kernel.cu`` on ``mj_poses.h``, one warp per env) gives the
+Adroit envs' observation its link poses and site positions on the card
+(envs/adroit.py ``_poses``), on K3's and K4's tables; for a CPU tensor
+physics/engine.py's ``forward_kinematics`` + ``site_positions``. While
+tracing is on (``utils/trace.py``) K2 and K4 also count their
+env-substeps and the contact rows each holds (the kernel's held-row
+counter, read with the overflow count at ``check()``; the plain
+version's on the CPU), and the pose kernel its launches and plain calls.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import torch
 
 from mjrl_tpu_torch.physics import soa, soa_newton
 from mjrl_tpu_torch.physics.csolve import ensure_solver_params
+from mjrl_tpu_torch.physics.engine import forward_kinematics, site_positions
 from mjrl_tpu_torch.physics.model import Model
 from mjrl_tpu_torch.physics.tables import (
     num_contact_candidates,
@@ -854,7 +860,110 @@ class ExtNewtonKernel(NewtonKernel):
         return q_out, qd_out
 
 
+def pack_site_tables(model: Model) -> Tuple[np.ndarray, np.ndarray]:
+    """The pose kernel's site table: (site_pos (nsite, 3) f32, site_link
+    (nsite,) i32; -1 a world site)."""
+    n = len(model.site_link)
+    pos = np.asarray(model.site_pos if n else np.zeros((0, 3)), np.float32).reshape(n, 3)
+    return np.ascontiguousarray(pos), np.asarray(model.site_link, np.int32).reshape(n)
+
+
+# mj_poses_launch's arguments (mj_poses_host's: the same without the
+# stream): mf, mi, site_pos, site_link, nsite, q, q's two strides, delta,
+# its three strides, pos, quat, sites, B.
+POSES_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+                  + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                  + [ctypes.c_void_p] * 3 + [ctypes.c_int])
+
+
+class PoseKernel:
+    """Wrapper of the pose kernel: ``(q (B, nq)[, link_delta (B, nlink,
+    3)]) -> (pos (B, nlink, 3), quat (B, nlink, 4), sites (B, nsite, 3))``,
+    every link's world pose and every site's world position as
+    physics/engine.py's ``forward_kinematics`` and ``site_positions``
+    compute them, in one launch, one warp per env (``mj_poses.h``). For a
+    CPU tensor it runs that plain version (:meth:`plain`). ``q`` and
+    ``link_delta`` are read through their strides (after a control step
+    the env's ``q`` is the transposed view of K3's or K4's batch-last
+    output); the three outputs are views of one new buffer. Built in the
+    size class a model needs, like K3; the model's tables are K3's and
+    K4's packing (:func:`pack_tables` with ``ext``) and a site table of its
+    own (:func:`pack_site_tables`), cached per model and device. Traced,
+    each launch counts ``poses.kernel`` and each plain call
+    ``poses.plain``."""
+
+    name = "mj_poses"
+    source = "mjrl_tpu_torch/csrc/mj_poses_kernel.cu"
+    replaces = "mjrl_tpu_torch/physics/engine.py forward_kinematics + site_positions"
+
+    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
+        self.csrc, self.build_dir = Path(csrc), Path(build_dir)
+        self.launches = 0
+        self._libs: Dict[int, ctypes.CDLL] = {}
+        self._layouts: Dict[int, Dict[str, int]] = {}
+
+    def build(self, size: int = 0) -> ctypes.CDLL:
+        """Build (or find) and load the CUDA library of size class ``size``."""
+        if size not in self._libs:
+            path = build_library("mj_poses_kernel.cu",
+                                 (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
+                                 self.build_dir, self.csrc)
+            lib = ctypes.CDLL(str(path))
+            lib.mj_poses_launch.argtypes = POSES_ARGTYPES + [ctypes.c_void_p]
+            lib.mj_poses_launch.restype = ctypes.c_int
+            self._layouts[size] = read_layout(lib)
+            self._libs[size] = lib
+        return self._libs[size]
+
+    def _tables(self, model: Model, device: torch.device):
+        cache = model.__dict__.setdefault("_pose_tables", {})
+        key = str(device)
+        if key not in cache:
+            packed = (*pack_tables(model, self._layouts[size_class(model)], ext=True),
+                      *pack_site_tables(model))
+            cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
+        return cache[key]
+
+    @staticmethod
+    def plain(model: Model, q: torch.Tensor, link_delta: Optional[torch.Tensor] = None):
+        """The plain version, on any device."""
+        trace.count("poses.plain")
+        pos, quat = forward_kinematics(model, q, link_delta)
+        return pos, quat, site_positions(model, pos, quat)
+
+    def __call__(self, model: Model, q: torch.Tensor, link_delta: Optional[torch.Tensor] = None):
+        if q.device.type == "cpu":
+            return self.plain(model, q, link_delta)
+        if q.device.type != "cuda":
+            raise ValueError(f"no {self.name} path for device {q.device}")
+        if q.dtype != torch.float32 or q.dim() != 2 or q.shape[1] != model.nq or q.shape[0] < 1:
+            raise ValueError(f"q must be float32 (B, {model.nq}), got {q.dtype} {tuple(q.shape)}")
+        B, nl, ns = q.shape[0], model.nlink, len(model.site_link)
+        if link_delta is not None and (link_delta.dtype != torch.float32
+                                       or tuple(link_delta.shape) != (B, nl, 3)
+                                       or link_delta.device != q.device):
+            raise ValueError(f"link_delta must be float32 {(B, nl, 3)} on {q.device}")
+        lib = self.build(size_class(model))
+        mf, mi, site_pos, site_link = self._tables(model, q.device)
+        pos, quat, sites = torch.empty(B * (7 * nl + 3 * ns), dtype=torch.float32,
+                                       device=q.device).split([3 * B * nl, 4 * B * nl, 3 * B * ns])
+        pos, quat, sites = pos.view(B, nl, 3), quat.view(B, nl, 4), sites.view(B, ns, 3)
+        sd = (0, 0, 0) if link_delta is None else link_delta.stride()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.mj_poses_launch(
+                mf.data_ptr(), mi.data_ptr(), site_pos.data_ptr(), site_link.data_ptr(), ns,
+                q.data_ptr(), *q.stride(), 0 if link_delta is None else link_delta.data_ptr(),
+                *sd, pos.data_ptr(), quat.data_ptr(), sites.data_ptr(), B, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
+        self.launches += 1
+        trace.count("poses.kernel")
+        return pos, quat, sites
+
+
 K1 = MultistepKernel()
 K2 = NewtonKernel()
 K3 = ExtKernel()
 K4 = ExtNewtonKernel()
+POSES = PoseKernel()
