@@ -97,55 +97,55 @@ int mj_ext_host(const float* mf, const int* mi, const float* q, const float* qd,
   return 0;
 }
 
-// K2's body, each env-substep's rows inside their margin added to
-// held_stats (two ints, or null: the kernel's counter; sum, largest);
+// K2's body, each env-substep's counts added to stats (MJ_N_STATS long
+// longs, or null: the kernel's counters, mj_newton.h's MJ_STAT_*);
 // returns the env-substeps with more contact rows inside their margin than
 // MJ_MAX_HELD (0: every row held).
-int mj_newton_held_host(const float* mf, const int* mi, const float* nf,
-                        const int* ni, const float* q, const float* qd,
-                        const float* ctrl, float* q_out, float* qd_out, int* picks,
-                        int* held_stats, int B, int n_sub, int iters, float dt) {
+int mj_newton_stats_host(const float* mf, const int* mi, const float* nf,
+                         const int* ni, const float* q, const float* qd,
+                         const float* ctrl, float* q_out, float* qd_out, int* picks,
+                         long long* stats, int B, int n_sub, int iters, float dt) {
   MjWarpHost w;
   int overflow = 0;
   for (int env = 0; env < B; ++env)
     mj_warp_env_multistep<false>(w, *mj_fresh_env<MjWarpEnv>(), mf, mi, nf, ni, env, B, q,
-                                 qd, ctrl, nullptr, q_out, qd_out, picks, &overflow,
-                                 held_stats, n_sub, iters, dt);
+                                 qd, ctrl, nullptr, q_out, qd_out, picks, &overflow, stats,
+                                 n_sub, iters, dt);
   return overflow;
 }
 
-// K2's body without the held-row counter.
+// K2's body without the counters.
 int mj_newton_host(const float* mf, const int* mi, const float* nf,
                    const int* ni, const float* q, const float* qd,
                    const float* ctrl, float* q_out, float* qd_out, int* picks,
                    int B, int n_sub, int iters, float dt) {
-  return mj_newton_held_host(mf, mi, nf, ni, q, qd, ctrl, q_out, qd_out, picks, nullptr, B,
-                             n_sub, iters, dt);
+  return mj_newton_stats_host(mf, mi, nf, ni, q, qd, ctrl, q_out, qd_out, picks, nullptr, B,
+                              n_sub, iters, dt);
 }
 
 // K4's body; *overflow counts the env-substeps with more contact rows
-// inside their margin than MJ_MAX_HELD; held_stats as mj_newton_held_host's.
-int mj_ext_newton_held_host(const float* mf, const int* mi, const float* nf,
-                            const int* ni, const float* q, const float* qd,
-                            const float* ctrl, const float* delta, float* q_out,
-                            float* qd_out, int* picks, int* overflow, int* held_stats,
-                            int B, int n_sub, int iters, float dt) {
+// inside their margin than MJ_MAX_HELD; stats as mj_newton_stats_host's.
+int mj_ext_newton_stats_host(const float* mf, const int* mi, const float* nf,
+                             const int* ni, const float* q, const float* qd,
+                             const float* ctrl, const float* delta, float* q_out,
+                             float* qd_out, int* picks, int* overflow, long long* stats,
+                             int B, int n_sub, int iters, float dt) {
   MjWarpHost w;
   for (int env = 0; env < B; ++env)
     mj_warp_env_multistep<true>(w, *mj_fresh_env<MjWarpEnv>(), mf, mi, nf, ni, env, B, q,
-                                qd, ctrl, delta, q_out, qd_out, picks, overflow, held_stats,
+                                qd, ctrl, delta, q_out, qd_out, picks, overflow, stats,
                                 n_sub, iters, dt);
   return 0;
 }
 
-// K4's body without the held-row counter.
+// K4's body without the counters.
 int mj_ext_newton_host(const float* mf, const int* mi, const float* nf,
                        const int* ni, const float* q, const float* qd,
                        const float* ctrl, const float* delta, float* q_out,
                        float* qd_out, int* picks, int* overflow, int B, int n_sub,
                        int iters, float dt) {
-  return mj_ext_newton_held_host(mf, mi, nf, ni, q, qd, ctrl, delta, q_out, qd_out, picks,
-                                 overflow, nullptr, B, n_sub, iters, dt);
+  return mj_ext_newton_stats_host(mf, mi, nf, ni, q, qd, ctrl, delta, q_out, qd_out, picks,
+                                  overflow, nullptr, B, n_sub, iters, dt);
 }
 
 // The pose kernel's body (mj_poses_kernel.cu's mj_poses_launch, the same

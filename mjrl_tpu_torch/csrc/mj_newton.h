@@ -53,11 +53,28 @@
 // for the pyramid, 1 for condim 1)
 #define MJ_NPAIR_F (MJ_IMP_F + 5)
 
-#define MJ_NEWTON_LAYOUT_LEN 13
+// The counters a traced launch of K2 or K4 adds up, MJ_N_STATS long longs
+// on the device (mj_warp_newton.h's mj_count_stats): per env-substep its
+// contact rows inside their margin (their sum, and the largest) and the
+// terms of H's assembly over its held rows; per Newton iteration the
+// iteration, and whether its line search took a fraction under 1, took 0,
+// or was a near tie (mj_near_tie).
+enum {
+  MJ_STAT_HELD,
+  MJ_STAT_HELD_MAX,
+  MJ_STAT_CHAIN_TERMS,
+  MJ_STAT_ITERS,
+  MJ_STAT_LS_CUT,
+  MJ_STAT_LS_ZERO,
+  MJ_STAT_LS_TIES,
+  MJ_N_STATS
+};
+
+#define MJ_NEWTON_LAYOUT_LEN 14
 #define MJ_NEWTON_LAYOUT_VALUES                                             \
   MJ_MAX_FACET, MJ_MAX_CHAIN, MJ_IMP_F, MJ_LIM_I, MJ_LIM_F, MJ_NPAIR_I, \
       MJ_NPAIR_F, MJ_N_I_NLIM, MJ_N_I_LIM, MJ_N_I_PAIR, MJ_N_F_LIM,         \
-      MJ_N_F_PAIR, MJ_MAX_HELD
+      MJ_N_F_PAIR, MJ_MAX_HELD, MJ_N_STATS
 
 #define MJ_MINVAL 1e-10f
 

@@ -57,7 +57,7 @@ __global__ void __launch_bounds__(MJ_WARP * MJ_NEWTON_WARPS)
                      const float* __restrict__ q, const float* __restrict__ qd,
                      const float* __restrict__ ctrl, float* __restrict__ q_out,
                      float* __restrict__ qd_out, int* __restrict__ picks,
-                     int* __restrict__ overflow, int* __restrict__ held_stats,
+                     int* __restrict__ overflow, long long* __restrict__ stats,
                      int B, int n_sub, int iters, float dt MJ_CLOCKS_PARAM) {
   const int warp = threadIdx.x / MJ_WARP;
   const int env = blockIdx.x * (blockDim.x / MJ_WARP) + warp;
@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(MJ_WARP * MJ_NEWTON_WARPS)
   w.last = clock64();
 #endif
   mj_warp_env_multistep<false>(w, S, mf, mi, nf, ni, env, B, q, qd, ctrl, nullptr, q_out,
-                               qd_out, picks, overflow, held_stats, n_sub, iters, dt);
+                               qd_out, picks, overflow, stats, n_sub, iters, dt);
 #ifdef MJ_STAGE_CLOCKS
   if (w.lane == 0)
     for (int s = 0; s < MJ_N_STAGES; ++s) clocks[(long)s * B + env] = w.clocks[s];
@@ -100,13 +100,15 @@ int mj_warp_layout(int* out) {
 // Launches on `stream` with `warps` envs per block (1 to MJ_NEWTON_WARPS)
 // and returns the first CUDA error (0 means launched). picks may be null;
 // else it receives (n_sub * iters, B) fraction indices. overflow (one int
-// on the device) is added to, never cleared; held_stats (two ints on the
-// device, or null) takes each env-substep's rows inside their margin:
-// their sum in [0], their largest in [1].
+// on the device) is added to, never cleared; stats (MJ_N_STATS long longs
+// on the device, or null: nothing counted) is added to as mj_newton.h's
+// MJ_STAT_* say: each env-substep's rows inside their margin (their sum,
+// their largest), H's terms over its held rows, its Newton iterations and
+// their line searches' cuts, zeros and near ties.
 int mj_newton_launch(const float* mf, const int* mi, const float* nf,
                      const int* ni, const float* q, const float* qd,
                      const float* ctrl, float* q_out, float* qd_out, int* picks,
-                     int* overflow, int* held_stats, int B, int n_sub, int iters, float dt,
+                     int* overflow, long long* stats, int B, int n_sub, int iters, float dt,
                      int warps, void* stream MJ_CLOCKS_PARAM) {
   if (warps < 1 || warps > MJ_NEWTON_WARPS) return (int)cudaErrorInvalidValue;
   const int bytes = warps * (int)sizeof(MjWarpEnv);
@@ -115,9 +117,25 @@ int mj_newton_launch(const float* mf, const int* mi, const float* nf,
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + warps - 1) / warps;
   mj_newton_kernel<<<blocks, MJ_WARP * warps, bytes, (cudaStream_t)stream>>>(
-      mf, mi, nf, ni, q, qd, ctrl, q_out, qd_out, picks, overflow, held_stats, B, n_sub,
+      mf, mi, nf, ni, q, qd, ctrl, q_out, qd_out, picks, overflow, stats, B, n_sub,
       iters, dt MJ_CLOCKS_ARG);
   return (int)cudaGetLastError();
+}
+
+// The blocks of `warps` envs each that one SM holds at once at a launch's
+// shared bytes (cudaOccupancyMaxActiveBlocksPerMultiprocessor on the
+// built kernel), or minus a CUDA error: the wrapper's count of a launch's
+// waves.
+int mj_newton_occupancy(int warps) {
+  if (warps < 1 || warps > MJ_NEWTON_WARPS) return -(int)cudaErrorInvalidValue;
+  const int bytes = warps * (int)sizeof(MjWarpEnv);
+  cudaError_t err = cudaFuncSetAttribute(
+      mj_newton_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, mj_newton_kernel, MJ_WARP * warps,
+                                                      bytes);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 }  // extern "C"

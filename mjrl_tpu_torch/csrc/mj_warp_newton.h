@@ -117,16 +117,38 @@ MJ_HD void mj_count(int* c) {
 #endif
 }
 
-// An env-substep's held rows into the device-side held_stats: their sum
-// in [0], their largest in [1].
-MJ_HD void mj_count_held(int* held_stats, int held) {
+// An env-substep's line searches, as a traced launch counts them
+// (mj_warp_newton): its iterations, those that took a fraction under 1,
+// those that took 0, and the near ties (mj_near_tie).
+struct MjLineCounts {
+  int iters, cut, zero, ties;
+};
+
+// An env-substep's counts into the device-side stats (mj_newton.h's
+// MJ_STAT_*): its contact rows inside their margin (held), added and kept
+// if the largest; the terms of H's assembly over its held rows (terms);
+// and its line searches.
+MJ_HD void mj_count_stats(long long* stats, int held, long long terms, const MjLineCounts& c) {
+  const long long add[MJ_N_STATS] = {held, 0, terms, c.iters, c.cut, c.zero, c.ties};
 #ifdef __CUDA_ARCH__
-  atomicAdd(held_stats, held);
-  atomicMax(held_stats + 1, held);
+  for (int k = 0; k < MJ_N_STATS; ++k)
+    if (k != MJ_STAT_HELD_MAX && add[k])
+      atomicAdd(reinterpret_cast<unsigned long long*>(stats + k),
+                static_cast<unsigned long long>(add[k]));
+  atomicMax(stats + MJ_STAT_HELD_MAX, (long long)held);
 #else
-  held_stats[0] += held;
-  if (held > held_stats[1]) held_stats[1] = held;
+  for (int k = 0; k < MJ_N_STATS; ++k) stats[k] += add[k];
+  if (held > stats[MJ_STAT_HELD_MAX]) stats[MJ_STAT_HELD_MAX] = held;
 #endif
+}
+
+// The terms of H's assembly over the held rows (mj_warp_newton): n + n (n
+// + 1) / 2 for a contact row whose chain has n dofs (its gradient's and
+// H's lower triangle's entries), 1 for a limit row.
+MJ_HD long long mj_chain_terms(const MjWarpEnv& S, int nl, int nc) {
+  long long terms = nl;
+  for (int c = 0; c < nc; ++c) terms += S.nchain[c] + S.nchain[c] * (S.nchain[c] + 1) / 2;
+  return terms;
 }
 
 // (a, b), b <= a, of entry e of a lower triangle stored row by row.
@@ -141,6 +163,30 @@ MJ_HD void mj_tri(int e, int& a, int& b) {
 // The line search's fractions 1, 1/2, 1/4, 1/16, 0.
 MJ_HD float mj_alpha(int a) {
   return a == 0 ? 1.0f : (a == 1 ? 0.5f : (a == 2 ? 0.25f : (a == 3 ? 0.0625f : 0.0f)));
+}
+
+// A near tie of a line search: a fraction other than the chosen one whose
+// cost is within MJ_TIE_REL of the largest of the five costs' magnitudes
+// above the best, and whose step would move some velocity of the substep
+// (dt a dx) by more than MJ_TIE_STEP against the chosen step's. Where two
+// costs lie that close, float32 round-off in another order of the sums
+// (a fused multiply-add, the plain version's order) can pick the other
+// fraction; 1e-5 is ~170 float32 ulps of the largest cost, above the
+// round-off of the few hundred terms a cost sums. The step's threshold
+// (1e-4 in m/s or rad/s, the size of the check's velocity quantile)
+// keeps converged iterations out: there dx is ~0 and the five costs
+// agree, and either pick gives the same velocities.
+#define MJ_TIE_REL 1e-5f
+#define MJ_TIE_STEP 1e-4f
+
+MJ_HD bool mj_near_tie(const float* cost, int best, float dx_max, float dt) {
+  float big = 0.0f;
+  for (int a = 0; a < 5; ++a) big = mj_max(big, fabsf(cost[a]));
+  for (int a = 0; a < 5; ++a)
+    if (a != best && cost[a] - cost[best] <= MJ_TIE_REL * big &&
+        dt * fabsf(mj_alpha(a) - mj_alpha(best)) * dx_max > MJ_TIE_STEP)
+      return true;
+  return false;
 }
 
 // Counts a pair's points inside their margin (the narrow phase's first
@@ -251,10 +297,11 @@ MJ_WD void mj_warp_qdd0(W& w, MjWarpEnv& S, const float* mf, const int* mi, floa
 
 // solver_iters Newton iterations from x = qdd0 over the held rows (nl
 // limit rows, nc contact rows); picks (or null) receives each iteration's
-// fraction index at picks[it * stride].
+// fraction index at picks[it * stride]; counts (or null: a launch that
+// counts nothing) adds up the line searches of the substep of length dt.
 template <class W>
 MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int iters,
-                          int* picks, long stride) {
+                          int* picks, long stride, MjLineCounts* counts, float dt) {
   const int nv = mi[MJ_I_NV];
   const int nfe = nc * MJ_MAX_FACET;
   const auto wl = [&](int r) { return S.ljar[r] < 0.0f ? S.lD[r] : 0.0f; };
@@ -390,6 +437,15 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
         best = a;
         best_cost = cost.v[a];
       }
+    if (counts)
+      w.one([&] {
+        float dx_max = 0.0f;
+        for (int j = 0; j < nv; ++j) dx_max = mj_max(dx_max, fabsf(S.dx[j]));
+        ++counts->iters;
+        counts->cut += best != 0;
+        counts->zero += best == 4;
+        counts->ties += mj_near_tie(cost.v, best, dx_max, dt);
+      });
     const float al = mj_alpha(best);
     w.each(nv, [&](int j) {
       S.x[j] = S.x[j] + al * S.dx[j];
@@ -402,43 +458,46 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
 // Advances the env in S (q, qd, with ctrl held) by one Newton substep of
 // length dt; delta (S.delta or null): the link offsets; *overflow counts
 // the substep if it has more contact rows inside their margin than
-// MJ_MAX_HELD; held_stats (or null) takes the substep's rows inside their
-// margin (mj_count_held); maxd: the tree's depth (mj_warp_depths).
+// MJ_MAX_HELD; stats (or null) takes the substep's counts
+// (mj_count_stats); maxd: the tree's depth (mj_warp_depths). With stats
+// null nothing is counted, and with it non-null the same bits come out.
 template <bool EXT, class W>
 MJ_WD void mj_warp_substep(W& w, MjWarpEnv& S, const float* mf, const int* mi,
                            const float* nf, const int* ni, float dt, int iters,
                            int* picks, long stride, const float* delta, int* overflow,
-                           int* held_stats, int maxd) {
+                           long long* stats, int maxd) {
   const int nv = mi[MJ_I_NV];
   mj_warp_kinematics(w, S, mf, mi, delta, maxd);
   MJ_STAMP(w, MJ_ST_KIN);
   int nl;
   const int held = mj_warp_rows<EXT>(w, S, mf, mi, nf, ni, nl);
   if (held > MJ_MAX_HELD) w.one([&] { mj_count(overflow); });
-  if (held_stats) w.one([&] { mj_count_held(held_stats, held); });
   MJ_STAMP(w, MJ_ST_ROWS);
   mj_warp_qdd0<EXT>(w, S, mf, mi, dt, maxd);
   w.each(nv, [&](int j) { S.x[j] = S.qdd0[j]; });
-  mj_warp_newton(w, S, mi, nl, held < MJ_MAX_HELD ? held : MJ_MAX_HELD, iters, picks, stride);
+  const int nc = held < MJ_MAX_HELD ? held : MJ_MAX_HELD;
+  MjLineCounts counts{0, 0, 0, 0};
+  mj_warp_newton(w, S, mi, nl, nc, iters, picks, stride, stats ? &counts : nullptr, dt);
+  if (stats) w.one([&] { mj_count_stats(stats, held, mj_chain_terms(S, nl, nc), counts); });
   w.one([&] { mj_integrate(mi, S.q, S.qd, S.x, dt); });
   MJ_STAMP(w, MJ_ST_INT);
 }
 
 // Kernel K2's (EXT = false) or K4's (EXT = true) env: n_sub substeps with
 // ctrl (and, with delta_in, K4's link offsets) held; picks (or null) is
-// (n_sub * iters, B) int; held_stats (or null) as mj_warp_substep's.
+// (n_sub * iters, B) int; stats (or null) as mj_warp_substep's.
 template <bool EXT, class W>
 MJ_WD void mj_warp_env_multistep(W& w, MjWarpEnv& S, const float* mf, const int* mi,
                                  const float* nf, const int* ni, int env, int B,
                                  const float* q_in, const float* qd_in,
                                  const float* ctrl_in, const float* delta_in,
                                  float* q_out, float* qd_out, int* picks, int* overflow,
-                                 int* held_stats, int n_sub, int iters, float dt) {
+                                 long long* stats, int n_sub, int iters, float dt) {
   mj_warp_load(w, S, mi, env, B, q_in, qd_in, ctrl_in, delta_in, S.delta);
   const int maxd = mj_warp_depths(w, S, mi);
   for (int s = 0; s < n_sub; ++s)
     mj_warp_substep<EXT>(w, S, mf, mi, nf, ni, dt, iters,
                          picks ? picks + (long)s * iters * B + env : nullptr, B,
-                         delta_in ? S.delta : nullptr, overflow, held_stats, maxd);
+                         delta_in ? S.delta : nullptr, overflow, stats, maxd);
   mj_warp_store(w, S, mi, env, B, q_out, qd_out);
 }

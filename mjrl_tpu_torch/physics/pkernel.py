@@ -38,9 +38,12 @@ Adroit envs' observation its link poses and site positions on the card
 (envs/adroit.py ``_poses``), on K3's and K4's tables; for a CPU tensor
 physics/engine.py's ``forward_kinematics`` + ``site_positions``. While
 tracing is on (``utils/trace.py``) K2 and K4 also count their
-env-substeps and the contact rows each holds (the kernel's held-row
-counter, read with the overflow count at ``check()``; the plain
-version's on the CPU), and the pose kernel its launches and plain calls.
+env-substeps and the contact rows each holds (the kernel's stats buffer,
+read with the overflow count at ``check()``, also holds H's terms over the
+rows and the Newton iterations' line-search outcomes; the plain version
+counts its rows on the CPU), their launches, blocks and waves (from the
+built kernel's occupancy), and the pose kernel its launches and plain
+calls.
 """
 
 from __future__ import annotations
@@ -94,8 +97,16 @@ LAYOUT_NAMES = (
 # Names of the values mj_newton_layout() writes, in its order (mj_newton.h).
 NEWTON_LAYOUT_NAMES = (
     "MAX_FACET", "MAX_CHAIN", "IMP_F", "LIM_I", "LIM_F", "NPAIR_I", "NPAIR_F",
-    "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM", "N_F_PAIR", "MAX_HELD",
+    "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM", "N_F_PAIR", "MAX_HELD", "N_STATS",
 )
+# The counters of K2's and K4's stats buffer (mj_newton.h's MJ_STAT_*), in
+# its order: per env-substep the contact rows inside their margin (summed,
+# and the largest) and the terms of H's assembly over the rows held; per
+# Newton iteration the iteration, and whether its line search took a
+# fraction under 1, took 0 or was a near tie (mj_warp_newton.h's
+# mj_near_tie).
+STAT_NAMES = ("held_rows", "held_rows_max", "chain_terms", "newton_iters", "ls_cut", "ls_zero",
+              "ls_near_ties")
 # Names of the values mj_warp_layout() writes, in its order (a warp body's
 # .cu file: mj_warp_penalty.h's or mj_warp_newton.h's values): shared
 # bytes per warp (env), tendons, warps per block and stages at most, and
@@ -583,11 +594,14 @@ class NewtonKernel(MultistepKernel):
     label = "K2"
     source = "mjrl_tpu_torch/csrc/mj_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:79 (soa_newton.py:338)"
+    occupancy_fn = "mj_newton_occupancy"
 
     def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
         super().__init__(csrc, build_dir)
-        # per device: [overflow count, held rows' sum, held rows' largest]
-        self._counters: Dict[str, torch.Tensor] = {}
+        # per device: the overflow count (int32) and the stats (int64, STAT_NAMES)
+        self._counters: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._counted: set = set()  # devices whose stats a traced launch added to
+        self._occupancy: Dict[Tuple[int, int], int] = {}
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library. K2 has the small size
@@ -603,6 +617,8 @@ class NewtonKernel(MultistepKernel):
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p]
             lib.mj_newton_launch.restype = ctypes.c_int
+            lib.mj_newton_occupancy.argtypes = [ctypes.c_int]
+            lib.mj_newton_occupancy.restype = ctypes.c_int
             self._layouts[0] = read_layout(lib)
             self._newton_layouts[0] = read_newton_layout(lib)
             self._warp_layouts[0] = read_warp_layout(lib)
@@ -618,21 +634,24 @@ class NewtonKernel(MultistepKernel):
             cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
         return cache[key]
 
-    def _device_counters(self, device: torch.device) -> torch.Tensor:
+    def _device_counters(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
         key = str(device)
         if key not in self._counters:
-            self._counters[key] = torch.zeros(3, dtype=torch.int32, device=device)
+            self._counters[key] = (torch.zeros(1, dtype=torch.int32, device=device),
+                                   torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=device))
         return self._counters[key]
 
     def overflow(self, device: torch.device) -> torch.Tensor:
         """The device's counter of env-substeps that held too many rows."""
-        return self._device_counters(device)[:1]
+        return self._device_counters(device)[0]
 
-    def held_stats(self, device: torch.device) -> int:
-        """The address of the device's held-row counter (the sum and the
-        largest of each env-substep's rows inside their margin) while
+    def stats(self, device: torch.device) -> int:
+        """The address of the device's stats buffer (``STAT_NAMES``) while
         tracing is on, else 0: the kernel then counts nothing."""
-        return self._device_counters(device)[1:].data_ptr() if trace.enabled() else 0
+        if not trace.enabled():
+            return 0
+        self._counted.add(str(device))
+        return self._device_counters(device)[1].data_ptr()
 
     def count_launch(self, B: int, n_sub: int, held: Optional[List[torch.Tensor]] = None) -> None:
         """Traced: the launch's env-substeps, and the plain version's held
@@ -643,20 +662,61 @@ class NewtonKernel(MultistepKernel):
             trace.count(f"{self.label}.held_rows", int(rows.sum()))
             trace.peak(f"{self.label}.held_rows_max", int(rows.max()))
 
+    def sm_count(self, device: torch.device) -> int:
+        return torch.cuda.get_device_properties(device).multi_processor_count
+
+    def occupancy(self, size: int, warps: int) -> int:
+        """Blocks of ``warps`` envs that one SM holds at once, from the
+        built library's ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+        at the launch's shared bytes; asked once per build and warps."""
+        key = (size, warps)
+        if key not in self._occupancy:
+            n = getattr(self._libs[size], self.occupancy_fn)(warps)
+            if n < 1:
+                raise RuntimeError(f"{self.occupancy_fn}({warps}): CUDA error {-n}")
+            self._occupancy[key] = n
+        return self._occupancy[key]
+
+    @staticmethod
+    def launch_waves(batch: int, warps: int, sms: int, per_sm: int) -> Tuple[int, int]:
+        """``(blocks, waves)`` of a launch of ``batch`` envs, ``warps`` to a
+        block, on ``sms`` SMs that each hold ``per_sm`` blocks at once."""
+        blocks = -(-batch // warps)
+        return blocks, -(-blocks // (sms * per_sm))
+
+    def count_waves(self, size: int, B: int, warps: int, device: torch.device) -> None:
+        """Traced: the launch, its blocks and its waves."""
+        if not trace.enabled():
+            return
+        blocks, waves = self.launch_waves(B, warps, self.sm_count(device),
+                                          self.occupancy(size, warps))
+        trace.count(f"{self.label}.launches")
+        trace.count(f"{self.label}.blocks", blocks)
+        trace.count(f"{self.label}.waves", waves)
+
     def check(self) -> None:
         """Raise ``RuntimeError`` if any launch so far had an env-substep
         with more contact rows inside their margin than the build holds
         (synchronises with the device: one read, ``K2.check`` or
-        ``K4.check``, which also takes the held-row counter while tracing
-        is on)."""
-        for key, counters in self._counters.items():
-            n, held, most = trace.host_read(f"{self.label}.check", counters)
-            if held or most:
-                counters[1:].zero_()
-                trace.count(f"{self.label}.held_rows", held)
-                trace.peak(f"{self.label}.held_rows_max", most)
+        ``K4.check``, which also takes the stats buffer where a traced
+        launch added to it, into the tracer's counters ``K4.held_rows``,
+        ``K4.chain_terms``, ... (``STAT_NAMES``) and its peak
+        ``K4.held_rows_max``)."""
+        for key, (over, stats) in self._counters.items():
+            if key in self._counted:
+                self._counted.discard(key)
+                n, *values = trace.host_read(f"{self.label}.check",
+                                             torch.cat([over.to(torch.int64), stats]))
+                stats.zero_()
+                for name, v in zip(STAT_NAMES, values):
+                    if name == "held_rows_max":
+                        trace.peak(f"{self.label}.{name}", v)
+                    else:
+                        trace.count(f"{self.label}.{name}", v)
+            else:
+                n, = trace.host_read(f"{self.label}.check", over)
             if n:
-                counters[:1].zero_()
+                over.zero_()
                 raise RuntimeError(
                     f"{self.name}: {n} env-substeps on {key} held more contact rows inside "
                     f"their margin than the build's MAX_HELD; those substeps are wrong")
@@ -691,11 +751,12 @@ class NewtonKernel(MultistepKernel):
                 mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
                 qd.data_ptr(), ctrl.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(),
                 0 if picks is None else picks.data_ptr(), self.overflow(q.device).data_ptr(),
-                self.held_stats(q.device), B, n_sub, iters, dt, warps, stream)
+                self.stats(q.device), B, n_sub, iters, dt, warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
         self.count_launch(B, n_sub)
+        self.count_waves(0, B, warps, q.device)
         return q_out, qd_out
 
 
@@ -780,6 +841,7 @@ class ExtNewtonKernel(NewtonKernel):
 
     name = "mj_ext_newton"
     label = "K4"
+    occupancy_fn = "mj_ext_newton_occupancy"
     source = "mjrl_tpu_torch/csrc/mj_ext_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext; soa_newton.py:338)"
 
@@ -794,6 +856,8 @@ class ExtNewtonKernel(NewtonKernel):
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p]
             lib.mj_ext_newton_launch.restype = ctypes.c_int
+            lib.mj_ext_newton_occupancy.argtypes = [ctypes.c_int]
+            lib.mj_ext_newton_occupancy.restype = ctypes.c_int
             self._layouts[size] = read_layout(lib)
             self._newton_layouts[size] = read_newton_layout(lib)
             self._warp_layouts[size] = read_warp_layout(lib)
@@ -851,12 +915,13 @@ class ExtNewtonKernel(NewtonKernel):
                 mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
                 qd.data_ptr(), ctrl.data_ptr(), 0 if link_delta is None else link_delta.data_ptr(),
                 q_out.data_ptr(), qd_out.data_ptr(), 0 if picks is None else picks.data_ptr(),
-                self.overflow(q.device).data_ptr(), self.held_stats(q.device), B, n_sub, iters, dt,
+                self.overflow(q.device).data_ptr(), self.stats(q.device), B, n_sub, iters, dt,
                 warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
         self.count_launch(B, n_sub)
+        self.count_waves(size, B, warps, q.device)
         return q_out, qd_out
 
 

@@ -146,14 +146,14 @@ def test_k4_host_build_matches_plain_on_pen(pen, lib):
 
 
 def test_k4_held_counter_changes_no_bit(pen, lib):
-    """``mj_ext_newton_held_host`` (K4's body with the held-row counter
-    that tracing reads) on pen's states with link offsets, every contact
-    kind touching: the same bits with the counter null and non-null, and
-    over one substep the sum and the largest of the rows each env holds,
-    as the plain version counts them."""
-    lib.mj_ext_newton_held_host.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
+    """``mj_ext_newton_stats_host`` (K4's body with the stats buffer that
+    tracing reads, its held-row counter first) on pen's states with link
+    offsets, every contact kind touching: the same bits with the buffer
+    null and non-null, and over one substep the sum and the largest of the
+    rows each env holds, as the plain version counts them."""
+    lib.mj_ext_newton_stats_host.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
         ctypes.c_float]
-    lib.mj_ext_newton_held_host.restype = ctypes.c_int
+    lib.mj_ext_newton_stats_host.restype = ctypes.c_int
     env, q, qd, delta = pen
     m = env.model
     L = pkernel.read_layout(lib)
@@ -168,10 +168,10 @@ def test_k4_held_counter_changes_no_bit(pen, lib):
                np.full((n_sub * m.solver_iters, B), -1, np.int32), np.zeros(1, np.int32)]
         ptr = [a.ctypes.data for a in (*tables, q, qd, ctrl, delta, *out)]
         held = None if stats is None else stats.ctypes.data
-        assert lib.mj_ext_newton_held_host(*ptr, held, B, n_sub, m.solver_iters, dt) == 0
+        assert lib.mj_ext_newton_stats_host(*ptr, held, B, n_sub, m.solver_iters, dt) == 0
         return out
 
-    stats = np.zeros(2, np.int32)
+    stats = np.zeros(len(pkernel.STAT_NAMES), np.int64)
     for a, b in zip(run(env.frame_skip, None), run(env.frame_skip, stats)):
         np.testing.assert_array_equal(a, b)
     stats[:] = 0
@@ -180,7 +180,7 @@ def test_k4_held_counter_changes_no_bit(pen, lib):
     soa.multistep(m, *map(torch.as_tensor, (q, qd, ctrl)), 1, held=held,
                   link_delta=torch.as_tensor(delta))
     assert int(held[0].max()) > 4
-    assert stats.tolist() == [int(held[0].sum()), int(held[0].max())]
+    assert stats[:2].tolist() == [int(held[0].sum()), int(held[0].max())]
     rows = probe.held_rows(m, torch.as_tensor(q), torch.as_tensor(delta))["contacts"]
     assert torch.equal(rows, held[0])
 

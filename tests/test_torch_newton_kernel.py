@@ -135,13 +135,13 @@ def test_newton_kernel_body_matches_plain_one_step(env, host, warm):
 
 
 def test_newton_held_counter_changes_no_bit(env, lib, warm):
-    """``mj_newton_held_host`` (K2's body with the held-row counter that
-    tracing reads): the same bits with the counter null and non-null, and
-    over one substep the sum and the largest of the rows each env holds,
-    as the plain version counts them."""
-    lib.mj_newton_held_host.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
+    """``mj_newton_stats_host`` (K2's body with the stats buffer that
+    tracing reads, its held-row counter first): the same bits with the
+    buffer null and non-null, and over one substep the sum and the largest
+    of the rows each env holds, as the plain version counts them."""
+    lib.mj_newton_stats_host.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [
         ctypes.c_float]
-    lib.mj_newton_held_host.restype = ctypes.c_int
+    lib.mj_newton_stats_host.restype = ctypes.c_int
     m = env.model
     L = pkernel.read_layout(lib)
     tables = (*pkernel.pack_tables(m, L),
@@ -154,10 +154,10 @@ def test_newton_held_counter_changes_no_bit(env, lib, warm):
                np.full((n_sub * m.solver_iters, B), -1, np.int32)]
         ptr = [a.ctypes.data for a in (*tables, q, qd, ctrl, *out)]
         held = None if stats is None else stats.ctypes.data
-        assert lib.mj_newton_held_host(*ptr, held, B, n_sub, m.solver_iters, dt) == 0
+        assert lib.mj_newton_stats_host(*ptr, held, B, n_sub, m.solver_iters, dt) == 0
         return out
 
-    stats = np.zeros(2, np.int32)
+    stats = np.zeros(len(pkernel.STAT_NAMES), np.int64)
     for a, b in zip(run(env.frame_skip, None), run(env.frame_skip, stats)):
         np.testing.assert_array_equal(a, b)
     stats[:] = 0
@@ -165,7 +165,7 @@ def test_newton_held_counter_changes_no_bit(env, lib, warm):
     held = []
     soa.multistep(m, *map(torch.as_tensor, (q, qd, ctrl)), 1, held=held)
     assert held[0].shape == (B,) and int(held[0].max()) > 0
-    assert stats.tolist() == [int(held[0].sum()), int(held[0].max())]
+    assert stats[:2].tolist() == [int(held[0].sum()), int(held[0].max())]
     rows = probe.held_rows(m, torch.as_tensor(q))["contacts"]
     assert torch.equal(rows, held[0])
 
