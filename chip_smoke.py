@@ -91,17 +91,19 @@ exits non-zero and prints no result. Phases, any failure exits non-zero:
    both times at B=512, and K3's on hammer and relocate at their paths'
    B=2048 (B=512's states four times over).
 12. K4 on Adroit pen with the Newton solver against plain, to its own
-   tolerance: the same at B=512 (a ragged launch of K4's 3 warps per
-   block), from ``adroit_states`` warmed by K4; counts the
+   tolerance: the same at B=512 (4 envs a block by default, two blocks an
+   SM), from ``adroit_states`` warmed by K4; counts the
    env-steps that hold a row of each contact kind, of each facet count (1,
    4, 6) and of a joint limit, and fails if any is 0; the rows held per
    env-step (mean, max), the line-search flips, and K4's overflow counter,
    which must stay 0 (its check raises otherwise). Then one control step
    at B=512 from ``pen_train_states`` (50 steps of the training path's
    policy at init) to the same tolerance. On both state sets, K4's q, qd
-   and picks bit for bit the same over two launches and with 1 and with
-   the most warps per block (3: the Adroit class holds 96 rows; the check
-   for a missing __syncwarp(), which no sanitizer reads on that machine);
+   and picks bit for bit the same over two launches and with 1, with 3 (a
+   ragged last block) and with the most warps per block (8: the Adroit
+   class keeps 14 of its 96 held rows in shared memory and the rest in
+   each env's slab in device memory; the check for a missing __syncwarp(),
+   which no sanitizer reads on that machine);
    both times at B=512 on both. Then K4 on door (760 contact points),
    hammer and relocate (the sphere kinds, 19-dof chains) with the Newton
    solver, to pen's tolerances, against the plain version on the CPU
@@ -916,7 +918,7 @@ def phase_k4(tag, env, kernel, n_chain, batches, tol, tol_quantile, train_states
     one control step at the full batch from ``pen_train_states`` (the
     training path's states), without the counts that need every kind. On
     each state set: K4's results bit for bit the same over two launches and
-    with 1 and with the most warps (envs) per block (a missing
+    with 1, 3 and the most warps (envs) per block (a missing
     __syncwarp() would let a lane read what another has not yet written,
     which shows as results that change from run to run or with the block's
     shape); K4's time (CUDA events), the plain version's (its first step of
@@ -1019,6 +1021,7 @@ def phase_k4(tag, env, kernel, n_chain, batches, tol, tol_quantile, train_states
         ctrl = ctrls[0]
         runs = {}
         for run, warps in (("first", None), ("second", None), ("1 warp per block", 1),
+                           ("3 warps per block (a ragged last block)", min(3, most)),
                            (f"{most} warps per block", most)):
             picks = torch.full((n_sub * iters, full), -1, dtype=torch.int32, device=dev)
             runs[run] = (*kernel(model, q0, qd0, ctrl, frames, link_delta=d0, picks=picks,
@@ -1037,7 +1040,8 @@ def phase_k4(tag, env, kernel, n_chain, batches, tol, tol_quantile, train_states
         held = torch.cat(held_all)
         r = dict(max_abs_err=max_err, quantile=HUMANOID_QUANTILE, quantile_abs_err=quantile_err,
                  held_rows_mean=float(held.mean()), held_rows_max=int(held.max()), ms=ms,
-                 plain_ms=plain_ms, warps_per_block=most)
+                 plain_ms=plain_ms, warps_per_block=kernel.launch_warps(size, full, dev),
+                 most_warps_per_block=most)
         ops, what = None, ""
         if bound:
             ops = _newton_op_count(model, q0, qd0, ctrl, float(held.mean()),
@@ -2235,8 +2239,8 @@ def main() -> int:
                                   adroit_states(env, PEN_ENVS, 1), (PEN_ENVS,), TOL[f"K3 {task}"],
                                   wide=ADROIT_WIDE if task != "door" else None)
     pen_newton = make("adroit_pen", horizon=PEN_HORIZON, constraint_solver="newton")
-    # B=512 is itself a ragged launch of K4's 3 warps per block (170 full
-    # blocks and one of 2), so the run at B=506 is left out for the time
+    # the launch with 3 warps per block at B=512 is ragged (170 full blocks
+    # and one of 2), so the run at B=506 is left out for the time
     k4 = phase_k4("K4 pen", pen_newton, K4, 3, (PEN_ENVS,), TOL["K4 pen"],
                   TOL["K4 pen quantile"], train_states=True)
     k4_tasks = {}

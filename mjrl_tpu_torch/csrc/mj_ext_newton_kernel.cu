@@ -17,17 +17,20 @@
 // chains of up to 19 dofs, six facets) with a dense 30x30 Cholesky. The
 // design puts one env on 32 lanes instead of one thread, so a warp no
 // longer waits for the env among 32 with the most rows, and the work of
-// each stage is spread over the lanes; the env's state (rows, H, the
-// metric, the kinematics: 74980 bytes in the Adroit class, whose 96 held
-// rows take 54048 of them) sits in shared memory instead of local memory,
-// and at most MJ_MAX_WARPS warps share a block (3 in the Adroit class,
-// ~220 KB of dynamic shared memory), one block on an SM, one warp on each
-// of three of its four schedulers: B=256 envs take 86 of the 132 SMs in
-// one wave, B=512 two waves. With no other warp to hide it, each phase's
-// latency (a shared round trip, the reconvergence of its lanes, the sync)
-// is what a stage costs; a build with -DMJ_STAGE_CLOCKS
-// (tools/torch_warp_stages.py) adds a clocks output (MJ_N_STAGES, B) of
-// cycles per stage.
+// each stage is spread over the lanes; the env's state (H, the metric,
+// the kinematics and its first MJ_HELD_SHARED held rows: 28840 bytes in
+// the Adroit class, 14 of its 96 rows) sits in shared memory instead of
+// local memory, and its rows past those in the env's slab in device memory
+// (slab: B x MJ_SPILL_ROWS rows, which the wrapper allocates; Adroit's
+// training states hold ~2 rows an env-substep, its fullest probe states
+// 75). At most MJ_MAX_WARPS warps share a block (8 in the Adroit class,
+// ~225 KB of dynamic shared memory), and the wrapper takes the fewest that
+// spread B over the SMs in one wave (B=512: 4, two blocks an SM; B=2048:
+// 8, in two waves), so that each of an SM's four schedulers has one or two
+// envs' warps. The latency of each phase (a shared round trip, the
+// reconvergence of its lanes, the sync) is what a stage costs; a build
+// with -DMJ_STAGE_CLOCKS (tools/torch_warp_stages.py) adds a clocks output
+// (MJ_N_STAGES, B) of cycles per stage.
 //
 // Build: as K3 (mj_ext_kernel.cu), in the size class the model fits.
 #include <cuda_runtime.h>
@@ -55,7 +58,8 @@ __global__ void __launch_bounds__(MJ_WARP * MJ_MAX_WARPS, 1)
                          const float* __restrict__ delta, float* __restrict__ q_out,
                          float* __restrict__ qd_out, int* __restrict__ picks,
                          int* __restrict__ overflow, long long* __restrict__ stats,
-                         int B, int n_sub, int iters, float dt MJ_CLOCKS_PARAM) {
+                         MjHeldRow* __restrict__ slab, int B, int n_sub, int iters,
+                         float dt MJ_CLOCKS_PARAM) {
   const int warp = threadIdx.x / MJ_WARP;
   const int env = blockIdx.x * (blockDim.x / MJ_WARP) + warp;
   if (env >= B) return;  // the whole warp: no lane of another env waits on it
@@ -67,7 +71,7 @@ __global__ void __launch_bounds__(MJ_WARP * MJ_MAX_WARPS, 1)
   w.last = clock64();
 #endif
   mj_warp_env_multistep<true>(w, S, mf, mi, nf, ni, env, B, q, qd, ctrl, delta, q_out,
-                              qd_out, picks, overflow, stats, n_sub, iters, dt);
+                              qd_out, picks, overflow, stats, slab, n_sub, iters, dt);
 #ifdef MJ_STAGE_CLOCKS
   if (w.lane == 0)
     for (int s = 0; s < MJ_N_STAGES; ++s) clocks[(long)s * B + env] = w.clocks[s];
@@ -97,22 +101,26 @@ int mj_warp_layout(int* out) {
 // Launches on `stream` with `warps` envs per block (1 to MJ_MAX_WARPS) and
 // returns the first CUDA error (0 means launched). delta and picks may be
 // null; overflow (one int on the device) is added to, never cleared;
-// stats (or null) as mj_newton_launch's.
+// stats (or null) as mj_newton_launch's; slab: B x MJ_SPILL_ROWS held rows
+// on the device (the newton layout's (MAX_HELD - SHARED_HELD) x ROW_BYTES
+// bytes an env), null only where the build keeps every row in shared
+// memory.
 int mj_ext_newton_launch(const float* mf, const int* mi, const float* nf,
                          const int* ni, const float* q, const float* qd,
                          const float* ctrl, const float* delta, float* q_out,
                          float* qd_out, int* picks, int* overflow, long long* stats,
-                         int B, int n_sub, int iters, float dt, int warps,
+                         void* slab, int B, int n_sub, int iters, float dt, int warps,
                          void* stream MJ_CLOCKS_PARAM) {
   if (warps < 1 || warps > MJ_MAX_WARPS) return (int)cudaErrorInvalidValue;
+  if (MJ_SPILL_ROWS && !slab) return (int)cudaErrorInvalidValue;
   const int bytes = warps * (int)sizeof(MjWarpEnv);
   cudaError_t err = cudaFuncSetAttribute(
       mj_ext_newton_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (B + warps - 1) / warps;
   mj_ext_newton_kernel<<<blocks, MJ_WARP * warps, bytes, (cudaStream_t)stream>>>(
-      mf, mi, nf, ni, q, qd, ctrl, delta, q_out, qd_out, picks, overflow, stats, B, n_sub,
-      iters, dt MJ_CLOCKS_ARG);
+      mf, mi, nf, ni, q, qd, ctrl, delta, q_out, qd_out, picks, overflow, stats,
+      static_cast<MjHeldRow*>(slab), B, n_sub, iters, dt MJ_CLOCKS_ARG);
   return (int)cudaGetLastError();
 }
 

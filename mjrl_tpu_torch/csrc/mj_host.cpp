@@ -5,6 +5,8 @@
 // and the pose kernel's warp body (mj_poses.h) the same way.
 #include <string.h>
 
+#include <vector>
+
 #include "mj_poses.h"
 #include "mj_warp_newton.h"
 #include "mj_warp_penalty.h"
@@ -19,6 +21,16 @@ Env* mj_fresh_env() {
   memset(&S, 0xff, sizeof S);
   return &S;
 }
+
+// The Newton bodies' slab of held rows for B envs (MJ_SPILL_ROWS each; the
+// card's is in device memory), fresh as an env state is.
+struct MjHostSlab {
+  std::vector<MjHeldRow> rows;
+  explicit MjHostSlab(int B) : rows((size_t)B * MJ_SPILL_ROWS) {
+    if (!rows.empty()) memset(rows.data(), 0xff, rows.size() * sizeof(MjHeldRow));
+  }
+  MjHeldRow* data() { return rows.data(); }
+};
 
 // Records every contact point's penalty wrench and links, in narrow-phase
 // order.
@@ -106,11 +118,12 @@ int mj_newton_stats_host(const float* mf, const int* mi, const float* nf,
                          const float* ctrl, float* q_out, float* qd_out, int* picks,
                          long long* stats, int B, int n_sub, int iters, float dt) {
   MjWarpHost w;
+  MjHostSlab slab(B);
   int overflow = 0;
   for (int env = 0; env < B; ++env)
     mj_warp_env_multistep<false>(w, *mj_fresh_env<MjWarpEnv>(), mf, mi, nf, ni, env, B, q,
                                  qd, ctrl, nullptr, q_out, qd_out, picks, &overflow, stats,
-                                 n_sub, iters, dt);
+                                 slab.data(), n_sub, iters, dt);
   return overflow;
 }
 
@@ -124,17 +137,19 @@ int mj_newton_host(const float* mf, const int* mi, const float* nf,
 }
 
 // K4's body; *overflow counts the env-substeps with more contact rows
-// inside their margin than MJ_MAX_HELD; stats as mj_newton_stats_host's.
+// inside their margin than MJ_MAX_HELD; stats as mj_newton_stats_host's;
+// the rows past MJ_HELD_SHARED in a slab in host memory.
 int mj_ext_newton_stats_host(const float* mf, const int* mi, const float* nf,
                              const int* ni, const float* q, const float* qd,
                              const float* ctrl, const float* delta, float* q_out,
                              float* qd_out, int* picks, int* overflow, long long* stats,
                              int B, int n_sub, int iters, float dt) {
   MjWarpHost w;
+  MjHostSlab slab(B);
   for (int env = 0; env < B; ++env)
     mj_warp_env_multistep<true>(w, *mj_fresh_env<MjWarpEnv>(), mf, mi, nf, ni, env, B, q,
                                 qd, ctrl, delta, q_out, qd_out, picks, overflow, stats,
-                                n_sub, iters, dt);
+                                slab.data(), n_sub, iters, dt);
   return 0;
 }
 
@@ -173,6 +188,8 @@ int mj_ext_newton_rows_host(const float* mf, const int* mi, const float* nf,
                             float* aref, float* J) {
   MjWarpHost w;
   MjWarpEnv& S = *mj_fresh_env<MjWarpEnv>();
+  MjHostSlab slab(1);
+  mj_warp_slab(w, S, slab.data(), 0);
   for (int r = 0; r < mi[MJ_I_NQ]; ++r) S.q[r] = q[(long)r * B + env];
   for (int r = 0; r < mi[MJ_I_NV]; ++r) S.qd[r] = qd[(long)r * B + env];
   for (int r = 0; delta && r < 3 * mi[MJ_I_NLINK]; ++r) S.delta[r] = delta[(long)r * B + env];
@@ -180,10 +197,13 @@ int mj_ext_newton_rows_host(const float* mf, const int* mi, const float* nf,
   int nl;
   const int n = mj_warp_rows<true>(w, S, mf, mi, nf, ni, nl);
   const int held = n < MJ_MAX_HELD ? n : MJ_MAX_HELD;
-  memcpy(pair, S.pair, held * sizeof(int));
-  memcpy(D, S.D, held * sizeof(float));
-  memcpy(aref, S.aref, held * sizeof S.aref[0]);
-  memcpy(J, S.J, held * sizeof S.J[0]);
+  for (int c = 0; c < held; ++c) {
+    const MjHeldRow& R = mj_row(S, c);
+    pair[c] = R.pair;
+    D[c] = R.D;
+    memcpy(aref + c * MJ_MAX_FACET, R.aref, sizeof R.aref);
+    memcpy(J + c * MJ_MAX_FACET * MJ_MAX_CHAIN, R.J, sizeof R.J);
+  }
   return n;
 }
 

@@ -21,7 +21,9 @@
 // are packed on the host from the model after ensure_solver_params; the
 // offsets and maxima below are exported by mj_newton_layout() so the
 // packer reads them instead of repeating them. The bodies hold at most
-// MJ_MAX_HELD contact rows inside their margin per env-substep.
+// MJ_MAX_HELD contact rows inside their margin per env-substep: the first
+// MJ_HELD_SHARED in the warp's shared state, the rest (MJ_SPILL_ROWS) in a
+// slab of the env's own in device memory (mj_warp_newton.h's mj_row).
 #pragma once
 
 #include "mj_substep.h"
@@ -33,6 +35,25 @@
 #ifndef MJ_MAX_CHAIN
 #define MJ_MAX_CHAIN 8  // dofs on a contact pair's chain (a size class's)
 #endif
+// Held rows in shared memory (a size class's MJ_SHARED_HELD, at most
+// MJ_MAX_HELD) and in the env's slab after them.
+#if defined(MJ_SHARED_HELD) && MJ_SHARED_HELD < MJ_MAX_HELD
+#define MJ_HELD_SHARED MJ_SHARED_HELD
+#else
+#define MJ_HELD_SHARED MJ_MAX_HELD
+#endif
+#define MJ_SPILL_ROWS (MJ_MAX_HELD - MJ_HELD_SHARED)
+
+// One held contact row: its facets' J over the pair's chain, their aref,
+// and the Newton iterations' residuals (jar) and J dx (jd); D; the pair,
+// its facets, and its chain's dofs.
+struct MjHeldRow {
+  float J[MJ_MAX_FACET][MJ_MAX_CHAIN];
+  float aref[MJ_MAX_FACET], jar[MJ_MAX_FACET], jd[MJ_MAX_FACET];
+  float D;
+  int pair, nfacet, nchain;
+  unsigned char chain[MJ_MAX_CHAIN];
+};
 
 // ---- Newton int table (ni) ---------------------------------------------
 #define MJ_N_I_NLIM 0  // number of limited 1-dof joints
@@ -67,14 +88,16 @@ enum {
   MJ_STAT_LS_CUT,
   MJ_STAT_LS_ZERO,
   MJ_STAT_LS_TIES,
+  MJ_STAT_SPILLED,
+  MJ_STAT_SPILL_SUBSTEPS,
   MJ_N_STATS
 };
 
-#define MJ_NEWTON_LAYOUT_LEN 14
+#define MJ_NEWTON_LAYOUT_LEN 16
 #define MJ_NEWTON_LAYOUT_VALUES                                             \
   MJ_MAX_FACET, MJ_MAX_CHAIN, MJ_IMP_F, MJ_LIM_I, MJ_LIM_F, MJ_NPAIR_I, \
       MJ_NPAIR_F, MJ_N_I_NLIM, MJ_N_I_LIM, MJ_N_I_PAIR, MJ_N_F_LIM,         \
-      MJ_N_F_PAIR, MJ_MAX_HELD, MJ_N_STATS
+      MJ_N_F_PAIR, MJ_MAX_HELD, MJ_N_STATS, MJ_HELD_SHARED, (int)sizeof(MjHeldRow)
 
 #define MJ_MINVAL 1e-10f
 

@@ -70,7 +70,7 @@ __global__ void __launch_bounds__(MJ_WARP * MJ_NEWTON_WARPS)
   w.last = clock64();
 #endif
   mj_warp_env_multistep<false>(w, S, mf, mi, nf, ni, env, B, q, qd, ctrl, nullptr, q_out,
-                               qd_out, picks, overflow, stats, n_sub, iters, dt);
+                               qd_out, picks, overflow, stats, nullptr, n_sub, iters, dt);
 #ifdef MJ_STAGE_CLOCKS
   if (w.lane == 0)
     for (int s = 0; s < MJ_N_STAGES; ++s) clocks[(long)s * B + env] = w.clocks[s];

@@ -33,7 +33,12 @@
 //   MJ_MAX_HELD inside their margin, in narrow-phase order, as the plain
 //   version orders them; an env-substep with more adds one to *overflow
 //   (the wrapper raises on it; the packer refuses a K2 model whose points
-//   and limited joints could exceed it);
+//   and limited joints could exceed it). Rows c < MJ_HELD_SHARED sit in
+//   the warp's MjWarpEnv, the rest in the env's slab in device memory
+//   (mj_row, the one way to a row): a size class that holds few rows an
+//   env-substep on average but must hold many in the worst case (Adroit:
+//   ~2 of 96) keeps its block's envs in shared memory without reserving
+//   that worst case for each;
 // - the pipeline's stages as mj_warp_stages.h spreads them;
 // - each Newton iteration: lanes over the facets' residuals; over dofs
 //   for M d0 and the rows of M; then held row after held row, its gradient
@@ -87,19 +92,39 @@ struct MjWarpEnv {
   // limit rows
   int lv[MJ_MAX_NV];
   float ls[MJ_MAX_NV], laref[MJ_MAX_NV], lD[MJ_MAX_NV], ljar[MJ_MAX_NV];
-  // contact rows: pair, facets, the chain's dofs
-  int pair[MJ_MAX_HELD], nfacet[MJ_MAX_HELD], nchain[MJ_MAX_HELD];
-  unsigned char chain[MJ_MAX_HELD][MJ_MAX_CHAIN];
-  float D[MJ_MAX_HELD], aref[MJ_MAX_HELD][MJ_MAX_FACET],
-      jar[MJ_MAX_HELD][MJ_MAX_FACET], jd[MJ_MAX_HELD][MJ_MAX_FACET];
-  float J[MJ_MAX_HELD][MJ_MAX_FACET][MJ_MAX_CHAIN];
+  MjHeldRow row[MJ_HELD_SHARED];  // the first contact rows (mj_row)
   int cnt[MJ_WARP], off[MJ_WARP];  // the compaction's counts and slots
+#if MJ_SPILL_ROWS
+  MjHeldRow* slab;  // the env's MJ_SPILL_ROWS rows after them
+#endif
 };
 
-// K4's warps (envs) per block at most: 4, or as many as fit the 227 KB of
-// shared memory a block may use (3 in the Adroit class, whose 96 held
-// rows take 74980 bytes per warp).
-#define MJ_MAX_WARPS (4 * sizeof(MjWarpEnv) <= 232448 ? 4 : (int)(232448 / sizeof(MjWarpEnv)))
+// Held contact row c's storage, in whichever tier holds it.
+MJ_HD MjHeldRow& mj_row(MjWarpEnv& S, int c) {
+#if MJ_SPILL_ROWS
+  if (c >= MJ_HELD_SHARED) return S.slab[c - MJ_HELD_SHARED];
+#endif
+  return S.row[c];
+}
+
+// Points S at env's rows of slab (null: a build without one), before the
+// first substep.
+template <class W>
+MJ_WD void mj_warp_slab(W& w, MjWarpEnv& S, MjHeldRow* slab, int env) {
+#if MJ_SPILL_ROWS
+  w.one([&] { S.slab = slab + (long)env * MJ_SPILL_ROWS; });
+#endif
+}
+
+// K4's warps (envs) per block at most: MJ_WARPS_CAP, or as many as fit
+// the 227 KB of shared memory a block may use. The cap is 4, and 8 in a
+// build that keeps some held rows in the slab (the Adroit class: 14 of its
+// 96 rows in shared memory, 28840 bytes per warp), so that each of an
+// SM's four schedulers has two envs' warps to switch between.
+#define MJ_WARPS_CAP (MJ_SPILL_ROWS ? 8 : 4)
+#define MJ_MAX_WARPS                                       \
+  (MJ_WARPS_CAP * sizeof(MjWarpEnv) <= 232448 ? MJ_WARPS_CAP \
+                                              : (int)(232448 / sizeof(MjWarpEnv)))
 
 // The layout as the wrapper reads it (mj_warp_layout()): bytes of shared
 // memory per warp, tendons, warps per block and stages at most, and
@@ -127,9 +152,12 @@ struct MjLineCounts {
 // An env-substep's counts into the device-side stats (mj_newton.h's
 // MJ_STAT_*): its contact rows inside their margin (held), added and kept
 // if the largest; the terms of H's assembly over its held rows (terms);
-// and its line searches.
+// its line searches; and the rows it holds in its slab, and whether any.
 MJ_HD void mj_count_stats(long long* stats, int held, long long terms, const MjLineCounts& c) {
-  const long long add[MJ_N_STATS] = {held, 0, terms, c.iters, c.cut, c.zero, c.ties};
+  const int kept = held < MJ_MAX_HELD ? held : MJ_MAX_HELD;
+  const int spilled = kept > MJ_HELD_SHARED ? kept - MJ_HELD_SHARED : 0;
+  const long long add[MJ_N_STATS] = {held,   0,      terms,   c.iters,    c.cut,
+                                     c.zero, c.ties, spilled, spilled > 0};
 #ifdef __CUDA_ARCH__
   for (int k = 0; k < MJ_N_STATS; ++k)
     if (k != MJ_STAT_HELD_MAX && add[k])
@@ -145,9 +173,12 @@ MJ_HD void mj_count_stats(long long* stats, int held, long long terms, const MjL
 // The terms of H's assembly over the held rows (mj_warp_newton): n + n (n
 // + 1) / 2 for a contact row whose chain has n dofs (its gradient's and
 // H's lower triangle's entries), 1 for a limit row.
-MJ_HD long long mj_chain_terms(const MjWarpEnv& S, int nl, int nc) {
+MJ_HD long long mj_chain_terms(MjWarpEnv& S, int nl, int nc) {
   long long terms = nl;
-  for (int c = 0; c < nc; ++c) terms += S.nchain[c] + S.nchain[c] * (S.nchain[c] + 1) / 2;
+  for (int c = 0; c < nc; ++c) {
+    const int n = mj_row(S, c).nchain;
+    terms += n + n * (n + 1) / 2;
+  }
   return terms;
 }
 
@@ -205,8 +236,9 @@ struct MjCountSink {
 MJ_NOINLINE void mj_held_row(const float* nf, const int* ni, MjWarpEnv& S, int c, int pi,
                              float mu, float depth, float pos, const float* n,
                              const float* pt) {
-  S.pair[c] = pi;
-  mj_contact_row(nf, ni, S.k, S.qd, pi, mu, depth, pos, n, pt, S.J[c], S.aref[c], &S.D[c]);
+  MjHeldRow& R = mj_row(S, c);
+  R.pair = pi;
+  mj_contact_row(nf, ni, S.k, S.qd, pi, mu, depth, pos, n, pt, R.J, R.aref, &R.D);
 }
 
 // Writes a pair's rows inside their margin from slot on (the second pass);
@@ -262,10 +294,11 @@ MJ_WD int mj_warp_rows(W& w, MjWarpEnv& S, const float* mf, const int* mi,
       [&](int pi) { return mj_count_pair<EXT>(mf, mi, nf, S.k, pi); },
       [&](int pi, int slot) { mj_write_pair<EXT>(mf, mi, nf, ni, S, pi, slot); });
   w.each(held < MJ_MAX_HELD ? held : MJ_MAX_HELD, [&](int c) {
-    const int* pi_ = ni + MJ_N_I_PAIR + MJ_NPAIR_I * S.pair[c];
-    S.nfacet[c] = pi_[0];
-    S.nchain[c] = pi_[1];
-    for (int b = 0; b < pi_[1]; ++b) S.chain[c][b] = (unsigned char)pi_[2 + b];
+    MjHeldRow& R = mj_row(S, c);
+    const int* pi_ = ni + MJ_N_I_PAIR + MJ_NPAIR_I * R.pair;
+    R.nfacet = pi_[0];
+    R.nchain = pi_[1];
+    for (int b = 0; b < pi_[1]; ++b) R.chain[b] = (unsigned char)pi_[2 + b];
   });
   return held;
 }
@@ -305,13 +338,13 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
   const int nv = mi[MJ_I_NV];
   const int nfe = nc * MJ_MAX_FACET;
   const auto wl = [&](int r) { return S.ljar[r] < 0.0f ? S.lD[r] : 0.0f; };
-  const auto wc = [&](int c, int f) { return S.jar[c][f] < 0.0f ? S.D[c] : 0.0f; };
+  const auto wc = [&](const MjHeldRow& R, int f) { return R.jar[f] < 0.0f ? R.D : 0.0f; };
   // J x (or J dx) of one facet over its row's chain
-  const auto jdot = [&](int c, int f, const float* v) {
-    const float* J = S.J[c][f];
-    const unsigned char* chain = S.chain[c];
+  const auto jdot = [&](const MjHeldRow& R, int f, const float* v) {
+    const float* J = R.J[f];
+    const unsigned char* chain = R.chain;
     float s = J[0] * v[chain[0]];
-    for (int b = 1; b < S.nchain[c]; ++b) s += J[b] * v[chain[b]];
+    for (int b = 1; b < R.nchain; ++b) s += J[b] * v[chain[b]];
     return s;
   };
   // row k of the symmetric metric times v: the lower triangle's row k,
@@ -329,7 +362,8 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
         S.d0[e] = S.x[e] - S.qdd0[e];
       } else if (e < nv + nfe) {
         const int c = (e - nv) / MJ_MAX_FACET, f = (e - nv) % MJ_MAX_FACET;
-        if (f < S.nfacet[c]) S.jar[c][f] = jdot(c, f, S.x) - S.aref[c][f];
+        MjHeldRow& R = mj_row(S, c);
+        if (f < R.nfacet) R.jar[f] = jdot(R, f, S.x) - R.aref[f];
       } else {
         const int r = e - nv - nfe;
         S.ljar[r] = S.ls[r] * S.x[S.lv[r]] - S.laref[r];
@@ -350,18 +384,19 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
     });
     MJ_STAMP(w, MJ_ST_GRAD);
     for (int c = 0; c < nc; ++c) {  // lanes over the row's chain dofs, then pairs
-      const int n = S.nchain[c], nfacet = S.nfacet[c];
-      const unsigned char* chain = S.chain[c];
+      const MjHeldRow& R = mj_row(S, c);
+      const int n = R.nchain, nfacet = R.nfacet;
+      const unsigned char* chain = R.chain;
       w.each(n + n * (n + 1) / 2, [&](int e) {
         if (e < n) {
-          float s = S.J[c][0][e] * (wc(c, 0) * S.jar[c][0]);
-          for (int f = 1; f < nfacet; ++f) s += S.J[c][f][e] * (wc(c, f) * S.jar[c][f]);
+          float s = R.J[0][e] * (wc(R, 0) * R.jar[0]);
+          for (int f = 1; f < nfacet; ++f) s += R.J[f][e] * (wc(R, f) * R.jar[f]);
           S.g[chain[e]] = S.g[chain[e]] + s;
         } else {
           int a, b;
           mj_tri(e - n, a, b);
-          float h = (wc(c, 0) * S.J[c][0][a]) * S.J[c][0][b];
-          for (int f = 1; f < nfacet; ++f) h += (wc(c, f) * S.J[c][f][a]) * S.J[c][f][b];
+          float h = (wc(R, 0) * R.J[0][a]) * R.J[0][b];
+          for (int f = 1; f < nfacet; ++f) h += (wc(R, f) * R.J[f][a]) * R.J[f][b];
           S.M[chain[a]][chain[b]] = S.M[chain[a]][chain[b]] + h;
         }
       });
@@ -398,7 +433,8 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
         S.Mdx[e] = metric_row(e, S.dx);
       } else {
         const int c = (e - nv) / MJ_MAX_FACET, f = (e - nv) % MJ_MAX_FACET;
-        if (f < S.nfacet[c]) S.jd[c][f] = jdot(c, f, S.dx);
+        MjHeldRow& R = mj_row(S, c);
+        if (f < R.nfacet) R.jd[f] = jdot(R, f, S.dx);
       }
     });
     const MjVec<3> cc = w.sum(nv, MjVec<3>{}, [&](int j) {
@@ -418,12 +454,12 @@ MJ_WD void mj_warp_newton(W& w, MjWarpEnv& S, const int* mi, int nl, int nc, int
           t.v[a] = 0.5f * (ja < 0.0f ? S.lD[r] : 0.0f) * ja * ja;
         }
       } else {
-        const int c = r - nl;
+        const MjHeldRow& R = mj_row(S, r - nl);
         for (int a = 0; a < 5; ++a) {
           float s = 0.0f;
-          for (int f = 0; f < S.nfacet[c]; ++f) {
-            const float ja = S.jar[c][f] + mj_alpha(a) * S.jd[c][f];
-            s += 0.5f * (ja < 0.0f ? S.D[c] : 0.0f) * ja * ja;
+          for (int f = 0; f < R.nfacet; ++f) {
+            const float ja = R.jar[f] + mj_alpha(a) * R.jd[f];
+            s += 0.5f * (ja < 0.0f ? R.D : 0.0f) * ja * ja;
           }
           t.v[a] = s;
         }
@@ -485,14 +521,17 @@ MJ_WD void mj_warp_substep(W& w, MjWarpEnv& S, const float* mf, const int* mi,
 
 // Kernel K2's (EXT = false) or K4's (EXT = true) env: n_sub substeps with
 // ctrl (and, with delta_in, K4's link offsets) held; picks (or null) is
-// (n_sub * iters, B) int; stats (or null) as mj_warp_substep's.
+// (n_sub * iters, B) int; stats (or null) as mj_warp_substep's; slab: B
+// envs' MJ_SPILL_ROWS rows each (null where the build has none).
 template <bool EXT, class W>
 MJ_WD void mj_warp_env_multistep(W& w, MjWarpEnv& S, const float* mf, const int* mi,
                                  const float* nf, const int* ni, int env, int B,
                                  const float* q_in, const float* qd_in,
                                  const float* ctrl_in, const float* delta_in,
                                  float* q_out, float* qd_out, int* picks, int* overflow,
-                                 long long* stats, int n_sub, int iters, float dt) {
+                                 long long* stats, MjHeldRow* slab, int n_sub, int iters,
+                                 float dt) {
+  mj_warp_slab(w, S, slab, env);
   mj_warp_load(w, S, mi, env, B, q_in, qd_in, ctrl_in, delta_in, S.delta);
   const int maxd = mj_warp_depths(w, S, mi);
   for (int s = 0; s < n_sub; ++s)

@@ -98,15 +98,17 @@ LAYOUT_NAMES = (
 NEWTON_LAYOUT_NAMES = (
     "MAX_FACET", "MAX_CHAIN", "IMP_F", "LIM_I", "LIM_F", "NPAIR_I", "NPAIR_F",
     "N_I_NLIM", "N_I_LIM", "N_I_PAIR", "N_F_LIM", "N_F_PAIR", "MAX_HELD", "N_STATS",
+    "SHARED_HELD", "ROW_BYTES",
 )
 # The counters of K2's and K4's stats buffer (mj_newton.h's MJ_STAT_*), in
 # its order: per env-substep the contact rows inside their margin (summed,
 # and the largest) and the terms of H's assembly over the rows held; per
 # Newton iteration the iteration, and whether its line search took a
 # fraction under 1, took 0 or was a near tie (mj_warp_newton.h's
-# mj_near_tie).
+# mj_near_tie); per env-substep the rows it holds in device memory (past
+# the build's SHARED_HELD), and whether it holds any there.
 STAT_NAMES = ("held_rows", "held_rows_max", "chain_terms", "newton_iters", "ls_cut", "ls_zero",
-              "ls_near_ties")
+              "ls_near_ties", "spilled_rows", "spill_substeps")
 # Names of the values mj_warp_layout() writes, in its order (a warp body's
 # .cu file: mj_warp_penalty.h's or mj_warp_newton.h's values): shared
 # bytes per warp (env), tendons, warps per block and stages at most, and
@@ -133,20 +135,27 @@ _KIND_CODE = {"sphere_plane": 0, "capsule_plane": 1, "capsule_capsule": 2, "sphe
 # hold per env-substep (mj_newton.h; ant and hopper hold under 10; Adroit's
 # states where a box, capsule or sphere sits up to 1 cm deep in the table
 # or the hand, physics/probe.py's kind_states, hold up to 75 on door and
-# relocate and 65 on hammer, 36 on pen: 96 rows take 74980 bytes of shared
-# memory per warp, so a K4 block holds 3 envs).
+# relocate and 65 on hammer, 36 on pen; training holds ~2).
+# SHARED_HELD_CLASSES: of those, the rows each class keeps in the warp's
+# shared memory; the rest go to the env's slab in device memory, which the
+# wrapper allocates. All of them in the two small classes; 14 in the
+# Adroit class, the most at which a warp's state (28840 bytes, 564 a row)
+# lets 8 envs share a block and an SM (96 in shared memory took 74980
+# bytes, 3 envs a block).
 SIZE_CLASSES = ((16, 16, 24, 16), (24, 24, 32, 24), (38, 36, 36, 30))
 CHAIN_CLASSES = (8, 8, 19)
 POINT_CLASSES = (32, 160, 512)
 HELD_CLASSES = (64, 64, 96)
+SHARED_HELD_CLASSES = (64, 64, 14)
 
 
 def size_flags(size_class: int) -> Tuple[str, ...]:
     """The compiler defines of one size class."""
-    return tuple(f"-DMJ_MAX_{name}={n}" for name, n in
-                 zip(("LINK", "NV", "NQ", "NU", "CHAIN", "POINTS", "HELD"),
-                     (*SIZE_CLASSES[size_class], CHAIN_CLASSES[size_class],
-                      POINT_CLASSES[size_class], HELD_CLASSES[size_class])))
+    return (*(f"-DMJ_MAX_{name}={n}" for name, n in
+              zip(("LINK", "NV", "NQ", "NU", "CHAIN", "POINTS", "HELD"),
+                  (*SIZE_CLASSES[size_class], CHAIN_CLASSES[size_class],
+                   POINT_CLASSES[size_class], HELD_CLASSES[size_class]))),
+            f"-DMJ_SHARED_HELD={SHARED_HELD_CLASSES[size_class]}")
 
 
 def size_class(model: Model) -> int:
@@ -835,15 +844,21 @@ class ExtNewtonKernel(NewtonKernel):
     with Adroit's stages (link offsets, box contacts, servos, tendons,
     frictionloss). Built in every size class a model needs, like K3;
     ``picks``, the held-row overflow counter and :meth:`check` as K2's. One
-    warp per env, ``warps_per_block`` envs per block (default: as many as
-    the build's shared memory per warp lets a block hold, at most its
-    ``MAX_WARPS``)."""
+    warp per env, ``warps_per_block`` envs per block (default:
+    :meth:`launch_warps`). A build that keeps its first ``SHARED_HELD``
+    held rows in shared memory and the rest in device memory (the Adroit
+    class) takes a slab of ``MAX_HELD - SHARED_HELD`` rows an env, one
+    per device, grown to the largest batch launched there."""
 
     name = "mj_ext_newton"
     label = "K4"
     occupancy_fn = "mj_ext_newton_occupancy"
     source = "mjrl_tpu_torch/csrc/mj_ext_newton_kernel.cu"
     replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext; soa_newton.py:338)"
+
+    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
+        super().__init__(csrc, build_dir)
+        self._slabs: Dict[str, torch.Tensor] = {}  # per device: held rows past SHARED_HELD
 
     def build(self, size: int = 0) -> ctypes.CDLL:
         """Build (or find) and load the CUDA library of size class ``size``."""
@@ -852,7 +867,7 @@ class ExtNewtonKernel(NewtonKernel):
                                  (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
                                  self.build_dir, self.csrc)
             lib = ctypes.CDLL(str(path))
-            lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * 13 + [
+            lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * 14 + [
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
                 ctypes.c_void_p]
             lib.mj_ext_newton_launch.restype = ctypes.c_int
@@ -864,14 +879,18 @@ class ExtNewtonKernel(NewtonKernel):
             self._libs[size] = lib
         return self._libs[size]
 
-    def launch_warps(self, size: int, batch: int, device: torch.device,
-                     warps_per_block: Optional[int] = None) -> int:
-        """As K1's, but by default as many warps as a block holds: a K4
-        block fills an SM's shared memory, so fewer warps per block would
-        only leave schedulers idle."""
-        if warps_per_block is None:
-            return self.warps_per_block(size)
-        return super().launch_warps(size, batch, device, warps_per_block)
+    def slab(self, size: int, batch: int, device: torch.device) -> int:
+        """The address of the device's slab for ``batch`` envs' held rows
+        past the build's ``SHARED_HELD``, or 0 where it keeps them all in
+        shared memory."""
+        NL = self._newton_layouts[size]
+        need = batch * (NL["MAX_HELD"] - NL["SHARED_HELD"]) * NL["ROW_BYTES"]
+        if not need:
+            return 0
+        key = str(device)
+        if key not in self._slabs or self._slabs[key].numel() < need:
+            self._slabs[key] = torch.empty(need, dtype=torch.uint8, device=device)
+        return self._slabs[key].data_ptr()
 
     def _tables(self, model: Model, device: torch.device):
         cache = model.__dict__.setdefault("_k4_tables", {})
@@ -915,8 +934,8 @@ class ExtNewtonKernel(NewtonKernel):
                 mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
                 qd.data_ptr(), ctrl.data_ptr(), 0 if link_delta is None else link_delta.data_ptr(),
                 q_out.data_ptr(), qd_out.data_ptr(), 0 if picks is None else picks.data_ptr(),
-                self.overflow(q.device).data_ptr(), self.stats(q.device), B, n_sub, iters, dt,
-                warps, stream)
+                self.overflow(q.device).data_ptr(), self.stats(q.device),
+                self.slab(size, B, q.device), B, n_sub, iters, dt, warps, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1

@@ -4,7 +4,7 @@ to there, K4 against the plain version, and one iteration of each task
 through the entry point.
 
     python3 tools/torch_k4_tasks.py [TASK ...] [--batch 256] [--no-entry] [--faults]
-                                    [--entry-held] [--held-ab]
+                                    [--entry-held] [--held-ab [--all-shared-csrc DIR]]
 
 For each task (default: door hammer relocate), from ``chip_smoke.adroit_states``
 at ``--batch`` envs (half from the env's reset warmed by K4, half from
@@ -39,12 +39,20 @@ adroit_hammer_npg.json and adroit_relocate_scratch.json with
 K1-K3; the iteration's ms and valid env-steps/s); with ``--entry-held``, one
 more such iteration of each whose K4 launches first read the rows held at
 their entry state (``probe.held_rows``: mean, max, and envs over 64). With
-``--held-ab``, K4 on pen (``pen_states`` and ``pen_train_states`` at 512
-envs) built with 64 held rows per env-substep (4 warps per block) and with
-the Adroit class's 96 (3 warps), timed in turns 64 / 96 / 96 / 64, their
-results bit for bit, and examples/adroit_pen_npg_newton.json through
-``run_job`` with each build in the same turns (``chip_smoke``'s calls of
-that path; the last iteration's ms). Prints the card's name and power
+``--held-ab``, and nothing else unless TASKs are named, K4's two layouts of
+the held rows in the Adroit class: all 96 in shared memory (3 envs a block;
+the same sources with ``-DMJ_SHARED_HELD=96``, or with ``--all-shared-csrc``
+the K4 of another source tree, such as the commit before the slab, whose
+launch takes no slab) and the first 14 in shared memory and the rest in
+the env's slab in device memory (8 envs a block at most, K1's launch rule).
+On pen, relocate, door and hammer at 512 envs and relocate at 2048, from
+the probe states (``chip_smoke.adroit_states``, 512 of them repeated at
+2048) and the training states (``chip_smoke.pen_train_states``): each
+build's q, qd, picks, overflow
+count and counters (those both have) bit for bit, K4's ms a launch (CUDA
+events) in turns all-shared / two-tier / two-tier / all-shared, each
+build's warps a block, the rows held (mean, max) and the share of
+env-substeps that hold a row in the slab. Prints the card's name and power
 limit and, last, one JSON line. Imports nothing of JAX.
 """
 
@@ -219,62 +227,146 @@ def check_task(task: str, batch: int, faults: Optional[str] = None) -> dict:
     return out
 
 
-def held_ab() -> dict:
-    """K4 on pen with 64 and with 96 held rows per env-substep, in turns."""
+class _Build:
+    """One build of K4 in the Adroit class, launched through its C function
+    with the layout it exports: ``csrc``'s sources with ``flags`` after the
+    class's. A tree without the slab exports 14 Newton layout values and
+    its launch takes no slab."""
+
+    def __init__(self, label: str, csrc, build_dir, *flags):
+        import ctypes
+        from pathlib import Path
+
+        from mjrl_tpu_torch.physics import pkernel
+
+        path = pkernel.build_library("mj_ext_newton_kernel.cu",
+                                     (pkernel.nvcc_path(), *pkernel.NVCC_FLAGS,
+                                      *pkernel.size_flags(2), *flags), Path(build_dir), Path(csrc))
+        lib = ctypes.CDLL(str(path))
+        buf = (ctypes.c_int * 64)()
+        lib.mj_newton_layout.argtypes = [ctypes.c_void_p]
+        n = lib.mj_newton_layout(ctypes.cast(buf, ctypes.c_void_p))
+        self.label, self.lib = label, lib
+        self.NL = dict(zip(pkernel.NEWTON_LAYOUT_NAMES, list(buf)[:n]))
+        self.NL.setdefault("SHARED_HELD", self.NL["MAX_HELD"])
+        self.takes_slab = "ROW_BYTES" in self.NL
+        self.L, self.WL = pkernel.read_layout(lib), pkernel.read_warp_layout(lib)
+        self.most = min(self.WL["MAX_WARPS"], pkernel.SHARED_BYTES_PER_BLOCK // self.WL["BYTES"])
+        lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * (13 + self.takes_slab) + [
+            ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.mj_ext_newton_launch.restype = ctypes.c_int
+        self._tables, self._slab = {}, None
+
+    def warps(self, batch: int) -> int:
+        """The all-shared build's launches take a full block; the two-tier
+        build's K1's rule (the fewest that spread the batch over the SMs in
+        one wave)."""
+        import torch
+
+        if not self.takes_slab or self.NL["SHARED_HELD"] == self.NL["MAX_HELD"]:
+            return self.most
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        return min(self.most, -(-batch // sms))
+
+    def __call__(self, model, q, qd, ctrl, frames, d, count=False):
+        """``(q, qd, picks, overflow, stats or None)`` of one control step."""
+        import numpy as np
+        import torch
+
+        from mjrl_tpu_torch.physics import pkernel
+
+        dev, B = q.device, q.shape[1]
+        if id(model) not in self._tables:
+            packed = (*pkernel.pack_tables(model, self.L, ext=True),
+                      *pkernel.pack_newton_tables(model, self.L, self.NL, ext=True))
+            self._tables[id(model)] = [torch.from_numpy(a).to(dev) for a in packed]
+        n_sub, iters = frames * model.n_substeps, int(model.solver_iters)
+        q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
+        picks = torch.full((n_sub * iters, B), -1, dtype=torch.int32, device=dev)
+        over = torch.zeros(1, dtype=torch.int32, device=dev)
+        stats = torch.zeros(self.NL["N_STATS"], dtype=torch.int64, device=dev) if count else None
+        slab = ()
+        if self.takes_slab:
+            need = B * (self.NL["MAX_HELD"] - self.NL["SHARED_HELD"]) * self.NL["ROW_BYTES"]
+            if need and (self._slab is None or self._slab.numel() < need):
+                self._slab = torch.empty(need, dtype=torch.uint8, device=dev)
+            slab = (self._slab.data_ptr() if need else 0,)
+        dt = float(np.float32(model.dt / model.n_substeps))
+        err = self.lib.mj_ext_newton_launch(
+            *(t.data_ptr() for t in self._tables[id(model)]), q.data_ptr(), qd.data_ptr(),
+            ctrl.data_ptr(), d.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(), picks.data_ptr(),
+            over.data_ptr(), 0 if stats is None else stats.data_ptr(), *slab, B, n_sub, iters, dt,
+            self.warps(B), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{self.label}: K4 launch failed: CUDA error {err}")
+        return q_out, qd_out, picks, over, stats
+
+
+HELD_AB_SETS = (("pen", 512), ("relocate", 512), ("door", 512), ("hammer", 512),
+                ("relocate", 2048))
+HELD_AB_PROBE_ENVS = 512  # wider probe sets repeat these states (kind_states runs short at 2048)
+
+
+def held_ab(tmp: str, all_shared_csrc: Optional[str] = None) -> dict:
+    """K4 with every held row in shared memory against the two tiers, in
+    turns, on each of ``HELD_AB_SETS`` from the probe and the training
+    states."""
     import torch
 
     from mjrl_tpu_torch.envs import make
-    from mjrl_tpu_torch.physics import pkernel
-    from mjrl_tpu_torch.physics.pkernel import K4
+    from mjrl_tpu_torch.physics import pkernel, probe
 
-    held, pkernel.HELD_CLASSES = pkernel.HELD_CLASSES, (*pkernel.HELD_CLASSES[:2], 64)
-    try:
-        k64 = pkernel.ExtNewtonKernel()
-        k64.build(2)
-    finally:
-        pkernel.HELD_CLASSES = held
-    K4.build(2)
-    pen = make("adroit_pen", horizon=cs.PEN_HORIZON, constraint_solver="newton")
-    m, frames = pen.model, pen.frame_skip
-    out = {"warps_per_block": {"64": k64.warps_per_block(2), "96": K4.warps_per_block(2)}}
-    for label, states in (("pen_states", cs.adroit_states), ("pen_train_states",
-                                                              cs.pen_train_states)):
-        q, qd, d, ctrls = states(pen, cs.PEN_ENVS, 1)
-        c = ctrls[0]
-        same = all(torch.equal(a, b) for a, b in zip(K4(m, q, qd, c, frames, link_delta=d),
-                                                     k64(m, q, qd, c, frames, link_delta=d)))
-        times = []
-        for kernel in (k64, K4, K4, k64):
-            for _ in range(3):
-                kernel(m, q, qd, c, frames, link_delta=d)
-            times.append(cs._cuda_ms(lambda: kernel(m, q, qd, c, frames, link_delta=d), 20))
-        K4.check()
-        k64.check()
-        out[label] = {"ms_64_96_96_64": times, "bit_for_bit": same}
-        print(f"[K4 pen held rows] {label} B={cs.PEN_ENVS}: 64 / 96 / 96 / 64 rows: "
-              + " / ".join(f"{x:.4f}" for x in times) + f" ms; outputs bit for bit: {same}")
-    # pen's Newton NPG through the entry point with each build in K4's place
-    tag, config, _, n, steps, niters, overrides = next(p for p in cs.ENTRY_PATHS
-                                                       if p[0] == "adroit_pen_newton")
-    every = {"K1": pkernel.K1, "K2": pkernel.K2, "K3": pkernel.K3}
-    parts = ("_libs", "_layouts", "_newton_layouts", "_warp_layouts")
-    own = {a: getattr(K4, a)[2] for a in parts}
-    iteration_ms = []
-    try:
-        for kernel in (k64, K4, K4, k64):
-            for a in parts:
-                getattr(K4, a)[2] = getattr(kernel, a)[2] if kernel is k64 else own[a]
-            rows = {}
-            cs.phase_entry(tag, config, K4, list(every.values()), n, steps, niters, overrides,
-                           rows)
-            iteration_ms.append(rows[tag][-1]["time_step"] * 1e3)
-    finally:
-        for a in parts:
-            getattr(K4, a)[2] = own[a]
-    K4.check()
-    out["pen_newton_iteration_ms_64_96_96_64"] = iteration_ms
-    print(f"[K4 pen held rows] {config}, {n} envs, the last iteration: 64 / 96 / 96 / 64 "
-          "rows: " + " / ".join(f"{x:.1f}" for x in iteration_ms) + " ms")
+    t0 = time.perf_counter()
+    a = (_Build("all-shared", all_shared_csrc, os.path.join(tmp, "all_shared")) if all_shared_csrc
+         else _Build("all-shared", pkernel.CSRC, os.path.join(tmp, "all_shared"),
+                     f"-DMJ_SHARED_HELD={pkernel.HELD_CLASSES[2]}"))
+    b = _Build("two-tier", pkernel.CSRC, os.path.join(tmp, "two_tier"))
+    out = {"all_shared_csrc": all_shared_csrc or "this tree, -DMJ_SHARED_HELD=96",
+           "shared_held": {"all_shared": a.NL["SHARED_HELD"], "two_tier": b.NL["SHARED_HELD"]},
+           "bytes_per_warp": {"all_shared": a.WL["BYTES"], "two_tier": b.WL["BYTES"]},
+           "build_s": time.perf_counter() - t0}
+    envs = {}
+    for task, batch in HELD_AB_SETS:
+        env = envs.setdefault(task, make(f"adroit_{task}", constraint_solver="newton"))
+        m, frames = env.model, env.frame_skip
+        for label, states in (("probe", cs.adroit_states), ("train", cs.pen_train_states)):
+            t1 = time.perf_counter()
+            reps = batch // HELD_AB_PROBE_ENVS if label == "probe" else 1
+            q, qd, d, ctrls = states(env, batch // reps, 1)
+            q, qd, d, c = (x.repeat(1, reps).contiguous() for x in (q, qd, d, ctrls[0]))
+            ra, rb = a(m, q, qd, c, frames, d, count=True), b(m, q, qd, c, frames, d, count=True)
+            n = a.NL["N_STATS"]
+            same = (all(torch.equal(x, y) for x, y in zip(ra[:4], rb[:4]))
+                    and torch.equal(ra[4], rb[4][:n]))
+            stats = dict(zip(pkernel.STAT_NAMES, rb[4].tolist()))
+            env_substeps = batch * frames * m.n_substeps
+            rows = probe.held_rows(m, q, d)["contacts"].float()
+            times = []
+            for build in (a, b, b, a):
+                for _ in range(3):
+                    build(m, q, qd, c, frames, d)
+                times.append(cs._cuda_ms(lambda: build(m, q, qd, c, frames, d), 20))
+            if int(ra[3]) or int(rb[3]):
+                raise RuntimeError(f"{task} B={batch} {label}: held-row overflow")
+            r = {"ms_all_shared_two_tier_two_tier_all_shared": times,
+                 "warps_per_block": {"all_shared": a.warps(batch), "two_tier": b.warps(batch)},
+                 "bit_for_bit": bool(same), "held_rows_mean": float(rows.mean()),
+                 "held_rows_max": int(rows.max()),
+                 "held_rows_mean_launch": stats["held_rows"] / env_substeps,
+                 "held_rows_max_launch": stats["held_rows_max"],
+                 "spill_share_pct": 100.0 * stats["spill_substeps"] / env_substeps,
+                 "spilled_rows_per_env_substep": stats["spilled_rows"] / env_substeps,
+                 "seconds": time.perf_counter() - t1}
+            out[f"{task}_{batch}_{label}"] = r
+            print(f"[K4 held rows A/B] {task} B={batch} {label} states: all-shared "
+                  f"({r['warps_per_block']['all_shared']} warps) / two-tier "
+                  f"({r['warps_per_block']['two_tier']} warps) in turns: "
+                  + " / ".join(f"{x:.4f}" for x in times) + f" ms; bit for bit: {same}; "
+                  f"held rows mean {r['held_rows_mean_launch']:.3f}, max "
+                  f"{r['held_rows_max_launch']}; env-substeps with a row in the slab "
+                  f"{r['spill_share_pct']:.3f}%", flush=True)
+            if not same:
+                raise RuntimeError(f"{task} B={batch} {label}: the two layouts' outputs differ")
     return out
 
 
@@ -312,10 +404,13 @@ def main() -> int:
     p.add_argument("--batch", type=int, default=cs.K4_TASK_ENVS)
     p.add_argument("--no-entry", action="store_true")
     p.add_argument("--held-ab", action="store_true")
+    p.add_argument("--all-shared-csrc", default=None,
+                   help="--held-ab's all-shared K4: this csrc directory's (default: this tree's, "
+                        "every held row in shared memory)")
     p.add_argument("--faults", action="store_true")
     p.add_argument("--entry-held", action="store_true")
     args = p.parse_args()
-    args.tasks = args.tasks or list(TASKS)
+    args.tasks = args.tasks or ([] if args.held_ab else list(TASKS))
     if set(args.tasks) - set(TASKS):
         p.error(f"tasks must be among {TASKS}")
     import torch
@@ -351,7 +446,8 @@ def main() -> int:
                     result["tasks"][task]["entry_held"] = entry_held(tag, config, n, steps,
                                                                      overrides)
     if args.held_ab:
-        result["held_ab"] = held_ab()
+        with tempfile.TemporaryDirectory() as tmp:
+            result["held_ab"] = held_ab(tmp, args.all_shared_csrc)
     print(json.dumps(result))
     return 0
 

@@ -130,28 +130,30 @@ def main() -> int:
                 warps = pkernel.K2.launch_warps(size, B, dev)
             else:
                 B = 512
-                source, fn, n_ptr, ext = "mj_ext_newton_kernel.cu", "mj_ext_newton_launch", 13, True
+                source, fn, n_ptr, ext = "mj_ext_newton_kernel.cu", "mj_ext_newton_launch", 14, True
                 states = adroit_states if row.startswith("pen_states") else pen_train_states
                 q, qd, d, ctrls = states(env, B, 1)
                 pkernel.K4.build(size)
-                warps = pkernel.K4.warps_per_block(size)
+                warps = pkernel.K4.launch_warps(size, B, dev)
             lib, launch, wl = _clocked(source, size, fn, n_ptr, ints=3)
             L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
             tables = [torch.from_numpy(a).to(dev) for a in
                       (*pkernel.pack_tables(m, L, ext=ext),
                        *pkernel.pack_newton_tables(m, L, NL, ext=ext))]
             held = float(probe.held_rows(m, q, d)["contacts"].float().mean())
-            delta = (d,) if ext else ()
+            # K4: after the stats (none), the slab of the held rows past SHARED_HELD
+            k4_args = ((d,), (pkernel.K4.slab(size, B, dev),)) if ext else ((), ())
 
             def ptrs():
-                return (*tables, q, qd, ctrls[0], *delta, q_out, qd_out, None, overflow, None)
+                return (*tables, q, qd, ctrls[0], *k4_args[0], q_out, qd_out, None, overflow,
+                        None, *k4_args[1])
 
             tail = lambda clocks: (B, n_sub, iters, dt, warps, stream, clocks.data_ptr())  # noqa: E731
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         clocks = torch.zeros(len(STAGES), B, dtype=torch.int64, device=dev)
 
         def step():
-            args = [0 if t is None else t.data_ptr() for t in ptrs()]
+            args = [t if isinstance(t, int) else 0 if t is None else t.data_ptr() for t in ptrs()]
             err = launch(*args, *tail(clocks))
             if err:
                 raise RuntimeError(f"{row}: launch failed: CUDA error {err}")
