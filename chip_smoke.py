@@ -816,7 +816,7 @@ def check_wide(tag, kernel, model, frames, states, wide, ops, label=""):
     what = ""
     if ops is not None:
         out["bound_ms"], out["bound_by"] = _bound_ms(model, n_sub, ops,
-                                                     kernel._tables(model, q.device), wide,
+                                                     kernel.tables(model, q.device), wide,
                                                      extra_rows=3 * model.nlink)
         what = f", bound {out['bound_ms']:.5f} ms by {out['bound_by']}"
     print(f"[{tag}] {label}B={wide} (B={full}'s states repeated) one control step: "
@@ -882,7 +882,7 @@ def phase_k3(tag, model, frames, kernel, states, batches, tol, wide=None):
     plain_ms = _cuda_ms(lambda: soa.multistep(model, q0, qd0, ctrl, frames, link_delta=d0), 2)
     ops = _f32_ops_per_env_substep(model, q0[:, :1], qd0[:, :1], ctrl[:, :1], d0[:, :1])
     n_sub = frames * model.n_substeps
-    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, q0.device), full,
+    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel.tables(model, q0.device), full,
                                    extra_rows=3 * model.nlink)
     print(f"[{tag}] B={full} one control step ({n_sub} substeps): {kernel.name} {ms:.4f} ms, "
           f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
@@ -1013,7 +1013,7 @@ def phase_k4(tag, env, kernel, n_chain, batches, tol, tol_quantile, train_states
             flips += int(flipped.sum())
             print(f"[{tag}] {label} B={B} contact rows inside their margin per "
                   f"env-step: mean {float(held.mean()):.3f}, max {int(held.max())} (the build "
-                  f"holds {kernel._newton_layouts[size]['MAX_HELD']}); overflow "
+                  f"holds {kernel.build(size).newton_layout['MAX_HELD']}); overflow "
                   f"counter 0")
             print(f"[{tag}] {label} B={B} envs with another line-search fraction in "
                   f"some iteration{at_k4s}: {int(flipped.sum())} of {B}; in a substep's "
@@ -1046,7 +1046,7 @@ def phase_k4(tag, env, kernel, n_chain, batches, tol, tol_quantile, train_states
         if bound:
             ops = _newton_op_count(model, q0, qd0, ctrl, float(held.mean()),
                                    float(torch.cat(lim_all).mean()), d0)
-            r["bound_ms"], r["bound_by"] = _bound_ms(model, n_sub, ops, kernel._tables(model, dev),
+            r["bound_ms"], r["bound_by"] = _bound_ms(model, n_sub, ops, kernel.tables(model, dev),
                                                      full, extra_rows=3 * model.nlink)
             what = (f", bound {r['bound_ms']:.5f} ms by {r['bound_by']} ({ops:.0f} f32 "
                     f"operations per env-substep)")
@@ -1142,7 +1142,7 @@ def phase_poses(kernel, batch):
         r["ms"] = sum(times) / len(times) * 1e-3 if times else None
         nsite = len(model.site_link)
         io = batch * (model.nq + 3 * model.nlink + 7 * model.nlink + 3 * nsite) * 4
-        t_bytes = (io + sum(t.numel() * 4 for t in kernel._tables(model, dev))) / HBM_BYTES_PER_S
+        t_bytes = (io + sum(t.numel() * 4 for t in kernel.tables(model, dev))) / HBM_BYTES_PER_S
         ops = _f32_ops(lambda: kernel.plain(model, q.cpu(), delta.cpu()))
         t_ops = ops / F32_OPS_PER_S
         r["bound_ms"] = max(t_bytes, t_ops) * 1e3
@@ -1336,7 +1336,7 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
         kernel.check()  # raises on an env-substep with more rows than MAX_HELD
         result["overflow"] = 0
         print(f"[{tag}] held-row overflow counter 0 (the build holds "
-              f"{kernel._newton_layouts[0]['MAX_HELD']} rows)")
+              f"{kernel.build(0).newton_layout['MAX_HELD']} rows)")
     if quantile is not None:
         result["quantile"], result["quantile_abs_err"] = quantile, quantile_err
     if not timed:
@@ -1353,7 +1353,7 @@ def phase_kernel_vs_plain(tag, env, kernel, n_chain, batches, warm_steps=10, war
         ops = _newton_op_count(model, q0, qd0, ctrl, cand, lim)
     else:
         ops = _f32_ops_per_env_substep(model, q0[:, :1], qd0[:, :1], ctrl[:, :1])
-    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel._tables(model, dev), full)
+    bound_ms, bound_by = _bound_ms(model, n_sub, ops, kernel.tables(model, dev), full)
     print(f"[{tag}] B={full} one control step ({n_sub} substeps): {kernel.name} {ms:.4f} ms, "
           f"plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by {bound_by} "
           f"({ops:.0f} f32 operations per env-substep)")
@@ -1372,7 +1372,7 @@ def phase_k2_condims(tag, env, kernel, batch):
     import numpy as np
     import torch
 
-    from mjrl_tpu_torch.physics import probe, soa
+    from mjrl_tpu_torch.physics import pkernel, probe, soa
 
     frames, dev, half = env.frame_skip, env.device, batch // 2
     rng = np.random.default_rng(0)
@@ -1385,7 +1385,7 @@ def phase_k2_condims(tag, env, kernel, batch):
     max_err = 0.0
     for condim in (1, 4):
         model = copy.copy(env.model)
-        model.__dict__.pop("_k2_tables", None)
+        pkernel.drop_tables(model)
         model.geom_condim = np.full(model.ngeom, condim, np.int32)
         held = int((probe.held_contact_rows(model, q) > 0).sum())
         kq, kqd = kernel(model, q, qd, ctrl, frames)

@@ -27,8 +27,7 @@ from typing import Any, Dict, List, Optional
 import torch
 from torch.func import functional_call
 
-from mjrl_tpu_torch.envs.base import EnvState
-from mjrl_tpu_torch.envs.locomotion import LocomotionEnv
+from mjrl_tpu_torch.envs.base import Env, EnvState
 from mjrl_tpu_torch.models.baselines import Baseline
 from mjrl_tpu_torch.models.gaussian_mlp import GaussianMLP
 from mjrl_tpu_torch.ops.distributions import DiagGaussian
@@ -83,7 +82,7 @@ class BatchREINFORCE:
     (NPG, TRPO, PPO) override it. Hyperparameter names and defaults follow
     the reference."""
 
-    def __init__(self, env: LocomotionEnv, policy: GaussianMLP, baseline: Baseline,
+    def __init__(self, env: Env, policy: GaussianMLP, baseline: Baseline,
                  learn_rate: float = 0.01, num_traj: int = 64, num_samples: Optional[int] = None,
                  horizon: Optional[int] = None, gamma: float = 0.995,
                  gae_lambda: Optional[float] = 0.97, sample_mode: str = "trajectories",

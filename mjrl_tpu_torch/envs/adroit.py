@@ -47,7 +47,7 @@ import torch
 from mjrl_tpu_torch.envs.base import Env, StepResult, register
 from mjrl_tpu_torch.physics import math3d as m3
 from mjrl_tpu_torch.physics.contact import contact_forces
-from mjrl_tpu_torch.physics.dispatch import check_model, make_frame_stepper
+from mjrl_tpu_torch.physics.dispatch import check_model, make_frame_stepper, uses_engine
 from mjrl_tpu_torch.physics.engine import compute_kinematics, site_positions
 from mjrl_tpu_torch.physics.model import Model, load_model_npz
 from mjrl_tpu_torch.physics.pkernel import POSES
@@ -143,8 +143,8 @@ class AdroitEnv(Env):
         self.model = model = adroit_model(self.task, constraint_solver, use_soa)
         self._frame_step = make_frame_stepper(model, self.frame_skip, with_link_delta=True,
                                               use_soa=use_soa)
-        # K3 and K4 take only models in the kernels' feature set, as the pose kernel
-        self._poses_on_kernel = self._frame_step.path != "engine"
+        # the pose kernel takes the models K3 and K4 step
+        self._poses_on_kernel = not uses_engine(model, use_soa)
         self._site = {n: i for i, n in enumerate(model.site_name)}
         self._link = {n: i for i, n in enumerate(model.link_name)}
         self._jnt_q = {n: model.link_qadr[i] for i, n in enumerate(model.jnt_name) if n}

@@ -27,7 +27,7 @@ import torch
 from mjrl_tpu_torch.physics import engine, soa
 from mjrl_tpu_torch.physics.csolve import ensure_solver_params
 from mjrl_tpu_torch.physics.model import Model
-from mjrl_tpu_torch.physics.pkernel import K1, K2, K3, K4
+from mjrl_tpu_torch.physics.pkernel import KERNELS
 from mjrl_tpu_torch.utils import trace
 
 FrameStepper = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
@@ -37,10 +37,7 @@ def kernel_for(model: Model, with_link_delta: bool = False):
     """The kernel that steps ``model``: K1 or K3 (penalty), K2 or K4
     (Newton), the latter of each when the env carries link offsets or the
     model has a stage only their builds have."""
-    ext = with_link_delta or soa.needs_ext(model)
-    if model.constraint_solver == "newton":
-        return K4 if ext else K2
-    return K3 if ext else K1
+    return KERNELS[model.constraint_solver, with_link_delta or soa.needs_ext(model)]
 
 
 def uses_engine(model: Model, use_soa: Optional[bool] = None) -> bool:
@@ -97,12 +94,12 @@ def make_frame_stepper(model: Model, frame_skip: int, with_link_delta: bool = Fa
     @trace.spanned("physics.frame_step")
     def frame_step(q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor, *delta):
         args = (model, q.T.contiguous(), qd.T.contiguous(), ctrl.T.contiguous(), frame_skip)
-        if delta and kernel in (K3, K4):
+        if delta and kernel.ext:
             q2, qd2 = kernel(*args, link_delta=delta[0].reshape(q.shape[0], -1).T.contiguous())
         else:
             q2, qd2 = kernel(*args)
         return q2.T, qd2.T
 
-    frame_step.path = {K1: "K1", K2: "K2", K3: "K3", K4: "K4"}[kernel]
+    frame_step.path = kernel.label
     frame_step.check = kernel.check
     return frame_step

@@ -1,5 +1,5 @@
 """Kernels K1, K2, K3 and K4: a full control step of physics per launch,
-CUDA C++ on Hopper.
+CUDA C++ on Hopper; and the pose kernel.
 
 They replace ``mjrl_tpu/physics/pkernel.py::multistep_pallas``, the Pallas
 TPU mega-kernel: K1 its penalty body (``_kernel_body``), K2 the same with
@@ -16,34 +16,29 @@ and K4's; ``mj_kernel.cu``, ``mj_newton_kernel.cu``, ``mj_ext_kernel.cu``
 and ``mj_ext_newton_kernel.cu`` (one warp per env, its state in shared
 memory) hold the ``__global__`` wrappers with plain C launch functions.
 Each is built with ``nvcc`` for ``sm_90a`` at first use into
-``mjrl_tpu_torch/_build/`` (keyed by a hash of the sources) and bound with
-``ctypes``.
+``mjrl_tpu_torch/_build/`` (keyed by a hash of the sources and flags) and
+bound with ``ctypes`` (:func:`load_library`).
 
 What bounds them on an H100: latency. A control step moves ~260 bytes per
 env (pen ~0.8 KB) and runs tens of thousands (K2, K3, K4: hundreds of
 thousands) of dependent f32 operations; each kernel keeps one env's state
-in a warp's shared memory with each stage's work spread over its lanes
-(the wrappers spread B envs over the SMs: :meth:`MultistepKernel.launch_warps`),
+in a warp's shared memory with each stage's work spread over its lanes,
 for the whole control step (one launch per control step, no intermediate
 in device memory).
 
-:class:`MultistepKernel` (K1), :class:`NewtonKernel` (K2),
-:class:`ExtKernel` (K3) and :class:`ExtNewtonKernel` (K4) are the
-wrappers: for a CUDA tensor they launch the kernel or raise; for a CPU
-tensor they run the plain version, ``physics/soa.py::multistep``. ``K1``,
-``K2``, ``K3`` and ``K4`` are the instances the frame stepper calls; their
-``launches`` count kernel launches. :class:`PoseKernel` (``POSES``,
-``mj_poses_kernel.cu`` on ``mj_poses.h``, one warp per env) gives the
-Adroit envs' observation its link poses and site positions on the card
-(envs/adroit.py ``_poses``), on K3's and K4's tables; for a CPU tensor
-physics/engine.py's ``forward_kinematics`` + ``site_positions``. While
-tracing is on (``utils/trace.py``) K2 and K4 also count their
-env-substeps and the contact rows each holds (the kernel's stats buffer,
-read with the overflow count at ``check()``, also holds H's terms over the
-rows and the Newton iterations' line-search outcomes; the plain version
-counts its rows on the CPU), their launches, blocks and waves (from the
-built kernel's occupancy), and the pose kernel its launches and plain
-calls.
+One wrapper, :class:`PhysicsKernel`, keyed on the solver and on ``ext``
+(Adroit's stages), is ``K1`` (penalty), ``K2`` (Newton), ``K3`` and ``K4``
+(the same with ``ext``); ``KERNELS`` maps (solver, ext) to them. For a
+CUDA tensor they launch the kernel or raise; for a CPU tensor they run the
+plain version, ``physics/soa.py::multistep``; ``launches`` counts
+launches. ``POSES`` (:class:`PoseKernel`, ``mj_poses_kernel.cu`` on
+``mj_poses.h``) gives the Adroit envs' observation its link poses and
+site positions on the card. Their tables live in one cache on the model
+(:meth:`PhysicsKernel.tables`, :func:`set_tables`, :func:`drop_tables`).
+While tracing is on (``utils/trace.py``) K2 and K4 count their
+env-substeps, the contact rows each holds and the rest of ``STAT_NAMES``,
+their launches, blocks and waves, and the pose kernel its launches and
+plain calls.
 """
 
 from __future__ import annotations
@@ -51,9 +46,11 @@ from __future__ import annotations
 import ctypes
 import fcntl
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
+from functools import cached_property
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -483,48 +480,195 @@ def check_inputs(model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Te
     return B
 
 
-class MultistepKernel:
-    """Wrapper of kernel K1: ``(q (nq,B), qd (nv,B), ctrl (nu,B)) -> (q, qd)``
-    after ``n_frames * model.n_substeps`` substeps. One library per size
-    class (``SIZE_CLASSES``), each built at first use; a model runs in the
-    smallest class it fits. One warp per env, ``warps_per_block`` envs per
-    block (default: :meth:`launch_warps`). ``csrc`` and ``build_dir``:
-    where its sources are read and its libraries are built."""
+# The physics kernels' launch parameters (each .cu file's ``<name>_launch``)
+# in the order each takes those it has: only the Newton kernels (K2, K4)
+# take ``NEWTON_PARAMS``, only K3 and K4 ``delta`` (the link offsets), only
+# K4 ``slab``. ``mj_poses_launch`` takes ``POSES_PARAMS`` (``mj_poses_host``
+# the same without the stream). :func:`argtypes` gives each its C type.
+LAUNCH_PARAMS = ("mf", "mi", "nf", "ni", "q", "qd", "ctrl", "delta", "q_out", "qd_out", "picks",
+                 "overflow", "stats", "slab", "B", "n_sub", "iters", "dt", "warps", "stream")
+NEWTON_PARAMS = frozenset(("nf", "ni", "picks", "overflow", "stats", "iters"))
+POSES_PARAMS = ("mf", "mi", "site_pos", "site_link", "nsite", "q", "sq0", "sq1", "delta", "sd0",
+                "sd1", "sd2", "pos", "quat", "sites", "B", "stream")
+_CTYPES = {**dict.fromkeys(("B", "n_sub", "iters", "warps", "nsite"), ctypes.c_int),
+           **dict.fromkeys(("sq0", "sq1", "sd0", "sd1", "sd2"), ctypes.c_longlong),
+           "dt": ctypes.c_float}
 
-    name = "mj_multistep"
-    source = "mjrl_tpu_torch/csrc/mj_kernel.cu"
-    replaces = "mjrl_tpu/physics/pkernel.py:79"
+
+def argtypes(params) -> list:
+    """The ctypes of a launch function's parameters, by name (a pointer or
+    the stream: ``c_void_p``)."""
+    return [_CTYPES.get(p, ctypes.c_void_p) for p in params]
+
+
+class Library:
+    """A loaded kernel library and the layouts it exports, each read at
+    first use (None where the library exports none)."""
+
+    def __init__(self, lib: ctypes.CDLL):
+        self.lib = lib
+
+    @cached_property
+    def layout(self) -> Dict[str, int]:
+        return read_layout(self.lib)
+
+    @cached_property
+    def newton_layout(self) -> Optional[Dict[str, int]]:
+        return read_newton_layout(self.lib) if hasattr(self.lib, "mj_newton_layout") else None
+
+    @cached_property
+    def warp_layout(self) -> Optional[Dict[str, int]]:
+        return read_warp_layout(self.lib) if hasattr(self.lib, "mj_warp_layout") else None
+
+
+def load_library(source: str, size: int, signatures: Dict[str, tuple], flags: tuple = (),
+                 csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Library:
+    """``<csrc>/<source>`` built by nvcc in size class ``size``, ``flags``
+    after the class's (:func:`build_library`: once per sources and flags),
+    and loaded, each function of ``signatures`` (name: parameter names)
+    declared to take those and return an int."""
+    path = build_library(source, (nvcc_path(), *NVCC_FLAGS, *size_flags(size), *flags),
+                         Path(build_dir), Path(csrc))
+    lib = ctypes.CDLL(str(path))
+    for fn, params in signatures.items():
+        getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes(params), ctypes.c_int
+    return Library(lib)
+
+
+_TABLES = "_kernel_tables"  # a model's uploaded tables: {(device, reader or packing): tensors}
+
+
+def _cached(model: Model, key: tuple, make) -> Tuple[torch.Tensor, ...]:
+    cache = model.__dict__.setdefault(_TABLES, {})
+    got = cache.get(key)
+    if got is None:
+        got = cache[key] = make()
+    return got
+
+
+def _upload(device: torch.device, arrays) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.from_numpy(a).to(device) for a in arrays)
+
+
+def set_tables(model: Model, kernel, device: torch.device, tables) -> None:
+    """Give ``model`` a table cache of its own holding ``tables`` as what
+    ``kernel`` reads on ``device`` (a copy of a model shares its
+    original's until then): how a check plants faulty tables."""
+    model.__dict__[_TABLES] = {(str(device), kernel.label): tuple(tables)}
+
+
+def drop_tables(model: Model) -> None:
+    """Drop ``model``'s table cache: each kernel packs anew at its next use."""
+    model.__dict__.pop(_TABLES, None)
+
+
+def _ptr(x: Optional[torch.Tensor]) -> int:
+    return 0 if x is None else x.data_ptr()
+
+
+class _Wrapper:
+    """A kernel wrapper's library per size class and its entry in a
+    model's table cache; ``csrc`` and ``build_dir``: where its sources are
+    read and its libraries built."""
+
+    sizes: Tuple[int, ...] = tuple(range(len(SIZE_CLASSES)))
 
     def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
         self.csrc, self.build_dir = Path(csrc), Path(build_dir)
+        self.source = f"mjrl_tpu_torch/csrc/{self.file}"
         self.launches = 0
-        self._libs: Dict[int, ctypes.CDLL] = {}
-        self._layouts: Dict[int, Dict[str, int]] = {}
-        self._newton_layouts: Dict[int, Dict[str, int]] = {}
-        self._warp_layouts: Dict[int, Dict[str, int]] = {}
+        self._libs: Dict[int, Library] = {}
 
-    def build(self, size: int = 0) -> ctypes.CDLL:
-        """Build (or find) and load the CUDA library of size class ``size``."""
-        if size not in self._libs:
-            path = build_library("mj_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
-                                 self.build_dir, self.csrc)
-            lib = ctypes.CDLL(str(path))
-            lib.mj_multistep_launch.argtypes = [ctypes.c_void_p] * 7 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            lib.mj_multistep_launch.restype = ctypes.c_int
-            self._layouts[size] = read_layout(lib)
-            self._warp_layouts[size] = read_warp_layout(lib)
-            self._libs[size] = lib
-        return self._libs[size]
+    def build(self, size: int = 0) -> Library:
+        """Build (or find) and load the library of size class ``size``, once."""
+        lib = self._libs.get(size)
+        if lib is None:
+            if size not in self.sizes:
+                raise NotImplementedError(f"{self.label} has the size classes {self.sizes} only")
+            lib = self._libs[size] = load_library(self.file, size, self.signatures,
+                                                  csrc=self.csrc, build_dir=self.build_dir)
+        return lib
 
-    def check(self) -> None:
-        """Raise if a launch so far flagged a fault; K1's and K3's flag
-        none."""
+    def tables(self, model: Model, device: torch.device) -> Tuple[torch.Tensor, ...]:
+        """``model``'s tables as this kernel reads them on ``device``, packed
+        and uploaded at its first use; K3, K4 and the pose kernel share one
+        upload of the model's ext packing."""
+        return _cached(model, (str(device), self.label),
+                       lambda: self._pack(model, device, self.build(size_class(model))))
+
+    def _packed(self, model: Model, device: torch.device, lib: Library, ext: bool,
+                max_points: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+        return _cached(model, (str(device), "pack", ext, max_points), lambda: _upload(
+            device, pack_tables(model, lib.layout, ext=ext, max_points=max_points)))
+
+
+# Per (solver, ext): label, C name (``<name>_launch``, ``__global__``
+# ``<name>_kernel``, Newton ``<name>_occupancy``), source, size classes (K2:
+# the small one, as no Newton model without Adroit's stages needs more)
+# and the TPU code it replaces.
+_SPECS = {
+    ("penalty", False): ("K1", "mj_multistep", "mj_kernel.cu", (0, 1, 2),
+                         "mjrl_tpu/physics/pkernel.py:79"),
+    ("newton", False): ("K2", "mj_newton", "mj_newton_kernel.cu", (0,),
+                        "mjrl_tpu/physics/pkernel.py:79 (soa_newton.py:338)"),
+    ("penalty", True): ("K3", "mj_ext", "mj_ext_kernel.cu", (0, 1, 2),
+                        "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext)"),
+    ("newton", True): ("K4", "mj_ext_newton", "mj_ext_newton_kernel.cu", (0, 1, 2),
+                       "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext; soa_newton.py:338)"),
+}
+
+
+class PhysicsKernel(_Wrapper):
+    """The physics kernel of ``solver`` (``"penalty"`` or ``"newton"``) and
+    ``ext`` (Adroit's stages: link offsets, box contacts, servos, tendons,
+    frictionloss): ``(q (nq,B), qd (nv,B), ctrl (nu,B)[, link_delta
+    (3 nlink, B)]) -> (q, qd)`` after ``n_frames * model.n_substeps``
+    substeps, in the smallest size class the model fits, one warp per env
+    and ``warps_per_block`` envs a block (default: :meth:`launch_warps`).
+    K1 caps a model's contact points (``MAX_POINTS``). The Newton kernels
+    take ``picks``, an int32 ``(n_sub * solver_iters, B)`` tensor on the
+    device of ``q`` for each iteration's line-search fraction index (CUDA
+    only), and count an env-substep with more contact rows inside their
+    margin than the build holds (``MAX_HELD``) on the device, which
+    :meth:`check` reads and raises on (the env calls it at the end of each
+    rollout); a build that keeps only its first ``SHARED_HELD`` held rows
+    in shared memory (K4's Adroit class) takes a slab in device memory for
+    the rest (:meth:`slab`). The counters, the check and the slab do
+    nothing for the penalty kernels."""
+
+    def __init__(self, solver: str, ext: bool, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
+        self.label, self.name, self.file, self.sizes, self.replaces = _SPECS[solver, ext]
+        self.solver, self.ext, self.newton = solver, ext, solver == "newton"
+        self.symbol, self.launch_fn = f"{self.name}_kernel", f"{self.name}_launch"
+        self.params = tuple(p for p in LAUNCH_PARAMS if (self.newton or p not in NEWTON_PARAMS)
+                            and (ext or p != "delta") and (ext and self.newton or p != "slab"))
+        self.signatures = {self.launch_fn: self.params,
+                           **({f"{self.name}_occupancy": ("warps",)} if self.newton else {})}
+        # picks the launch's arguments, in its C order, from __call__'s list:
+        # the tables, then LAUNCH_PARAMS past them
+        given = (*self.params[:4 if self.newton else 2], *LAUNCH_PARAMS[4:])
+        self._order = operator.itemgetter(*(given.index(p) for p in self.params))
+        super().__init__(csrc, build_dir)
+        # per device: the overflow count (int32) and the stats (int64, STAT_NAMES)
+        self._counters: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._counted: set = set()  # devices whose stats a traced launch added to
+        self._occupancy: Dict[Tuple[int, int], int] = {}
+        self._slabs: Dict[str, torch.Tensor] = {}  # per device: held rows past SHARED_HELD
+
+    def _pack(self, model: Model, device: torch.device, lib: Library):
+        wl = lib.warp_layout
+        if self.ext:
+            check_tendons(model, wl)
+        out = self._packed(model, device, lib, self.ext, wl["MAX_POINTS"] or None)
+        if self.newton:
+            out += _upload(device, pack_newton_tables(model, lib.layout, lib.newton_layout,
+                                                      ext=self.ext))
+        return out
 
     def warps_per_block(self, size: int) -> int:
         """The most envs (warps) a block of size class ``size``'s build
         holds in shared memory; raises if not even one fits."""
-        wl = self._warp_layouts[size]
+        wl = self.build(size).warp_layout
         warps = min(wl["MAX_WARPS"], SHARED_BYTES_PER_BLOCK // wl["BYTES"])
         if warps < 1:
             raise NotImplementedError(f"{self.name}'s env state in size class {SIZE_CLASSES[size]} "
@@ -534,137 +678,50 @@ class MultistepKernel:
 
     def launch_warps(self, size: int, batch: int, device: torch.device,
                      warps_per_block: Optional[int] = None) -> int:
-        """Warps (envs) per block of a launch of ``batch`` envs: the fewest
-        that spread them over the card's SMs in one wave, within what a
-        block holds (:meth:`warps_per_block`); or ``warps_per_block``,
-        which must be in 1 to that."""
+        """Warps (envs) a block of a launch of ``batch`` envs: the fewest that
+        spread them over the SMs in one wave, within :meth:`warps_per_block`;
+        or ``warps_per_block``, which must be in 1 to that."""
         most = self.warps_per_block(size)
         if warps_per_block is not None:
             if not 1 <= int(warps_per_block) <= most:
                 raise ValueError(f"warps_per_block must be in 1..{most}, got {warps_per_block}")
             return int(warps_per_block)
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        return min(most, -(-batch // sms))
+        return min(most, -(-batch // self.sm_count(device)))
 
-    def _tables(self, model: Model, device: torch.device):
-        cache = model.__dict__.setdefault("_k1_tables", {})
-        key = str(device)
-        if key not in cache:
-            size = size_class(model)
-            mf, mi = pack_tables(model, self._layouts[size],
-                                 max_points=self._warp_layouts[size]["MAX_POINTS"])
-            cache[key] = (torch.from_numpy(mf).to(device), torch.from_numpy(mi).to(device))
-        return cache[key]
-
-    def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
-                 ctrl: torch.Tensor, n_frames: int = 1, warps_per_block: Optional[int] = None):
-        B = check_inputs(model, q, qd, ctrl)
-        if model.constraint_solver != "penalty":
-            raise ValueError("K1 runs models with constraint_solver='penalty'")
-        if soa.needs_ext(model):
-            raise ValueError("tendons, frictionloss, gain/bias actuators and box contacts "
-                             "run in K3")
-        if q.device.type == "cpu":
-            return soa.multistep(model, q, qd, ctrl, n_frames)
-        if q.device.type != "cuda":
-            raise ValueError(f"no K1 path for device {q.device}")
-        size = size_class(model)
-        lib = self.build(size)
-        warps = self.launch_warps(size, B, q.device, warps_per_block)
-        mf, mi = self._tables(model, q.device)
-        q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
-        n_sub = n_frames * model.n_substeps
-        dt = float(np.float32(model.dt / model.n_substeps))
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.mj_multistep_launch(
-                mf.data_ptr(), mi.data_ptr(), q.data_ptr(), qd.data_ptr(),
-                ctrl.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(), B, n_sub, dt, warps,
-                stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += 1
-        return q_out, qd_out
-
-
-class NewtonKernel(MultistepKernel):
-    """Wrapper of kernel K2: ``(q (nq,B), qd (nv,B), ctrl (nu,B)) -> (q, qd)``
-    after ``n_frames * model.n_substeps`` Newton substeps of
-    ``model.solver_iters`` iterations each. ``picks``, an int32
-    ``(n_sub * solver_iters, B)`` tensor on the device of ``q``, receives
-    each iteration's line-search fraction index (CUDA only). One warp per
-    env, ``warps_per_block`` as K1's. An env-substep with more contact rows
-    inside their margin than the build holds (``MAX_HELD``) adds one to a
-    counter on the device; :meth:`check` reads it and raises, and the env
-    calls it at the end of each rollout (the packer refuses a K2 model
-    that could have more)."""
-
-    name = "mj_newton"
-    label = "K2"
-    source = "mjrl_tpu_torch/csrc/mj_newton_kernel.cu"
-    replaces = "mjrl_tpu/physics/pkernel.py:79 (soa_newton.py:338)"
-    occupancy_fn = "mj_newton_occupancy"
-
-    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
-        super().__init__(csrc, build_dir)
-        # per device: the overflow count (int32) and the stats (int64, STAT_NAMES)
-        self._counters: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
-        self._counted: set = set()  # devices whose stats a traced launch added to
-        self._occupancy: Dict[Tuple[int, int], int] = {}
-
-    def build(self, size: int = 0) -> ctypes.CDLL:
-        """Build (or find) and load the CUDA library. K2 has the small size
-        class only: no model the JAX package runs with the Newton solver
-        needs more."""
-        if size != 0:
-            raise NotImplementedError("K2 is built in the small size class only")
-        if 0 not in self._libs:
-            path = build_library("mj_newton_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(0)),
-                                 self.build_dir, self.csrc)
-            lib = ctypes.CDLL(str(path))
-            lib.mj_newton_launch.argtypes = [ctypes.c_void_p] * 12 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p]
-            lib.mj_newton_launch.restype = ctypes.c_int
-            lib.mj_newton_occupancy.argtypes = [ctypes.c_int]
-            lib.mj_newton_occupancy.restype = ctypes.c_int
-            self._layouts[0] = read_layout(lib)
-            self._newton_layouts[0] = read_newton_layout(lib)
-            self._warp_layouts[0] = read_warp_layout(lib)
-            self._libs[0] = lib
-        return self._libs[0]
-
-    def _tables(self, model: Model, device: torch.device):
-        cache = model.__dict__.setdefault("_k2_tables", {})
-        key = str(device)
-        if key not in cache:
-            packed = (*pack_tables(model, self._layouts[0]),
-                      *pack_newton_tables(model, self._layouts[0], self._newton_layouts[0]))
-            cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
-        return cache[key]
-
-    def _device_counters(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    def counters(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device's overflow count (int32: env-substeps that held too
+        many rows) and stats (int64, ``STAT_NAMES``)."""
         key = str(device)
         if key not in self._counters:
             self._counters[key] = (torch.zeros(1, dtype=torch.int32, device=device),
                                    torch.zeros(len(STAT_NAMES), dtype=torch.int64, device=device))
         return self._counters[key]
 
-    def overflow(self, device: torch.device) -> torch.Tensor:
-        """The device's counter of env-substeps that held too many rows."""
-        return self._device_counters(device)[0]
-
     def stats(self, device: torch.device) -> int:
-        """The address of the device's stats buffer (``STAT_NAMES``) while
-        tracing is on, else 0: the kernel then counts nothing."""
+        """The address of the device's stats buffer while tracing is on,
+        else 0: the kernel then counts nothing."""
         if not trace.enabled():
             return 0
         self._counted.add(str(device))
-        return self._device_counters(device)[1].data_ptr()
+        return self.counters(device)[1].data_ptr()
+
+    def slab(self, size: int, batch: int, device: torch.device) -> int:
+        """The address of the device's slab for ``batch`` envs' held rows past
+        the build's ``SHARED_HELD`` (grown to the largest batch), or 0."""
+        NL = self.build(size).newton_layout
+        need = NL and batch * (NL["MAX_HELD"] - NL["SHARED_HELD"]) * NL["ROW_BYTES"]
+        if not need:
+            return 0
+        key = str(device)
+        if key not in self._slabs or self._slabs[key].numel() < need:
+            self._slabs[key] = torch.empty(need, dtype=torch.uint8, device=device)
+        return self._slabs[key].data_ptr()
 
     def count_launch(self, B: int, n_sub: int, held: Optional[List[torch.Tensor]] = None) -> None:
-        """Traced: the launch's env-substeps, and the plain version's held
-        rows (``held``: one ``(B,)`` count per substep) where it ran."""
+        """Traced: a Newton launch's env-substeps, and the plain version's
+        held rows (``held``: one ``(B,)`` count per substep) where it ran."""
+        if not self.newton:
+            return
         trace.count(f"{self.label}.env_substeps", B * n_sub)
         if held:
             rows = torch.stack(held)
@@ -675,27 +732,26 @@ class NewtonKernel(MultistepKernel):
         return torch.cuda.get_device_properties(device).multi_processor_count
 
     def occupancy(self, size: int, warps: int) -> int:
-        """Blocks of ``warps`` envs that one SM holds at once, from the
-        built library's ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
-        at the launch's shared bytes; asked once per build and warps."""
-        key = (size, warps)
-        if key not in self._occupancy:
-            n = getattr(self._libs[size], self.occupancy_fn)(warps)
+        """Blocks of ``warps`` envs one SM holds at once (the build's
+        ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), asked once."""
+        if (size, warps) not in self._occupancy:
+            fn = f"{self.name}_occupancy"
+            n = getattr(self.build(size).lib, fn)(warps)
             if n < 1:
-                raise RuntimeError(f"{self.occupancy_fn}({warps}): CUDA error {-n}")
-            self._occupancy[key] = n
-        return self._occupancy[key]
+                raise RuntimeError(f"{fn}({warps}): CUDA error {-n}")
+            self._occupancy[size, warps] = n
+        return self._occupancy[size, warps]
 
     @staticmethod
     def launch_waves(batch: int, warps: int, sms: int, per_sm: int) -> Tuple[int, int]:
-        """``(blocks, waves)`` of a launch of ``batch`` envs, ``warps`` to a
-        block, on ``sms`` SMs that each hold ``per_sm`` blocks at once."""
+        """``(blocks, waves)`` of ``batch`` envs, ``warps`` a block, on
+        ``sms`` SMs that each hold ``per_sm`` blocks at once."""
         blocks = -(-batch // warps)
         return blocks, -(-blocks // (sms * per_sm))
 
     def count_waves(self, size: int, B: int, warps: int, device: torch.device) -> None:
-        """Traced: the launch, its blocks and its waves."""
-        if not trace.enabled():
+        """Traced: a Newton launch, its blocks and its waves."""
+        if not (self.newton and trace.enabled()):
             return
         blocks, waves = self.launch_waves(B, warps, self.sm_count(device),
                                           self.occupancy(size, warps))
@@ -704,13 +760,10 @@ class NewtonKernel(MultistepKernel):
         trace.count(f"{self.label}.waves", waves)
 
     def check(self) -> None:
-        """Raise ``RuntimeError`` if any launch so far had an env-substep
-        with more contact rows inside their margin than the build holds
-        (synchronises with the device: one read, ``K2.check`` or
-        ``K4.check``, which also takes the stats buffer where a traced
-        launch added to it, into the tracer's counters ``K4.held_rows``,
-        ``K4.chain_terms``, ... (``STAT_NAMES``) and its peak
-        ``K4.held_rows_max``)."""
+        """Raise ``RuntimeError`` if a launch so far held more contact rows
+        than the build's ``MAX_HELD``: one read (``K2.check``, ``K4.check``)
+        that also takes the stats a traced launch added into the tracer's
+        counters (``K4.held_rows``, ...) and peak (``K4.held_rows_max``)."""
         for key, (over, stats) in self._counters.items():
             if key in self._counted:
                 self._counted.discard(key)
@@ -730,217 +783,51 @@ class NewtonKernel(MultistepKernel):
                     f"{self.name}: {n} env-substeps on {key} held more contact rows inside "
                     f"their margin than the build's MAX_HELD; those substeps are wrong")
 
-    def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
-                 ctrl: torch.Tensor, n_frames: int = 1, picks: Optional[torch.Tensor] = None,
-                 warps_per_block: Optional[int] = None):
+    def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor, ctrl: torch.Tensor,
+                 n_frames: int = 1, link_delta: Optional[torch.Tensor] = None,
+                 picks: Optional[torch.Tensor] = None, warps_per_block: Optional[int] = None):
         B = check_inputs(model, q, qd, ctrl)
-        if model.constraint_solver != "newton":
-            raise ValueError("K2 runs models with constraint_solver='newton'")
-        if soa.needs_ext(model):
-            raise ValueError("tendons, frictionloss, gain/bias actuators and box contacts "
-                             "run in K4")
+        if model.constraint_solver != self.solver:
+            raise ValueError(f"{self.label} runs models with constraint_solver={self.solver!r}")
+        stray = "link_delta" if link_delta is not None and not self.ext else "picks"
+        if stray == "link_delta" or picks is not None and not self.newton:
+            raise TypeError(f"{self.label} takes no {stray}")
+        if self.ext:
+            check_optional("link_delta", link_delta, torch.float32, (3 * model.nlink, B), q.device)
+        elif soa.needs_ext(model):
+            raise ValueError("tendons, frictionloss, gain/bias actuators and box contacts run in "
+                             f"{KERNELS[self.solver, True].label}")
         n_sub = n_frames * model.n_substeps
         if q.device.type == "cpu":
-            held = [] if trace.enabled() else None
-            out = soa.multistep(model, q, qd, ctrl, n_frames, held=held)
-            self.count_launch(B, n_sub, held)
-            return out
-        if q.device.type != "cuda":
-            raise ValueError(f"no K2 path for device {q.device}")
-        lib = self.build()
-        warps = self.launch_warps(0, B, q.device, warps_per_block)
-        mf, mi, nf, ni = self._tables(model, q.device)
-        iters = int(model.solver_iters)
-        check_optional("picks", picks, torch.int32, (n_sub * iters, B), q.device)
-        q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
-        dt = float(np.float32(model.dt / model.n_substeps))
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.mj_newton_launch(
-                mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
-                qd.data_ptr(), ctrl.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(),
-                0 if picks is None else picks.data_ptr(), self.overflow(q.device).data_ptr(),
-                self.stats(q.device), B, n_sub, iters, dt, warps, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += 1
-        self.count_launch(B, n_sub)
-        self.count_waves(0, B, warps, q.device)
-        return q_out, qd_out
-
-
-class ExtKernel(MultistepKernel):
-    """Wrapper of kernel K3: ``(q (nq,B), qd (nv,B), ctrl (nu,B)[,
-    link_delta (3 nlink, B)]) -> (q, qd)`` after ``n_frames *
-    model.n_substeps`` penalty substeps with Adroit's stages (link offsets,
-    box contacts, servos, tendons, frictionloss). Built in every size class
-    a model needs, like K1; one warp per env, ``warps_per_block`` envs per
-    block (default: :meth:`launch_warps`). No cap on a model's contact
-    points: the body takes the pairs in rounds of 32."""
-
-    name = "mj_ext"
-    source = "mjrl_tpu_torch/csrc/mj_ext_kernel.cu"
-    replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext)"
-
-    def build(self, size: int = 0) -> ctypes.CDLL:
-        """Build (or find) and load the CUDA library of size class ``size``."""
-        if size not in self._libs:
-            path = build_library("mj_ext_kernel.cu", (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
-                                 self.build_dir, self.csrc)
-            lib = ctypes.CDLL(str(path))
-            lib.mj_ext_launch.argtypes = [ctypes.c_void_p] * 8 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-            lib.mj_ext_launch.restype = ctypes.c_int
-            self._layouts[size] = read_layout(lib)
-            self._warp_layouts[size] = read_warp_layout(lib)
-            self._libs[size] = lib
-        return self._libs[size]
-
-    def _tables(self, model: Model, device: torch.device):
-        cache = model.__dict__.setdefault("_k3_tables", {})
-        key = str(device)
-        if key not in cache:
-            size = size_class(model)
-            check_tendons(model, self._warp_layouts[size])
-            mf, mi = pack_tables(model, self._layouts[size], ext=True)
-            cache[key] = (torch.from_numpy(mf).to(device), torch.from_numpy(mi).to(device))
-        return cache[key]
-
-    def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
-                 ctrl: torch.Tensor, n_frames: int = 1,
-                 link_delta: Optional[torch.Tensor] = None,
-                 warps_per_block: Optional[int] = None):
-        B = check_inputs(model, q, qd, ctrl)
-        if model.constraint_solver != "penalty":
-            raise ValueError("K3 runs models with constraint_solver='penalty'")
-        check_optional("link_delta", link_delta, torch.float32, (3 * model.nlink, B), q.device)
-        if q.device.type == "cpu":
-            return soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta)
-        if q.device.type != "cuda":
-            raise ValueError(f"no K3 path for device {q.device}")
-        size = size_class(model)
-        lib = self.build(size)
-        warps = self.launch_warps(size, B, q.device, warps_per_block)
-        mf, mi = self._tables(model, q.device)
-        q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
-        n_sub = n_frames * model.n_substeps
-        dt = float(np.float32(model.dt / model.n_substeps))
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.mj_ext_launch(
-                mf.data_ptr(), mi.data_ptr(), q.data_ptr(), qd.data_ptr(), ctrl.data_ptr(),
-                0 if link_delta is None else link_delta.data_ptr(), q_out.data_ptr(),
-                qd_out.data_ptr(), B, n_sub, dt, warps, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
-        self.launches += 1
-        return q_out, qd_out
-
-
-class ExtNewtonKernel(NewtonKernel):
-    """Wrapper of kernel K4: ``(q (nq,B), qd (nv,B), ctrl (nu,B)[,
-    link_delta (3 nlink, B)]) -> (q, qd)`` after ``n_frames *
-    model.n_substeps`` Newton substeps of ``model.solver_iters`` iterations
-    with Adroit's stages (link offsets, box contacts, servos, tendons,
-    frictionloss). Built in every size class a model needs, like K3;
-    ``picks``, the held-row overflow counter and :meth:`check` as K2's. One
-    warp per env, ``warps_per_block`` envs per block (default:
-    :meth:`launch_warps`). A build that keeps its first ``SHARED_HELD``
-    held rows in shared memory and the rest in device memory (the Adroit
-    class) takes a slab of ``MAX_HELD - SHARED_HELD`` rows an env, one
-    per device, grown to the largest batch launched there."""
-
-    name = "mj_ext_newton"
-    label = "K4"
-    occupancy_fn = "mj_ext_newton_occupancy"
-    source = "mjrl_tpu_torch/csrc/mj_ext_newton_kernel.cu"
-    replaces = "mjrl_tpu/physics/pkernel.py:49 (_kernel_body_ext; soa_newton.py:338)"
-
-    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
-        super().__init__(csrc, build_dir)
-        self._slabs: Dict[str, torch.Tensor] = {}  # per device: held rows past SHARED_HELD
-
-    def build(self, size: int = 0) -> ctypes.CDLL:
-        """Build (or find) and load the CUDA library of size class ``size``."""
-        if size not in self._libs:
-            path = build_library("mj_ext_newton_kernel.cu",
-                                 (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
-                                 self.build_dir, self.csrc)
-            lib = ctypes.CDLL(str(path))
-            lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * 14 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                ctypes.c_void_p]
-            lib.mj_ext_newton_launch.restype = ctypes.c_int
-            lib.mj_ext_newton_occupancy.argtypes = [ctypes.c_int]
-            lib.mj_ext_newton_occupancy.restype = ctypes.c_int
-            self._layouts[size] = read_layout(lib)
-            self._newton_layouts[size] = read_newton_layout(lib)
-            self._warp_layouts[size] = read_warp_layout(lib)
-            self._libs[size] = lib
-        return self._libs[size]
-
-    def slab(self, size: int, batch: int, device: torch.device) -> int:
-        """The address of the device's slab for ``batch`` envs' held rows
-        past the build's ``SHARED_HELD``, or 0 where it keeps them all in
-        shared memory."""
-        NL = self._newton_layouts[size]
-        need = batch * (NL["MAX_HELD"] - NL["SHARED_HELD"]) * NL["ROW_BYTES"]
-        if not need:
-            return 0
-        key = str(device)
-        if key not in self._slabs or self._slabs[key].numel() < need:
-            self._slabs[key] = torch.empty(need, dtype=torch.uint8, device=device)
-        return self._slabs[key].data_ptr()
-
-    def _tables(self, model: Model, device: torch.device):
-        cache = model.__dict__.setdefault("_k4_tables", {})
-        key = str(device)
-        if key not in cache:
-            size = size_class(model)
-            L = self._layouts[size]
-            check_tendons(model, self._warp_layouts[size])
-            packed = (*pack_tables(model, L, ext=True),
-                      *pack_newton_tables(model, L, self._newton_layouts[size], ext=True))
-            cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
-        return cache[key]
-
-    def __call__(self, model: Model, q: torch.Tensor, qd: torch.Tensor,
-                 ctrl: torch.Tensor, n_frames: int = 1,
-                 link_delta: Optional[torch.Tensor] = None, picks: Optional[torch.Tensor] = None,
-                 warps_per_block: Optional[int] = None):
-        B = check_inputs(model, q, qd, ctrl)
-        if model.constraint_solver != "newton":
-            raise ValueError("K4 runs models with constraint_solver='newton'")
-        check_optional("link_delta", link_delta, torch.float32, (3 * model.nlink, B), q.device)
-        n_sub = n_frames * model.n_substeps
-        if q.device.type == "cpu":
-            held = [] if trace.enabled() else None
+            held = [] if self.newton and trace.enabled() else None
             out = soa.multistep(model, q, qd, ctrl, n_frames, link_delta=link_delta, held=held)
             self.count_launch(B, n_sub, held)
             return out
         if q.device.type != "cuda":
-            raise ValueError(f"no K4 path for device {q.device}")
-        size = size_class(model)
-        lib = self.build(size)
-        warps = self.launch_warps(size, B, q.device, warps_per_block)
-        mf, mi, nf, ni = self._tables(model, q.device)
-        iters = int(model.solver_iters)
-        check_optional("picks", picks, torch.int32, (n_sub * iters, B), q.device)
+            raise ValueError(f"no {self.label} path for device {q.device}")
+        dev, size = q.device, size_class(model)
+        lib = self.build(size).lib
+        warps = self.launch_warps(size, B, dev, warps_per_block)
+        tables = self.tables(model, dev)
+        iters, faults = 0, (0, 0, 0, 0)
+        if self.newton:
+            iters = int(model.solver_iters)
+            check_optional("picks", picks, torch.int32, (n_sub * iters, B), dev)
+            faults = (_ptr(picks), self.counters(dev)[0].data_ptr(), self.stats(dev),
+                      self.slab(size, B, dev))
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         dt = float(np.float32(model.dt / model.n_substeps))
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.mj_ext_newton_launch(
-                mf.data_ptr(), mi.data_ptr(), nf.data_ptr(), ni.data_ptr(), q.data_ptr(),
-                qd.data_ptr(), ctrl.data_ptr(), 0 if link_delta is None else link_delta.data_ptr(),
-                q_out.data_ptr(), qd_out.data_ptr(), 0 if picks is None else picks.data_ptr(),
-                self.overflow(q.device).data_ptr(), self.stats(q.device),
-                self.slab(size, B, q.device), B, n_sub, iters, dt, warps, stream)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = getattr(lib, self.launch_fn)(*self._order((
+                *map(torch.Tensor.data_ptr, tables), q.data_ptr(), qd.data_ptr(),
+                ctrl.data_ptr(), _ptr(link_delta), q_out.data_ptr(), qd_out.data_ptr(), *faults,
+                B, n_sub, iters, dt, warps, stream)))
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
         self.count_launch(B, n_sub)
-        self.count_waves(size, B, warps, q.device)
+        self.count_waves(size, B, warps, dev)
         return q_out, qd_out
 
 
@@ -952,61 +839,26 @@ def pack_site_tables(model: Model) -> Tuple[np.ndarray, np.ndarray]:
     return np.ascontiguousarray(pos), np.asarray(model.site_link, np.int32).reshape(n)
 
 
-# mj_poses_launch's arguments (mj_poses_host's: the same without the
-# stream): mf, mi, site_pos, site_link, nsite, q, q's two strides, delta,
-# its three strides, pos, quat, sites, B.
-POSES_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-                  + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] + [ctypes.c_longlong] * 3
-                  + [ctypes.c_void_p] * 3 + [ctypes.c_int])
+class PoseKernel(_Wrapper):
+    """The pose kernel: ``(q (B, nq)[, link_delta (B, nlink, 3)]) -> (pos
+    (B, nlink, 3), quat (B, nlink, 4), sites (B, nsite, 3))``, every link's
+    world pose and every site's world position as physics/engine.py's
+    ``forward_kinematics`` and ``site_positions`` compute them, in one
+    launch, one warp per env (``mj_poses.h``); for a CPU tensor that plain
+    version (:meth:`plain`). ``q`` and ``link_delta`` are read through
+    their strides (after a control step the env's ``q`` is the transposed
+    view of K3's or K4's output); the three outputs are views of one new
+    buffer. It reads K3's and K4's packing of the model and a site table
+    (:func:`pack_site_tables`). Traced, each launch counts
+    ``poses.kernel`` and each plain call ``poses.plain``."""
 
-
-class PoseKernel:
-    """Wrapper of the pose kernel: ``(q (B, nq)[, link_delta (B, nlink,
-    3)]) -> (pos (B, nlink, 3), quat (B, nlink, 4), sites (B, nsite, 3))``,
-    every link's world pose and every site's world position as
-    physics/engine.py's ``forward_kinematics`` and ``site_positions``
-    compute them, in one launch, one warp per env (``mj_poses.h``). For a
-    CPU tensor it runs that plain version (:meth:`plain`). ``q`` and
-    ``link_delta`` are read through their strides (after a control step
-    the env's ``q`` is the transposed view of K3's or K4's batch-last
-    output); the three outputs are views of one new buffer. Built in the
-    size class a model needs, like K3; the model's tables are K3's and
-    K4's packing (:func:`pack_tables` with ``ext``) and a site table of its
-    own (:func:`pack_site_tables`), cached per model and device. Traced,
-    each launch counts ``poses.kernel`` and each plain call
-    ``poses.plain``."""
-
-    name = "mj_poses"
-    source = "mjrl_tpu_torch/csrc/mj_poses_kernel.cu"
+    label, name, file, symbol = "poses", "mj_poses", "mj_poses_kernel.cu", "mj_poses_kernel"
     replaces = "mjrl_tpu_torch/physics/engine.py forward_kinematics + site_positions"
+    launch_fn, params = "mj_poses_launch", POSES_PARAMS
+    signatures = {launch_fn: params}
 
-    def __init__(self, csrc: Path = CSRC, build_dir: Path = BUILD_DIR):
-        self.csrc, self.build_dir = Path(csrc), Path(build_dir)
-        self.launches = 0
-        self._libs: Dict[int, ctypes.CDLL] = {}
-        self._layouts: Dict[int, Dict[str, int]] = {}
-
-    def build(self, size: int = 0) -> ctypes.CDLL:
-        """Build (or find) and load the CUDA library of size class ``size``."""
-        if size not in self._libs:
-            path = build_library("mj_poses_kernel.cu",
-                                 (nvcc_path(), *NVCC_FLAGS, *size_flags(size)),
-                                 self.build_dir, self.csrc)
-            lib = ctypes.CDLL(str(path))
-            lib.mj_poses_launch.argtypes = POSES_ARGTYPES + [ctypes.c_void_p]
-            lib.mj_poses_launch.restype = ctypes.c_int
-            self._layouts[size] = read_layout(lib)
-            self._libs[size] = lib
-        return self._libs[size]
-
-    def _tables(self, model: Model, device: torch.device):
-        cache = model.__dict__.setdefault("_pose_tables", {})
-        key = str(device)
-        if key not in cache:
-            packed = (*pack_tables(model, self._layouts[size_class(model)], ext=True),
-                      *pack_site_tables(model))
-            cache[key] = tuple(torch.from_numpy(a).to(device) for a in packed)
-        return cache[key]
+    def _pack(self, model: Model, device: torch.device, lib: Library):
+        return self._packed(model, device, lib, True) + _upload(device, pack_site_tables(model))
 
     @staticmethod
     def plain(model: Model, q: torch.Tensor, link_delta: Optional[torch.Tensor] = None):
@@ -1027,8 +879,8 @@ class PoseKernel:
                                        or tuple(link_delta.shape) != (B, nl, 3)
                                        or link_delta.device != q.device):
             raise ValueError(f"link_delta must be float32 {(B, nl, 3)} on {q.device}")
-        lib = self.build(size_class(model))
-        mf, mi, site_pos, site_link = self._tables(model, q.device)
+        lib = self.build(size_class(model)).lib
+        mf, mi, site_pos, site_link = self.tables(model, q.device)
         pos, quat, sites = torch.empty(B * (7 * nl + 3 * ns), dtype=torch.float32,
                                        device=q.device).split([3 * B * nl, 4 * B * nl, 3 * B * ns])
         pos, quat, sites = pos.view(B, nl, 3), quat.view(B, nl, 4), sites.view(B, ns, 3)
@@ -1037,8 +889,8 @@ class PoseKernel:
             stream = torch.cuda.current_stream(q.device).cuda_stream
             err = lib.mj_poses_launch(
                 mf.data_ptr(), mi.data_ptr(), site_pos.data_ptr(), site_link.data_ptr(), ns,
-                q.data_ptr(), *q.stride(), 0 if link_delta is None else link_delta.data_ptr(),
-                *sd, pos.data_ptr(), quat.data_ptr(), sites.data_ptr(), B, stream)
+                q.data_ptr(), *q.stride(), _ptr(link_delta), *sd, pos.data_ptr(),
+                quat.data_ptr(), sites.data_ptr(), B, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
         self.launches += 1
@@ -1046,8 +898,7 @@ class PoseKernel:
         return pos, quat, sites
 
 
-K1 = MultistepKernel()
-K2 = NewtonKernel()
-K3 = ExtKernel()
-K4 = ExtNewtonKernel()
+K1, K2 = PhysicsKernel("penalty", False), PhysicsKernel("newton", False)
+K3, K4 = PhysicsKernel("penalty", True), PhysicsKernel("newton", True)
+KERNELS = {(k.solver, k.ext): k for k in (K1, K2, K3, K4)}  # the frame stepper's lookup
 POSES = PoseKernel()

@@ -240,22 +240,24 @@ def test_k3_wrapper_contract(pen):
     m = env.model
     q, qd, delta = (torch.as_tensor(x[:, :3].copy()) for x in (q, qd, delta))
     ctrl = torch.zeros(m.nu, 3)
-    kernel = pkernel.ExtKernel()
+    kernel = pkernel.PhysicsKernel("penalty", True)
     got = kernel(m, q, qd, ctrl, 1, link_delta=delta)
     want = soa.multistep(m, q, qd, ctrl, 1, link_delta=delta)
     assert all(torch.equal(a, b) for a, b in zip(got, want)) and kernel.launches == 0
     with pytest.raises(ValueError, match="link_delta"):
         kernel(m, q, qd, ctrl, 1, link_delta=delta[:, :2].contiguous())
     with pytest.raises(ValueError, match="K3"):
-        pkernel.MultistepKernel()(m, q, qd, ctrl, 1)
+        pkernel.PhysicsKernel("penalty", False)(m, q, qd, ctrl, 1)
     calls = []
-    real = pkernel.ExtKernel.__call__
+    real = pkernel.PhysicsKernel.__call__
     try:
-        pkernel.ExtKernel.__call__ = lambda self, *a, **k: calls.append(k) or real(self, *a, **k)
+        pkernel.PhysicsKernel.__call__ = lambda self, *a, **k: calls.append((self, k)) or real(
+            self, *a, **k)
         env._frame_step(q.T, qd.T, ctrl.T, delta.T.reshape(3, m.nlink, 3))
     finally:
-        pkernel.ExtKernel.__call__ = real
-    assert len(calls) == 1 and calls[0]["link_delta"].shape == (3 * m.nlink, 3)
+        pkernel.PhysicsKernel.__call__ = real
+    assert len(calls) == 1 and calls[0][0] is pkernel.K3
+    assert calls[0][1]["link_delta"].shape == (3 * m.nlink, 3)
 
 
 @pytest.mark.cuda
@@ -268,7 +270,7 @@ def test_cuda_k3_matches_plain_on_pen():
     m, rng, dev = env.model, np.random.default_rng(0), torch.device("cuda")
     q, qd, d = (torch.as_tensor(x, device=dev) for x in probe.kind_states(m, 50, rng))
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
-    kernel = pkernel.ExtKernel()
+    kernel = pkernel.PhysicsKernel("penalty", True)
     got_q, got_qd = kernel(m, q, qd, ctrl, env.frame_skip, link_delta=d)
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(m, q, qd, ctrl, env.frame_skip, link_delta=d)

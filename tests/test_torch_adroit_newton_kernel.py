@@ -273,9 +273,9 @@ def test_k4_overflow_is_counted_and_raises(pen, tmp_path):
                        link_delta=torch.as_tensor(delta))
     np.testing.assert_allclose(got_q[:, ~over4], want[0].numpy()[:, ~over4], **TOL_Q)
     np.testing.assert_allclose(got_qd[:, ~over4], want[1].numpy()[:, ~over4], **TOL_QD)
-    kernel = pkernel.ExtNewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", True)
     kernel.check()
-    kernel.overflow(torch.device("cpu")).fill_(over)
+    kernel.counters(torch.device("cpu"))[0].fill_(over)
     with pytest.raises(RuntimeError, match="MAX_HELD"):
         kernel.check()
     kernel.check()  # the count was cleared with the raise
@@ -290,7 +290,7 @@ def test_k4_wrapper_contract(pen):
     m = env.model
     q, qd, delta = (torch.as_tensor(x[:, :3].copy()) for x in (q, qd, delta))
     ctrl = torch.zeros(m.nu, 3)
-    kernel = pkernel.ExtNewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", True)
     got = kernel(m, q, qd, ctrl, 1, link_delta=delta)
     want = soa.multistep(m, q, qd, ctrl, 1, link_delta=delta)
     assert all(torch.equal(a, b) for a, b in zip(got, want)) and kernel.launches == 0
@@ -301,19 +301,50 @@ def test_k4_wrapper_contract(pen):
     with pytest.raises(ValueError, match="newton"):
         kernel(penalty, q, qd, ctrl, 1, link_delta=delta)
     with pytest.raises(ValueError, match="K4"):
-        pkernel.NewtonKernel()(m, q, qd, ctrl, 1)
+        pkernel.PhysicsKernel("newton", False)(m, q, qd, ctrl, 1)
     assert kernel_for(m) is pkernel.K4 and kernel_for(penalty) is pkernel.K3
     calls = []
-    real = pkernel.ExtNewtonKernel.__call__
+    real = pkernel.PhysicsKernel.__call__
     try:
-        pkernel.ExtNewtonKernel.__call__ = lambda self, *a, **k: calls.append(k) or real(
+        pkernel.PhysicsKernel.__call__ = lambda self, *a, **k: calls.append((self, k)) or real(
             self, *a, **k)
         env._frame_step(q.T, qd.T, ctrl.T, delta.T.reshape(3, m.nlink, 3))
     finally:
-        pkernel.ExtNewtonKernel.__call__ = real
-    assert len(calls) == 1 and calls[0]["link_delta"].shape == (3 * m.nlink, 3)
+        pkernel.PhysicsKernel.__call__ = real
+    assert len(calls) == 1 and calls[0][0] is pkernel.K4
+    assert calls[0][1]["link_delta"].shape == (3 * m.nlink, 3)
     assert env._frame_step.check == pkernel.K4.check
     env.check()
+
+
+def test_table_cache_is_shared_planted_and_dropped(pen, lib, monkeypatch):
+    """One table cache on the model: K4's tables are its ext packing and
+    its Newton tables in the build's layouts, uploaded once; the pose
+    kernel reads the same upload of the ext packing and a site table;
+    ``set_tables`` gives a copy of the model planted tables of its own and
+    leaves the original's; ``drop_tables`` has them packed anew."""
+    m, cpu = copy.copy(pen[0].model), torch.device("cpu")
+    pkernel.drop_tables(m)
+    built = pkernel.Library(lib)
+    k4, poses = pkernel.PhysicsKernel("newton", True), pkernel.PoseKernel()
+    for k in (k4, poses):
+        monkeypatch.setattr(k, "build", lambda size: built)
+    tables = k4.tables(m, cpu)
+    want = (*pkernel.pack_tables(m, built.layout, ext=True),
+            *pkernel.pack_newton_tables(m, built.layout, built.newton_layout, ext=True))
+    assert len(tables) == 4 and all(np.array_equal(t.numpy(), w) for t, w in zip(tables, want))
+    assert k4.tables(m, cpu) is tables
+    pose_tables = poses.tables(m, cpu)
+    assert pose_tables[0] is tables[0] and pose_tables[1] is tables[1]
+    for t, w in zip(pose_tables[2:], pkernel.pack_site_tables(m)):
+        np.testing.assert_array_equal(t.numpy(), w)
+    faulty, planted = copy.copy(m), tuple(t.clone() for t in tables)
+    pkernel.set_tables(faulty, k4, cpu, planted)
+    assert all(a is b for a, b in zip(k4.tables(faulty, cpu), planted))
+    assert k4.tables(m, cpu) is tables
+    pkernel.drop_tables(faulty)
+    again = k4.tables(faulty, cpu)
+    assert again[0] is not planted[0] and all(torch.equal(a, b) for a, b in zip(again, tables))
 
 
 @pytest.mark.cuda
@@ -327,7 +358,7 @@ def test_cuda_k4_matches_plain_on_pen():
     m, rng, dev = env.model, np.random.default_rng(0), torch.device("cuda")
     q, qd, d = (torch.as_tensor(x, device=dev) for x in probe.kind_states(m, 50, rng))
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
-    kernel = pkernel.ExtNewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", True)
     got_q, got_qd = kernel(m, q, qd, ctrl, env.frame_skip, link_delta=d)
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(m, q, qd, ctrl, env.frame_skip, link_delta=d)
@@ -353,7 +384,7 @@ def test_cuda_k4_held_counter_changes_no_bit():
     m, rng, dev = env.model, np.random.default_rng(0), torch.device("cuda")
     q, qd, d = (torch.as_tensor(x, device=dev) for x in probe.kind_states(m, 50, rng))
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
-    kernel = pkernel.ExtNewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", True)
     off = kernel(m, q, qd, ctrl, env.frame_skip, link_delta=d)
     kernel.check()
     trace.reset()

@@ -184,7 +184,7 @@ def test_newton_wrapper_takes_hopper(env):
     CPU) and its tables pack."""
     m = env.model
     q = torch.as_tensor(np.tile(m.default_qpos[:, None], (1, 3)))
-    kernel = pkernel.NewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", False)
     got = kernel(m, q, torch.zeros(m.nv, 3), torch.zeros(m.nu, 3), 1)
     want = soa.multistep(m, q, torch.zeros(m.nv, 3), torch.zeros(m.nu, 3), 1)
     assert all(torch.equal(a, b) for a, b in zip(got, want)) and kernel.launches == 0

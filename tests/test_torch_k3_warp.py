@@ -235,7 +235,7 @@ def test_cuda_k3_matches_plain(models, task):
     lo, hi = np.asarray(m.act_ctrlrange, np.float32).T
     ctrl = torch.as_tensor(rng.uniform(lo[:, None], hi[:, None], (m.nu, q.shape[1])),
                            dtype=torch.float32, device=dev)
-    kernel = pkernel.ExtKernel()
+    kernel = pkernel.PhysicsKernel("penalty", True)
     got_q, got_qd = kernel(m, q, qd, ctrl, 5, link_delta=d)
     want_q, want_qd = soa.multistep(m, q, qd, ctrl, 5, link_delta=d)
     assert kernel.launches == 1

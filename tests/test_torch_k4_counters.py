@@ -18,6 +18,7 @@ with a stubbed SM count and occupancy. Off, nothing is counted.
 
 import ctypes
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -162,7 +163,7 @@ def test_check_folds_the_stats_in_one_read(lib, relocate):
     rows as a peak) and clears it. Off, ``stats()`` is null and ``check()``
     reads the overflow count alone and counts nothing."""
     env, tables, _, q, qd, delta = relocate
-    kernel, dev = pkernel.ExtNewtonKernel(), torch.device("cpu")
+    kernel, dev = pkernel.PhysicsKernel("newton", True), torch.device("cpu")
     assert kernel.stats(dev) == 0
     kernel.check()
     trace.enable()
@@ -175,7 +176,7 @@ def test_check_folds_the_stats_in_one_read(lib, relocate):
     args = [a.ctypes.data for a in (*tables, q, qd, ctrl, delta, out[0], out[1])]
     lib.mj_ext_newton_stats_host(*args, None, out[2].ctypes.data, ptr, B, 1, m.solver_iters,
                                  float(np.float32(m.dt / m.n_substeps)))
-    want = kernel._device_counters(dev)[1].tolist()
+    want = kernel.counters(dev)[1].tolist()
     kernel.check()
     got = trace.take()
     assert got["reads"]["K4.check"]["count"] == 1
@@ -185,7 +186,7 @@ def test_check_folds_the_stats_in_one_read(lib, relocate):
         else:
             assert got["counters"][f"K4.{name}"] == v
     assert got["counters"]["K4.newton_iters"] == B * m.solver_iters
-    assert kernel._device_counters(dev)[1].eq(0).all()
+    assert kernel.counters(dev)[1].eq(0).all()
     trace.disable()
     kernel.check()
     assert trace.take()["counters"] == {}
@@ -201,18 +202,18 @@ def test_check_folds_the_stats_in_one_read(lib, relocate):
     (1, 3, 132, 1, 1, 1),
 ])
 def test_launch_waves(batch, warps, sms, per_sm, blocks, waves):
-    assert pkernel.NewtonKernel.launch_waves(batch, warps, sms, per_sm) == (blocks, waves)
+    assert pkernel.PhysicsKernel.launch_waves(batch, warps, sms, per_sm) == (blocks, waves)
 
 
 def test_count_waves_with_a_stubbed_card(monkeypatch):
     """Traced, a launch counts itself, its blocks and its waves from the
     SM count and the build's occupancy (asked once per size and warps);
     off, it counts nothing and asks nothing."""
-    kernel = pkernel.ExtNewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", True)
     asked = []
     monkeypatch.setattr(kernel, "sm_count", lambda device: 132)
-    monkeypatch.setattr(kernel, "_libs", {2: type("Lib", (), {
-        "mj_ext_newton_occupancy": staticmethod(lambda w: asked.append(w) or 1)})()})
+    monkeypatch.setattr(kernel, "build", lambda size: SimpleNamespace(lib=SimpleNamespace(
+        mj_ext_newton_occupancy=lambda w: asked.append(w) or 1)))
     dev = torch.device("cpu")
     kernel.count_waves(2, 2048, 3, dev)
     assert asked == [] and trace.take()["counters"] == {}
@@ -242,7 +243,7 @@ def test_cuda_k4_stats_change_no_bit_on_relocate():
     q, qd, d = (torch.as_tensor(np.ascontiguousarray(x[:, cols]), device=dev) for x in (q, qd, d))
     act = torch.as_tensor(rng.uniform(-1, 1, (2048, m.nu)), dtype=torch.float32, device=dev)
     ctrl = env._scaled_ctrl(act).T.contiguous()
-    kernel = pkernel.ExtNewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", True)
     picks = torch.full((env.frame_skip * m.solver_iters, 2048), -1, dtype=torch.int32,
                        device=dev)
     off = kernel(m, q, qd, ctrl, env.frame_skip, link_delta=d, picks=picks)

@@ -137,18 +137,18 @@ def test_k4_launch_choice(libs, monkeypatch, batch, warps, blocks, waves):
     bytes per warp."""
     wl = pkernel.read_warp_layout(libs[0])
     assert wl["MAX_WARPS"] == 8 and 8 * wl["BYTES"] <= pkernel.SHARED_BYTES_PER_BLOCK
-    kernel = pkernel.ExtNewtonKernel()
-    kernel._warp_layouts[2] = wl
+    kernel = pkernel.PhysicsKernel("newton", True)
+    monkeypatch.setattr(kernel, "build", lambda size: SimpleNamespace(warp_layout=wl))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: SimpleNamespace(multi_processor_count=SMS))
     got = kernel.launch_warps(2, batch, torch.device("cpu"))
     assert got == warps
     per_sm = _per_sm(wl["BYTES"], got)
-    assert pkernel.NewtonKernel.launch_waves(batch, got, SMS, per_sm) == (blocks, waves)
+    assert pkernel.PhysicsKernel.launch_waves(batch, got, SMS, per_sm) == (blocks, waves)
 
 
 @pytest.mark.parametrize("size", [0, 1])
-def test_smaller_classes_keep_their_layout(tmp_path, size):
+def test_smaller_classes_keep_their_layout(tmp_path, monkeypatch, size):
     """The small and humanoid classes (K2's, and K4's for a model that fits
     them) keep every held row in shared memory: the same bytes per warp and
     warps per block as before the tiers, and no slab."""
@@ -156,6 +156,6 @@ def test_smaller_classes_keep_their_layout(tmp_path, size):
     wl, NL = pkernel.read_warp_layout(lib), pkernel.read_newton_layout(lib)
     assert (wl["BYTES"], wl["MAX_WARPS"]) == (SMALL_CLASS_BYTES[size], 4)
     assert NL["SHARED_HELD"] == NL["MAX_HELD"] == pkernel.HELD_CLASSES[size]
-    kernel = pkernel.ExtNewtonKernel()
-    kernel._newton_layouts[size] = NL
+    kernel = pkernel.PhysicsKernel("newton", True)
+    monkeypatch.setattr(kernel, "build", lambda size: SimpleNamespace(newton_layout=NL))
     assert kernel.slab(size, 512, torch.device("cpu")) == 0

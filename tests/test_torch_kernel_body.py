@@ -136,7 +136,7 @@ def test_kernel_body_keeps_nonfinite_states(env, host, warm):
 
 def test_pack_tables_refuses_unsupported(env):
     model = copy.copy(env.model)
-    model.__dict__.pop("_k1_tables", None)
+    pkernel.drop_tables(model)
     model.dof_frictionloss = np.ones(model.nv, np.float32)  # not in the kernels' feature set
     with pytest.raises(NotImplementedError):
         pkernel.pack_tables(model, {})
@@ -146,13 +146,17 @@ def test_wrapper_checks_inputs_and_runs_plain_on_cpu(env):
     m = env.model
     q = torch.as_tensor(np.tile(m.default_qpos[:, None], (1, 3)))
     qd, ctrl = torch.zeros(m.nv, 3), torch.zeros(m.nu, 3)
-    kernel = pkernel.MultistepKernel()
+    kernel = pkernel.PhysicsKernel("penalty", False)
     with pytest.raises(TypeError):
         kernel(m, q.double(), qd, ctrl)
     with pytest.raises(ValueError):
         kernel(m, q, qd[:, :2], ctrl)
     with pytest.raises(ValueError):
         kernel(m, q, qd, ctrl.T.contiguous().T)
+    with pytest.raises(TypeError, match="link_delta"):  # K3's and K4's
+        kernel(m, q, qd, ctrl, 1, link_delta=torch.zeros(3 * m.nlink, 3))
+    with pytest.raises(TypeError, match="picks"):  # K2's and K4's
+        kernel(m, q, qd, ctrl, 1, picks=torch.zeros(1, 3, dtype=torch.int32))
     got = kernel(m, q, qd, ctrl, 1)
     want = soa.multistep(m, q, qd, ctrl, 1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -168,7 +172,7 @@ def test_cuda_kernel_matches_plain(env):
     dev = torch.device("cuda")
     q, qd = state.q.T.contiguous().to(dev), state.qd.T.contiguous().to(dev)
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (8, 1000)), dtype=torch.float32, device=dev)
-    kernel = pkernel.MultistepKernel()
+    kernel = pkernel.PhysicsKernel("penalty", False)
     got_q, got_qd = kernel(env.model, q, qd, ctrl, env.frame_skip)
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(env.model, q, qd, ctrl, env.frame_skip)
@@ -338,7 +342,7 @@ def test_cuda_kernel_matches_plain_on_swimmer():
                         dtype=torch.float32, device=dev)
     qd = torch.as_tensor(rng.uniform(-2, 2, (m.nv, 250)), dtype=torch.float32, device=dev)
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
-    kernel = pkernel.MultistepKernel()
+    kernel = pkernel.PhysicsKernel("penalty", False)
     got_q, got_qd = kernel(m, q, qd, ctrl, env.frame_skip)
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(m, q, qd, ctrl, env.frame_skip)
@@ -428,7 +432,7 @@ def test_cuda_kernel_matches_plain_on_humanoid():
     m, rng, dev = env.model, np.random.default_rng(0), torch.device("cuda")
     q, qd = (torch.as_tensor(x, device=dev) for x in probe.overlapping_states(m, 250, rng))
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (m.nu, 250)), dtype=torch.float32, device=dev)
-    kernel = pkernel.MultistepKernel()
+    kernel = pkernel.PhysicsKernel("penalty", False)
     got_q, got_qd = kernel(m, q, qd, ctrl, env.frame_skip)
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(m, q, qd, ctrl, env.frame_skip)

@@ -230,7 +230,7 @@ def test_newton_wrapper_runs_plain_on_cpu(env):
     m = env.model
     q = torch.as_tensor(np.tile(m.default_qpos[:, None], (1, 3)))
     qd, ctrl = torch.zeros(m.nv, 3), torch.zeros(m.nu, 3)
-    kernel = pkernel.NewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", False)
     got = kernel(m, q, qd, ctrl, 1)
     want = soa.multistep(m, q, qd, ctrl, 1)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -240,7 +240,7 @@ def test_newton_wrapper_runs_plain_on_cpu(env):
     with pytest.raises(ValueError):
         kernel(penalty, q, qd, ctrl, 1)
     with pytest.raises(ValueError):
-        pkernel.MultistepKernel()(m, q, qd, ctrl, 1)
+        pkernel.PhysicsKernel("penalty", False)(m, q, qd, ctrl, 1)
 
 
 @pytest.mark.cuda
@@ -252,7 +252,7 @@ def test_cuda_newton_kernel_matches_plain(env):
     dev = torch.device("cuda")
     q, qd = state.q.T.contiguous().to(dev), state.qd.T.contiguous().to(dev)
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (8, 1000)), dtype=torch.float32, device=dev)
-    kernel = pkernel.NewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", False)
     n_sub = env.frame_skip * env.model.n_substeps
     picks = torch.full((n_sub * env.model.solver_iters, 1000), -1, dtype=torch.int32, device=dev)
     got_q, got_qd = kernel(env.model, q, qd, ctrl, env.frame_skip, picks=picks)
@@ -279,7 +279,7 @@ def test_cuda_newton_held_counter_changes_no_bit(env):
     q, qd = state.q.T.contiguous().to(dev), state.qd.T.contiguous().to(dev)
     q[2] -= 0.4
     ctrl = torch.zeros(env.model.nu, 256, device=dev)
-    kernel = pkernel.NewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", False)
     off = kernel(env.model, q, qd, ctrl, env.frame_skip)
     kernel.check()
     trace.reset()
@@ -307,7 +307,7 @@ def test_cuda_newton_kernel_matches_plain_on_hopper():
     q, qd = (torch.as_tensor(x, device=dev) for x in probe.overlapping_states(env.model, 250, rng))
     assert bool((probe.held_contact_rows(env.model, q, between_links=True) > 0).all())
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (3, 250)), dtype=torch.float32, device=dev)
-    kernel = pkernel.NewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", False)
     got_q, got_qd = kernel(env.model, q, qd, ctrl, env.frame_skip)
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(env.model, q, qd, ctrl, env.frame_skip)
@@ -338,7 +338,7 @@ def test_cuda_newton_kernel_matches_plain_on_hopper_with_condim(condim):
     q = torch.cat([torch.as_tensor(fq, device=dev), state.q.T], dim=1).contiguous()
     qd = torch.cat([torch.as_tensor(fqd, device=dev), state.qd.T], dim=1).contiguous()
     ctrl = torch.as_tensor(rng.uniform(-1, 1, (3, 250)), dtype=torch.float32, device=dev)
-    kernel = pkernel.NewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", False)
     got_q, got_qd = kernel(model, q, qd, ctrl, env.frame_skip)
     torch.cuda.synchronize()
     want_q, want_qd = soa.multistep(model, q, qd, ctrl, env.frame_skip)

@@ -136,4 +136,5 @@ def test_unsupported_features_raise(ants, edit):
     assert soa.needs_ext(model)
     zeros = lambda n: torch.zeros(n, 2)  # noqa: E731
     with pytest.raises(ValueError, match="K3"):
-        pkernel.MultistepKernel()(model, zeros(model.nq), zeros(model.nv), zeros(model.nu), 1)
+        pkernel.PhysicsKernel("penalty", False)(model, zeros(model.nq), zeros(model.nv),
+                                                zeros(model.nu), 1)

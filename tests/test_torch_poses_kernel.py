@@ -47,7 +47,7 @@ def lib(tmp_path_factory):
                                                  *pkernel.size_flags(2)),
                                  tmp_path_factory.mktemp("poses_host"))
     lib = ctypes.CDLL(str(path))
-    lib.mj_poses_host.argtypes = pkernel.POSES_ARGTYPES
+    lib.mj_poses_host.argtypes = pkernel.argtypes(pkernel.POSES_PARAMS[:-1])  # no stream
     lib.mj_poses_host.restype = ctypes.c_int
     return lib
 

@@ -146,8 +146,8 @@ AIR = dict(density=1.2, viscosity=2e-5)
 def _ant_in_air(device="cpu"):
     env = make("ant", horizon=8, device=device)
     model = copy.copy(env.model)
-    for cache in ("_torch_consts", "_k1_tables"):
-        model.__dict__.pop(cache, None)
+    model.__dict__.pop("_torch_consts", None)
+    pkernel.drop_tables(model)
     model.density, model.viscosity = AIR["density"], AIR["viscosity"]
     return env, model
 

@@ -133,7 +133,7 @@ def test_k4_counts_the_plain_versions_held_rows():
     held = []
     want = soa.multistep(m, q, qd, ctrl, 1, link_delta=d, held=held)
     trace.enable()
-    got = pkernel.ExtNewtonKernel()(m, q, qd, ctrl, 1, link_delta=d)
+    got = pkernel.PhysicsKernel("newton", True)(m, q, qd, ctrl, 1, link_delta=d)
     counted = trace.take()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     rows = torch.stack(held)

@@ -57,12 +57,12 @@ _BOX_KINDS = {5: (1,), 7: (11,), 8: (1, 11)}  # mj_substep.h kind -> box size sl
 
 def faulty_tables(model, kernel, device, edit):
     """A copy of ``model`` whose K3 tables are ``edit(mf, mi, L)``'s."""
-    L = kernel._layouts[pkernel.size_class(model)]
-    mf, mi = (t.cpu().numpy().copy() for t in kernel._tables(model, device))
+    L = kernel.build(pkernel.size_class(model)).layout
+    mf, mi = (t.cpu().numpy().copy() for t in kernel.tables(model, device))
     edit(mf, mi, L)
     faulty = copy.copy(model)
-    faulty.__dict__["_k3_tables"] = {str(device): (torch.from_numpy(mf).to(device),
-                                                   torch.from_numpy(mi).to(device))}
+    pkernel.set_tables(faulty, kernel, device, (torch.from_numpy(mf).to(device),
+                                                torch.from_numpy(mi).to(device)))
     return faulty
 
 
@@ -165,7 +165,7 @@ def main() -> int:
     tasks = sys.argv[1:] or list(TASKS)
     if set(tasks) - set(TASKS):
         raise SystemExit(f"unknown tasks {tasks}; choose from {', '.join(TASKS)}")
-    kernel = pkernel.ExtKernel()
+    kernel = pkernel.PhysicsKernel("penalty", True)
     out = {task: check(task, kernel) for task in tasks}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

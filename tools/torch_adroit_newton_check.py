@@ -69,7 +69,7 @@ _FRIC_HEADER = "mj_warp_stages.h"
 def faulty_model(model, edit):
     """A copy of ``model`` with ``edit(copy)`` applied and no packed tables."""
     faulty = copy.copy(model)
-    faulty.__dict__.pop("_k4_tables", None)
+    pkernel.drop_tables(faulty)
     edit(faulty)
     return faulty
 
@@ -116,7 +116,7 @@ def main() -> int:
     env = make("adroit_pen", constraint_solver="newton")
     model, frames = env.model, env.frame_skip
     iters = int(model.solver_iters)
-    kernel = pkernel.ExtNewtonKernel()
+    kernel = pkernel.PhysicsKernel("newton", True)
     size = pkernel.size_class(model)
     kernel.build(size)
     with tempfile.TemporaryDirectory() as tmp:
@@ -125,7 +125,7 @@ def main() -> int:
         header = (csrc / _FRIC_HEADER).read_text()
         assert header.count(_FRIC_METRIC) == 1
         (csrc / _FRIC_HEADER).write_text(header.replace(_FRIC_METRIC, ""))
-        no_fric = pkernel.ExtNewtonKernel(csrc=csrc, build_dir=Path(tmp) / "build")
+        no_fric = pkernel.PhysicsKernel("newton", True, csrc=csrc, build_dir=Path(tmp) / "build")
         no_fric.build(size)
 
         q0, qd0, d0, ctrls = adroit_states(env, full, 3)

@@ -72,15 +72,15 @@ def held(step, against, q, qd, ctrls):
 
 def with_tables(model, kernel, device, edit):
     """A copy of ``model`` whose K1 tables ``edit(mf, mi)`` has changed."""
-    mf, mi = (t.cpu().numpy().copy() for t in kernel._tables(model, device))
+    mf, mi = (t.cpu().numpy().copy() for t in kernel.tables(model, device))
     edit(mf, mi)
     faulty = copy.copy(model)
-    faulty.__dict__["_k1_tables"] = {str(device): (torch.from_numpy(mf).to(device),
-                                                   torch.from_numpy(mi).to(device))}
+    pkernel.set_tables(faulty, kernel, device, (torch.from_numpy(mf).to(device),
+                                                torch.from_numpy(mi).to(device)))
     return faulty
 
 
-def swapped_kernel(tmp: Path) -> pkernel.MultistepKernel:
+def swapped_kernel(tmp: Path) -> pkernel.PhysicsKernel:
     """K1 built from a copy of csrc/ with ``quat (x) iquat`` swapped."""
     src = tmp / "csrc"
     shutil.copytree(pkernel.CSRC, src)
@@ -89,7 +89,7 @@ def swapped_kernel(tmp: Path) -> pkernel.MultistepKernel:
     if text.count(QMUL) != 1:
         raise RuntimeError("the fluid stage's quaternion product was not found")
     header.write_text(text.replace(QMUL, QMUL_SWAPPED))
-    return pkernel.MultistepKernel(csrc=src, build_dir=tmp / "build")
+    return pkernel.PhysicsKernel("penalty", False, csrc=src, build_dir=tmp / "build")
 
 
 def plain(model, frames, device=None):
@@ -107,7 +107,7 @@ def launch(kernel, model, frames):
 
 def check_swimmer(kernel) -> dict:
     env = make("swimmer", horizon=1000)
-    model, frames, L = env.model, env.frame_skip, kernel._layouts[0]
+    model, frames, L = env.model, env.frame_skip, kernel.build(0).layout
     q0, qd0, ctrls = start_states(env, 256, 6)
     rng = np.random.default_rng(0)  # the cuda test's states
     lively = [torch.as_tensor(x, dtype=torch.float32, device=env.device) for x in (
@@ -149,8 +149,8 @@ def check_swimmer(kernel) -> dict:
 def check_ant_in_air(kernel, swapped) -> dict:
     ant = make("ant", horizon=100)
     air = copy.copy(ant.model)
-    for cache in ("_torch_consts", "_k1_tables"):
-        air.__dict__.pop(cache, None)
+    air.__dict__.pop("_torch_consts", None)
+    pkernel.drop_tables(air)
     air.density, air.viscosity = AIR
     frames, dev = ant.frame_skip, ant.device
     state, _ = ant.reset(256, torch.Generator(device=dev).manual_seed(0))
@@ -175,7 +175,7 @@ def main() -> int:
         print("torch_fluid_check: no CUDA device", file=sys.stderr)
         return 2
     with tempfile.TemporaryDirectory() as tmp:
-        kernel, swapped = pkernel.MultistepKernel(), swapped_kernel(Path(tmp))
+        kernel, swapped = pkernel.PhysicsKernel("penalty", False), swapped_kernel(Path(tmp))
         with ThreadPoolExecutor(2) as pool:
             list(pool.map(lambda k: k.build(), (kernel, swapped)))
         out = {"swimmer": check_swimmer(kernel), "ant_air": check_ant_in_air(kernel, swapped)}

@@ -107,14 +107,14 @@ def larger_radius(model, kernel, device, kind):
     """A copy of ``model`` whose K1 pair rows give geom i of every pair of
     ``kind`` (mj_substep.h: 3 sphere-sphere, 4 sphere-capsule, geom i the
     sphere) a radius ``RADIUS_SCALE`` times its own."""
-    L = kernel._layouts[pkernel.size_class(model)]
-    mf, mi = (t.cpu().numpy().copy() for t in kernel._tables(model, device))
+    L = kernel.build(pkernel.size_class(model)).layout
+    mf, mi = (t.cpu().numpy().copy() for t in kernel.tables(model, device))
     kinds = mi[L["I_PAIR"] :].reshape(-1, L["PAIR_I"])[:, 0]
     rows = mf[L["F_PAIR"] :].reshape(-1, L["PAIR_F"])
     rows[kinds == kind, 1] *= np.float32(RADIUS_SCALE)  # slot 1: geom i's radius
     faulty = copy.copy(model)
-    faulty.__dict__["_k1_tables"] = {str(device): (torch.from_numpy(mf).to(device),
-                                                   torch.from_numpy(mi).to(device))}
+    pkernel.set_tables(faulty, kernel, device, (torch.from_numpy(mf).to(device),
+                                                torch.from_numpy(mi).to(device)))
     return faulty
 
 
@@ -122,12 +122,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_humanoid_check: no CUDA device", file=sys.stderr)
         return 2
-    kernel = pkernel.MultistepKernel()
+    kernel = pkernel.PhysicsKernel("penalty", False)
     env = make("humanoid", horizon=1000)
     model, frames = env.model, env.frame_skip
     kernel.build(pkernel.size_class(model))
     # the same kernel without fused multiply-adds, in a build directory of its own
-    nofma = pkernel.MultistepKernel(build_dir=pkernel.BUILD_DIR / "nofma")
+    nofma = pkernel.PhysicsKernel("penalty", False, build_dir=pkernel.BUILD_DIR / "nofma")
     flags = pkernel.NVCC_FLAGS
     pkernel.NVCC_FLAGS = flags + ("-fmad=false",)
     try:

@@ -105,7 +105,7 @@ def faulty_k4s(model, tmp: str):
         header = (csrc / planted._FRIC_HEADER).read_text()
         assert header.count(planted._FRIC_METRIC) == 1
         (csrc / planted._FRIC_HEADER).write_text(header.replace(planted._FRIC_METRIC, ""))
-    no_fric = pkernel.ExtNewtonKernel(csrc=csrc, build_dir=Path(tmp) / "build")
+    no_fric = pkernel.PhysicsKernel("newton", True, csrc=csrc, build_dir=Path(tmp) / "build")
     no_fric.build(pkernel.size_class(model))
     return (("no_fric_diag_in_metric", no_fric, model),
                  ("box_solref_x1.02", pkernel.K4, planted.faulty_model(model, planted.box_solref)),
@@ -221,28 +221,28 @@ def check_task(task: str, batch: int, faults: Optional[str] = None) -> dict:
     out["ops_per_env_substep"] = ops
     for key, b in (("bound", batch), ("bound_twice_the_batch", 2 * batch)):
         out[key + "_ms"], out[key + "_by"] = cs._bound_ms(
-            model, n_sub, ops, K4._tables(model, q.device), b, extra_rows=3 * model.nlink)
+            model, n_sub, ops, K4.tables(model, q.device), b, extra_rows=3 * model.nlink)
     out["seconds"] = time.perf_counter() - t0
     print(f"[K4 {task}] " + json.dumps(out))
     return out
 
 
 class _Build:
-    """One build of K4 in the Adroit class, launched through its C function
-    with the layout it exports: ``csrc``'s sources with ``flags`` after the
-    class's. A tree without the slab exports 14 Newton layout values and
-    its launch takes no slab."""
+    """One build of K4 in the Adroit class, ``csrc``'s sources with
+    ``flags`` after the class's (``pkernel.load_library``), launched on
+    this tree's K4 tables of the model (``K4.tables``) through its C
+    function. It keeps a launch of its own, not K4's wrapper, for trees
+    older than the slab: their Newton layout has 14 values and their
+    launch takes no slab."""
 
     def __init__(self, label: str, csrc, build_dir, *flags):
         import ctypes
-        from pathlib import Path
 
         from mjrl_tpu_torch.physics import pkernel
 
-        path = pkernel.build_library("mj_ext_newton_kernel.cu",
-                                     (pkernel.nvcc_path(), *pkernel.NVCC_FLAGS,
-                                      *pkernel.size_flags(2), *flags), Path(build_dir), Path(csrc))
-        lib = ctypes.CDLL(str(path))
+        K4 = pkernel.K4
+        built = pkernel.load_library(K4.file, 2, {}, flags, csrc, build_dir)
+        lib = built.lib
         buf = (ctypes.c_int * 64)()
         lib.mj_newton_layout.argtypes = [ctypes.c_void_p]
         n = lib.mj_newton_layout(ctypes.cast(buf, ctypes.c_void_p))
@@ -250,12 +250,17 @@ class _Build:
         self.NL = dict(zip(pkernel.NEWTON_LAYOUT_NAMES, list(buf)[:n]))
         self.NL.setdefault("SHARED_HELD", self.NL["MAX_HELD"])
         self.takes_slab = "ROW_BYTES" in self.NL
-        self.L, self.WL = pkernel.read_layout(lib), pkernel.read_warp_layout(lib)
+        self.L, self.WL = built.layout, built.warp_layout
+        here = K4.build(2)
+        if self.L != here.layout or any(self.NL[k] != here.newton_layout[k] for k in (
+                "MAX_CHAIN", "LIM_I", "LIM_F", "NPAIR_I", "NPAIR_F", "N_I_NLIM", "N_I_LIM",
+                "N_I_PAIR", "N_F_LIM", "N_F_PAIR")):
+            raise RuntimeError(f"{label}: its tables' layout is not this tree's K4's")
         self.most = min(self.WL["MAX_WARPS"], pkernel.SHARED_BYTES_PER_BLOCK // self.WL["BYTES"])
-        lib.mj_ext_newton_launch.argtypes = [ctypes.c_void_p] * (13 + self.takes_slab) + [
-            ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.mj_ext_newton_launch.argtypes = pkernel.argtypes(
+            [p for p in K4.params if self.takes_slab or p != "slab"])
         lib.mj_ext_newton_launch.restype = ctypes.c_int
-        self._tables, self._slab = {}, None
+        self._slab = None
 
     def warps(self, batch: int) -> int:
         """The all-shared build's launches take a full block; the two-tier
@@ -276,10 +281,6 @@ class _Build:
         from mjrl_tpu_torch.physics import pkernel
 
         dev, B = q.device, q.shape[1]
-        if id(model) not in self._tables:
-            packed = (*pkernel.pack_tables(model, self.L, ext=True),
-                      *pkernel.pack_newton_tables(model, self.L, self.NL, ext=True))
-            self._tables[id(model)] = [torch.from_numpy(a).to(dev) for a in packed]
         n_sub, iters = frames * model.n_substeps, int(model.solver_iters)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         picks = torch.full((n_sub * iters, B), -1, dtype=torch.int32, device=dev)
@@ -293,7 +294,7 @@ class _Build:
             slab = (self._slab.data_ptr() if need else 0,)
         dt = float(np.float32(model.dt / model.n_substeps))
         err = self.lib.mj_ext_newton_launch(
-            *(t.data_ptr() for t in self._tables[id(model)]), q.data_ptr(), qd.data_ptr(),
+            *(t.data_ptr() for t in pkernel.K4.tables(model, dev)), q.data_ptr(), qd.data_ptr(),
             ctrl.data_ptr(), d.data_ptr(), q_out.data_ptr(), qd_out.data_ptr(), picks.data_ptr(),
             over.data_ptr(), 0 if stats is None else stats.data_ptr(), *slab, B, n_sub, iters, dt,
             self.warps(B), torch.cuda.current_stream().cuda_stream)
@@ -378,18 +379,19 @@ def entry_held(tag, config, n, steps, overrides) -> dict:
     from mjrl_tpu_torch.physics import pkernel, probe
 
     held = []
-    launch = type(pkernel.K4).__call__
+    launch = pkernel.PhysicsKernel.__call__
 
     def spy(self, model, q, qd, ctrl, n_frames=1, link_delta=None, **kw):
-        held.append(probe.held_rows(model, q, link_delta)["contacts"])
+        if self is pkernel.K4:
+            held.append(probe.held_rows(model, q, link_delta)["contacts"])
         return launch(self, model, q, qd, ctrl, n_frames, link_delta=link_delta, **kw)
 
-    type(pkernel.K4).__call__ = spy
+    pkernel.PhysicsKernel.__call__ = spy
     try:
         cs.phase_entry(tag, config, pkernel.K4, [pkernel.K1, pkernel.K2, pkernel.K3], n, steps,
                        (1,), overrides, {})
     finally:
-        type(pkernel.K4).__call__ = launch
+        pkernel.PhysicsKernel.__call__ = launch
     pkernel.K4.check()
     rows = torch.stack(held).float()
     out = {"launches": len(held), "held_rows_mean": float(rows.mean()),

@@ -106,7 +106,7 @@ def _first_launch_bytes(make, kernels, which: str) -> dict:
     adroit = which in ("K3", "K4")
     kernel, m, dev, B = kernels[which], env.model, env.device, 512 if adroit else 1024
     kernel.build(size_class(m))
-    kernel._tables(m, dev)
+    kernel.tables(m, dev)
     state, _ = env.reset(B, torch.Generator(device=dev).manual_seed(0))
     q, qd = state.q.T.contiguous(), state.qd.T.contiguous()
     kw = {}

@@ -31,7 +31,6 @@ with the card's name, power limit and SM clock; one JSON line at the end.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
@@ -45,24 +44,19 @@ STAGES = ("kinematics", "rows", "rne", "forces", "mass_matrix", "ltdl", "gradien
 ROWS = ("ant_K1", "humanoid_K1", "ant_K2", "pen_K3", "pen_states_K4", "pen_train_states_K4")
 
 
-def _clocked(source: str, size: int, launch_fn: str, n_ptr: int, ints: int = 2):
-    """The MJ_STAGE_CLOCKS build of ``source`` in size class ``size``, its
-    launch function (``n_ptr`` pointers, then ``ints`` ints: B, n_sub[,
-    iters], then dt, warps, stream, clocks) and its layouts."""
+def _clocked(kernel, size: int):
+    """The MJ_STAGE_CLOCKS build of ``kernel``'s source in size class
+    ``size`` (``pkernel.load_library``) and its launch's parameters: the
+    kernel's, then ``clocks``."""
     from mjrl_tpu_torch.physics import pkernel
 
-    path = pkernel.build_library(source, (pkernel.nvcc_path(), *pkernel.NVCC_FLAGS,
-                                          *pkernel.size_flags(size), "-DMJ_STAGE_CLOCKS"),
-                                 pkernel.BUILD_DIR / "stages")
-    lib = ctypes.CDLL(str(path))
-    launch = getattr(lib, launch_fn)
-    launch.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * ints + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    launch.restype = ctypes.c_int
-    wl = pkernel.read_warp_layout(lib)
-    if wl["N_STAGES"] != len(STAGES):
-        raise RuntimeError(f"the build has {wl['N_STAGES']} stages, the tool names {len(STAGES)}")
-    return lib, launch, wl
+    params = (*kernel.params, "clocks")
+    built = pkernel.load_library(kernel.file, size, {kernel.launch_fn: params},
+                                 ("-DMJ_STAGE_CLOCKS",), build_dir=pkernel.BUILD_DIR / "stages")
+    if built.warp_layout["N_STAGES"] != len(STAGES):
+        raise RuntimeError(f"the build has {built.warp_layout['N_STAGES']} stages, the tool names "
+                           f"{len(STAGES)}")
+    return getattr(built.lib, kernel.launch_fn), params
 
 
 def main() -> int:
@@ -83,6 +77,7 @@ def main() -> int:
     out = {}
     for row in wanted:
         kname = row.rsplit("_", 1)[1]
+        kernel = getattr(pkernel, kname)
         if kname == "K1":
             env = make(row.split("_")[0], horizon=1000)
         elif kname == "K3":
@@ -93,68 +88,35 @@ def main() -> int:
             env = make("adroit_pen", horizon=100, constraint_solver="newton")
         m, dev = env.model, env.device
         size = pkernel.size_class(m)
-        n_sub, iters = env.frame_skip * m.n_substeps, int(m.solver_iters)
-        dt = float(np.float32(m.dt / m.n_substeps))
-        stream = torch.cuda.current_stream().cuda_stream
-        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-        held = None
+        B = 512 if kernel.ext else 1024
         if kname == "K1":
-            B = 1024
-            lib, launch, wl = _clocked("mj_kernel.cu", size, "mj_multistep_launch", 7)
-            L = pkernel.read_layout(lib)
-            tables = [torch.from_numpy(a).to(dev) for a in
-                      pkernel.pack_tables(m, L, max_points=wl["MAX_POINTS"])]
             q, qd, ctrls = start_states(env, B, 1, fold=row.startswith("humanoid"))
-            pkernel.K1.build(size)
-            warps = pkernel.K1.launch_warps(size, B, dev)
-            ptrs = lambda: (*tables, q, qd, ctrls[0], q_out, qd_out)  # noqa: E731
-            tail = lambda clocks: (B, n_sub, dt, warps, stream, clocks.data_ptr())  # noqa: E731
-        elif kname == "K3":
-            B = 512
-            lib, launch, wl = _clocked("mj_ext_kernel.cu", size, "mj_ext_launch", 8)
-            pkernel.K3.build(size)
-            pkernel.check_tendons(m, wl)
-            tables = [torch.from_numpy(a).to(dev) for a in
-                      pkernel.pack_tables(m, pkernel.read_layout(lib), ext=True)]
-            q, qd, d, ctrls = adroit_states(env, B, 1)
-            warps = pkernel.K3.launch_warps(size, B, dev)
-            ptrs = lambda: (*tables, q, qd, ctrls[0], d, q_out, qd_out)  # noqa: E731
-            tail = lambda clocks: (B, n_sub, dt, warps, stream, clocks.data_ptr())  # noqa: E731
+            d = None
+        elif kname == "K2":
+            q, qd, ctrls = start_states(env, B, 1, warm_steps=15, warm_scale=0.0)
+            d = None
         else:
-            if kname == "K2":
-                B = 1024
-                source, fn, n_ptr, ext = "mj_newton_kernel.cu", "mj_newton_launch", 12, False
-                q, qd, ctrls = start_states(env, B, 1, warm_steps=15, warm_scale=0.0)
-                d = None
-                pkernel.K2.build(size)
-                warps = pkernel.K2.launch_warps(size, B, dev)
-            else:
-                B = 512
-                source, fn, n_ptr, ext = "mj_ext_newton_kernel.cu", "mj_ext_newton_launch", 14, True
-                states = adroit_states if row.startswith("pen_states") else pen_train_states
-                q, qd, d, ctrls = states(env, B, 1)
-                pkernel.K4.build(size)
-                warps = pkernel.K4.launch_warps(size, B, dev)
-            lib, launch, wl = _clocked(source, size, fn, n_ptr, ints=3)
-            L, NL = pkernel.read_layout(lib), pkernel.read_newton_layout(lib)
-            tables = [torch.from_numpy(a).to(dev) for a in
-                      (*pkernel.pack_tables(m, L, ext=ext),
-                       *pkernel.pack_newton_tables(m, L, NL, ext=ext))]
-            held = float(probe.held_rows(m, q, d)["contacts"].float().mean())
-            # K4: after the stats (none), the slab of the held rows past SHARED_HELD
-            k4_args = ((d,), (pkernel.K4.slab(size, B, dev),)) if ext else ((), ())
-
-            def ptrs():
-                return (*tables, q, qd, ctrls[0], *k4_args[0], q_out, qd_out, None, overflow,
-                        None, *k4_args[1])
-
-            tail = lambda clocks: (B, n_sub, iters, dt, warps, stream, clocks.data_ptr())  # noqa: E731
+            states = pen_train_states if row.startswith("pen_train") else adroit_states
+            q, qd, d, ctrls = states(env, B, 1)
+        launch, params = _clocked(kernel, size)
+        warps = kernel.launch_warps(size, B, dev)
+        held = (float(probe.held_rows(m, q, d)["contacts"].float().mean()) if kernel.newton
+                else None)
         q_out, qd_out = torch.empty_like(q), torch.empty_like(qd)
         clocks = torch.zeros(len(STAGES), B, dtype=torch.int64, device=dev)
+        overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+        # the kernel's tables and launch arguments by name, no picks and no stats
+        values = dict(zip(("mf", "mi", "nf", "ni"), kernel.tables(m, dev)), q=q, qd=qd,
+                      ctrl=ctrls[0], delta=d, q_out=q_out, qd_out=qd_out, picks=None,
+                      overflow=overflow, stats=None, slab=kernel.slab(size, B, dev), B=B,
+                      n_sub=env.frame_skip * m.n_substeps, iters=int(m.solver_iters),
+                      dt=float(np.float32(m.dt / m.n_substeps)), warps=warps,
+                      stream=torch.cuda.current_stream().cuda_stream, clocks=clocks)
+        args = [v.data_ptr() if isinstance(v, torch.Tensor) else 0 if v is None else v
+                for v in (values[p] for p in params)]
 
         def step():
-            args = [t if isinstance(t, int) else 0 if t is None else t.data_ptr() for t in ptrs()]
-            err = launch(*args, *tail(clocks))
+            err = launch(*args)
             if err:
                 raise RuntimeError(f"{row}: launch failed: CUDA error {err}")
 
